@@ -1,0 +1,509 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (rtl_433_tpu_torch).
+
+Run from the root of a checkout on a machine with one NVIDIA GPU:
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line (any failure exits non-zero):
+
+1. device  -- the card's name and power limit;
+2. build   -- compile both CUDA kernels from csrc/ (one nvcc each, in
+              parallel) and show ptxas's register report;
+3. frontend -- the front-end kernel against its plain version, bit-exact,
+              for every (use_mag_est, enable_fm) at C=8, N=131072, plus an
+              n_valid case and the 1024 kS/s FM coefficients; then its
+              time at C=1 and C=4096;
+4. detector -- the detector-scan kernel against its plain version,
+              bit-exact on registers and logs, at C=4, N=131072 with
+              classic and minmax tracking, FM on and off, on IQ with real
+              OOK and FSK bursts made from a seed; then its time at C=1
+              and C=4096 with 4 sampled channels of the C=4096 run checked;
+5. main    -- RtlTpu(device="cuda").decode_file with -R <n> on the 8
+              protocols.py fixtures; events must equal the committed .json.
+              Then the fixtures are decoded again with every kernel call's
+              inputs recorded (C=1, N=131072: FM off for the OOK fixtures,
+              FM on at 250k and 1024k for the FSK ones), and each recorded
+              call is checked against the plain version, bit-exact;
+6. stream  -- nexus and lacrosse_tx35 concatenated 64 times, lacrosse_tx29
+              16 times, decoded end to end: copies x the committed events;
+              MS/s and ms/block, then the same decode under torch.profiler
+              (checked too) for device ms per block by kernel and the
+              device's busy share;
+7. kernels -- one line per kernel with its launches on the main path, its
+              largest error against the plain version over every check
+              above, and its times and bound.
+
+The line before the last is nvidia-smi's name and power limit; the last
+line is {"ok": true, "device": {...}}. Without a CUDA device, or outside a
+checkout, the script exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import glob
+import json
+import math
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+N_BLOCK = 131072
+SEED = 20261016
+
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s, and
+# int32 ops/s = 132 SMs x 64 INT32 lanes x 1.98 GHz boost clock
+HBM_BPS = 3.35e12
+INT32_OPS = 132 * 64 * 1.98e9
+# int32 ops per sample, counted from the sources
+FRONTEND_OPS = 40
+DETECTOR_OPS = 20
+
+FE_OUTS = ("am", "fm", "state", "env_sum")
+DET_OUTS = ("regs", "log_key", "log_p", "log_g", "eop_log")
+
+FIXTURES = [("silvercrest", 1), ("rubicson", 2), ("prologue", 3),
+            ("waveman", 4), ("nexus", 19), ("lacrosse_tx35", 75),
+            ("lacrosse_tx29", 76), ("tpms_toyota", 88)]
+# (fixture, protocol, copies) byte-concatenated into one file per stream
+STREAMS = [("nexus", 19, 64), ("lacrosse_tx35", 75, 64),
+           ("lacrosse_tx29", 76, 16)]
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg):
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def smi_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def normalize(ev):
+    ev = dict(ev)
+    ev.pop("time", None)
+    return {k: (round(v, 3) if isinstance(v, float) else v)
+            for k, v in ev.items()}
+
+
+def cuda_ms(fn, reps=5):
+    """Mean device time of ``fn`` over ``reps`` runs after one warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def host_ms(fn):
+    import torch
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3
+
+
+def device_us(evt) -> float:
+    """Self device time of one profiler row, in us."""
+    for k in ("self_device_time_total", "self_cuda_time_total"):
+        v = getattr(evt, k, None)
+        if v:
+            return float(v)
+    return 0.0
+
+
+def group_of(key: str) -> str:
+    if "frontend_kernel" in key:
+        return "frontend"
+    if "detector_kernel" in key:
+        return "detector_scan"
+    if "memcpy" in key.lower():
+        return "copies"
+    return "other"
+
+
+def synth_iq(rng, n, rate=250_000):
+    """One channel of cu8 IQ with OOK PWM bursts and FSK PCM bursts at IF
+    tones over noise (the shape of tests/synth.py's signals)."""
+    x = np.zeros(n, np.complex128)
+    us = rate / 1e6
+    t = int(rng.integers(2000, 6000))
+    kind = int(rng.integers(0, 2))
+    while t < n - 30000:
+        ph0 = rng.uniform(0, 2 * math.pi)
+        if kind == 0:        # OOK PWM, 264/744 us, on a 50 kHz tone
+            for bit in rng.integers(0, 2, 36):
+                w = int((264 if bit else 744) * us)
+                g = int((744 if bit else 264) * us)
+                k = np.arange(w)
+                x[t:t + w] = 100 * np.exp(1j * (ph0 + 2 * math.pi * 50e3
+                                                / rate * k))
+                t += w + g
+        else:                # FSK PCM, 100 us bits, 60/20 kHz tones
+            bits = np.concatenate([np.tile([1, 0], 16),
+                                   rng.integers(0, 2, 48)])
+            f = np.repeat(np.where(bits == 1, 60e3, 20e3), int(100 * us))
+            ph = ph0 + np.cumsum(2 * math.pi * f / rate)
+            x[t:t + len(ph)] = 100 * np.exp(1j * ph)
+            t += len(ph)
+        kind ^= 1
+        t += int(rng.integers(4000, 9000))
+    iq = np.stack([x.real, x.imag], -1) + 128 + rng.normal(0, 2.0, (n, 2))
+    return np.clip(np.round(iq), 0, 255).astype(np.uint8)
+
+
+def main():
+    if not os.path.isdir(os.path.join(HERE, "rtl_433_tpu_torch")):
+        print("chip_smoke: run me from the root of a checkout (the "
+              "rtl_433_tpu_torch package is missing)", file=sys.stderr)
+        return 2
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false: this "
+              "script measures the GPU and has nothing to run",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from rtl_433_tpu_torch.api import RtlTpu
+    from rtl_433_tpu_torch.dsp.engine import DetectorParams, detector_init
+    from rtl_433_tpu_torch.ops import _cuda
+    from rtl_433_tpu_torch.ops import detector as det
+    from rtl_433_tpu_torch.ops import frontend as fe
+    from rtl_433_tpu_torch.output.data_model import event_to_json
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    kinds = {}
+    errs = {}
+
+    def compare(kind, got, want, names, what):
+        """Largest |kernel - plain| over the outputs, into errs[kind]; any
+        difference fails the run."""
+        for g, w_, nm in zip(got, want, names):
+            if g.shape != w_.shape:
+                fail(f"{kind} {nm}: shape {tuple(g.shape)} != "
+                     f"{tuple(w_.shape)} ({what})")
+            e = int((g.to(torch.int64) - w_.to(torch.int64)).abs().max()) \
+                if g.numel() else 0
+            errs[kind] = max(errs.get(kind, 0), e)
+            if e:
+                fail(f"{kind} {nm} differs from the plain version by up to "
+                     f"{e} ({what})")
+
+    def decode(num, path):
+        rx = RtlTpu(device="cuda", register_all=False, report_time="off")
+        rx.registry.register(num)
+        return [normalize(json.loads(event_to_json(e)))
+                for e in rx.decode_file(path)]
+
+    # ---- 1. device
+    name = torch.cuda.get_device_name(0)
+    smi = smi_line()
+    emit({"phase": "device", "name": name, "count": torch.cuda.device_count(),
+          "nvidia_smi": smi, "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    # ---- 2. build
+    t = time.perf_counter()
+    took = _cuda.build()
+    for k in _cuda.SOURCES:
+        _cuda.launcher(k)
+    ptxas = {}
+    for k in _cuda.SOURCES:
+        log = os.path.join(_cuda.BUILD_DIR, f"{k}.log")
+        if os.path.exists(log):
+            ptxas[k] = [ln.strip() for ln in open(log)
+                        if "registers" in ln or "spill" in ln]
+    emit({"phase": "build", "seconds": round(time.perf_counter() - t, 3),
+          "per_kernel_s": {k: round(v, 3) for k, v in took.items()},
+          "ptxas": ptxas})
+
+    # ---- 3. frontend kernel vs plain
+    C = 8
+    iq_np = rng.integers(0, 256, size=(C, N_BLOCK, 2), dtype=np.uint8)
+    st_np = rng.integers(-100, 100, size=(6, C)).astype(np.int32)
+    st_np[4:] = rng.integers(-128, 128, size=(2, C))
+    iq = torch.from_numpy(iq_np).to(dev)
+    st = torch.from_numpy(st_np).to(dev)
+    # (use_mag_est, enable_fm, n_valid, sample rate, minmax coefficients)
+    cases = [(m, f, N_BLOCK, 250_000, False)
+             for m in (False, True) for f in (True, False)]
+    cases += [(False, True, 100_003, 250_000, False),
+              (False, True, N_BLOCK, 1_024_000, False),
+              (False, True, N_BLOCK, 1_024_000, True)]
+    errs["frontend"] = 0
+    for mag, fm_on, nv, rate, mm in cases:
+        alp1, blp = fe._coeffs(rate, fm_on, 0.0, mm)
+        kw = dict(use_mag_est=mag, enable_fm=fm_on, alp1=alp1, blp=blp,
+                  n_valid=nv)
+        got = fe.frontend_cuda(iq, st, **kw)
+        torch.cuda.synchronize()
+        want = fe.frontend_plain(iq, st, **kw)
+        compare("frontend", got, want, FE_OUTS,
+                f"mag_est={mag}, fm={fm_on}, n_valid={nv}, rate={rate}")
+    times = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    alp1, blp = fe._coeffs(250_000, True, 0.0, False)
+    kw = dict(use_mag_est=False, enable_fm=True, alp1=alp1, blp=blp,
+              n_valid=N_BLOCK)
+    for Ct in (1, 4096):
+        x = torch.randint(0, 256, (Ct, N_BLOCK, 2), dtype=torch.uint8,
+                          device=dev, generator=gen)
+        s = torch.zeros((6, Ct), dtype=torch.int32, device=dev)
+        times[Ct] = cuda_ms(lambda: fe.frontend_cuda(x, s, **kw))
+        if Ct == 1:
+            plain_ms = host_ms(lambda: fe.frontend_plain(x, s, **kw))
+        del x, s
+    torch.cuda.empty_cache()
+    kinds["frontend"] = dict(
+        ms=times[1], ms_c4096=times[4096], plain_ms=plain_ms,
+        bytes=N_BLOCK * (2 + 2 + 2) + 6 * 4 * 2 + 4,
+        ops=N_BLOCK * FRONTEND_OPS)
+    emit({"phase": "frontend", "cases": len(cases),
+          "max_abs_err": errs["frontend"], "ms_c1": times[1],
+          "ms_c4096": times[4096], "plain_ms_c1": plain_ms, "n": N_BLOCK})
+
+    # ---- 4. detector kernel vs plain, on real bursts, FM on and off
+    C = 4
+    iq_np = np.stack([synth_iq(rng, N_BLOCK) for _ in range(C)])
+    iq = torch.from_numpy(iq_np).to(dev)
+    errs["detector_scan"] = 0
+    n_rec = {}
+    for fm_on in (True, False):
+        for minmax in (False, True):
+            tag = f"{'minmax' if minmax else 'classic'}_fm_{'on' if fm_on else 'off'}"
+            p = DetectorParams(fsk_minmax=minmax, enable_fm=fm_on, pkg_cap=32)
+            state = detector_init(p, C, dev)
+            am, fm, state, _ = fe.frontend(iq, state, sample_rate=250_000,
+                                           enable_fm=fm_on, fsk_minmax=minmax,
+                                           time_major=True)
+            regs = det.pack_regs(state)
+            gen0 = state["gen"].clone()
+            got = det.detector_scan_cuda(am, fm, regs, gen0, params=p)
+            torch.cuda.synchronize()
+            want = det.detector_scan_plain(am, fm, regs, gen0, params=p)
+            compare("detector_scan", got, want, DET_OUTS, tag)
+            eops = got[4][:, :, 0]
+            n_rec[tag] = {
+                "records": int((got[1] < det.KEY_INVALID).sum()),
+                "ook_eops": int((eops == det.PKG_OOK).sum()),
+                "fsk_eops": int((eops == det.PKG_FSK).sum())}
+            if not n_rec[tag]["ook_eops"] or (fm_on and
+                                              not n_rec[tag]["fsk_eops"]):
+                fail(f"detector test signal produced too few packages "
+                     f"({tag}): {n_rec[tag]}")
+    p = DetectorParams(pkg_cap=32)
+    R = p.ring
+    times = {}
+    for Ct in (1, 4096):
+        x = iq[torch.arange(Ct, device=dev) % C].contiguous()
+        state = detector_init(p, Ct, dev)
+        am, fm, state, _ = fe.frontend(x, state, sample_rate=250_000,
+                                       fsk_minmax=False, time_major=True)
+        del x
+        regs = det.pack_regs(state)
+        gen0 = state["gen"].clone()
+        times[Ct] = cuda_ms(lambda: det.detector_scan_cuda(
+            am, fm, regs, gen0, params=p), reps=3)
+        if Ct == 1:
+            plain_ms = host_ms(lambda: det.detector_scan_plain(
+                am, fm, regs, gen0, params=p))
+        else:
+            got = det.detector_scan_cuda(am, fm, regs, gen0, params=p)
+            torch.cuda.synchronize()
+            sel = torch.tensor([0, 1, 2049, 4095], device=dev)
+            want = det.detector_scan_plain(
+                am[:, sel].contiguous(), fm[:, sel].contiguous(),
+                regs[:, sel].contiguous(), gen0[sel].contiguous(), params=p)
+            rows = (sel[:, None] * R + torch.arange(R, device=dev)).reshape(-1)
+            got = (got[0][:, sel], got[1][rows], got[2][rows], got[3][rows],
+                   got[4][sel])
+            compare("detector_scan", got, want, DET_OUTS,
+                    "C=4096, sampled channels")
+            del got
+        del am, fm, regs
+        torch.cuda.empty_cache()
+    G = N_BLOCK // p.chunk
+    kinds["detector_scan"] = dict(
+        ms=times[1], ms_c4096=times[4096], plain_ms=plain_ms,
+        bytes=N_BLOCK * (2 + 2) + G * (3 * p.ring + p.eops * 9) * 4
+        + 2 * det.NREG * 4 + 4,
+        ops=N_BLOCK * DETECTOR_OPS)
+    emit({"phase": "detector", "c": C, "n": N_BLOCK,
+          "max_abs_err": errs["detector_scan"], "records": n_rec,
+          "ms_c1": times[1], "ms_c4096": times[4096],
+          "plain_ms_c1": plain_ms, "sampled_c4096": 4})
+
+    # ---- 5. main path: the 8 fixtures through RtlTpu on the card
+    fx = []
+    for d, num in FIXTURES:
+        cu8 = sorted(glob.glob(os.path.join(HERE, "tests", "fixtures", d,
+                                            "*.cu8")))[0]
+        with open(cu8[:-4] + ".json") as f:
+            want = [json.loads(ln) for ln in f if ln.strip()]
+        fx.append((d, num, cu8, want))
+
+    def decode_fixtures():
+        for d, num, cu8, want in fx:
+            got = decode(num, cu8)
+            if got != want:
+                fail(f"fixture {d}: {got} != {want}")
+
+    _cuda.reset_launches()
+    t = time.perf_counter()
+    decode_fixtures()
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t
+    launches = dict(_cuda.LAUNCHES)
+    emit({"phase": "main", "fixtures": len(fx), "all_match": True,
+          "seconds": round(main_s, 3), "launches": launches})
+    for k, v in launches.items():
+        if v <= 0:
+            fail(f"kernel {k} was not launched on the main path")
+
+    # ---- 5b. each kernel against its plain version on the exact inputs the
+    # main path gives it: the fixtures are decoded again with the wrappers'
+    # arguments recorded, then every recorded call is rerun both ways
+    calls = []
+    orig = {"frontend": fe.frontend_cuda, "detector_scan":
+            det.detector_scan_cuda}
+
+    def recorder(kind):
+        def run(*args, **kw):
+            calls.append((kind, [a.clone() for a in args], kw))
+            return orig[kind](*args, **kw)
+        return run
+
+    fe.frontend_cuda = recorder("frontend")
+    det.detector_scan_cuda = recorder("detector_scan")
+    try:
+        decode_fixtures()
+    finally:
+        fe.frontend_cuda = orig["frontend"]
+        det.detector_scan_cuda = orig["detector_scan"]
+    plain = {"frontend": (fe.frontend_plain, FE_OUTS),
+             "detector_scan": (det.detector_scan_plain, DET_OUTS)}
+    seen = []
+    for kind, args, kw in calls:
+        got = orig[kind](*args, **kw)
+        torch.cuda.synchronize()
+        fn, names = plain[kind]
+        compare(kind, got, fn(*args, **kw), names, f"main-path call {kw}")
+        seen.append({"kernel": kind, "shape": list(args[0].shape),
+                     "n_valid": kw.get("n_valid"),
+                     **({"enable_fm": kw["enable_fm"], "alp1": kw["alp1"]}
+                        if kind == "frontend" else
+                        {"fm_dtype": str(args[1].dtype).split(".")[-1],
+                         "minmax": kw["params"].fsk_minmax,
+                         "rate": kw["params"].sample_rate})})
+    emit({"phase": "main_inputs", "calls": len(seen), "bit_exact": True,
+          "max_abs_err": {k: errs[k] for k in orig}, "checked": seen})
+
+    # ---- 6. stream: fixtures concatenated, decoded untraced and traced
+    from torch.profiler import ProfilerActivity, profile
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        for d, num, copies in STREAMS:
+            _, _, cu8, want = next(f for f in fx if f[0] == d)
+            raw = open(cu8, "rb").read()
+            path = os.path.join(tmp, os.path.basename(cu8))
+            with open(path, "wb") as f:
+                f.write(raw * copies)
+            n = len(raw) * copies // 2
+            blocks = -(-n // N_BLOCK)
+            _cuda.reset_launches()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = decode(num, path)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t
+            if got != want * copies:
+                fail(f"stream {d}: {len(got)} events, want "
+                     f"{copies * len(want)}")
+            row = {"phase": "stream", "fixture": d, "copies": copies,
+                   "samples": n, "blocks": blocks, "events": len(got),
+                   "seconds": s, "msps": n / s / 1e6,
+                   "ms_per_block": s / blocks * 1e3,
+                   "launches": dict(_cuda.LAUNCHES)}
+            # the same decode under torch.profiler: device time by kernel
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                got = decode(num, path)
+                torch.cuda.synchronize()
+                traced_ms = (time.perf_counter() - t) * 1e3
+            if got != want * copies:
+                fail(f"traced stream {d}: {len(got)} events")
+            groups = {}
+            for e in prof.key_averages():
+                us = device_us(e)
+                if us > 0:
+                    g = group_of(e.key)
+                    groups[g] = groups.get(g, 0.0) + us / 1e3
+            busy = sum(groups.values())
+            row["traced"] = {
+                "wall_ms": traced_ms,
+                "device_ms_per_block": {k: v / blocks
+                                        for k, v in groups.items()},
+                "device_busy_share": busy / traced_ms if busy else None}
+            emit(row)
+            os.remove(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- 7. kernels
+    meta = {
+        "frontend": ("rtl_433_tpu_torch/csrc/frontend.cu",
+                     "rtl_433_tpu/ops/frontend.py:90"),
+        "detector_scan": ("rtl_433_tpu_torch/csrc/detector.cu",
+                          "rtl_433_tpu/dsp/engine.py:1040"),
+    }
+    rows = []
+    for k, (src, rep) in meta.items():
+        m = kinds[k]
+        # bytes and ops are per channel: the bound at C channels scales by C
+        bytes_ms = m["bytes"] / HBM_BPS * 1e3
+        ops_ms = m["ops"] / INT32_OPS * 1e3
+        rows.append({
+            "name": k, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches[k], "max_abs_err": errs[k],
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": None,
+            "ms_c4096": m["ms_c4096"],
+            "bound_ms_c4096": 4096 * max(bytes_ms, ops_ms),
+            "shape": [1, N_BLOCK]})
+    emit({"kernel_launches": launches})
+    emit({"kernels": rows})
+    print(smi_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,105 @@
+"""Sample file naming / loading.
+
+Mirrors the reference filename conventions (ref src/fileformat.c,
+help text src/rtl_433.c:343-363): sample rate and center frequency are
+parsed from any path segment ("433.92M", "250k", "1024k", "sps"/"Hz"
+suffixes); content type from tokens (cu8 cs8 cs16 cf32 am.s16 fm.s16 ook);
+a "fmt:rate:path" prefix overrides. Only CU8 loads; the other sample
+formats are recognised by name and not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from dataclasses import dataclass
+
+import numpy as np
+
+KNOWN_FORMATS = ("cu8", "cs8", "cs16", "cf32", "am.s16", "am.f32", "fm.s16",
+                 "fm.f32", "ook", "vcd", "sigmf")
+
+
+@dataclass
+class FileInfo:
+    path: str = ""
+    format: str = ""
+    sample_rate: int = 0
+    center_frequency: float = 0.0
+
+
+_NUM = re.compile(r"^(\d+(?:\.\d+)?)([kKmMgG]?)(hz|sps|hZ|Hz|HZ)?$")
+
+
+def _parse_num_token(tok, with_suffix=False):
+    m = _NUM.match(tok)
+    if not m:
+        return (None, None, None) if with_suffix else (None, None)
+    val = float(m.group(1))
+    suffix = m.group(2).lower()
+    val *= {"": 1, "k": 1e3, "m": 1e6, "g": 1e9}[suffix]
+    unit = (m.group(3) or "").lower()
+    if with_suffix:
+        return val, unit, suffix
+    return val, unit
+
+
+def parse_filename(path: str) -> FileInfo:
+    """Guess format/rate/frequency from the file name (ref src/fileformat.c:
+    file_info_parse_filename). Also supports the "cu8:250k:path" override
+    prefix form."""
+    info = FileInfo(path=path)
+    p = path
+    # prefix overrides, e.g. "cu8:250k:-"
+    while ":" in p:
+        head, rest = p.split(":", 1)
+        hl = head.lower()
+        if hl in KNOWN_FORMATS:
+            info.format = hl
+            p = rest
+            continue
+        val, unit = _parse_num_token(head)
+        if val is not None:
+            if unit == "sps" or (unit == "" and val < 1e8):
+                info.sample_rate = int(val)
+            else:
+                info.center_frequency = val
+            p = rest
+            continue
+        break
+    info.path = p
+
+    base = os.path.basename(p)
+    stem = base
+    # extension gives the format
+    for fmt in sorted(KNOWN_FORMATS, key=len, reverse=True):
+        if stem.lower().endswith("." + fmt):
+            if not info.format:
+                info.format = fmt
+            stem = stem[: -(len(fmt) + 1)]
+            break
+    # tokens separated by _ or -; the suffix decides the kind exactly like
+    # the reference (ref src/fileformat.c:214-219): "M" -> frequency,
+    # "k" -> sample rate, "[kMG]Hz" -> frequency, "[kM]sps" -> sample rate
+    for tok in re.split(r"[_\-\s]+", stem):
+        val, unit, suffix = _parse_num_token(tok, with_suffix=True)
+        if val is None:
+            continue
+        if unit == "hz":
+            info.center_frequency = val
+        elif unit == "sps":
+            info.sample_rate = int(val)
+        elif suffix == "m":
+            info.center_frequency = val
+        elif suffix == "k":
+            info.sample_rate = int(val)
+    return info
+
+
+def load_iq(path: str, fmt: str) -> np.ndarray:
+    """Load a CU8 IQ file into uint8 [N, 2] (the engine's native input)."""
+    fmt = fmt.lower()
+    if fmt != "cu8":
+        raise ValueError(f"sample format {fmt} is not ported yet")
+    arr = np.fromfile(path, np.uint8)
+    return arr[: len(arr) // 2 * 2].reshape(-1, 2)

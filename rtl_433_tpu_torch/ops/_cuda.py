@@ -1,0 +1,133 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
+with a plain C interface (``_build/lib<name>-<hash>.so``) at first use, and
+bound with ``ctypes``. The hash covers the sources and the flags, so an
+edited kernel rebuilds and an unchanged one loads from ``_build/``.
+:func:`build` starts one ``nvcc`` per source, all at once.
+
+``LAUNCHES`` counts kernel launches per kernel name; each wrapper adds one
+where it launches its kernel and nowhere else.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# kernel name -> source file in csrc/ (headers in csrc/ are hashed too)
+SOURCES = {"frontend": "frontend.cu", "detector_scan": "detector.cu"}
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# kernel name -> (C launcher, its argument types); each returns the
+# cudaGetLastError() code after the launch
+LAUNCHERS = {
+    # iq, C, N, n_valid, use_mag_est, enable_fm, am_a1, am_b, alp1, blp,
+    # state, am, fm, env_sum, stream
+    "frontend": ("rtl433_frontend",
+                 [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
+                  _P]),
+    # am, fm, fm_i32, N, C, regs, gen0, log_key, log_p, log_g, eop_log,
+    # n_valid, t0, chunk, R, E, spm, fixed, ratio, maxp, minmax, stream
+    "detector_scan": ("rtl433_detector_scan",
+                      [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+}
+
+LAUNCHES = {name: 0 for name in SOURCES}
+
+_libs: dict = {}   # kernel name -> (loaded library, its launcher)
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _lib_path(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fn in sorted(os.listdir(CSRC)):
+        if fn == SOURCES[name] or fn.endswith(".cuh"):
+            with open(os.path.join(CSRC, fn), "rb") as f:
+                h.update(fn.encode() + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def build(names=None) -> dict:
+    """Compile the named kernels (default: all) that are not built yet, one
+    ``nvcc`` process per source, all started together. Returns
+    ``{name: seconds}`` for the builds it ran; raises with the compiler's
+    output if any build fails. ``nvcc``'s ``-Xptxas -v`` report is kept in
+    ``_build/<name>.log``."""
+    names = list(SOURCES if names is None else names)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = _lib_path(name)
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
+               os.path.join(CSRC, SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    took, errors = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        took[name] = time.perf_counter() - t0
+        with open(os.path.join(BUILD_DIR, f"{name}.log"), "w") as f:
+            f.write(log)
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {SOURCES[name]}:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return took
+
+
+def launcher(name: str):
+    """The C launcher of kernel ``name`` with its argument types declared;
+    the library is built on first use."""
+    if name not in _libs:
+        build([name])
+        symbol, argtypes = LAUNCHERS[name]
+        lib = ctypes.CDLL(_lib_path(name))
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _libs[name] = (lib, fn)
+    return _libs[name][1]
+
+
+def check(err: int, name: str):
+    """Raise on a non-zero ``cudaGetLastError`` from a launcher."""
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def stream_of(t) -> int:
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -30,3 +30,9 @@ jax.config.update("jax_compilation_cache_dir",
                   os.environ.get("TPU433_CACHE", "/tmp/tpu433_jax_cache"))
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA GPU (the port's kernels); each such "
+        "test skips itself, with the reason, where there is none")

@@ -1,0 +1,127 @@
+"""The port stands alone: it imports neither jax nor the JAX package.
+
+A subprocess with ``jax`` and ``rtl_433_tpu`` made unimportable imports
+every port module and decodes a fixture on the CPU, through the API and
+the CLI. The port's sources and chip_smoke.py are scanned for imports of
+either. The GPU entry points refuse to run, rather than fall back to the
+CPU, where there is no GPU.
+"""
+
+import ast
+import glob
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "rtl_433_tpu_torch")
+NEXUS = os.path.join(REPO, "tests", "fixtures", "nexus",
+                     "g001_433.92M_250k.cu8")
+
+_BLOCKED = r'''
+import importlib.abc, io, json, pkgutil, sys, contextlib
+sys.modules["jax"] = None
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "rtl_433_tpu" or name.startswith("rtl_433_tpu."):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, REPO)
+import rtl_433_tpu_torch
+for m in pkgutil.walk_packages(rtl_433_tpu_torch.__path__,
+                               "rtl_433_tpu_torch."):
+    __import__(m.name)
+from rtl_433_tpu_torch.api import RtlTpu
+from rtl_433_tpu_torch.output.data_model import event_to_json
+rx = RtlTpu(register_all=False, report_time="off", device="cpu")
+rx.registry.register(19)
+api = [json.loads(event_to_json(e)) for e in rx.decode_file(NEXUS)]
+from rtl_433_tpu_torch import cli
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    rc = cli.main(["-R", "19", "-r", NEXUS, "-F", "json", "--device", "cpu"])
+cli_events = [json.loads(l) for l in buf.getvalue().splitlines() if l]
+bad = sorted(k for k in sys.modules
+             if k == "jax" or k.startswith("jax.")
+             or k == "rtl_433_tpu" or k.startswith("rtl_433_tpu."))
+print(json.dumps({"api": api, "cli": cli_events, "rc": rc,
+                  "loaded": [k for k in bad if sys.modules[k] is not None]}))
+'''
+
+
+def _want():
+    with open(NEXUS[:-4] + ".json") as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def test_port_runs_with_jax_and_reference_blocked():
+    code = f"REPO = {REPO!r}\nNEXUS = {NEXUS!r}\n" + _BLOCKED
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=REPO)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["loaded"] == []
+    assert res["rc"] == 0
+    want = _want()
+    assert res["api"] == want
+    # the CLI stamps file replay with the stream position
+    assert [e.pop("time").startswith("@") for e in res["cli"]] == \
+        [True] * len(want)
+    assert res["cli"] == want
+
+
+def _sources():
+    files = [f for f in glob.glob(os.path.join(PKG, "**", "*.py"),
+                                  recursive=True)
+             if os.sep + "_build" + os.sep not in f]
+    return sorted(files) + [os.path.join(REPO, "chip_smoke.py")]
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=[os.path.relpath(p, REPO) for p in _sources()])
+def test_no_jax_or_reference_imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "rtl_433_tpu"), \
+                f"{path}: imports {n}"
+
+
+def test_cuda_device_refused_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present: the refusal path is not taken")
+    from rtl_433_tpu_torch.api import RtlTpu
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        RtlTpu(device="cuda")
+
+
+def test_chip_smoke_refuses_without_gpu_or_checkout(tmp_path):
+    """chip_smoke.py exits non-zero with no result line where there is no
+    GPU, and when it is alone in a directory."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present")
+    runs = [os.path.join(REPO, "chip_smoke.py")]
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(runs[0], alone)
+    runs.append(str(alone))
+    for script in runs:
+        out = subprocess.run([sys.executable, script], capture_output=True,
+                             text=True, timeout=120,
+                             cwd=os.path.dirname(script))
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
