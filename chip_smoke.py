@@ -15,16 +15,25 @@ Phases, each printing one JSON line (any failure exits non-zero):
               n_valid case and the 1024 kS/s FM coefficients; then its
               time at C=1 and C=4096;
 4. detector -- the detector-scan kernel against its plain version,
-              bit-exact on registers and logs, at C=4, N=131072 with
-              classic and minmax tracking, FM on and off, on IQ with real
-              OOK and FSK bursts made from a seed; then its time at C=1
-              and C=4096 with 4 sampled channels of the C=4096 run checked;
+              bit-exact on registers, logs and the count of quiet chunks,
+              at C=4, N=131072 with classic and minmax tracking, FM on and
+              off, on IQ with real OOK and FSK bursts made from a seed;
+              then on the quiet path's edge cases of
+              tests/torch_scan_cases.py at N=131072 (33 channels, the
+              fixed high level, a ramp on the quiet bound, n_valid inside a
+              chunk, lead_in crossing 1024 in a quiet chunk, 512-sample
+              chunks voting in groups of 16, every batched run of
+              detector_step.cuh leaving on every offset of a batch); then
+              its time at C=1 and C=4096, with two whole 32-channel groups
+              of the C=4096 run checked, quiet counts included;
 5. main    -- RtlTpu(device="cuda").decode_file with -R <n> on the 8
               protocols.py fixtures; events must equal the committed .json.
               Then the fixtures are decoded again with every kernel call's
               inputs recorded (C=1, N=131072: FM off for the OOK fixtures,
               FM on at 250k and 1024k for the FSK ones), and each recorded
-              call is checked against the plain version, bit-exact;
+              call is checked against the plain version, bit-exact, the
+              detector's quiet-chunk count included, with the share of
+              chunks that took the quiet path per fixture;
 6. stream  -- nexus and lacrosse_tx35 concatenated 64 times, lacrosse_tx29
               16 times, decoded end to end: copies x the committed events;
               MS/s and ms/block, then the same decode under torch.profiler
@@ -32,7 +41,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
               device's busy share;
 7. kernels -- one line per kernel with its launches on the main path, its
               largest error against the plain version over every check
-              above, and its times and bound.
+              above, its times and bound, and its cycles per sample at
+              C=1 at the SM clock that nvidia-smi read while the same
+              launch ran back to back (sm_clock_mhz).
 
 The line before the last is nvidia-smi's name and power limit; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device, or outside a
@@ -66,7 +77,7 @@ FRONTEND_OPS = 40
 DETECTOR_OPS = 20
 
 FE_OUTS = ("am", "fm", "state", "env_sum")
-DET_OUTS = ("regs", "log_key", "log_p", "log_g", "eop_log")
+DET_OUTS = ("regs", "log_key", "log_p", "log_g", "eop_log", "quiet")
 
 FIXTURES = [("silvercrest", 1), ("rubicson", 2), ("prologue", 3),
             ("waveman", 4), ("nexus", 19), ("lacrosse_tx35", 75),
@@ -115,6 +126,29 @@ def cuda_ms(fn, reps=5):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def sm_clock_mhz(fn):
+    """The SM clock, in MHz, that nvidia-smi reads while ``fn`` runs back to
+    back on the card."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    q = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        while q.poll() is None:
+            fn()
+            torch.cuda.synchronize()
+        out, err = q.communicate(timeout=60)
+    finally:
+        if q.poll() is None:
+            q.kill()
+            q.wait()
+    if q.returncode != 0:
+        fail(f"nvidia-smi clocks.sm failed: {err.strip()}")
+    return float(out.strip().splitlines()[0])
 
 
 def host_ms(fn):
@@ -187,12 +221,14 @@ def main():
               file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    sys.path.insert(0, os.path.join(HERE, "tests"))
     from rtl_433_tpu_torch.api import RtlTpu
     from rtl_433_tpu_torch.dsp.engine import DetectorParams, detector_init
     from rtl_433_tpu_torch.ops import _cuda
     from rtl_433_tpu_torch.ops import detector as det
     from rtl_433_tpu_torch.ops import frontend as fe
     from rtl_433_tpu_torch.output.data_model import event_to_json
+    from torch_scan_cases import CASES
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -275,16 +311,18 @@ def main():
         s = torch.zeros((6, Ct), dtype=torch.int32, device=dev)
         times[Ct] = cuda_ms(lambda: fe.frontend_cuda(x, s, **kw))
         if Ct == 1:
+            mhz = sm_clock_mhz(lambda: fe.frontend_cuda(x, s, **kw))
             plain_ms = host_ms(lambda: fe.frontend_plain(x, s, **kw))
         del x, s
     torch.cuda.empty_cache()
     kinds["frontend"] = dict(
-        ms=times[1], ms_c4096=times[4096], plain_ms=plain_ms,
+        ms=times[1], ms_c4096=times[4096], plain_ms=plain_ms, mhz=mhz,
         bytes=N_BLOCK * (2 + 2 + 2) + 6 * 4 * 2 + 4,
         ops=N_BLOCK * FRONTEND_OPS)
     emit({"phase": "frontend", "cases": len(cases),
           "max_abs_err": errs["frontend"], "ms_c1": times[1],
-          "ms_c4096": times[4096], "plain_ms_c1": plain_ms, "n": N_BLOCK})
+          "ms_c4096": times[4096], "plain_ms_c1": plain_ms,
+          "sm_clock_mhz_c1": mhz, "n": N_BLOCK})
 
     # ---- 4. detector kernel vs plain, on real bursts, FM on and off
     C = 4
@@ -315,6 +353,19 @@ def main():
                                               not n_rec[tag]["fsk_eops"]):
                 fail(f"detector test signal produced too few packages "
                      f"({tag}): {n_rec[tag]}")
+    edge = {}
+    for case_name, build in CASES.items():
+        case = build(N_BLOCK)
+        args = [case[k].to(dev) for k in ("am", "fm", "regs", "gen0")]
+        kw = dict(params=case["params"], n_valid=case["n_valid"])
+        got = det.detector_scan_cuda(*args, **kw)
+        torch.cuda.synchronize()
+        want = det.detector_scan_plain(*args, **kw)
+        compare("detector_scan", got, want, DET_OUTS,
+                f"edge case {case_name}")
+        G = N_BLOCK // case["params"].chunk
+        edge[case_name] = {"c": int(args[0].shape[1]),
+                           "quiet_share": float(got[5].float().mean()) / G}
     p = DetectorParams(pkg_cap=32)
     R = p.ring
     times = {}
@@ -329,18 +380,24 @@ def main():
         times[Ct] = cuda_ms(lambda: det.detector_scan_cuda(
             am, fm, regs, gen0, params=p), reps=3)
         if Ct == 1:
+            mhz = sm_clock_mhz(lambda: det.detector_scan_cuda(
+                am, fm, regs, gen0, params=p))
             plain_ms = host_ms(lambda: det.detector_scan_plain(
                 am, fm, regs, gen0, params=p))
+            q1 = int(det.detector_scan_cuda(am, fm, regs, gen0,
+                                            params=p)[5][0])
         else:
             got = det.detector_scan_cuda(am, fm, regs, gen0, params=p)
             torch.cuda.synchronize()
-            sel = torch.tensor([0, 1, 2049, 4095], device=dev)
+            # two whole channel groups of the kernel, one at each end
+            sel = torch.cat([torch.arange(0, 32, device=dev),
+                             torch.arange(Ct - 32, Ct, device=dev)])
             want = det.detector_scan_plain(
                 am[:, sel].contiguous(), fm[:, sel].contiguous(),
                 regs[:, sel].contiguous(), gen0[sel].contiguous(), params=p)
             rows = (sel[:, None] * R + torch.arange(R, device=dev)).reshape(-1)
             got = (got[0][:, sel], got[1][rows], got[2][rows], got[3][rows],
-                   got[4][sel])
+                   got[4][sel], got[5][sel])
             compare("detector_scan", got, want, DET_OUTS,
                     "C=4096, sampled channels")
             del got
@@ -348,14 +405,15 @@ def main():
         torch.cuda.empty_cache()
     G = N_BLOCK // p.chunk
     kinds["detector_scan"] = dict(
-        ms=times[1], ms_c4096=times[4096], plain_ms=plain_ms,
+        ms=times[1], ms_c4096=times[4096], plain_ms=plain_ms, mhz=mhz,
         bytes=N_BLOCK * (2 + 2) + G * (3 * p.ring + p.eops * 9) * 4
         + 2 * det.NREG * 4 + 4,
         ops=N_BLOCK * DETECTOR_OPS)
     emit({"phase": "detector", "c": C, "n": N_BLOCK,
           "max_abs_err": errs["detector_scan"], "records": n_rec,
-          "ms_c1": times[1], "ms_c4096": times[4096],
-          "plain_ms_c1": plain_ms, "sampled_c4096": 4})
+          "edge_cases": edge, "ms_c1": times[1], "ms_c4096": times[4096],
+          "quiet_share_c1": q1 / G, "plain_ms_c1": plain_ms,
+          "sm_clock_mhz_c1": mhz, "sampled_c4096": 64})
 
     # ---- 5. main path: the 8 fixtures through RtlTpu on the card
     fx = []
@@ -366,8 +424,11 @@ def main():
             want = [json.loads(ln) for ln in f if ln.strip()]
         fx.append((d, num, cu8, want))
 
+    current = [None]
+
     def decode_fixtures():
         for d, num, cu8, want in fx:
+            current[0] = d
             got = decode(num, cu8)
             if got != want:
                 fail(f"fixture {d}: {got} != {want}")
@@ -393,7 +454,7 @@ def main():
 
     def recorder(kind):
         def run(*args, **kw):
-            calls.append((kind, [a.clone() for a in args], kw))
+            calls.append((kind, current[0], [a.clone() for a in args], kw))
             return orig[kind](*args, **kw)
         return run
 
@@ -407,12 +468,18 @@ def main():
     plain = {"frontend": (fe.frontend_plain, FE_OUTS),
              "detector_scan": (det.detector_scan_plain, DET_OUTS)}
     seen = []
-    for kind, args, kw in calls:
+    quiet = {}
+    for kind, d, args, kw in calls:
         got = orig[kind](*args, **kw)
         torch.cuda.synchronize()
         fn, names = plain[kind]
         compare(kind, got, fn(*args, **kw), names, f"main-path call {kw}")
-        seen.append({"kernel": kind, "shape": list(args[0].shape),
+        if kind == "detector_scan":
+            q = quiet.setdefault(d, [0, 0])
+            q[0] += int(got[5].sum())
+            q[1] += got[5].numel() * (args[0].shape[0] // kw["params"].chunk)
+        seen.append({"kernel": kind, "fixture": d,
+                     "shape": list(args[0].shape),
                      "n_valid": kw.get("n_valid"),
                      **({"enable_fm": kw["enable_fm"], "alp1": kw["alp1"]}
                         if kind == "frontend" else
@@ -420,7 +487,9 @@ def main():
                          "minmax": kw["params"].fsk_minmax,
                          "rate": kw["params"].sample_rate})})
     emit({"phase": "main_inputs", "calls": len(seen), "bit_exact": True,
-          "max_abs_err": {k: errs[k] for k in orig}, "checked": seen})
+          "max_abs_err": {k: errs[k] for k in orig},
+          "quiet_share": {d: q / n for d, (q, n) in quiet.items()},
+          "checked": seen})
 
     # ---- 6. stream: fixtures concatenated, decoded untraced and traced
     from torch.profiler import ProfilerActivity, profile
@@ -494,6 +563,8 @@ def main():
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "library_ms": None,
+            "sm_clock_mhz": m["mhz"],
+            "cycles_per_sample": m["ms"] * 1e-3 * m["mhz"] * 1e6 / N_BLOCK,
             "ms_c4096": m["ms_c4096"],
             "bound_ms_c4096": 4096 * max(bytes_ms, ops_ms),
             "shape": [1, N_BLOCK]})

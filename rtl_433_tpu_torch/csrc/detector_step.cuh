@@ -168,6 +168,37 @@ __device__ __forceinline__ bool fsk_minmax(Regs& r, int fm, Emit& e) {
     return rec;
 }
 
+// The IDLE noise EWMA of low_est (ref src/pulse_detect.c:326-333).
+__device__ __forceinline__ int idle_low(int low, int a) {
+    const int d = a - low;
+    return low + tdiv(d, OOK_EST_LOW_RATIO) + (d > 0 ? 1 : -1);
+}
+
+// Whether a chunk of `len` samples may skip the FSM: the channel is IDLE
+// and no sample can cross a conservative lower bound of the hysteresis
+// threshold, so every sample takes the IDLE EWMA branch and nothing else
+// (the JAX engine's quiet_chunk test, rtl_433_tpu/dsp/engine.py:1110-1125,
+// with high_est also bounding high_lb: never looser). low_est stays at or
+// above min(low_est, am_min) - 1 over such a chunk, and idle high_est at
+// or above min_high. Mirrors ops/detector.py::quiet_chunk_ok.
+__device__ __forceinline__ bool quiet_chunk_ok(const Regs& r, const Params& prm,
+                                               int am_max, int am_min,
+                                               bool whole) {
+    if (!whole || r.ook_state != ST_IDLE) return false;
+    const int low_lb = min(r.low_est, am_min) - 2;
+    const int high_lb = min(min(r.high_est, r.min_high), OOK_MAX_HIGH_LEVEL);
+    const int thr_lb = prm.fixed ? prm.fixed - 1 : tdiv(low_lb + high_lb, 2) - 1;
+    return thr_lb >= 0 && am_max <= thr_lb;
+}
+
+// What a quiet chunk does to the registers, given its final low_est.
+__device__ __forceinline__ void quiet_chunk_finish(Regs& r, const Params& prm,
+                                                   int low, int len) {
+    r.low_est = low;
+    r.high_est = max(prm.ratio * low, r.min_high);
+    r.lead_in += min(max(OOK_EST_LOW_RATIO + 1 - r.lead_in, 0), len);
+}
+
 // One valid sample at block-frame position t. Fills e (records/EOPs are
 // written to the ring by the caller) and updates r.
 template <bool MINMAX>
@@ -288,8 +319,7 @@ __device__ __forceinline__ void fsm_step(Regs& r, const Params& prm, int a,
         }
     }
     if (idle_mask) {                                          // ref :326-333
-        const int d = a - r.low_est;
-        r.low_est = r.low_est + tdiv(d, OOK_EST_LOW_RATIO) + (d > 0 ? 1 : -1);
+        r.low_est = idle_low(r.low_est, a);
         r.high_est = max(prm.ratio * r.low_est, r.min_high);
         if (r.lead_in <= OOK_EST_LOW_RATIO) r.lead_in += 1;
     } else if (start_mask) {                                  // ref :312-323
@@ -301,6 +331,215 @@ __device__ __forceinline__ void fsm_step(Regs& r, const Params& prm, int a,
         r.fsk_num = 0; r.fsk_cur_pulse = 0;
         r.ook_state = ST_PULSE;
     }
+}
+
+// ---- Runs: stretches of samples on which fsm_step would take one plain
+// branch (IDLE EWMA, GAP and GAP_START counts, PULSE level tracking, with
+// or without the classic FSK tracker's steady-tone EWMA) and emit
+// nothing. Each run applies exactly that branch's updates, in fsm_step's
+// order, and returns the local index of the first sample that leaves the
+// branch, which the caller hands to fsm_step. Except in GAP_START (at most
+// nine samples), samples go in batches of RUN_U computed without branches
+// and kept only if none of them leaves (one test per batch instead of one
+// branch per sample), then one at a time up to the leaving sample.
+constexpr int RUN_U = 8;
+
+// Whether the next sample starts a run (idle_run, gap_run, gap_start_run,
+// pulse_run, or fsk_run for the classic tracker).
+template <bool MINMAX>
+__device__ __forceinline__ bool run_applies(const Regs& r) {
+    return r.ook_state == ST_IDLE || (r.ook_state == ST_GAP && r.eop_spur == 0) ||
+           (r.ook_state == ST_GAP_START && r.num > 0) ||
+           (r.ook_state == ST_PULSE &&
+            (r.num > 0 || (!MINMAX && (r.fsk_state == FSK_FH || r.fsk_state == FSK_FL))));
+}
+
+// fsm_step's threshold and hysteresis from the level estimators
+__device__ __forceinline__ void thr_hyst(int low, int high, const Params& prm,
+                                         int& thr, int& hyst) {
+    const int h = tdiv(low + min(high, OOK_MAX_HIGH_LEVEL), 2);
+    thr = h + ((prm.fixed - h) & -static_cast<int>(prm.fixed != 0));  // no branch
+    hyst = tdiv(thr, 8);
+}
+
+// IDLE: every sample up to the one that starts a pulse.
+__device__ __forceinline__ int idle_run(Regs& r, const Params& prm,
+                                        const int16_t* A, int Lm, int k, int n) {
+    int low = r.low_est, high = r.high_est, lead = r.lead_in;
+    const int mh = r.min_high;
+    while (k + RUN_U <= n) {
+        int l2 = low, h2 = high, d2 = lead;
+        bool hit = false;
+#pragma unroll
+        for (int u = 0; u < RUN_U; ++u) {
+            const int a = A[(k + u) * Lm];
+            int thr, hyst;
+            thr_hyst(l2, h2, prm, thr, hyst);
+            hit |= a > thr + hyst && d2 > OOK_EST_LOW_RATIO;
+            l2 = idle_low(l2, a);
+            h2 = max(prm.ratio * l2, mh);
+            d2 += d2 <= OOK_EST_LOW_RATIO ? 1 : 0;
+        }
+        if (hit) break;
+        low = l2; high = h2; lead = d2;
+        k += RUN_U;
+    }
+    for (; k < n; ++k) {
+        const int a = A[k * Lm];
+        int thr, hyst;
+        thr_hyst(low, high, prm, thr, hyst);
+        if (a > thr + hyst && lead > OOK_EST_LOW_RATIO) break;
+        low = idle_low(low, a);
+        high = max(prm.ratio * low, mh);
+        lead += lead <= OOK_EST_LOW_RATIO ? 1 : 0;
+    }
+    r.low_est = low; r.high_est = high; r.lead_in = lead;
+    return k;
+}
+
+// GAP with no pending spurious-pulse EOP: plen counts up to the first
+// sample above threshold or past the end-of-package gap.
+__device__ __forceinline__ int gap_run(Regs& r, const Params& prm,
+                                       const int16_t* A, int Lm, int k, int n) {
+    int thr, hyst;
+    thr_hyst(r.low_est, r.high_est, prm, thr, hyst);
+    const int th = thr + hyst;
+    // (p > 10*max_pulse && p > 10 ms) || p > 100 ms  <=>  p > lim
+    const int lim = min(max(PD_MAX_GAP_RATIO * r.max_pulse, PD_MIN_GAP_MS * prm.spm),
+                        PD_MAX_GAP_MS * prm.spm);
+    int plen = r.plen;
+    while (k + RUN_U <= n && plen + RUN_U <= lim) {
+        bool hit = false;
+#pragma unroll
+        for (int u = 0; u < RUN_U; ++u) hit |= A[(k + u) * Lm] > th;
+        if (hit) break;
+        plen += RUN_U;
+        k += RUN_U;
+    }
+    for (; k < n; ++k) {
+        if (A[k * Lm] > th || plen + 1 > lim) break;
+        ++plen;
+    }
+    r.plen = plen;
+    return k;
+}
+
+// GAP_START past the package's first pulse (no FSK gate): plen counts up
+// to the first sample above threshold or to the shortest gap.
+__device__ __forceinline__ int gap_start_run(Regs& r, const Params& prm,
+                                             const int16_t* A, int Lm, int k,
+                                             int n) {
+    int thr, hyst;
+    thr_hyst(r.low_est, r.high_est, prm, thr, hyst);
+    const int th = thr + hyst;
+    int plen = r.plen;
+    for (; k < n; ++k) {
+        if (A[k * Lm] > th || plen + 1 >= PD_MIN_PULSE_SAMPLES) break;
+        ++plen;
+    }
+    r.plen = plen;
+    return k;
+}
+
+// PULSE past the package's first pulse (no FSK gate): the high level and
+// ook_f1 track the pulse up to the first sample below threshold.
+template <typename FmT>
+__device__ __forceinline__ int pulse_run(Regs& r, const Params& prm,
+                                         const int16_t* A, const FmT* F, int Lm,
+                                         int k, int n) {
+    const int low = r.low_est, mh = r.min_high;
+    int high = r.high_est, f1 = r.ook_f1, plen = r.plen;
+    while (k + RUN_U <= n) {
+        int h2 = high, g2 = f1;
+        bool hit = false;
+#pragma unroll
+        for (int u = 0; u < RUN_U; ++u) {
+            const int a = A[(k + u) * Lm];
+            const int f = static_cast<int>(F[(k + u) * Lm]);
+            int thr, hyst;
+            thr_hyst(low, h2, prm, thr, hyst);
+            hit |= a < thr - hyst;
+            h2 = max(h2 + tdiv(a, OOK_EST_HIGH_RATIO) - tdiv(h2, OOK_EST_HIGH_RATIO), mh);
+            g2 = g2 + tdiv(f, OOK_EST_HIGH_RATIO) - tdiv(g2, OOK_EST_HIGH_RATIO);
+        }
+        if (hit) break;
+        high = h2; f1 = g2; plen += RUN_U;
+        k += RUN_U;
+    }
+    for (; k < n; ++k) {
+        const int a = A[k * Lm];
+        int thr, hyst;
+        thr_hyst(low, high, prm, thr, hyst);
+        if (a < thr - hyst) break;
+        const int f = static_cast<int>(F[k * Lm]);
+        high = max(high + tdiv(a, OOK_EST_HIGH_RATIO) - tdiv(high, OOK_EST_HIGH_RATIO), mh);
+        f1 = f1 + tdiv(f, OOK_EST_HIGH_RATIO) - tdiv(f1, OOK_EST_HIGH_RATIO);
+        ++plen;
+    }
+    r.high_est = high; r.ook_f1 = f1; r.plen = plen;
+    return k;
+}
+
+// PULSE of a package's first pulse with the classic FSK tracker in FH or
+// FL (an FSK burst on a steady carrier): pulse_run's level tracking plus
+// the tracker's frequency EWMA, up to the first sample below threshold or
+// that switches tone.
+template <typename FmT>
+__device__ __forceinline__ int fsk_run(Regs& r, const Params& prm,
+                                       const int16_t* A, const FmT* F, int Lm,
+                                       int k, int n) {
+    const int low = r.low_est, mh = r.min_high;
+    const bool fh = r.fsk_state == FSK_FH;
+    int high = r.high_est, of1 = r.ook_f1, f1 = r.f1, f2 = r.f2;
+    int m = 0;                          // samples taken
+    while (k + RUN_U <= n) {
+        int h2 = high, g2 = of1, p1 = f1, p2 = f2;
+        bool hit = false;
+#pragma unroll
+        for (int u = 0; u < RUN_U; ++u) {
+            const int a = A[(k + u) * Lm];
+            const int f = static_cast<int>(F[(k + u) * Lm]);
+            int thr, hyst;
+            thr_hyst(low, h2, prm, thr, hyst);
+            hit |= a < thr - hyst;
+            h2 = max(h2 + tdiv(a, OOK_EST_HIGH_RATIO) - tdiv(h2, OOK_EST_HIGH_RATIO), mh);
+            g2 = g2 + tdiv(f, OOK_EST_HIGH_RATIO) - tdiv(g2, OOK_EST_HIGH_RATIO);
+            const int d1 = abs(f - p1), d2 = abs(f - p2);
+            // the tone's EWMA, fast toward the tone's edge, slow back:
+            // both forms computed and one kept by a mask, not a branch
+            hit |= fh ? d1 > d2 : d2 > d1;
+            const int q = fh ? p1 : p2;
+            const int fast = q + tdiv(f, FSK_EST_FAST) - tdiv(q, FSK_EST_FAST);
+            const int slow = q + tdiv(f, FSK_EST_SLOW) - tdiv(q, FSK_EST_SLOW);
+            const int nq = slow + ((fast - slow) & -static_cast<int>(fh ? f > q : f < q));
+            p1 = fh ? nq : p1;
+            p2 = fh ? p2 : nq;
+        }
+        if (hit) break;
+        high = h2; of1 = g2; f1 = p1; f2 = p2; m += RUN_U;
+        k += RUN_U;
+    }
+    for (; k < n; ++k) {
+        const int a = A[k * Lm];
+        const int f = static_cast<int>(F[k * Lm]);
+        int thr, hyst;
+        thr_hyst(low, high, prm, thr, hyst);
+        if (a < thr - hyst) break;
+        const int d1 = abs(f - f1), d2 = abs(f - f2);
+        if (fh ? d1 > d2 : d2 > d1) break;
+        high = max(high + tdiv(a, OOK_EST_HIGH_RATIO) - tdiv(high, OOK_EST_HIGH_RATIO), mh);
+        of1 = of1 + tdiv(f, OOK_EST_HIGH_RATIO) - tdiv(of1, OOK_EST_HIGH_RATIO);
+        if (fh)
+            f1 = f > f1 ? f1 + tdiv(f, FSK_EST_FAST) - tdiv(f1, FSK_EST_FAST)
+                        : f1 + tdiv(f, FSK_EST_SLOW) - tdiv(f1, FSK_EST_SLOW);
+        else
+            f2 = f < f2 ? f2 + tdiv(f, FSK_EST_FAST) - tdiv(f2, FSK_EST_FAST)
+                        : f2 + tdiv(f, FSK_EST_SLOW) - tdiv(f2, FSK_EST_SLOW);
+        ++m;
+    }
+    r.high_est = high; r.ook_f1 = of1; r.f1 = f1; r.f2 = f2;
+    r.plen += m; r.flen += m;
+    return k;
 }
 
 }  // namespace rtl433

@@ -10,8 +10,8 @@ A block runs in three passes:
 
 - the fused front end (``ops/frontend.py``, one CUDA kernel) turns the CU8
   block into filtered time-major am/fm streams;
-- the detector scan (``ops/detector.py``, one CUDA kernel, one thread per
-  channel) walks the samples and emits each 128-sample chunk's ring of
+- the detector scan (``ops/detector.py``, one CUDA kernel, one warp lane
+  per channel) walks the samples and emits each 128-sample chunk's ring of
   committed pulse/gap records and its EOP metadata as a record log;
 - the drain (:func:`_drain_block`, plain torch) compacts the log, drops
   FSK-rewind duplicates, assigns finished packages to output slots and
@@ -165,7 +165,7 @@ def _block_scan(params: DetectorParams, regs, iq, n_valid, gen0, t0=0):
         use_mag_est=params.use_mag_est, enable_fm=params.enable_fm,
         fm_low_pass=params.fm_low_pass, fsk_minmax=params.fsk_minmax,
         n_valid=local_valid, time_major=True)
-    packed, log_key, log_p, log_g, eop_log = detector_scan(
+    packed, log_key, log_p, log_g, eop_log, _ = detector_scan(
         am, fm, pack_regs(regs), gen0, params=params, n_valid=n_valid, t0=t0)
     return (unpack_regs(packed, regs), log_key, log_p, log_g, eop_log,
             avg_db)

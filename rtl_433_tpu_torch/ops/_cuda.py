@@ -39,10 +39,11 @@ LAUNCHERS = {
                  [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                   _P]),
     # am, fm, fm_i32, N, C, regs, gen0, log_key, log_p, log_g, eop_log,
-    # n_valid, t0, chunk, R, E, spm, fixed, ratio, maxp, minmax, stream
+    # quiet, n_valid, t0, chunk, R, E, spm, fixed, ratio, maxp, minmax,
+    # stream
     "detector_scan": ("rtl433_detector_scan",
-                      [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
-                       _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+                      [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 LAUNCHES = {name: 0 for name in SOURCES}

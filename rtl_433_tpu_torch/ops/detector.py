@@ -15,6 +15,15 @@ as the kernel's ``detector_step.cuh``.
 
 Registers travel packed as int32 ``[NREG, C]`` rows in :data:`REG_KEYS`
 order (``csrc/detector_step.cuh`` enumerates the same order).
+
+Quiet chunks: the kernel skips the FSM for a chunk in which every channel
+of its warp is IDLE and provably stays below threshold
+(:func:`quiet_chunk_ok`), running only the noise EWMA
+(:func:`quiet_chunk_update`). Both versions return, per channel, the count
+of chunks at whose start that channel's own test held, as a diagnostic;
+the plain version evaluates the same test but always runs the full step,
+so the count checks the kernel's test and the outputs check the soundness
+of every skip it took.
 """
 
 from __future__ import annotations
@@ -99,6 +108,35 @@ def _tdiv(a: int, b: int) -> int:
 
 def _i32(v: int) -> int:
     return ((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def quiet_chunk_ok(ook_state, low_est, high_est, min_high, am_max, am_min,
+                   fixed, whole=True):
+    """Whether a chunk may skip the FSM (csrc/detector_step.cuh
+    ``quiet_chunk_ok``): the channel is IDLE, the chunk lies wholly below
+    n_valid, and no sample can cross a lower bound of the hysteresis
+    threshold. The JAX engine's test (rtl_433_tpu/dsp/engine.py:1110-1125),
+    with ``high_est`` also bounding ``high_lb``: never looser. Over such a
+    chunk ``low_est`` stays at or above ``min(low_est, am_min) - 1`` and idle
+    ``high_est`` at or above ``min_high``, so every sample takes the IDLE
+    EWMA branch."""
+    if not whole or ook_state != ST_IDLE:
+        return False
+    low_lb = min(low_est, am_min) - 2
+    high_lb = min(high_est, min_high, OOK_MAX_HIGH_LEVEL)
+    thr_lb = fixed - 1 if fixed else _tdiv(low_lb + high_lb, 2) - 1
+    return thr_lb >= 0 and am_max <= thr_lb
+
+
+def quiet_chunk_update(low_est, lead_in, min_high, ratio, am_chunk):
+    """The quiet path over one chunk: the IDLE noise EWMA (ref
+    src/pulse_detect.c:326-333) and nothing else. Returns (low_est,
+    high_est, lead_in)."""
+    for a in am_chunk:
+        d = a - low_est
+        low_est = low_est + _tdiv(d, OOK_EST_LOW_RATIO) + (1 if d > 0 else -1)
+    lead_in += min(max(OOK_EST_LOW_RATIO + 1 - lead_in, 0), len(am_chunk))
+    return low_est, max(ratio * low_est, min_high), lead_in
 
 
 def _fsk_classic(fm, st, flen, f1, f2, num, cur, hp, hg, ovf):
@@ -201,7 +239,8 @@ def _scan_channel(am, fm, regs, gen0, *, N, t0, n_valid, chunk, R, E, spm,
     """One channel's scan over its [N] am/fm Python-int streams.
 
     Returns (regs, keys [R][G], ring_p [R][G], ring_g [R][G], eops
-    {row: meta}) with rows g*E + slot of the [G*E, 9] EOP log."""
+    {row: meta}, quiet [G]) with rows g*E + slot of the [G*E, 9] EOP log
+    and quiet[g] whether :func:`quiet_chunk_ok` held at chunk g's start."""
     (ook_state, plen, max_pulse, lead_in, low_est, high_est, min_high, num,
      cur_pulse, ook_f1, pkg_start, eop_spur, gen, fsk_state, flen, f1, f2,
      vmax, vmin, skip, fsk_num, fsk_cur_pulse, n_ring_ovf, n_pkg_drop,
@@ -216,9 +255,15 @@ def _scan_channel(am, fm, regs, gen0, *, N, t0, n_valid, chunk, R, E, spm,
     ring_idx, ring_p, ring_g, ring_tag = [0] * R, [0] * R, [0] * R, [0] * R
     n_act = min(max(n_valid - t0, 0), N)
     lo_thr = OOK_EST_LOW_RATIO
+    quiet = [False] * G
     for g in range(G):
         wpos = 0
         epos = 0
+        lo = g * chunk
+        if (g + 1) * chunk <= n_act:
+            seg = am[lo:lo + chunk]
+            quiet[g] = quiet_chunk_ok(ook_state, low_est, high_est, min_high,
+                                      max(seg), min(seg), fixed)
         for k in range(g * chunk, min(g * chunk + chunk, n_act)):
             a = am[k]
             t = t0 + k
@@ -379,7 +424,7 @@ def _scan_channel(am, fm, regs, gen0, *, N, t0, n_valid, chunk, R, E, spm,
             num, cur_pulse, ook_f1, pkg_start, eop_spur, gen, fsk_state, flen,
             f1, f2, vmax, vmin, skip, fsk_num, fsk_cur_pulse, n_ring_ovf,
             n_pkg_drop, n_fsk_ovf] + hp + hg
-    return regs, keys, lp, lg, eops
+    return regs, keys, lp, lg, eops, quiet
 
 
 def _scan_args(params, n_valid, t0, N):
@@ -411,8 +456,9 @@ def detector_scan_plain(am, fm, regs, gen0, *, params, n_valid=None, t0=0):
     log_p = np.zeros((C * R, G), np.int32)
     log_g = np.zeros((C * R, G), np.int32)
     eop_log = np.zeros((C, G * E, META_FIELDS), np.int32)
+    ok = np.zeros((C, G), bool)
     for j in range(C):
-        rg, keys, lp, lg, eops = _scan_channel(
+        rg, keys, lp, lg, eops, ok[j] = _scan_channel(
             am_l[j], fm_l[j], regs_l[j], gen0_l[j], N=N, **a)
         new_regs[j] = rg
         log_key[j * R:(j + 1) * R] = keys
@@ -420,10 +466,12 @@ def detector_scan_plain(am, fm, regs, gen0, *, params, n_valid=None, t0=0):
         log_g[j * R:(j + 1) * R] = lg
         for row, meta in eops.items():
             eop_log[j, row] = meta
+    quiet = ok.sum(1).astype(np.int32)
     dev = am.device
     return (torch.from_numpy(new_regs.T.copy()).to(dev),
             torch.from_numpy(log_key).to(dev), torch.from_numpy(log_p).to(dev),
-            torch.from_numpy(log_g).to(dev), torch.from_numpy(eop_log).to(dev))
+            torch.from_numpy(log_g).to(dev), torch.from_numpy(eop_log).to(dev),
+            torch.from_numpy(quiet).to(dev))
 
 
 def detector_scan_cuda(am, fm, regs, gen0, *, params, n_valid=None, t0=0):
@@ -452,17 +500,18 @@ def detector_scan_cuda(am, fm, regs, gen0, *, params, n_valid=None, t0=0):
     log_g = torch.empty((C * R, G), dtype=torch.int32, device=dev)
     eop_log = torch.empty((C, G * E, META_FIELDS), dtype=torch.int32,
                           device=dev)
+    quiet = torch.zeros((C,), dtype=torch.int32, device=dev)
     if C and G:
         fn = _cuda.launcher("detector_scan")
         _cuda.LAUNCHES["detector_scan"] += 1
         err = fn(am.data_ptr(), fm.data_ptr(), int(fm.dtype == torch.int32),
                  N, C, regs.data_ptr(), gen0.data_ptr(), log_key.data_ptr(),
                  log_p.data_ptr(), log_g.data_ptr(), eop_log.data_ptr(),
-                 a["n_valid"], a["t0"], a["chunk"], R, E, a["spm"],
-                 a["fixed"], a["ratio"], a["maxp"], int(a["minmax"]),
+                 quiet.data_ptr(), a["n_valid"], a["t0"], a["chunk"], R, E,
+                 a["spm"], a["fixed"], a["ratio"], a["maxp"], int(a["minmax"]),
                  _cuda.stream_of(am))
         _cuda.check(err, "detector_scan")
-    return regs, log_key, log_p, log_g, eop_log
+    return regs, log_key, log_p, log_g, eop_log, quiet
 
 
 def detector_scan(am, fm, regs, gen0, *, params, n_valid=None, t0=0):
@@ -474,10 +523,12 @@ def detector_scan(am, fm, regs, gen0, *, params, n_valid=None, t0=0):
     relative to. ``t0`` is the block-frame position of sample 0 and
     ``n_valid`` (block frame) freezes every sample at or past it.
 
-    Returns ``(regs, log_key, log_p, log_g, eop_log)``: log planes int32
-    ``[C*R, G]`` (row ``c*R + slot``, column = chunk) and ``eop_log`` int32
-    ``[C, G*E, 9]``. Launches the CUDA kernel for a CUDA tensor, and runs
-    the plain version for a CPU tensor.
+    Returns ``(regs, log_key, log_p, log_g, eop_log, quiet)``: log planes
+    int32 ``[C*R, G]`` (row ``c*R + slot``, column = chunk), ``eop_log``
+    int32 ``[C, G*E, 9]`` and ``quiet`` int32 ``[C]``, the chunks at whose
+    start the channel's :func:`quiet_chunk_ok` held (a diagnostic, not part
+    of the state). Launches the CUDA kernel for a CUDA tensor, and runs the
+    plain version for a CPU tensor.
     """
     run = detector_scan_cuda if am.is_cuda else detector_scan_plain
     return run(am, fm, regs, gen0, params=params, n_valid=n_valid, t0=t0)

@@ -130,8 +130,7 @@ def frontend(iq, state, *, sample_rate, use_mag_est=False, enable_fm=True,
     the layout the detector scan reads), plus float32 ``avg_db`` per
     channel. Launches the CUDA kernel for a CUDA tensor, and runs the plain
     version for a CPU tensor. ``time_block`` (the TPU kernel's time tile)
-    has no effect: the kernel walks the whole block in one thread per
-    channel.
+    has no effect: the kernel sizes its own tiles to its shared memory.
     """
     C, N, _ = iq.shape
     alp1, blp = _coeffs(sample_rate, enable_fm, fm_low_pass, fsk_minmax)

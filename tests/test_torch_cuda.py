@@ -46,6 +46,27 @@ def test_frontend_kernel_matches_plain(use_mag_est, enable_fm, n_valid):
         assert torch.equal(g.to(torch.int64), w.to(torch.int64))
 
 
+@pytest.mark.parametrize("N,C,n_valid", [(4099, 37, 4099), (4099, 37, 0),
+                                         (100, 3, 57), (1000, 64, 999)])
+def test_frontend_kernel_ragged_shapes(N, C, n_valid):
+    """Block lengths that rule out the 16-byte staging copies, a last
+    channel group of 5, and n_valid at 0 and inside the block."""
+    dev = _gpu()
+    rng = np.random.default_rng(4)
+    iq = torch.from_numpy(rng.integers(0, 256, (C, N, 2),
+                                       dtype=np.uint8)).to(dev)
+    st = torch.from_numpy(rng.integers(-100, 100, (6, C)).astype(
+        np.int32)).to(dev)
+    alp1, blp = fe._coeffs(250_000, True, 0.0, False)
+    kw = dict(use_mag_est=False, enable_fm=True, alp1=alp1, blp=blp,
+              n_valid=n_valid)
+    got = fe.frontend_cuda(iq, st, **kw)
+    torch.cuda.synchronize()
+    want = fe.frontend_plain(iq, st, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g.to(torch.int64), w.to(torch.int64))
+
+
 @pytest.mark.parametrize("minmax", [False, True])
 @pytest.mark.parametrize("enable_fm", [True, False])
 def test_detector_kernel_matches_plain(minmax, enable_fm):
@@ -105,3 +126,22 @@ def test_process_block_cuda_matches_cpu(minmax, enable_fm):
     assert int(cpu["out_n"].sum()) > 0
     for k in cpu:
         assert torch.equal(cpu[k], gpu[k]), k
+
+
+@pytest.mark.parametrize("name", ["c33", "fixed", "ramp", "mid_nvalid",
+                                  "lead_in", "wide_ring", "run_bound"])
+def test_detector_quiet_cases_match_plain(name):
+    """The quiet-chunk path on its edge cases: bit-exact outputs and the
+    same count of quiet chunks as the plain version."""
+    from torch_scan_cases import CASES
+    dev = _gpu()
+    case = CASES[name](16384)
+    args = [case[k].to(dev) for k in ("am", "fm", "regs", "gen0")]
+    kw = dict(params=case["params"], n_valid=case["n_valid"])
+    got = det.detector_scan_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    want = det.detector_scan_plain(*args, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w.cpu())
+    G = 16384 // case["params"].chunk
+    assert 0 < int(want[5].min()) and int(want[5].max()) < G

@@ -171,3 +171,107 @@ def test_detector_scan_wrapper_checks_inputs():
         td.detector_scan_cuda(am, am, regs, gen0, params=params)
     with pytest.raises(ValueError):
         td.detector_scan_plain(am[:100], am[:100], regs, gen0, params=params)
+
+
+# ---- the quiet-chunk test (the kernel's skip of idle chunks)
+
+
+def _idle_regs(low, high, min_high, lead_in):
+    st = te.detector_init(te.DetectorParams(), 1, "cpu")
+    st.update(low_est=torch.tensor([low], dtype=torch.int32),
+              high_est=torch.tensor([high], dtype=torch.int32),
+              min_high=torch.tensor([min_high], dtype=torch.int32),
+              lead_in=torch.tensor([lead_in], dtype=torch.int32))
+    return td.pack_regs(st)[:, 0].tolist()
+
+
+def _check_quiet_chunk(draw, event):
+    """One drawn IDLE state and chunk: when quiet_chunk_ok holds, the full
+    plain step over the chunk ends in the quiet update's registers and
+    emits no record or EOP."""
+    from hypothesis import strategies as hst
+    ratio = 8
+    low = draw(hst.one_of(hst.integers(-40, 2500), hst.integers(-5, 20)),
+               label="low_est")
+    min_high = draw(hst.one_of(hst.integers(0, 18000), hst.integers(0, 30)),
+                    label="min_high")
+    high = draw(hst.one_of(hst.just(max(ratio * low, min_high)),
+                           hst.integers(-100, 20000)), label="high_est")
+    lead_in = draw(hst.one_of(hst.integers(1000, 1030),
+                              hst.integers(0, 2000)), label="lead_in")
+    fixed = draw(hst.sampled_from([0, 0, 0, 1, 9, 400, 2500]), label="fixed")
+    spread = draw(hst.integers(0, 400), label="spread")
+    center = low + draw(hst.integers(-30, 30), label="offset")
+    am = [min(max(center + d, -32768), 32767) for d in draw(
+        hst.lists(hst.integers(-spread, spread), min_size=128, max_size=128),
+        label="noise")]
+    # put the chunk maximum on the threshold bound or just above it
+    low_lb = min(low, min(am)) - 2
+    high_lb = min(high, min_high, td.OOK_MAX_HIGH_LEVEL)
+    thr_lb = fixed - 1 if fixed else td._tdiv(low_lb + high_lb, 2) - 1
+    if draw(hst.booleans(), label="on_bound") and \
+            min(am) <= thr_lb + 1 <= 32767:
+        am[draw(hst.integers(0, 127), label="at")] = \
+            thr_lb + draw(hst.integers(0, 3), label="delta")
+    if not td.quiet_chunk_ok(td.ST_IDLE, low, high, min_high, max(am),
+                             min(am), fixed):
+        event("not quiet")
+        return
+    event("quiet: full step checked")
+    regs = _idle_regs(low, high, min_high, lead_in)
+    a = dict(chunk=128, R=8, E=2, spm=250, fixed=fixed, ratio=ratio,
+             maxp=td.PD_MAX_PULSES, minmax=False, n_valid=128, t0=0)
+    got, keys, _, _, eops, quiet = td._scan_channel(
+        am, [0] * 128, regs, 0, N=128, **a)
+    assert quiet == [True]
+    assert all(k == td.KEY_INVALID for row in keys for k in row)
+    assert not eops
+    want = list(regs)
+    want[td.REG_KEYS.index("low_est")], want[td.REG_KEYS.index("high_est")], \
+        want[td.REG_KEYS.index("lead_in")] = td.quiet_chunk_update(
+            low, lead_in, min_high, ratio, am)
+    assert got == want
+
+
+def test_quiet_chunk_ok_is_sound():
+    """A hypothesis property over random IDLE states and 128-sample chunks,
+    lead_in near 1024, low_est near the chunk minimum, the fixed level and
+    the chunk maximum on the threshold bound and one above it."""
+    hyp = pytest.importorskip("hypothesis")
+    from hypothesis import strategies as hst
+
+    @hyp.settings(max_examples=400, deadline=None)
+    @hyp.given(data=hst.data())
+    def prop(data):
+        _check_quiet_chunk(data.draw, hyp.event)
+
+    prop()
+
+
+def test_plain_quiet_count_noise_and_bursts():
+    """Every chunk of an all-noise block is quiet; a block with bursts
+    has fewer in every channel."""
+    from torch_scan_cases import _regs, bursts
+    p = te.DetectorParams()
+    N, C = 32768, 3
+    G = N // p.chunk
+    rng = np.random.default_rng(6)
+    regs, gen0 = _regs(p, C, lead_in=1025, low_est=40)
+    noise = torch.from_numpy(rng.integers(20, 60, (N, C)).astype(np.int16))
+    out = td.detector_scan_plain(noise, noise, regs, gen0, params=p)
+    assert out[5].tolist() == [G] * C
+    am, fm = bursts(rng, N, C, gap=(1500, 3000))
+    out = td.detector_scan_plain(torch.from_numpy(am), torch.from_numpy(fm),
+                                 regs, gen0, params=p)
+    assert all(0 < q < G for q in out[5].tolist())
+
+
+def test_run_bound_case_exits_on_every_batch_offset():
+    """The run_bound case of tests/torch_scan_cases.py makes every batched
+    run of csrc/detector_step.cuh leave at each of the 8 offsets of a batch
+    (pulse ends, gap ends, the gap limit, FSK tone switches, pulse starts),
+    traced sample by sample through the plain step."""
+    from torch_scan_cases import RUN_U, case_run_bound, run_exits
+    exits = run_exits(case_run_bound(16384))
+    for kind in ("idle", "gap", "gap_limit", "pulse", "fsk"):
+        assert exits[kind] == set(range(RUN_U)), (kind, exits[kind])
