@@ -26,33 +26,38 @@ Phases, each printing one JSON line (any failure exits non-zero):
               detector_step.cuh leaving on every offset of a batch); then
               its time at C=1 and C=4096, with two whole 32-channel groups
               of the C=4096 run checked, quiet counts included;
-5. main    -- RtlTpu(device="cuda").decode_file with -R <n> on the 8
-              protocols.py fixtures; events must equal the committed .json.
-              Then the fixtures are decoded again with every kernel call's
-              inputs recorded (C=1, N=131072: FM off for the OOK fixtures,
-              FM on at 250k and 1024k for the FSK ones), and each recorded
-              call is checked against the plain version, bit-exact, the
-              detector's quiet-chunk count included, with the share of
-              chunks that took the quiet path per fixture;
+5. main    -- RtlTpu(device="cuda").decode_file with -R <n> on all 106
+              fixtures of tests/fixtures/ (250, 1024 and 4096 kS/s); events
+              must equal the committed .json. Then the fixtures are decoded
+              again with every kernel call's inputs recorded (C=1,
+              N=131072: FM off for the OOK fixtures, FM on for the FSK
+              ones), and each recorded call is checked against the plain
+              version, bit-exact, the detector's quiet-chunk count
+              included; printed by kernel x sample rate x FM on/off (calls,
+              max_abs_err, share of chunks that took the quiet path);
 6. stream  -- nexus and lacrosse_tx35 concatenated 64 times, lacrosse_tx29
               16 times, decoded end to end: copies x the committed events;
               MS/s and ms/block, then the same decode under torch.profiler
               (checked too) for device ms per block by kernel and the
-              device's busy share;
+              device's busy share. Then mixed_250k: the 82 fixtures at
+              250 kS/s concatenated in sorted order, decoded under the
+              default registration (335 protocols), untraced and traced,
+              equal to the port's own device="cpu" decode of the same
+              file, with the host ms per block spent in the decoders;
 7. kernels -- one line per kernel with its launches on the main path, its
               largest error against the plain version over every check
               above, its times and bound, and its cycles per sample at
               C=1 at the SM clock that nvidia-smi read while the same
               launch ran back to back (sm_clock_mhz).
 
-The line before the last is nvidia-smi's name and power limit; the last
+Every phase line carries its seconds. The line before the last is
+nvidia-smi's name and power limit; the last
 line is {"ok": true, "device": {...}}. Without a CUDA device, or outside a
 checkout, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
-import glob
 import json
 import math
 import os
@@ -61,6 +66,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -79,15 +85,20 @@ DETECTOR_OPS = 20
 FE_OUTS = ("am", "fm", "state", "env_sum")
 DET_OUTS = ("regs", "log_key", "log_p", "log_g", "eop_log", "quiet")
 
-FIXTURES = [("silvercrest", 1), ("rubicson", 2), ("prologue", 3),
-            ("waveman", 4), ("nexus", 19), ("lacrosse_tx35", 75),
-            ("lacrosse_tx29", 76), ("tpms_toyota", 88)]
 # (fixture, protocol, copies) byte-concatenated into one file per stream
 STREAMS = [("nexus", 19, 64), ("lacrosse_tx35", 75, 64),
            ("lacrosse_tx29", 76, 16)]
 
 
+_T_PHASE = [time.perf_counter()]
+
+
 def emit(obj):
+    """Print one JSON line; a phase line gets the seconds since the last."""
+    if "phase" in obj:
+        now = time.perf_counter()
+        obj["phase_seconds"] = round(now - _T_PHASE[0], 3)
+        _T_PHASE[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -104,13 +115,6 @@ def smi_line():
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
-
-
-def normalize(ev):
-    ev = dict(ev)
-    ev.pop("time", None)
-    return {k: (round(v, 3) if isinstance(v, float) else v)
-            for k, v in ev.items()}
 
 
 def cuda_ms(fn, reps=5):
@@ -228,6 +232,9 @@ def main():
     from rtl_433_tpu_torch.ops import detector as det
     from rtl_433_tpu_torch.ops import frontend as fe
     from rtl_433_tpu_torch.output.data_model import event_to_json
+    from torch_fixture_cases import cases as fixture_cases
+    from torch_fixture_cases import expected, normalize
+    from torch_fixture_cases import sample_rate as rate_of
     from torch_scan_cases import CASES
 
     dev = torch.device("cuda")
@@ -236,8 +243,9 @@ def main():
     errs = {}
 
     def compare(kind, got, want, names, what):
-        """Largest |kernel - plain| over the outputs, into errs[kind]; any
-        difference fails the run."""
+        """Largest |kernel - plain| over the outputs, into errs[kind] and
+        returned; any difference fails the run."""
+        worst = 0
         for g, w_, nm in zip(got, want, names):
             if g.shape != w_.shape:
                 fail(f"{kind} {nm}: shape {tuple(g.shape)} != "
@@ -245,13 +253,18 @@ def main():
             e = int((g.to(torch.int64) - w_.to(torch.int64)).abs().max()) \
                 if g.numel() else 0
             errs[kind] = max(errs.get(kind, 0), e)
+            worst = max(worst, e)
             if e:
                 fail(f"{kind} {nm} differs from the plain version by up to "
                      f"{e} ({what})")
+        return worst
 
-    def decode(num, path):
-        rx = RtlTpu(device="cuda", register_all=False, report_time="off")
-        rx.registry.register(num)
+    def decode(nums, path, device="cuda"):
+        """-R <n> for each of ``nums``; None: the default registration."""
+        rx = RtlTpu(device=device, register_all=nums is None,
+                    report_time="off")
+        for n in nums or ():
+            rx.registry.register(n)
         return [normalize(json.loads(event_to_json(e)))
                 for e in rx.decode_file(path)]
 
@@ -415,21 +428,20 @@ def main():
           "quiet_share_c1": q1 / G, "plain_ms_c1": plain_ms,
           "sm_clock_mhz_c1": mhz, "sampled_c4096": 64})
 
-    # ---- 5. main path: the 8 fixtures through RtlTpu on the card
-    fx = []
-    for d, num in FIXTURES:
-        cu8 = sorted(glob.glob(os.path.join(HERE, "tests", "fixtures", d,
-                                            "*.cu8")))[0]
-        with open(cu8[:-4] + ".json") as f:
-            want = [json.loads(ln) for ln in f if ln.strip()]
-        fx.append((d, num, cu8, want))
+    # ---- 5. main path: every fixture through RtlTpu on the card
+    fx = [(d, nums, cu8, expected(cu8)) for d, nums, cu8 in fixture_cases()]
+    if len(fx) < 106:
+        fail(f"only {len(fx)} fixtures in tests/fixtures/")
+    by_rate = {}
+    for _d, _n, cu8, _w in fx:
+        by_rate[rate_of(cu8)] = by_rate.get(rate_of(cu8), 0) + 1
 
     current = [None]
 
     def decode_fixtures():
-        for d, num, cu8, want in fx:
-            current[0] = d
-            got = decode(num, cu8)
+        for d, nums, cu8, want in fx:
+            current[0] = (d, rate_of(cu8))
+            got = decode(nums, cu8)
             if got != want:
                 fail(f"fixture {d}: {got} != {want}")
 
@@ -439,8 +451,9 @@ def main():
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t
     launches = dict(_cuda.LAUNCHES)
-    emit({"phase": "main", "fixtures": len(fx), "all_match": True,
-          "seconds": round(main_s, 3), "launches": launches})
+    emit({"phase": "main", "fixtures": len(fx), "by_rate": by_rate,
+          "all_match": True, "seconds": round(main_s, 3),
+          "launches": launches})
     for k, v in launches.items():
         if v <= 0:
             fail(f"kernel {k} was not launched on the main path")
@@ -467,32 +480,85 @@ def main():
         det.detector_scan_cuda = orig["detector_scan"]
     plain = {"frontend": (fe.frontend_plain, FE_OUTS),
              "detector_scan": (det.detector_scan_plain, DET_OUTS)}
-    seen = []
-    quiet = {}
-    for kind, d, args, kw in calls:
+    # kernel x sample rate x FM on/off -> calls, largest error, quiet chunks
+    groups = {}
+    while calls:
+        kind, (d, rate), args, kw = calls.pop(0)
         got = orig[kind](*args, **kw)
         torch.cuda.synchronize()
         fn, names = plain[kind]
-        compare(kind, got, fn(*args, **kw), names, f"main-path call {kw}")
+        e = compare(kind, got, fn(*args, **kw), names,
+                    f"main-path call, fixture {d}, {kw}")
+        fm_on = kw["enable_fm"] if kind == "frontend" else \
+            kw["params"].enable_fm
+        g = groups.setdefault(
+            f"{kind}/{rate // 1000}k/fm_{'on' if fm_on else 'off'}",
+            {"calls": 0, "max_abs_err": 0, "quiet": 0, "chunks": 0})
+        g["calls"] += 1
+        g["max_abs_err"] = max(g["max_abs_err"], e)
         if kind == "detector_scan":
-            q = quiet.setdefault(d, [0, 0])
-            q[0] += int(got[5].sum())
-            q[1] += got[5].numel() * (args[0].shape[0] // kw["params"].chunk)
-        seen.append({"kernel": kind, "fixture": d,
-                     "shape": list(args[0].shape),
-                     "n_valid": kw.get("n_valid"),
-                     **({"enable_fm": kw["enable_fm"], "alp1": kw["alp1"]}
-                        if kind == "frontend" else
-                        {"fm_dtype": str(args[1].dtype).split(".")[-1],
-                         "minmax": kw["params"].fsk_minmax,
-                         "rate": kw["params"].sample_rate})})
-    emit({"phase": "main_inputs", "calls": len(seen), "bit_exact": True,
+            g["quiet"] += int(got[5].sum())
+            g["chunks"] += got[5].numel() * (args[0].shape[0]
+                                             // kw["params"].chunk)
+        del got, args
+    for g in groups.values():
+        chunks = g.pop("chunks")
+        q = g.pop("quiet")
+        if chunks:
+            g["quiet_share"] = q / chunks
+    emit({"phase": "main_inputs",
+          "calls": sum(g["calls"] for g in groups.values()),
+          "bit_exact": True,
           "max_abs_err": {k: errs[k] for k in orig},
-          "quiet_share": {d: q / n for d, (q, n) in quiet.items()},
-          "checked": seen})
+          "by_kernel_rate_fm": dict(sorted(groups.items()))})
 
     # ---- 6. stream: fixtures concatenated, decoded untraced and traced
     from torch.profiler import ProfilerActivity, profile
+    from rtl_433_tpu_torch.decoders import garage
+
+    def run_stream(name, nums, path, n, want, extra=None, untraced=None):
+        """Decode ``path`` on the card untraced, then traced; both must give
+        ``want``. Returns the stream's line, with what ``untraced()``
+        returns right after the untraced decode."""
+        blocks = -(-n // N_BLOCK)
+        _cuda.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = decode(nums, path)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t
+        if got != want:
+            fail(f"stream {name}: {len(got)} events, want {len(want)}")
+        for k, v in _cuda.LAUNCHES.items():
+            if v <= 0:
+                fail(f"kernel {k} was not launched on stream {name}")
+        row = {"phase": "stream", "fixture": name, "samples": n,
+               "blocks": blocks, "events": len(got), "seconds": s,
+               "msps": n / s / 1e6, "ms_per_block": s / blocks * 1e3,
+               "launches": dict(_cuda.LAUNCHES), **(extra or {}),
+               **(untraced() if untraced else {})}
+        # the same decode under torch.profiler: device time by kernel
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            got = decode(nums, path)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t) * 1e3
+        if got != want:
+            fail(f"traced stream {name}: {len(got)} events")
+        groups = {}
+        for e in prof.key_averages():
+            us = device_us(e)
+            if us > 0:
+                g = group_of(e.key)
+                groups[g] = groups.get(g, 0.0) + us / 1e3
+        busy = sum(groups.values())
+        row["traced"] = {
+            "wall_ms": traced_ms,
+            "device_ms_per_block": {k: v / blocks for k, v in groups.items()},
+            "device_busy_share": busy / traced_ms if busy else None}
+        return row
+
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         for d, num, copies in STREAMS:
@@ -501,45 +567,58 @@ def main():
             path = os.path.join(tmp, os.path.basename(cu8))
             with open(path, "wb") as f:
                 f.write(raw * copies)
-            n = len(raw) * copies // 2
-            blocks = -(-n // N_BLOCK)
-            _cuda.reset_launches()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            got = decode(num, path)
-            torch.cuda.synchronize()
-            s = time.perf_counter() - t
-            if got != want * copies:
-                fail(f"stream {d}: {len(got)} events, want "
-                     f"{copies * len(want)}")
-            row = {"phase": "stream", "fixture": d, "copies": copies,
-                   "samples": n, "blocks": blocks, "events": len(got),
-                   "seconds": s, "msps": n / s / 1e6,
-                   "ms_per_block": s / blocks * 1e3,
-                   "launches": dict(_cuda.LAUNCHES)}
-            # the same decode under torch.profiler: device time by kernel
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t = time.perf_counter()
-                got = decode(num, path)
-                torch.cuda.synchronize()
-                traced_ms = (time.perf_counter() - t) * 1e3
-            if got != want * copies:
-                fail(f"traced stream {d}: {len(got)} events")
-            groups = {}
-            for e in prof.key_averages():
-                us = device_us(e)
-                if us > 0:
-                    g = group_of(e.key)
-                    groups[g] = groups.get(g, 0.0) + us / 1e3
-            busy = sum(groups.values())
-            row["traced"] = {
-                "wall_ms": traced_ms,
-                "device_ms_per_block": {k: v / blocks
-                                        for k, v in groups.items()},
-                "device_busy_share": busy / traced_ms if busy else None}
-            emit(row)
+            emit(run_stream(d, [num], path, len(raw) * copies // 2,
+                            want * copies, {"copies": copies}))
             os.remove(path)
+
+        # mixed_250k: every 250 kS/s fixture, in sorted order, under the
+        # default registration. The Security+ decoders pair the halves of
+        # a code within 0.8 s of time.monotonic(), which would make the
+        # result depend on how fast this host decodes the packages in
+        # between: both decodes run on one fixed clock.
+        mixed = [cu8 for _d, _n, cu8, _w in fx if rate_of(cu8) == 250_000]
+        raw = b"".join(open(cu8, "rb").read() for cu8 in mixed)
+        path = os.path.join(tmp, "mixed_433.92M_250k.cu8")
+        with open(path, "wb") as f:
+            f.write(raw)
+        n = len(raw) // 2
+        real_time = garage.time
+        garage.time = types.SimpleNamespace(monotonic=lambda: 0.0)
+        handle = RtlTpu._handle_package
+        spent = [0, 0.0]
+
+        def timed_handle(self, pkg, block_len):
+            t = time.perf_counter()
+            try:
+                return handle(self, pkg, block_len)
+            finally:
+                spent[0] += 1
+                spent[1] += time.perf_counter() - t
+
+        try:
+            t = time.perf_counter()
+            want = decode(None, path, device="cpu")
+            cpu_s = time.perf_counter() - t
+            RtlTpu._handle_package = timed_handle
+            try:
+                row = run_stream(
+                    "mixed_250k", None, path, n, want,
+                    {"fixtures": len(mixed), "cpu_decode_s": cpu_s},
+                    untraced=lambda: {"packages": spent[0],
+                                      "host_decode_s": spent[1]})
+            finally:
+                RtlTpu._handle_package = handle
+        finally:
+            garage.time = real_time
+        if not want:
+            fail("mixed_250k decoded no events")
+        # host time in RtlTpu._handle_package (run_ook_demods /
+        # run_fsk_demods and the package's RSSI) of the untraced decode
+        row["host_decode_ms_per_block"] = \
+            row["host_decode_s"] / row["blocks"] * 1e3
+        row["host_decode_share"] = row["host_decode_s"] / row["seconds"]
+        emit(row)
+        os.remove(path)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

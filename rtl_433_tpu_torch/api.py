@@ -5,7 +5,8 @@ state, the protocol registry and the output sinks; drives IQ blocks through
 the engine on ``device`` and routes published packages through slicers +
 decoders to events (ref src/r_flow.c:104-372, src/r_api.c:632-839).
 
-This slice carries single-channel file replay (``-r``). Live input,
+This slice carries single-channel file replay (``-r``) and the ``-y``
+test-string entry point (``decode_test_string``). Live input,
 squelch and autolevel, dumpers, the pulse analyzer (``-A``) and SigMF are
 not ported yet and raise when asked for.
 """
@@ -25,7 +26,8 @@ from .dsp.engine import (DetectorParams, PKG_FSK, detector_init,
 from .io import load_iq, parse_filename
 from .output.data_model import Event, convert_units
 from .output.logger import LOG_ERROR, print_logf
-from .pulse.data import PulseData
+from .pulse import slicers as _slicers
+from .pulse.data import PulseData, rfraw_check, rfraw_parse
 
 DEFAULT_BUF_SAMPLES = 131072   # 256 KiB cu8 (ref include/sdr.h:17)
 FSK_PULSE_DETECTOR_LIMIT = 800_000_000  # ref include/rtl_433.h:18
@@ -295,6 +297,29 @@ class RtlTpu:
             if blk.shape[0] == 0:
                 break
             self.push_block(blk, flush=pos + DEFAULT_BUF_SAMPLES >= n)
+        return self.events[start:]
+
+    def decode_test_string(self, code: str) -> List[Event]:
+        """-y equivalent (ref src/rtl_433.c:1576-1685): RfRaw pulse strings
+        run the demods; {n}hex codes feed every decoder directly."""
+        start = len(self.events)
+        if rfraw_check(code):
+            pd = rfraw_parse(code, self.sample_rate)
+            if pd:
+                cb = functools.partial(self._event_cb, pd=pd,
+                                       is_fsk=pd.fsk_f2_est != 0)
+                pd.calc_rssi_snr(self.sample_rate, self.center_frequency)
+                if pd.fsk_f2_est:
+                    self.registry.run_fsk_demods(pd, cb)
+                else:
+                    self.registry.run_ook_demods(pd, cb)
+            return self.events[start:]
+        dummy_pd = PulseData(sample_rate=self.sample_rate)
+        for dev in self.registry.active:
+            for bits in _slicers.slicer_string(code):
+                ret = dev.decode_fn(bits, dev) if dev.decode_fn else 0
+                for ev in dev.account(ret):
+                    self._event_cb(dev, ev, pd=dummy_pd, is_fsk=dev.is_fsk)
         return self.events[start:]
 
     def run_live(self, *args, **kwargs):

@@ -1,18 +1,22 @@
-"""rtl_433_tpu_torch command line interface (file replay).
+"""rtl_433_tpu_torch command line interface (file replay and -y).
 
 Mirrors the rtl_433 flags of the replay path (ref src/rtl_433.c:103-167
 usage, :399-1002 parser):
 
   -r <file>      replay a cu8 sample file (rate/freq parsed from the name,
                  "cu8:250k:path" prefixes override); also positional
-  -R [-]<n>      enable only / disable protocol n (0 = disable all);
-                 repeatable
+  -y <code>      decode a test string: "{n}hex" bit rows ("{24}abcdef
+                 {24}abcdef") fed to every registered decoder, or an RfRaw
+                 "AA B1 ..." pulse string run through the demods; repeatable
+  -R [-]<n>[:<arg>]  enable only / disable protocol n (0 = disable all),
+                 with an optional decoder argument; repeatable
   -F json|kv     output format (default: kv)
   -Y <mode>      FSK detector: auto|classic|minmax[,ampest|magest]
   --device cuda|cpu   where the engine runs (default: cuda; with no GPU
                  the run fails rather than falling back to the CPU)
 
-Only the decoders ported so far can be registered.
+With no -R, the default protocols are registered (every protocol not
+disabled by default). With -y, the exit code is 1 when no code decoded.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from .output.sinks import JsonSink, KvSink
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
-    in_files, outputs, reg_actions = [], [], []
+    in_files, outputs, reg_actions, test_codes = [], [], [], []
     fsk_mode = "auto"
     use_mag_est = False
     device = "cuda"
@@ -43,8 +47,13 @@ def main(argv=None):
 
         if a == "-r":
             in_files.append(val())
+        elif a == "-y":
+            test_codes.append(val())
         elif a == "-R":
-            reg_actions.append(int(val().partition(":")[0]))
+            # -R <num>[:<arg>] passes a decoder argument (ref src/r_api.c
+            # register_protocol arg handling, e.g. blueline "-R 176:auto")
+            num, _, parg = val().partition(":")
+            reg_actions.append((int(num), parg or None))
         elif a == "-F":
             outputs.append(val())
         elif a == "-Y":
@@ -73,18 +82,18 @@ def main(argv=None):
         i += 1
 
     rx = RtlTpu(fsk_mode=fsk_mode, use_mag_est=use_mag_est,
-                report_time="iso" if in_files else "off",
+                report_time="iso" if (in_files or test_codes) else "off",
                 register_all=False, device=device)
     # any -R suppresses the default registration; a negative -R first
     # registers all defaults; -R 0 clears everything registered so far
     # (ref src/rtl_433.c:820-851)
     no_default = False
-    for v in reg_actions:
+    for v, parg in reg_actions:
         if v < 0 and not no_default:
             rx.registry.register_all()
         no_default = True
         if v >= 1:
-            rx.registry.register(v)
+            rx.registry.register(v, parg)
         elif v <= -1:
             rx.registry.unregister(-v)
         else:
@@ -101,8 +110,13 @@ def main(argv=None):
         else:
             print(f"-F {kind} is not ported yet", file=sys.stderr)
             return 2
+    n_events = 0
+    for code in test_codes:
+        n_events += len(rx.decode_test_string(code))
     for path in in_files:
         rx.decode_file(path)
+    if test_codes and n_events == 0:
+        return 1
     return 0
 
 

@@ -7,10 +7,11 @@ Python callables ``fn(bits: BitBuffer, device: RDevice) -> list[Event] | int``
 returning events or a negative DECODE_* code.
 
 The registry numbering (1..384) is the `-R <n>` contract (ref
-include/rtl_433_devices.h DEVICES X-macro). Timing/metadata for all
-protocols comes from registry_data.json; only protocols whose decoder is
-ported can be registered. Dispatch is the per-decoder host path (slicer,
-then decoder); the batched native/device fast paths are not ported yet.
+include/rtl_433_devices.h DEVICES X-macro). Timing/metadata for all 378
+protocols comes from registry_data.json, and every one has a decode
+function (the decoder modules imported by ``decoders/__init__.py``).
+Dispatch is the per-decoder host path (slicer, then decoder); the batched
+native/device fast paths and decoder debug logging are not ported yet.
 """
 
 from __future__ import annotations
@@ -98,6 +99,14 @@ def _load_registry_data():
         return json.load(f)
 
 
+# Decoders that keep cross-call state on the device (rolling-code caches,
+# discovered keys): per-package decode deduplication must not skip their
+# calls. ARG_STATEFUL decoders are stateful only when configured with a
+# -R <num>:<arg> argument (their context is otherwise empty/pure).
+STATEFUL_DECODERS = {"ikea_sparsnas", "blueline", "secplus_v1", "secplus_v2"}
+ARG_STATEFUL_DECODERS = {"vivint", "arad_ms_meter"}
+
+
 class Registry:
     """Protocol registry with rtl_433 -R semantics."""
 
@@ -117,6 +126,8 @@ class Registry:
                 decode_fn=_DECODERS.get(e["symbol"]), ref_file=e["file"])
             self.slots.append(dev)
         self.active: List[RDevice] = []
+        # bumped on every change of the active set
+        self._version = 0
 
     def __len__(self):
         return sum(1 for d in self.slots if d is not None)
@@ -126,24 +137,30 @@ class Registry:
 
     def register_all(self, max_disabled_level: int = 0):
         """register_all_protocols (ref src/r_api.c:294-302): register every
-        ported protocol with disabled <= level."""
-        for dev in self.implemented():
-            if dev.disabled <= max_disabled_level:
+        protocol with disabled <= level (default: only enabled-by-default)."""
+        for dev in self.slots:
+            if dev is not None and dev.disabled <= max_disabled_level:
                 self.active.append(dev)
+        self._version += 1
 
     def register(self, num: int, arg: Optional[str] = None):
         dev = self.get(num)
         if dev is None:
             raise ValueError(f"protocol {num} is not available")
-        if dev.decode_fn is None:
-            raise ValueError(f"protocol {num} is not ported yet")
         if arg is not None:
             dev.arg = arg
         self.active.append(dev)
+        self._version += 1
         return dev
 
     def unregister(self, num: int):
         self.active = [d for d in self.active if d.num != num]
+        self._version += 1
+
+    def add_device(self, dev: RDevice):
+        """Register a dynamically-created decoder (flex)."""
+        self.active.append(dev)
+        self._version += 1
 
     def implemented(self):
         return [d for d in self.slots if d is not None and d.decode_fn]
@@ -164,7 +181,8 @@ class Registry:
                 if dev.is_fsk != want_fsk:
                     continue
                 for bits in slicers.slice_pulses(pulses, dev):
-                    events = dev.account(dev.decode_fn(bits, dev))
+                    ret = dev.decode_fn(bits, dev) if dev.decode_fn else 0
+                    events = dev.account(ret)
                     for ev in events:
                         event_cb(dev, ev)
                     p_events += len(events)

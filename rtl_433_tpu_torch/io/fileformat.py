@@ -4,8 +4,8 @@ Mirrors the reference filename conventions (ref src/fileformat.c,
 help text src/rtl_433.c:343-363): sample rate and center frequency are
 parsed from any path segment ("433.92M", "250k", "1024k", "sps"/"Hz"
 suffixes); content type from tokens (cu8 cs8 cs16 cf32 am.s16 fm.s16 ook);
-a "fmt:rate:path" prefix overrides. Only CU8 loads; the other sample
-formats are recognised by name and not ported yet.
+a "fmt:rate:path" prefix overrides. CU8, CS8, CS16 and CF32 load; the
+other sample formats are recognised by name and not ported yet.
 """
 
 from __future__ import annotations
@@ -97,9 +97,39 @@ def parse_filename(path: str) -> FileInfo:
 
 
 def load_iq(path: str, fmt: str) -> np.ndarray:
-    """Load a CU8 IQ file into uint8 [N, 2] (the engine's native input)."""
+    """Load an IQ file into CU8 [N, 2] (the engine's native input).
+
+    CS16/CF32 are converted the way the reference replay does
+    (ref src/rtl_433.c:1812-1834): CF32 clamps to CS16; CS8 rebias +128.
+    CS16 is scaled to CU8 losing depth (the reference instead runs a CS16
+    pipeline; this package converts and documents the difference).
+    """
+    # a writable buffer, so that torch.from_numpy may take the samples
+    return load_iq_bytes(np.fromfile(path, np.uint8), fmt)
+
+
+def _cs16_to_cu8(s16: np.ndarray) -> np.ndarray:
+    return ((s16.astype(np.int32) >> 8) + 128).clip(0, 255).astype(np.uint8)
+
+
+def load_iq_bytes(raw, fmt: str) -> np.ndarray:
+    """Convert raw sample bytes (any buffer) to CU8 [N, 2] (see load_iq)."""
     fmt = fmt.lower()
-    if fmt != "cu8":
+    if fmt == "cu8":
+        arr = np.frombuffer(raw, np.uint8)
+    elif fmt == "cs8":
+        # rebias (ref src/rtl_433.c:1829-1833)
+        arr = (np.frombuffer(raw, np.int8).astype(np.int16) + 128) \
+            .astype(np.uint8)
+    elif fmt == "cs16":
+        arr = _cs16_to_cu8(np.frombuffer(raw, np.int16))
+    elif fmt == "cf32":
+        # scale and clamp to CS16 (ref src/rtl_433.c:1812-1824)
+        s16 = np.clip((np.frombuffer(raw, np.float32) * 32767.0)
+                      .astype(np.int64), -32767, 32767)
+        arr = _cs16_to_cu8(s16)
+    elif fmt in KNOWN_FORMATS:
         raise ValueError(f"sample format {fmt} is not ported yet")
-    arr = np.fromfile(path, np.uint8)
+    else:
+        raise ValueError(f"unsupported sample format: {fmt}")
     return arr[: len(arr) // 2 * 2].reshape(-1, 2)

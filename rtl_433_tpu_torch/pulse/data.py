@@ -1,8 +1,8 @@
 """Pulse-train data model.
 
 Mirrors pulse_data_t (ref include/pulse_data.h:30-50) and the RSSI/SNR
-estimate of a detected package (ref src/r_flow.c:35-64). The OOK text and
-RfRaw codecs are not ported yet.
+estimate of a detected package (ref src/r_flow.c:35-64), and the RfRaw
+codec of ``-y`` (ref src/rfraw.c). The OOK text format is not ported yet.
 """
 
 from __future__ import annotations
@@ -66,3 +66,95 @@ class PulseData:
             self.rssi_db = 20.0 * math.log10(high) - 84.2884
             self.noise_db = 20.0 * math.log10(low) - 84.2884
             self.snr_db = 20.0 * math.log10(asnr)
+
+
+# ---------------------------------------------------------------------------
+# RfRaw (Tasmota/Portisch "AA B1 ..." strings, ref src/rfraw.c)
+
+def _hexstr_get_byte(s, pos):
+    try:
+        return int(s[pos[0]:pos[0] + 2], 16)
+    except ValueError:
+        return None
+
+
+def rfraw_check(line: str) -> bool:
+    """Ref src/rfraw.c rfraw_check: 'AA B1' or 'AA B0' prefix."""
+    t = line.replace(" ", "").upper()
+    return t.startswith("AAB1") or t.startswith("AAB0")
+
+
+def rfraw_parse(line: str, sample_rate: int = 250_000):
+    """Parse a B1/B0 RfRaw hex string into a PulseData (ref src/rfraw.c).
+
+    Format B1: AA B1 <nbuckets> <bucket0_hi bucket0_lo>... <data nibbles> 55
+    Data nibbles: high nibble 8|bucket = pulse, low nibble = gap bucket;
+    repeated nibbles alternate pulse/gap by position (bit3 set = pulse).
+    """
+    t = line.replace(" ", "").upper()
+    if not rfraw_check(t):
+        return None
+    pos = 4
+    repeats = 1
+    if t.startswith("AAB0"):
+        # AA B0 <len> <nbuckets> <repeats> ...
+        pos = 6  # skip length byte
+        try:
+            nbuck = int(t[pos:pos + 2], 16)
+            repeats = int(t[pos + 2:pos + 4], 16)
+        except ValueError:
+            return None
+        pos += 4
+    else:
+        try:
+            nbuck = int(t[pos:pos + 2], 16)
+        except ValueError:
+            return None
+        pos += 2
+    if nbuck > 8:
+        return None
+    buckets = []
+    for _ in range(nbuck):
+        try:
+            buckets.append(int(t[pos:pos + 4], 16))
+        except ValueError:
+            return None
+        pos += 4
+    to_samples = sample_rate / 1e6
+    pd = PulseData(sample_rate=sample_rate)
+    pulse_w = gap_w = 0
+    expect_pulse = True
+    while pos < len(t) - 1:
+        nib = t[pos]
+        pos += 1
+        if nib == "5" and t[pos:pos + 1] == "5":
+            break
+        try:
+            v = int(nib, 16)
+        except ValueError:
+            break
+        width = buckets[v & 7] if (v & 7) < len(buckets) else 0
+        w = int(width * to_samples)
+        if v & 8:  # pulse (mark)
+            if not expect_pulse:
+                # two marks in a row: close previous pair with zero gap
+                pd.pulse.append(pulse_w)
+                pd.gap.append(0)
+            pulse_w = w
+            expect_pulse = False
+        else:      # gap (space)
+            if expect_pulse:
+                pulse_w = 0
+            gap_w = w
+            pd.pulse.append(pulse_w)
+            pd.gap.append(gap_w)
+            expect_pulse = True
+    if not expect_pulse:
+        pd.pulse.append(pulse_w)
+        pd.gap.append(0)
+    if repeats > 1:
+        base_p, base_g = list(pd.pulse), list(pd.gap)
+        for _ in range(repeats - 1):
+            pd.pulse.extend(base_p)
+            pd.gap.extend(base_g)
+    return pd if pd.pulse else None

@@ -1,0 +1,164 @@
+"""The port's decoders and registry against the JAX package's.
+
+Every decoder module of ``rtl_433_tpu_torch/decoders/`` is the JAX
+package's module with only its imports pointing at the port's own
+``bits``, ``output`` and ``decoders/base.py``: an AST comparison that
+ignores imports and docstrings holds each module to its twin. The registry
+matches slot for slot (symbol, name, modulation, timings, fields, whether
+a decode function exists), and ``register_all`` activates the same
+defaults.
+"""
+
+import ast
+import os
+
+import pytest
+
+import rtl_433_tpu.decoders as jdec
+import rtl_433_tpu.decoders.base as jbase
+import rtl_433_tpu_torch.decoders as tdec
+import rtl_433_tpu_torch.decoders.base as tbase
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JDIR = os.path.join(REPO, "rtl_433_tpu", "decoders")
+TDIR = os.path.join(REPO, "rtl_433_tpu_torch", "decoders")
+
+
+def _decoder_modules():
+    """The modules decoders/__init__.py imports after base, in order."""
+    with open(os.path.join(JDIR, "__init__.py")) as f:
+        tree = ast.parse(f.read())
+    return [a.name for node in tree.body
+            if isinstance(node, ast.ImportFrom) and node.module is None
+            for a in node.names]
+
+
+MODULES = _decoder_modules()
+
+# deliberate differences between a ported module and its JAX twin, beyond
+# imports and docstrings: none
+DIFFERENCES = {}
+
+
+def _strip(tree):
+    """Drop imports and docstrings from a module's AST."""
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if not isinstance(body, list):
+            continue
+        body[:] = [n for n in body
+                   if not isinstance(n, (ast.Import, ast.ImportFrom))]
+        if (isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef,
+                              ast.AsyncFunctionDef))
+                and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            del body[0]
+    return ast.dump(tree, include_attributes=False)
+
+
+def test_module_list():
+    assert len(MODULES) == 53 and MODULES[0] == "protocols"
+    with open(os.path.join(TDIR, "__init__.py")) as f:
+        port = ast.parse(f.read())
+    assert [a.name for node in port.body
+            if isinstance(node, ast.ImportFrom) and node.module is None
+            for a in node.names] == MODULES
+
+
+@pytest.mark.parametrize("name", MODULES)
+def test_module_matches_jax_twin(name):
+    trees = []
+    for d in (JDIR, TDIR):
+        with open(os.path.join(d, name + ".py")) as f:
+            trees.append(_strip(ast.parse(f.read())))
+    assert name not in DIFFERENCES
+    assert trees[0] == trees[1], f"{name}.py differs from its JAX twin"
+
+
+@pytest.mark.parametrize("name", MODULES)
+def test_module_imports_stay_inside_the_port(name):
+    """Relative imports only, of the modules the JAX twin imports."""
+    with open(os.path.join(TDIR, name + ".py")) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.level == 0:
+            assert node.module in ("__future__", "dataclasses"), node.module
+        elif isinstance(node, ast.Import):
+            for a in node.names:
+                assert a.name in ("math", "time", "datetime", "numpy",
+                                  "struct", "re"), a.name
+
+
+def test_registration_order():
+    """The decorators ran in the same order: the same symbols map to the
+    twin functions, in the same insertion order."""
+    assert list(tbase._DECODERS) == list(jbase._DECODERS)
+    for sym, fn in tbase._DECODERS.items():
+        jfn = jbase._DECODERS[sym]
+        assert fn.__name__ == jfn.__name__, sym
+        assert fn.__module__.split(".")[-1] == jfn.__module__.split(".")[-1]
+
+
+_JREG = jdec.Registry()
+_TREG = tdec.Registry()
+_FIELDS = ("num", "symbol", "name", "modulation", "short_width",
+           "long_width", "sync_width", "gap_limit", "reset_limit",
+           "tolerance", "priority", "disabled", "fields", "ref_file")
+
+
+@pytest.mark.parametrize("num", range(1, len(_JREG.slots)))
+def test_registry_slot(num):
+    j, t = _JREG.get(num), _TREG.get(num)
+    assert (j is None) == (t is None)
+    if j is None:
+        return
+    for k in _FIELDS:
+        assert getattr(t, k) == getattr(j, k), k
+    assert t.decode_fn is not None and j.decode_fn is not None
+    assert t.decode_fn.__name__ == j.decode_fn.__name__
+    assert t.is_fsk == j.is_fsk
+
+
+def test_registry_sizes_and_defaults():
+    assert len(_TREG.slots) == len(_JREG.slots)
+    assert len(_TREG) == len(_JREG) == 378
+    assert len(_TREG.implemented()) == len(_JREG.implemented()) == 378
+    j, t = jdec.Registry(), tdec.Registry()
+    j.register_all()
+    t.register_all()
+    assert [d.num for d in t.active] == [d.num for d in j.active]
+    assert len(t.active) == 335
+    j2, t2 = jdec.Registry(), tdec.Registry()
+    j2.register_all(1)
+    t2.register_all(1)
+    assert [d.num for d in t2.active] == [d.num for d in j2.active]
+
+
+def test_stateful_sets():
+    assert tbase.STATEFUL_DECODERS == jbase.STATEFUL_DECODERS
+    assert tbase.ARG_STATEFUL_DECODERS == jbase.ARG_STATEFUL_DECODERS
+    syms = {d.symbol for d in _TREG.slots if d is not None}
+    assert tbase.STATEFUL_DECODERS | tbase.ARG_STATEFUL_DECODERS <= syms
+
+
+def test_register_unregister_add_device_version():
+    """register/unregister/add_device move the active list and _version as
+    in the JAX registry."""
+    regs = (jdec.Registry(), tdec.Registry())
+    for r in regs:
+        assert r._version == 0
+        r.register(176, "13124")
+        r.register(19)
+        r.unregister(19)
+        r.register_all()
+        dev = type(r.get(1))(num=0, symbol="flex", name="x",
+                             modulation="OOK_PULSE_PWM")
+        r.add_device(dev)
+    j, t = regs
+    assert t._version == j._version == 5
+    assert [d.num for d in t.active] == [d.num for d in j.active]
+    assert t.get(176).arg == j.get(176).arg == "13124"
+    assert t.active[-1].symbol == "flex"
+    with pytest.raises(ValueError):
+        t.register(0)

@@ -1,0 +1,149 @@
+"""The port's cs8/cs16/cf32 input and its CLI (``-y``, ``-R n:arg``)
+against the JAX package's.
+
+Sample bytes made from a numpy seed convert to CU8 exactly as the JAX
+package's ``load_iq_bytes`` converts them; a fixture written as cs16 and
+as cs8 decodes in both packages to its committed events. The CLI of each
+package runs in this process on the same arguments and prints the same
+events.
+"""
+
+import contextlib
+import io
+import json
+
+import numpy as np
+import pytest
+
+from rtl_433_tpu import cli as jax_cli
+from rtl_433_tpu.api import RtlTpu as JaxRtlTpu
+from rtl_433_tpu.io.fileformat import load_iq_bytes as jax_load_iq_bytes
+from rtl_433_tpu.output.data_model import event_to_json as jax_event_to_json
+from rtl_433_tpu_torch import cli
+from rtl_433_tpu_torch.api import RtlTpu
+from rtl_433_tpu_torch.io import load_iq, load_iq_bytes
+from rtl_433_tpu_torch.output.data_model import event_to_json
+from test_decoder_oracle import VECTORS
+from torch_fixture_cases import cases, expected, normalize
+
+SEED = 20261016
+
+
+def _raw(fmt, n, rng):
+    if fmt == "cu8":
+        return rng.integers(0, 256, n, dtype=np.uint8).tobytes()
+    if fmt == "cs8":
+        return rng.integers(-128, 128, n, dtype=np.int8).tobytes()
+    if fmt == "cs16":
+        return rng.integers(-32768, 32768, n, dtype=np.int16).tobytes()
+    # cf32: mostly in range, some past full scale (clamped), exact edges
+    x = rng.uniform(-1.3, 1.3, n).astype(np.float32)
+    x[:6] = [1.0, -1.0, 0.0, -0.0, 2.5, -2.5][:min(6, n)]
+    return x.tobytes()
+
+
+@pytest.mark.parametrize("fmt", ["cu8", "cs8", "cs16", "cf32"])
+@pytest.mark.parametrize("n", [0, 1, 7, 4096, 100_001])
+def test_load_iq_bytes_matches_jax(fmt, n):
+    raw = _raw(fmt, n, np.random.default_rng(SEED + n))
+    got = load_iq_bytes(raw, fmt)
+    want = jax_load_iq_bytes(raw, fmt)
+    assert got.dtype == want.dtype == np.uint8
+    assert got.shape == want.shape == (n // 2, 2)
+    assert np.array_equal(got, want)
+
+
+def test_unported_formats_raise(tmp_path):
+    p = tmp_path / "x.am.s16"
+    p.write_bytes(b"\0" * 8)
+    with pytest.raises(ValueError, match="not ported"):
+        load_iq(str(p), "am.s16")
+    with pytest.raises(ValueError, match="unsupported"):
+        load_iq_bytes(b"\0" * 8, "wav")
+
+
+def _as(fmt, u8):
+    s = u8.astype(np.int16) - 128
+    return (s << 8).astype(np.int16) if fmt == "cs16" else s.astype(np.int8)
+
+
+@pytest.mark.parametrize("fmt", ["cs16", "cs8"])
+def test_fixture_round_trip_decodes(fmt, tmp_path):
+    """nexus and lacrosse_tx35 (OOK and FSK) written as cs16 / cs8: the
+    conversion back to cu8 is exact, so both packages decode the
+    committed events."""
+    for name, nums, cu8 in cases():
+        if name not in ("nexus", "lacrosse_tx35"):
+            continue
+        u8 = np.fromfile(cu8, np.uint8)
+        path = tmp_path / (cu8.rsplit("/", 1)[1][:-4] + "." + fmt)
+        _as(fmt, u8).tofile(path)
+        assert np.array_equal(load_iq(str(path), fmt).reshape(-1), u8)
+        rx = RtlTpu(register_all=False, report_time="off", device="cpu")
+        jrx = JaxRtlTpu(register_all=False, report_time="off")
+        for r in (rx, jrx):
+            r.registry.register(nums[0])
+        port = [normalize(json.loads(event_to_json(e)))
+                for e in rx.decode_file(str(path))]
+        jax = [normalize(json.loads(jax_event_to_json(e)))
+               for e in jrx.decode_file(str(path))]
+        assert port == jax == expected(cu8), name
+
+
+def _run(main, argv):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, [normalize(json.loads(line))
+                for line in buf.getvalue().splitlines()
+                if line.startswith("{")]
+
+
+RFRAW = next(code for num, code, _ in VECTORS if num == 15
+             and code.startswith("AAB1"))
+
+# (arguments, events expected) -- -R n:arg reaches the decoder: blueline
+# decodes this row only with its id argument, arad_ms_meter turns its
+# volume into the configured unit
+CLI_CASES = [
+    (["-R", "19", "-y", "{36}9c80d7f2d {36}9c80d7f2d {36}9c80d7f2d"], 1),
+    (["-R", "176:13124", "-y", "{32}01eac74c"], 1),
+    (["-R", "176", "-y", "{32}01eac74c"], 0),
+    (["-R", "260:gear=10,units=l", "-y",
+      "{184}c196f5138537b4bf1dfe8cff15b6f7fffa7eb21ca0df00"], 1),
+    (["-R", "15", "-R", "51", "-y", RFRAW], 2),
+    (["-R", "1", "-R", "-1", "-R", "2", "-y",
+      "{36}12a0d7ff9 {36}12a0d7ff9 {36}12a0d7ff9"], 1),
+]
+
+
+@pytest.mark.parametrize("argv,n_events", CLI_CASES,
+                         ids=[" ".join(c[0][:2]) + f"-{i}"
+                              for i, c in enumerate(CLI_CASES)])
+def test_cli_matches_jax(argv, n_events):
+    rc, port = _run(cli.main, argv + ["-F", "json", "--device", "cpu"])
+    jrc, jax = _run(jax_cli.main, argv + ["-F", "json"])
+    assert rc == jrc == (0 if n_events else 1)
+    assert port == jax
+    assert len(port) == n_events
+
+
+def test_cli_r_arg_reaches_the_decoder():
+    rc, evs = _run(cli.main, ["-R", "260:units=l", "-y",
+                              "{184}c196f5138537b4bf1dfe8cff15b6f7fffa7eb2"
+                              "1ca0df00", "-F", "json", "--device", "cpu"])
+    rc0, evs0 = _run(cli.main, ["-R", "260", "-y",
+                                "{184}c196f5138537b4bf1dfe8cff15b6f7fffa7eb2"
+                                "1ca0df00", "-F", "json", "--device", "cpu"])
+    assert rc == rc0 == 0
+    assert evs[0]["unit"] != evs0[0]["unit"]
+
+
+def test_cli_y_stamps_time():
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["-R", "19", "-y", CLI_CASES[0][0][3], "-F", "json",
+                       "--device", "cpu"])
+    assert rc == 0
+    ev = json.loads(buf.getvalue().splitlines()[0])
+    assert "time" in ev and ev["model"] == "Nexus-TH"
