@@ -9,7 +9,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
 
 1. device  -- the card's name and power limit;
 2. build   -- compile both CUDA kernels from csrc/ (one nvcc each, in
-              parallel) and show ptxas's register report;
+              parallel) and show ptxas's register report; build the host
+              slicer library (csrc/slicers.cpp, host c++) and lower the
+              declarative specs, so that neither one-time cost falls into
+              a timed decode below (a failed build fails the run);
 3. frontend -- the front-end kernel against its plain version, bit-exact,
               for every (use_mag_est, enable_fm) at C=8, N=131072, plus an
               n_valid case and the 1024 kS/s FM coefficients; then its
@@ -39,11 +42,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
               16 times, decoded end to end: copies x the committed events;
               MS/s and ms/block, then the same decode under torch.profiler
               (checked too) for device ms per block by kernel and the
-              device's busy share. Then mixed_250k: the 82 fixtures at
-              250 kS/s concatenated in sorted order, decoded under the
-              default registration (335 protocols), untraced and traced,
+              device's busy share. Then mixed_250k and mixed_1024k: the 82
+              fixtures at 250 kS/s and the 20 at 1024 kS/s, each set
+              concatenated in sorted order, decoded under the default
+              registration (335 protocols) on the default dispatch
+              (Registry._run_fast for every package), untraced and traced,
               equal to the port's own device="cpu" decode of the same
-              file, with the host ms per block spent in the decoders;
+              file, with the host ms per block spent in the decoders; a
+              third decode splits that host time into native slicing,
+              gate/plan building, Python decode calls and the declarative
+              bank. mixed_250k is decoded once more on the per-decoder host
+              path (Registry._use_native forced off): the same events;
 7. kernels -- one line per kernel with its launches on the main path, its
               largest error against the plain version over every check
               above, its times and bound, and its cycles per sample at
@@ -58,6 +67,7 @@ checkout, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -227,8 +237,12 @@ def main():
     sys.path.insert(0, HERE)
     sys.path.insert(0, os.path.join(HERE, "tests"))
     from rtl_433_tpu_torch.api import RtlTpu
+    from rtl_433_tpu_torch.decoders import base as dbase
+    from rtl_433_tpu_torch.decoders import declarative
+    from rtl_433_tpu_torch.decoders.declarative import get_runner
     from rtl_433_tpu_torch.dsp.engine import DetectorParams, detector_init
-    from rtl_433_tpu_torch.ops import _cuda
+    from rtl_433_tpu_torch.ops import _cuda, _native
+    from rtl_433_tpu_torch.pulse import native_slicers
     from rtl_433_tpu_torch.ops import detector as det
     from rtl_433_tpu_torch.ops import frontend as fe
     from rtl_433_tpu_torch.output.data_model import event_to_json
@@ -280,6 +294,16 @@ def main():
     took = _cuda.build()
     for k in _cuda.SOURCES:
         _cuda.launcher(k)
+    t_host = time.perf_counter()
+    try:
+        slicer_lib = _native.build()
+        native_slicers.available()
+    except RuntimeError as e:
+        fail(f"the slicer library did not build: {e}")
+    slicer_s = time.perf_counter() - t_host
+    t_host = time.perf_counter()
+    get_runner()
+    runner_s = time.perf_counter() - t_host
     ptxas = {}
     for k in _cuda.SOURCES:
         log = os.path.join(_cuda.BUILD_DIR, f"{k}.log")
@@ -288,7 +312,9 @@ def main():
                         if "registers" in ln or "spill" in ln]
     emit({"phase": "build", "seconds": round(time.perf_counter() - t, 3),
           "per_kernel_s": {k: round(v, 3) for k, v in took.items()},
-          "ptxas": ptxas})
+          "ptxas": ptxas, "slicer_lib": os.path.basename(slicer_lib),
+          "slicer_lib_s": round(slicer_s, 3),
+          "decl_runner_s": round(runner_s, 3)})
 
     # ---- 3. frontend kernel vs plain
     C = 8
@@ -559,6 +585,140 @@ def main():
             "device_busy_share": busy / traced_ms if busy else None}
         return row
 
+    def timed(acc, key, fn):
+        """``fn`` with its seconds and calls added to ``acc[key]``."""
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                acc[key] = acc.get(key, 0.0) + time.perf_counter() - t
+                acc["n_" + key] = acc.get("n_" + key, 0) + 1
+        return run
+
+    @contextlib.contextmanager
+    def patched(*items):
+        """Set (object, attribute, value) for the block, then restore."""
+        old = [(o, k, o.__dict__[k]) for o, k, _v in items]
+        try:
+            for o, k, v in items:
+                setattr(o, k, v)
+            yield
+        finally:
+            for o, k, v in old:
+                setattr(o, k, v)
+
+    def dispatch_timers(acc):
+        """Time the package decode and count the two dispatch paths."""
+        R = dbase.Registry
+        return patched(
+            (RtlTpu, "_handle_package",
+             timed(acc, "host_decode", RtlTpu._handle_package)),
+            (R, "_run_fast", timed(acc, "run_fast", R._run_fast)),
+            (R, "_run_host", timed(acc, "run_host", R._run_host)))
+
+    def split_timers(acc):
+        """Time the parts of the default dispatch: the native slicing call,
+        the train memo around it (gates and plans), the declarative bank
+        and every Python decode function (each wraps the decoder that a
+        new registry picks up from ``_DECODERS``)."""
+        R, B = dbase.Registry, native_slicers.SlicerBank
+        return patched(
+            (B, "slice", timed(acc, "slice", B.slice)),
+            (R, "_build_train_memo",
+             timed(acc, "memo", R._build_train_memo)),
+            (declarative.DeclRunner, "decode_many",
+             timed(acc, "decl", declarative.DeclRunner.decode_many)),
+            (dbase, "_DECODERS",
+             {k: timed(acc, "python", fn)
+              for k, fn in dbase._DECODERS.items()}))
+
+    def mixed_stream(rate, host_path):
+        """Every fixture at ``rate`` concatenated, decoded on the CPU (the
+        reference), then on the card: untraced and traced (run_stream),
+        once more with the host decode split, and, if ``host_path``, on
+        the per-decoder host path. All decodes must give the same events;
+        the card's default decodes must take _run_fast for every
+        package."""
+        name = f"mixed_{rate // 1000}k"
+        files = [cu8 for _d, _n, cu8, _w in fx if rate_of(cu8) == rate]
+        raw = b"".join(open(cu8, "rb").read() for cu8 in files)
+        path = os.path.join(tmp, f"mixed_433.92M_{rate // 1000}k.cu8")
+        with open(path, "wb") as f:
+            f.write(raw)
+        n = len(raw) // 2
+        blocks = -(-n // N_BLOCK)
+        t = time.perf_counter()
+        want = decode(None, path, device="cpu")
+        cpu_s = time.perf_counter() - t
+        if not want:
+            fail(f"{name} decoded no events")
+        acc = {}
+        with dispatch_timers(acc):
+            row = run_stream(
+                name, None, path, n, want,
+                {"fixtures": len(files), "cpu_decode_s": cpu_s},
+                untraced=lambda: {"packages": acc.get("n_host_decode", 0),
+                                  "host_decode_s": acc["host_decode"],
+                                  "run_fast_calls": acc.get("n_run_fast", 0),
+                                  "run_host_calls": acc.get("n_run_host", 0)})
+        if row["run_host_calls"] or \
+                row["run_fast_calls"] != row["packages"]:
+            fail(f"{name}: the default path took _run_host or skipped "
+                 f"_run_fast ({row['run_fast_calls']} fast, "
+                 f"{row['run_host_calls']} host, {row['packages']} "
+                 f"packages)")
+        # host time in RtlTpu._handle_package (run_ook_demods /
+        # run_fsk_demods and the package's RSSI) of the untraced decode
+        row["host_decode_ms_per_block"] = \
+            row["host_decode_s"] / blocks * 1e3
+        row["host_decode_share"] = row["host_decode_s"] / row["seconds"]
+        # the split, from a third decode with every part timed
+        acc = {}
+        with dispatch_timers(acc), split_timers(acc):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = decode(None, path)
+            torch.cuda.synchronize()
+            split_s = time.perf_counter() - t
+        if got != want:
+            fail(f"{name}: the split decode differs")
+        ms = {k: acc.get(k, 0.0) / blocks * 1e3
+              for k in ("host_decode", "slice", "memo", "python", "decl")}
+        row["split"] = {
+            "wall_ms_per_block": split_s / blocks * 1e3,
+            "host_decode_ms_per_block": ms["host_decode"],
+            "native_slicing_ms_per_block": ms["slice"],
+            "gate_plan_ms_per_block": ms["memo"] - ms["slice"],
+            "python_decode_ms_per_block": ms["python"],
+            "decl_bank_ms_per_block": ms["decl"],
+            "rest_ms_per_block": ms["host_decode"] - ms["memo"]
+            - ms["python"] - ms["decl"],
+            "slice_calls": acc.get("n_slice", 0),
+            "python_decode_calls": acc.get("n_python", 0),
+            "decl_batches": acc.get("n_decl", 0)}
+        if host_path:
+            acc = {}
+            no_native = (dbase.Registry, "_use_native", lambda self: False)
+            with dispatch_timers(acc), patched(no_native):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                got = decode(None, path)
+                torch.cuda.synchronize()
+                host_s = time.perf_counter() - t
+            if got != want:
+                fail(f"{name}: the host path's events differ")
+            if acc.get("n_run_fast", 0) or not acc.get("n_run_host", 0):
+                fail(f"{name}: the forced host path took _run_fast")
+            row["host_path"] = {
+                "seconds": host_s, "msps": n / host_s / 1e6,
+                "ms_per_block": host_s / blocks * 1e3,
+                "host_decode_ms_per_block": acc["host_decode"] / blocks
+                * 1e3,
+                "run_host_calls": acc["n_run_host"]}
+        os.remove(path)
+        return row
+
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         for d, num, copies in STREAMS:
@@ -571,54 +731,18 @@ def main():
                             want * copies, {"copies": copies}))
             os.remove(path)
 
-        # mixed_250k: every 250 kS/s fixture, in sorted order, under the
-        # default registration. The Security+ decoders pair the halves of
-        # a code within 0.8 s of time.monotonic(), which would make the
-        # result depend on how fast this host decodes the packages in
-        # between: both decodes run on one fixed clock.
-        mixed = [cu8 for _d, _n, cu8, _w in fx if rate_of(cu8) == 250_000]
-        raw = b"".join(open(cu8, "rb").read() for cu8 in mixed)
-        path = os.path.join(tmp, "mixed_433.92M_250k.cu8")
-        with open(path, "wb") as f:
-            f.write(raw)
-        n = len(raw) // 2
+        # mixed_250k and mixed_1024k: every fixture at one rate, in sorted
+        # order, under the default registration. The Security+ decoders
+        # pair the halves of a code within 0.8 s of time.monotonic(), which
+        # would make the result depend on how fast this host decodes the
+        # packages in between: every decode runs on one fixed clock.
         real_time = garage.time
         garage.time = types.SimpleNamespace(monotonic=lambda: 0.0)
-        handle = RtlTpu._handle_package
-        spent = [0, 0.0]
-
-        def timed_handle(self, pkg, block_len):
-            t = time.perf_counter()
-            try:
-                return handle(self, pkg, block_len)
-            finally:
-                spent[0] += 1
-                spent[1] += time.perf_counter() - t
-
         try:
-            t = time.perf_counter()
-            want = decode(None, path, device="cpu")
-            cpu_s = time.perf_counter() - t
-            RtlTpu._handle_package = timed_handle
-            try:
-                row = run_stream(
-                    "mixed_250k", None, path, n, want,
-                    {"fixtures": len(mixed), "cpu_decode_s": cpu_s},
-                    untraced=lambda: {"packages": spent[0],
-                                      "host_decode_s": spent[1]})
-            finally:
-                RtlTpu._handle_package = handle
+            for rate in (250_000, 1_024_000):
+                emit(mixed_stream(rate, host_path=rate == 250_000))
         finally:
             garage.time = real_time
-        if not want:
-            fail("mixed_250k decoded no events")
-        # host time in RtlTpu._handle_package (run_ook_demods /
-        # run_fsk_demods and the package's RSSI) of the untraced decode
-        row["host_decode_ms_per_block"] = \
-            row["host_decode_s"] / row["blocks"] * 1e3
-        row["host_decode_share"] = row["host_decode_s"] / row["seconds"]
-        emit(row)
-        os.remove(path)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

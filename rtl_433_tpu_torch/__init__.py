@@ -1,17 +1,20 @@
 """rtl_433_tpu_torch -- the ISM-band receiver on PyTorch and CUDA.
 
-The port of ``rtl_433_tpu`` (JAX, TPU) to an NVIDIA H100. The per-sample
-hot path runs as hand-written CUDA kernels (``csrc/``), built with
-``nvcc`` at first use and bound with ``ctypes``; the host layers (slicers,
-decoders, outputs) are plain Python.
+The port of the JAX/TPU receiver package to an NVIDIA H100. The per-sample
+hot path runs as hand-written CUDA kernels (``csrc/*.cu``), built with
+``nvcc`` at first use and bound with ``ctypes``. The host layers are plain
+Python, apart from the batch slicer bank of the default decode dispatch
+(``csrc/slicers.cpp``, built with the host ``c++`` at first use).
 
 Layer map:
 
 - ``io``       -- file names and cu8 sample loading.
 - ``dsp``      -- baseband ops and the block engine: front end, detector
                   scan and the record-log drain over ``[channels, block]``.
-- ``ops``      -- the CUDA kernels' wrappers, each beside its plain version.
-- ``pulse``    -- pulse-train data model and slicers (pulse widths -> bits).
+- ``ops``      -- the CUDA kernels' wrappers, each beside its plain version;
+                  the declarative decode bank; the slicer library's build.
+- ``pulse``    -- pulse-train data model and slicers (pulse widths -> bits),
+                  per decoder and as one native batch.
 - ``bits``     -- 2-D bit buffers and bit/CRC/LFSR utilities.
 - ``decoders`` -- protocol registry (the ``-R <n>`` contract) and decoders.
 - ``output``   -- events and output sinks.

@@ -6,9 +6,11 @@ the engine on ``device`` and routes published packages through slicers +
 decoders to events (ref src/r_flow.c:104-372, src/r_api.c:632-839).
 
 This slice carries single-channel file replay (``-r``) and the ``-y``
-test-string entry point (``decode_test_string``). Live input,
-squelch and autolevel, dumpers, the pulse analyzer (``-A``) and SigMF are
-not ported yet and raise when asked for.
+test-string entry point (``decode_test_string``), and the body of the
+``-M stats`` report (``stats_report``, ``flush_report_data``) over the frame
+and per-decoder counters. Live input, squelch and autolevel, dumpers, the
+pulse analyzer (``-A``) and SigMF are not ported yet and raise when asked
+for; the stats report's interval trigger and CLI flag are not ported yet.
 """
 
 from __future__ import annotations
@@ -115,6 +117,12 @@ class RtlTpu:
         self._state = None
         self._params = None
         self._stream_pos = 0
+        # per-decoder stats live on RDevice (account_event equivalent);
+        # the frame counters and their start time feed stats_report
+        self.frames_count = 0
+        self.frames_events = 0
+        self.total_frames_squelch = 0
+        self._frames_since = _time.time()
 
     # -- config ---------------------------------------------------------------
 
@@ -207,8 +215,11 @@ class RtlTpu:
                 ovf - self._ovf_seen, drop - self._drop_seen, ovf, drop)
             self._ovf_seen, self._drop_seen = ovf, drop
         events = 0
+        self.frames_count += 1
         for pkg in pkgs:
             events += self._handle_package(pkg, N)
+        if events:
+            self.frames_events += 1
         self._stream_pos += N
         return events
 
@@ -271,6 +282,48 @@ class RtlTpu:
         if self.report_time_hires:
             ts += f".{int(now % 1 * 1e6):06d}"
         return ts
+
+    def stats_report(self, level: int = 1) -> Event:
+        """-M stats interval report (ref create_report_data,
+        src/r_api.c:843-899): per-decoder event/ok/fail counters.
+        level >= 2 includes decoders without events."""
+        stats = []
+        for dev in self.registry.active:
+            if dev.decode_events == 0 and level < 2:
+                continue
+            fails = [(f"abort_{k}" if k.startswith(("length", "early"))
+                      else k, v) for k, v in dev.decode_fails.items()]
+            stats.append(Event.make(
+                ("device", dev.num),
+                ("name", dev.name),
+                ("events", dev.decode_events),
+                ("ok", dev.decode_ok),
+                ("messages", dev.decode_messages),
+                *[(k, v) for k, v in fails],
+            ))
+        return Event.make(
+            ("time", _time.strftime("%Y-%m-%d %H:%M:%S")),
+            ("enabled", len(self.registry.active)),
+            ("since", int(_time.time() - self._frames_since)),
+            ("frames", Event.make(
+                ("count", self.frames_count),
+                ("squelched", self.total_frames_squelch),
+                ("events", self.frames_events))),
+            ("stats", stats),
+        )
+
+    def flush_report_data(self):
+        """Reset the stats counters after a report
+        (ref flush_report_data, src/r_api.c:901-922)."""
+        self._frames_since = _time.time()
+        self.frames_count = 0
+        self.frames_events = 0
+        self.total_frames_squelch = 0
+        for dev in self.registry.active:
+            dev.decode_events = 0
+            dev.decode_ok = 0
+            dev.decode_messages = 0
+            dev.decode_fails = {}
 
     # -- entry points -------------------------------------------------------
 

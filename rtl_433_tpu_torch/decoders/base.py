@@ -10,8 +10,14 @@ The registry numbering (1..384) is the `-R <n>` contract (ref
 include/rtl_433_devices.h DEVICES X-macro). Timing/metadata for all 378
 protocols comes from registry_data.json, and every one has a decode
 function (the decoder modules imported by ``decoders/__init__.py``).
-Dispatch is the per-decoder host path (slicer, then decoder); the batched
-native/device fast paths and decoder debug logging are not ported yet.
+Dispatch is the JAX package's default path: ``_run_fast`` slices a package
+against every timing spec in one call of the host slicer library
+(pulse/native_slicers.py), gates, deduplicates and caches the decode calls
+and runs the declarative decoders as one batch (decoders/declarative.py).
+``_run_host`` (slicer, then decoder, per device) is taken only where the
+JAX package takes it by design: under decoder debug verbosity, or where a
+caller makes ``_use_native`` return False. Device slicing
+(``prewarm_trains``) and decoder debug logging are not ported yet.
 """
 
 from __future__ import annotations
@@ -106,6 +112,18 @@ def _load_registry_data():
 STATEFUL_DECODERS = {"ikea_sparsnas", "blueline", "secplus_v1", "secplus_v2"}
 ARG_STATEFUL_DECODERS = {"vivint", "arad_ms_meter"}
 
+_MISS = object()
+
+_decl_syms_cache = None
+
+
+def _decl_symbols():
+    global _decl_syms_cache
+    if _decl_syms_cache is None:
+        from .declarative import DECL
+        _decl_syms_cache = frozenset(DECL)
+    return _decl_syms_cache
+
 
 class Registry:
     """Protocol registry with rtl_433 -R semantics."""
@@ -128,6 +146,26 @@ class Registry:
         self.active: List[RDevice] = []
         # bumped on every change of the active set
         self._version = 0
+        self._banks: dict = {}
+        # cross-package decode cache: (dev_idx, record bytes) -> decode
+        # result. Sensors repeat identical frames; pure decoders are
+        # deterministic, so byte-identical bitbuffers decode identically.
+        # Stateful decoders (STATEFUL_DECODERS) never enter this cache.
+        self._dec_cache: dict = {}
+        self._dec_cache_version = -1
+        self.dec_cache_max = 65536
+        # train memo: (fsk, rate, pulse bytes, gap bytes) -> slicing summary
+        # + gating/dedup dispatch plan (pure content functions; see
+        # _build_train_memo)
+        self._train_cache: dict = {}
+        self.train_cache_max = 4096
+        # decoder debug verbosity (-vv.. => 1..3): any level takes the
+        # per-decoder host path, as in the JAX package
+        self.decoder_verbose = 0
+        # declarative decoder bank (decoders/declarative.py): batched
+        # decode for spec'd protocols; Python decode_fns stay the
+        # differential oracle and the fallback
+        self.decl_decode = True
 
     def __len__(self):
         return sum(1 for d in self.slots if d is not None)
@@ -167,6 +205,32 @@ class Registry:
 
     # -- demod dispatch (ref src/r_api.c:438-550) ---------------------------
 
+    def _run(self, pulses, want_fsk: bool, event_cb):
+        """Dispatch a pulse package to every matching decoder.
+
+        Uses the native batch-slicer fast path (one C call slices all
+        timing specs, content-deduplicated; decode calls are gated and
+        deduplicated). Both paths produce identical events in identical
+        order (tests/test_torch_fast_dispatch.py). Unlike the JAX package,
+        nothing here catches an error of the fast path: a slicer library
+        that does not build raises instead of quietly taking the far slower
+        host path.
+        """
+        if self._use_native() and not self._verbose_decoding():
+            return self._run_fast(pulses, want_fsk, event_cb)
+        return self._run_host(pulses, want_fsk, event_cb)
+
+    def _verbose_decoding(self) -> bool:
+        """Decoder debug logging wants the exact per-decoder host path:
+        the fast path gates/dedups/caches decode calls, so per-call
+        bitbuffer dumps would be incomplete there."""
+        return self.decoder_verbose > 0 or \
+            any(d.verbose for d in self.active)
+
+    def _use_native(self) -> bool:
+        from ..pulse import native_slicers
+        return native_slicers.available()
+
     def _run_host(self, pulses, want_fsk: bool, event_cb):
         p_events = 0
         priority = 0
@@ -191,8 +255,323 @@ class Registry:
             priority = next_priority
         return p_events
 
+    def _get_bank(self, want_fsk: bool, sample_rate: int):
+        from ..pulse import native_slicers
+        key = (want_fsk, sample_rate, self._version)
+        bank = self._banks.get(key)
+        if bank is None:
+            devs = [d for d in self.active if d.is_fsk == want_fsk]
+            bank = native_slicers.SlicerBank(devs, sample_rate)
+            # drop banks from older registry versions
+            self._banks = {k: v for k, v in self._banks.items()
+                           if k[2] == self._version}
+            self._banks[key] = bank
+        return bank
+
+    def _bank_meta(self, bank):
+        """Per-spec gate/priority arrays (built lazily per bank)."""
+        import numpy as np
+        from .gates import GATES
+
+        meta = bank.meta
+        if meta is None:
+            devs = bank.devices
+            n = len(devs)
+            meta = {
+                "min_rows": np.zeros(n, np.int32),
+                "min_bits": np.zeros(n, np.int32),
+                "max_rows": np.full(n, 10**9, np.int32),
+                "priority": np.array([d.priority for d in devs], np.int32),
+                "stateful": np.array(
+                    [d.symbol in STATEFUL_DECODERS or d.decode_fn is None
+                     or (d.symbol in ARG_STATEFUL_DECODERS and d.arg)
+                     for d in devs], bool),
+            }
+            for i, d in enumerate(devs):
+                g = GATES.get(d.symbol)
+                if g and d.decode_fn is not None:
+                    meta["min_rows"][i], meta["min_bits"][i] = g[0], g[1]
+                    if len(g) > 2:
+                        meta["max_rows"][i] = g[2]
+            bank.meta = meta
+        return meta
+
+    def _build_train_memo(self, bank, meta, pulse, gap):
+        """Slice + gate + dedup one pulse train; everything below is a pure
+        function of the train content and the registry version, so a dense
+        block's repeated bursts pay it once (the train memo).
+
+        Returns {"records": {off: bytes}, "mats": {off: BitBuffer},
+        "priorities": [per-priority dispatch plan]} — the plan holds plain
+        Python ints/lists so the replay loop does no numpy scalar work.
+
+        Candidate pairs whose decoder has a MIC gate (decoders/mic_gates.py)
+        are checksum-prefiltered here with the batched kernels: provably
+        DECODE_FAIL_MIC calls never reach Python decode and are accounted
+        as ``fail_mic``.
+        """
+        import numpy as np
+
+        devs = bank.devices
+        summary, _ = bank.slice(pulse, gap)
+        if len(summary) == 0:
+            return {"records": {}, "mats": {}, "priorities": []}
+        records = {}
+        for off in np.unique(summary[:, 1]).tolist():
+            records[off] = bank.record_bytes(off)
+        return self._memo_plans(devs, meta, summary, records)
+
+    def _memo_plans(self, devs, meta, summary, records, group_of=None):
+        """Gate + dedup + plan a sliced summary into a train memo.
+
+        ``summary`` rows are [spec, record_off, rows, max_bits] ordered by
+        spec then temporal emission (the native bank contract — the device
+        kernel bank synthesizes the same shape); ``records`` maps offset to
+        the serialized record bytes.
+        """
+        import numpy as np
+        from .mic_gates import MIC_GATES, gate_bits
+        from ..pulse.native_slicers import materialize_bytes
+
+        # summary is ordered by spec index (= active-device order within
+        # this modulation side) then temporal emission order
+        spec_col = summary[:, 0]
+        gated = ((summary[:, 2] < meta["min_rows"][spec_col])
+                 | (summary[:, 3] < meta["min_bits"][spec_col])
+                 | (summary[:, 2] > meta["max_rows"][spec_col]))
+        prio_col = meta["priority"][spec_col]
+
+        mats = {}
+        plans = []
+        for priority in np.unique(meta["priority"]).tolist():
+            in_p = prio_col == priority
+            g_rows = in_p & gated
+            gate_counts = []
+            if g_rows.any():
+                cnt = np.bincount(spec_col[g_rows], minlength=len(devs))
+                gate_counts = [(i, int(cnt[i]))
+                               for i in np.flatnonzero(cnt).tolist()]
+            live = np.flatnonzero(in_p & ~gated)
+            stateful_rows = []
+            if live.size and meta["stateful"][spec_col[live]].any():
+                stateful_rows = [
+                    (int(row), int(spec_col[row]), int(summary[row, 1]))
+                    for row in live[meta["stateful"][spec_col[live]]].tolist()]
+            uniq_plan = []
+            mic_counts = []
+            if live.size:
+                # unique (spec, record-slot) pairs, first occurrence
+                # order. Grouping by arena OFFSET (not content) means NO
+                # record bytes materialize for the ~1000s of gate-passing
+                # rows — content dedup still happens at decode time via
+                # the bytes-keyed decode cache, and only gate/MIC
+                # survivors ever serialize (LazyRecords). The native
+                # bank's offsets are content-unique per train, so its
+                # grouping (and the emission replay counts) is identical
+                # to the old content grouping there.
+                ns_m = ~meta["stateful"][spec_col[live]]
+                ns_rows = live[ns_m]
+                ns_spec = spec_col[ns_rows].astype(np.int64)
+                ns_off = summary[ns_rows, 1].astype(np.int64)
+                if group_of is None:
+                    # native arena offsets are content-unique per train
+                    keys = (ns_spec << 40) | ns_off
+                else:
+                    # device banks supply content-group representatives
+                    # (computed on device)
+                    keys = group_of[ns_rows].astype(np.int64)
+                # vectorized grouping in first-occurrence order (the old
+                # per-row dict loop dominated drain-scale plan building)
+                uq, inv = np.unique(keys, return_inverse=True)
+                firsts = np.full(uq.size, 1 << 62, np.int64)
+                np.minimum.at(firsts, inv, np.arange(keys.size))
+                g_order = np.argsort(firsts, kind="stable")
+                sort_idx = np.argsort(firsts[inv], kind="stable")
+                counts = np.bincount(inv, minlength=uq.size)
+                splits = np.cumsum(counts[g_order])[:-1]
+                row_groups = np.split(ns_rows[sort_idx], splits)
+                # batch-materialize the MIC-gated representatives (one
+                # device gather for the train, not one per record)
+                pending = []
+                mic_offs = []
+                for gi, rows in zip(g_order.tolist(), row_groups):
+                    f = int(firsts[gi])
+                    i = int(ns_spec[f])
+                    off = int(ns_off[f])
+                    pending.append((i, off, rows.tolist()))
+                    if MIC_GATES.get(devs[i].symbol) is not None \
+                            and off not in mats:
+                        mic_offs.append(off)
+                if mic_offs and hasattr(records, "materialize_many"):
+                    records.materialize_many(mic_offs)
+                for i, off, rows in pending:
+                    n_calls = len(rows)
+                    mspec = MIC_GATES.get(devs[i].symbol)
+                    if mspec is not None:
+                        bits = mats.get(off)
+                        if bits is None:
+                            bits = materialize_bytes(records[off])
+                            mats[off] = bits
+                        if not gate_bits(bits, mspec):
+                            mic_counts.append((i, n_calls))
+                            continue
+                    uniq_plan.append((i, off, n_calls, rows))
+            plans.append({"gate_counts": gate_counts,
+                          "mic_counts": mic_counts,
+                          "stateful": stateful_rows,
+                          "uniq": uniq_plan})
+        return {"records": records, "mats": mats, "priorities": plans}
+
+    def _run_fast(self, pulses, want_fsk: bool, event_cb):
+        """Native batch-sliced dispatch, same semantics as _run_host.
+
+        The decoder-call gate (decoders/gates.py) skips Python decode calls
+        that provably cannot produce an event; skipped calls are accounted
+        as abort_length. Within a package, byte-identical bitbuffers reach
+        each pure decoder only once (content dedup): the unique
+        (decoder, record) pairs are decoded, then per-emission accounting
+        and event delivery are replayed vectorized / in the reference's
+        temporal order.
+
+        Two content-addressed caches make a dense block cheap: the *train
+        memo* (identical pulse trains share one native slicing pass +
+        gating/dedup plan) and the *decode cache* (identical bitbuffers
+        share one decode call per decoder). Stateful decoders and all
+        accounting/event delivery replay live, so semantics are unchanged.
+        """
+        import numpy as np
+        from ..pulse.native_slicers import materialize_bytes
+
+        bank = self._get_bank(want_fsk, pulses.sample_rate)
+        devs = bank.devices
+        if not devs:
+            return 0
+        meta = self._bank_meta(bank)
+
+        if self._dec_cache_version != self._version:
+            self._dec_cache = {}
+            self._train_cache = {}
+            self._dec_cache_version = self._version
+        dec_cache = self._dec_cache
+
+        pulse = np.asarray(pulses.pulse, np.int32)
+        gap = np.asarray(pulses.gap, np.int32)
+        tkey = (want_fsk, pulses.sample_rate,
+                pulse.tobytes(), gap.tobytes())
+        memo = self._train_cache.get(tkey)
+        if memo is None:
+            memo = self._build_train_memo(bank, meta, pulse, gap)
+            if len(self._train_cache) >= self.train_cache_max:
+                self._train_cache.clear()
+            self._train_cache[tkey] = memo
+
+        records = memo["records"]
+        mats = memo["mats"]
+
+        def _mat(off):
+            bits = mats.get(off)
+            if bits is None:
+                bits = materialize_bytes(records[off])
+                mats[off] = bits
+            return bits
+
+        p_events = 0
+        for plan in memo["priorities"]:
+            if p_events:
+                break  # higher priorities run only while no event yet
+
+            # accounting of gated (skipped) calls
+            for i, c in plan["gate_counts"]:
+                dev = devs[i]
+                dev.decode_events += c
+                dev.decode_fails["abort_length"] = \
+                    dev.decode_fails.get("abort_length", 0) + c
+            for i, c in plan["mic_counts"]:
+                dev = devs[i]
+                dev.decode_events += c
+                dev.decode_fails["fail_mic"] = \
+                    dev.decode_fails.get("fail_mic", 0) + c
+
+            emitting = []  # (summary_row, dev, events) for ordered delivery
+
+            # stateful decoders: every occurrence is replayed, in temporal
+            # order (cross-call state, e.g. two-part rolling codes)
+            for row, i, off in plan["stateful"]:
+                dev = devs[i]
+                ret = (dev.decode_fn(_mat(off).clone(), dev)
+                       if dev.decode_fn else 0)
+                events = dev.account(ret)
+                if events:
+                    emitting.append((row, dev, events))
+
+            def _account(dev, ret, n_calls, rows):
+                if isinstance(ret, list) and ret:
+                    dev.decode_events += n_calls
+                    dev.decode_ok += n_calls
+                    dev.decode_messages += len(ret) * n_calls
+                    for row in rows:
+                        # fresh copies: downstream prepends meta per event
+                        evs = [type(e)(list(e.fields)) for e in ret]
+                        emitting.append((row, dev, evs))
+                else:
+                    dev.decode_events += n_calls
+                    if isinstance(ret, list):
+                        name = "other"
+                    else:
+                        name = DECODE_CODE_NAMES.get(ret, "other")
+                    dev.decode_fails[name] = \
+                        dev.decode_fails.get(name, 0) + n_calls
+
+            # declarative decoders: collect this priority's cache misses
+            # and decode them in ONE batched kernel call (the device
+            # decoder bank, decoders/declarative.py + ops/decode_bank.py).
+            # The runner is the ONLY code source for declarative symbols:
+            # routing tiny batches to the Python decoders made the
+            # failure-code accounting depend on whether the cache was
+            # prewarmed (device path) or not (host path), breaking
+            # device-vs-host stats parity. The numpy backend skips slots
+            # unused by a batch, so a 1-candidate call costs microseconds.
+            decl_syms = _decl_symbols() if self.decl_decode else ()
+            decl_batch = []
+            for i, off, n_calls, rows in plan["uniq"]:
+                dev = devs[i]
+                ckey = (want_fsk, i, records[off])
+                ret = dec_cache.get(ckey, _MISS)
+                if ret is _MISS:
+                    if dev.symbol in decl_syms:
+                        decl_batch.append((i, off, n_calls, rows, ckey))
+                        continue
+                    ret = dev.decode_fn(_mat(off).clone(), dev)
+                    if len(dec_cache) >= self.dec_cache_max:
+                        dec_cache.clear()
+                    dec_cache[ckey] = ret
+                _account(dev, ret, n_calls, rows)
+            if decl_batch:
+                from .declarative import FALLBACK, get_runner
+                runner = get_runner()
+                outs = runner.decode_many(
+                    [(devs[i].symbol, _mat(off))
+                     for i, off, _n, _r, _k in decl_batch])
+                for (i, off, n_calls, rows, ckey), ret in \
+                        zip(decl_batch, outs):
+                    dev = devs[i]
+                    if ret is FALLBACK:  # row exceeds the bank input width
+                        ret = dev.decode_fn(_mat(off).clone(), dev)
+                    if len(dec_cache) >= self.dec_cache_max:
+                        dec_cache.clear()
+                    dec_cache[ckey] = ret
+                    _account(dev, ret, n_calls, rows)
+
+            # deliver in the reference's order: by decoder, then temporal
+            emitting.sort(key=lambda t: t[0])
+            for _, dev, events in emitting:
+                for ev in events:
+                    event_cb(dev, ev)
+                p_events += len(events)
+        return p_events
+
     def run_ook_demods(self, pulses, event_cb):
-        return self._run_host(pulses, want_fsk=False, event_cb=event_cb)
+        return self._run(pulses, want_fsk=False, event_cb=event_cb)
 
     def run_fsk_demods(self, pulses, event_cb):
-        return self._run_host(pulses, want_fsk=True, event_cb=event_cb)
+        return self._run(pulses, want_fsk=True, event_cb=event_cb)

@@ -115,7 +115,7 @@ def quiet_chunk_ok(ook_state, low_est, high_est, min_high, am_max, am_min,
     """Whether a chunk may skip the FSM (csrc/detector_step.cuh
     ``quiet_chunk_ok``): the channel is IDLE, the chunk lies wholly below
     n_valid, and no sample can cross a lower bound of the hysteresis
-    threshold. The JAX engine's test (rtl_433_tpu/dsp/engine.py:1110-1125),
+    threshold. The JAX engine's test (its dsp/engine.py:1110-1125),
     with ``high_est`` also bounding ``high_lb``: never looser. Over such a
     chunk ``low_est`` stays at or above ``min(low_est, am_min) - 1`` and idle
     ``high_est`` at or above ``min_high``, so every sample takes the IDLE

@@ -7,6 +7,12 @@ ignores imports and docstrings holds each module to its twin. The registry
 matches slot for slot (symbol, name, modulation, timings, fields, whether
 a decode function exists), and ``register_all`` activates the same
 defaults.
+
+The fast dispatch is held to its twin the same way: the modules of the
+slicer binding, the gates, the declarative bank and its specs (one
+declared difference: how the slicer library is built), the Registry
+members it runs (``_run`` aside), and ``csrc/slicers.cpp``, byte for byte
+with ``native/slicers.cpp``.
 """
 
 import ast
@@ -88,6 +94,102 @@ def test_module_imports_stay_inside_the_port(name):
             for a in node.names:
                 assert a.name in ("math", "time", "datetime", "numpy",
                                   "struct", "re"), a.name
+
+
+# the modules of the fast dispatch, by path under each package
+DISPATCH_MODULES = ["pulse/native_slicers.py", "decoders/gates.py",
+                    "decoders/mic_gates.py", "ops/decode_bank.py",
+                    "decoders/declarative.py", "decoders/decl_specs.py"]
+
+# deliberate differences, as top-level names left out of the comparison:
+# the port builds its slicer library from its own csrc/slicers.cpp
+# (ops/_native.py) and raises when that fails, where the JAX package runs
+# make in native/ and reports a failure as "unavailable"
+DISPATCH_DIFFERENCES = {
+    "pulse/native_slicers.py": {"_load", "_NATIVE_DIR", "_ASAN", "_SO_NAME",
+                                "_SO"},
+}
+
+# Registry members copied from the JAX package as they are; ``_run`` is the
+# one deliberate difference (no device slicing, and no ``except
+# RuntimeError`` that would turn a failed build into the host path)
+REGISTRY_COPIED = ["_verbose_decoding", "_use_native", "_get_bank",
+                   "_bank_meta", "_build_train_memo", "_memo_plans",
+                   "_run_fast", "run_ook_demods", "run_fsk_demods"]
+
+
+def _drop_names(tree, names):
+    def named(node):
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            return node.name in names
+        if isinstance(node, ast.Assign):
+            return all(isinstance(t, ast.Name) and t.id in names
+                       for t in node.targets)
+        return False
+    tree.body = [n for n in tree.body if not named(n)]
+    return tree
+
+
+@pytest.mark.parametrize("rel", DISPATCH_MODULES)
+def test_dispatch_module_matches_jax_twin(rel):
+    drop = DISPATCH_DIFFERENCES.get(rel, set())
+    trees = []
+    for pkg in ("rtl_433_tpu", "rtl_433_tpu_torch"):
+        with open(os.path.join(REPO, pkg, rel)) as f:
+            trees.append(_strip(_drop_names(ast.parse(f.read()), drop)))
+    assert trees[0] == trees[1], f"{rel} differs from its JAX twin"
+
+
+@pytest.mark.parametrize("rel", DISPATCH_MODULES)
+def test_dispatch_module_imports_stay_inside_the_port(rel):
+    with open(os.path.join(REPO, "rtl_433_tpu_torch", rel)) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.level == 0:
+            assert node.module in ("__future__", "dataclasses", "typing"), \
+                node.module
+        elif isinstance(node, ast.Import):
+            for a in node.names:
+                assert a.name in ("numpy", "ctypes", "threading"), a.name
+
+
+def test_slicer_source_is_a_byte_copy():
+    with open(os.path.join(REPO, "native", "slicers.cpp"), "rb") as f:
+        want = f.read()
+    with open(os.path.join(REPO, "rtl_433_tpu_torch", "csrc",
+                           "slicers.cpp"), "rb") as f:
+        assert f.read() == want
+
+
+def _registry_members(path):
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    top = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    cls = next(n for n in tree.body
+               if isinstance(n, ast.ClassDef) and n.name == "Registry")
+    members = {n.name: n for n in cls.body if isinstance(n, ast.FunctionDef)}
+    return top, members
+
+
+@pytest.mark.parametrize("name", ["_decl_symbols"] + REGISTRY_COPIED)
+def test_registry_dispatch_matches_jax_twin(name):
+    dumps = []
+    for d in (JDIR, TDIR):
+        top, members = _registry_members(os.path.join(d, "base.py"))
+        node = top.get(name) or members[name]
+        dumps.append(_strip(ast.Module(body=[node], type_ignores=[])))
+    assert dumps[0] == dumps[1], f"Registry.{name} differs from its twin"
+
+
+def test_registry_dispatch_state():
+    """The caches and switches of the default dispatch start as in JAX."""
+    j, t = jdec.Registry(), tdec.Registry()
+    for k in ("_banks", "_dec_cache", "_dec_cache_version", "dec_cache_max",
+              "_train_cache", "train_cache_max", "decoder_verbose",
+              "decl_decode"):
+        assert getattr(t, k) == getattr(j, k), k
+    assert tbase._MISS is not None and tbase._MISS is not jbase._MISS
+    assert tbase._decl_symbols() == jbase._decl_symbols()
 
 
 def test_registration_order():

@@ -2,15 +2,20 @@
 
 A subprocess with ``jax`` and ``rtl_433_tpu`` made unimportable imports
 every port module and decodes a fixture on the CPU, through the API and
-the CLI. The port's sources and chip_smoke.py are scanned for imports of
-either. The GPU entry points refuse to run, rather than fall back to the
-CPU, where there is no GPU.
+the CLI. Another runs a copy of the port alone in a directory, with
+neither ``native/`` nor the JAX package beside it, and decodes a fixture
+under the default registration: the fast dispatch builds its slicer
+library from the port's own ``csrc/slicers.cpp``. The port's sources and
+chip_smoke.py are scanned for imports of either; the port's sources name
+neither ``native/`` nor the JAX package. The GPU entry points refuse to
+run, rather than fall back to the CPU, where there is no GPU.
 """
 
 import ast
 import glob
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -57,6 +62,61 @@ print(json.dumps({"api": api, "cli": cli_events, "rc": rc,
 '''
 
 
+_ALONE = r'''
+import importlib.abc, json, sys
+sys.modules["jax"] = None
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "rtl_433_tpu" or name.startswith("rtl_433_tpu."):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, ROOT)
+from rtl_433_tpu_torch.api import RtlTpu
+from rtl_433_tpu_torch.decoders.base import Registry
+from rtl_433_tpu_torch.output.data_model import event_to_json
+from rtl_433_tpu_torch.pulse import native_slicers
+calls = {"_run_fast": 0, "_run_host": 0}
+for name in calls:
+    def wrap(fn, name=name):
+        def run(self, *a, **k):
+            calls[name] += 1
+            return fn(self, *a, **k)
+        return run
+    setattr(Registry, name, wrap(getattr(Registry, name)))
+rx = RtlTpu(report_time="off", device="cpu")
+events = [json.loads(event_to_json(e)) for e in rx.decode_file(NEXUS)]
+lib = native_slicers._lib._name
+print(json.dumps({"events": events, "calls": calls, "lib": lib,
+                  "active": len(rx.registry.active)}))
+'''
+
+
+def test_port_alone_takes_the_fast_path(tmp_path):
+    """A copy of the port in a directory of its own: no native/, no JAX
+    package. The default registration decodes on the fast path, with a
+    slicer library built into the copy's own _build/."""
+    shutil.copytree(PKG, tmp_path / "rtl_433_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    nexus = tmp_path / "nexus_433.92M_250k.cu8"
+    shutil.copy(NEXUS, nexus)
+    code = f"ROOT = {str(tmp_path)!r}\nNEXUS = {str(nexus)!r}\n" + _ALONE
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=tmp_path)
+    assert out.returncode == 0, out.stderr[-3000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert not (tmp_path / "native").exists()
+    assert not (tmp_path / "rtl_433_tpu").exists()
+    assert res["active"] == 335
+    assert res["calls"]["_run_host"] == 0
+    assert res["calls"]["_run_fast"] >= 1
+    assert res["lib"].startswith(str(tmp_path / "rtl_433_tpu_torch"
+                                     / "_build" / "libslicers-"))
+    assert res["events"] == _want()
+
+
 def _want():
     with open(NEXUS[:-4] + ".json") as f:
         return [json.loads(line) for line in f if line.strip()]
@@ -100,6 +160,21 @@ def test_no_jax_or_reference_imports(path):
             top = n.split(".")[0]
             assert top not in ("jax", "jaxlib", "rtl_433_tpu"), \
                 f"{path}: imports {n}"
+
+
+def _port_sources():
+    return [f for f in _sources() if f.startswith(PKG + os.sep)]
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=[os.path.relpath(p, REPO)
+                              for p in _port_sources()])
+def test_port_names_neither_native_nor_the_jax_package(path):
+    """No path into native/ or the JAX package, in code or in text."""
+    with open(path) as f:
+        text = f.read()
+    hits = re.findall(r"rtl_433_tpu\b|\bnative/", text)
+    assert not hits, f"{path}: {hits}"
 
 
 def test_cuda_device_refused_without_gpu():
