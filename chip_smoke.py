@@ -8,8 +8,8 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 Phases, each printing one JSON line (any failure exits non-zero):
 
 1. device  -- the card's name and power limit;
-2. build   -- compile both CUDA kernels from csrc/ (one nvcc each, in
-              parallel) and show ptxas's register report; build the host
+2. build   -- compile the three CUDA kernels from csrc/ (one nvcc each,
+              in parallel) and show ptxas's register report; build the host
               slicer library (csrc/slicers.cpp, host c++) and lower the
               declarative specs, so that neither one-time cost falls into
               a timed decode below (a failed build fails the run);
@@ -29,6 +29,14 @@ Phases, each printing one JSON line (any failure exits non-zero):
               detector_step.cuh leaving on every offset of a batch); then
               its time at C=1 and C=4096, with two whole 32-channel groups
               of the C=4096 run checked, quiet counts included;
+4b. compact -- the package-compaction kernel against its plain version,
+              bit-exact on all five outputs, at C=4096, S=8, P=1200 and cap
+              768 and 2048, on a sparse state (total below both caps) and a
+              dense one (above both), out_n over 0..12 and meta over the
+              whole int32 range; then its device time (every call queued
+              behind a spinning card) and its time per call with the
+              host's launch cost, the same two for the gather by
+              torch.index_select (the library yardstick), and its bound;
 5. main    -- RtlTpu(device="cuda").decode_file with -R <n> on all 106
               fixtures of tests/fixtures/ (250, 1024 and 4096 kS/s); events
               must equal the committed .json. Then the fixtures are decoded
@@ -53,11 +61,36 @@ Phases, each printing one JSON line (any failure exits non-zero):
               gate/plan building, Python decode calls and the declarative
               bank. mixed_250k is decoded once more on the per-decoder host
               path (Registry._use_native forced off): the same events;
+6b. multichannel -- bench.py's signal-dense workload at full width through
+              ShardedEngine on the card: C=4096 channels x N=131072 samples,
+              four rotation blocks (tests/torch_bench_blocks.py, equal to
+              bench.py's), a quarter of the channels bursting (80% LaCrosse
+              TX35, 20% Silvercrest), default registration, compaction cap
+              768. One warm-up rotation, then 12 timed blocks: zero overflow
+              and drop counters, bench.py's event floor, MS/s, ms per block
+              split into the engine step, the harvest (compaction + copy)
+              and the host decode, train-memo builds per block; each
+              compaction call of the warm-up, and two whole 32-channel
+              groups (channels 0-31 and C-32..C-1) of the last warm-up
+              block's front-end and detector calls, held to the plain
+              version; 12 more blocks under torch.profiler for device ms
+              per block by kernel and the busy share; 64 sampled channels
+              (every burst kind and rotation, and quiet ones) run alone
+              through ShardedEngine(channels=1), the same events; then a
+              fresh engine on the forked decode pool (os.cpu_count() - 1
+              workers): its events equal the inline run's, in order. The
+              timed blocks repeat the warm-up's, so their trains hit the
+              registry's train memo and decode cache; the same blocks run
+              once more inline and on the pool with both cut to one entry
+              (no_cache: the cost of trains not seen before), the same
+              events in order;
 7. kernels -- one line per kernel with its launches on the main path, its
               largest error against the plain version over every check
               above, its times and bound, and its cycles per sample at
               C=1 at the SM clock that nvidia-smi read while the same
-              launch ran back to back (sm_clock_mhz).
+              launch ran back to back (sm_clock_mhz). The front end and the
+              detector are timed at C=1, the shape of file replay, and at
+              C=4096; compaction at the multichannel phase's real state.
 
 Every phase line carries its seconds. The line before the last is
 nvidia-smi's name and power limit; the last
@@ -94,6 +127,18 @@ DETECTOR_OPS = 20
 
 FE_OUTS = ("am", "fm", "state", "env_sum")
 DET_OUTS = ("regs", "log_key", "log_p", "log_g", "eop_log", "quiet")
+COMPACT_OUTS = ("pulse", "gap", "meta", "channel", "count")
+# the kernels of single-channel file replay (RtlTpu reads its packages
+# with take_packages; compaction runs on the multichannel path)
+REPLAY_KERNELS = ("frontend", "detector_scan")
+COMPACT_INS = ("out_n", "out_p", "out_g", "out_meta")
+
+# bench.py's signal-dense workload (bench.py:183-201)
+MC_CHANNELS = 4096
+MC_ROTATIONS = 4
+MC_BLOCKS = 12
+MC_CAP = 768
+MC_SAMPLE = 64
 
 # (fixture, protocol, copies) byte-concatenated into one file per stream
 STREAMS = [("nexus", 19, 64), ("lacrosse_tx35", 75, 64),
@@ -127,13 +172,19 @@ def smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps=5):
-    """Mean device time of ``fn`` over ``reps`` runs after one warm-up."""
+def cuda_ms(fn, reps=5, busy_first=False):
+    """Mean device time of ``fn`` over ``reps`` runs after one warm-up.
+    With ``busy_first`` the card spins for about 25 ms before the first
+    event, so that every run is queued before the card reaches it: the
+    time is then the device's alone, without the host's cost per call
+    (which dominates a launch of a few microseconds)."""
     import torch
     fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    if busy_first:
+        torch.cuda._sleep(50_000_000)
     a.record()
     for _ in range(reps):
         fn()
@@ -188,6 +239,8 @@ def group_of(key: str) -> str:
         return "frontend"
     if "detector_kernel" in key:
         return "detector_scan"
+    if "compact_" in key:
+        return "compact"
     if "memcpy" in key.lower():
         return "copies"
     return "other"
@@ -221,6 +274,428 @@ def synth_iq(rng, n, rate=250_000):
         t += int(rng.integers(4000, 9000))
     iq = np.stack([x.real, x.imag], -1) + 128 + rng.normal(0, 2.0, (n, 2))
     return np.clip(np.round(iq), 0, 255).astype(np.uint8)
+
+
+def compact_check(compare, ins, cap, what):
+    """The compaction kernel against its plain version on ``ins``."""
+    import torch
+    from rtl_433_tpu_torch.ops import compact as cmp
+    got = cmp.compact_packages_cuda(*ins, cap)
+    torch.cuda.synchronize()
+    want = cmp.compact_packages_plain(*ins, cap)
+    compare("compact", [got[k] for k in COMPACT_OUTS],
+            [want[k] for k in COMPACT_OUTS], COMPACT_OUTS, what)
+
+
+def sampled_channels(C, dev):
+    """Two whole 32-channel groups of the front end and the detector, one
+    at each end of C channels."""
+    import torch
+    return torch.cat([torch.arange(0, 32, device=dev),
+                      torch.arange(C - 32, C, device=dev)])
+
+
+def frontend_check_sampled(compare, args, kw, what):
+    """The front-end kernel on all C channels of ``args``, two of its
+    channel groups held bit for bit to the plain version."""
+    import torch
+    from rtl_433_tpu_torch.ops import frontend as fe
+    iq, st = args
+    sel = sampled_channels(iq.shape[0], iq.device)
+    got = fe.frontend_cuda(iq, st, **kw)
+    torch.cuda.synchronize()
+    want = fe.frontend_plain(iq[sel].contiguous(), st[:, sel].contiguous(),
+                             **kw)
+    got = (got[0][:, sel], got[1][:, sel], got[2][:, sel], got[3][sel])
+    compare("frontend", got, want, FE_OUTS, what)
+
+
+def detector_check_sampled(compare, args, kw, what):
+    """The detector kernel on all C channels of ``args``, two of its
+    channel groups held bit for bit to the plain version, quiet counts
+    included."""
+    import torch
+    from rtl_433_tpu_torch.ops import detector as det
+    am, fm, regs, gen0 = args
+    C, dev, R = am.shape[1], am.device, kw["params"].ring
+    sel = sampled_channels(C, dev)
+    got = det.detector_scan_cuda(am, fm, regs, gen0, **kw)
+    torch.cuda.synchronize()
+    want = det.detector_scan_plain(
+        am[:, sel].contiguous(), fm[:, sel].contiguous(),
+        regs[:, sel].contiguous(), gen0[sel].contiguous(), **kw)
+    rows = (sel[:, None] * R + torch.arange(R, device=dev)).reshape(-1)
+    got = (got[0][:, sel], got[1][rows], got[2][rows], got[3][rows],
+           got[4][sel], got[5][sel])
+    compare("detector_scan", got, want, DET_OUTS, what)
+
+
+def compact_measure(ins, cap):
+    """The compaction kernel's and the library's device time and time per
+    call (index_select on the three flattened planes with a precomputed
+    index), the plain version's time,
+    and the bound from the bytes this state needs: out_n and the kept rows
+    read once, every output row written once."""
+    import torch
+    from rtl_433_tpu_torch.ops import compact as cmp
+    out_n, out_p, out_g, out_meta = ins
+    C, S, P = out_p.shape
+    F = out_meta.shape[2]
+    valid = (torch.arange(S, device=out_p.device)[None, :]
+             < out_n.clamp(0, S)[:, None]).reshape(-1)
+    idx = torch.nonzero(valid).reshape(-1)[:cap]
+    k = idx.numel()
+    planes = (out_p.reshape(-1, P), out_g.reshape(-1, P),
+              out_meta.reshape(-1, F))
+    nbytes = 4 * (C + k * (2 * P + F) + cap * (2 * P + F + 1) + 1)
+    kernel = lambda: cmp.compact_packages_cuda(*ins, cap)
+    library = lambda: [pl.index_select(0, idx) for pl in planes]
+    return {
+        "ms": cuda_ms(kernel, reps=20, busy_first=True),
+        "library_ms": cuda_ms(library, reps=20, busy_first=True),
+        # per call with the host's launch cost, as ShardedEngine pays it
+        "call_ms": cuda_ms(kernel, reps=20),
+        "library_call_ms": cuda_ms(library, reps=20),
+        "plain_ms": host_ms(lambda: cmp.compact_packages_plain(*ins, cap)),
+        "bound_ms": nbytes / HBM_BPS * 1e3, "bytes": nbytes, "rows": k,
+        "cap": cap, "count": int(valid.sum())}
+
+
+def multichannel(dev, mesh, compare, channels=MC_CHANNELS, n=N_BLOCK,
+                 n_blocks=MC_BLOCKS, n_sample=MC_SAMPLE, cap=MC_CAP):
+    """Phase 6b: bench.py's signal-dense workload through ShardedEngine on
+    ``mesh``. Returns (the phase line, the kernel launches of the timed
+    blocks, the compaction kernel's numbers at the main path's state)."""
+    from collections import Counter
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from rtl_433_tpu_torch.decoders import Registry, garage
+    from rtl_433_tpu_torch.dsp.engine import DetectorParams
+    from rtl_433_tpu_torch.ops import _cuda
+    from rtl_433_tpu_torch.ops import detector as det
+    from rtl_433_tpu_torch.ops import frontend as fe
+    from rtl_433_tpu_torch.output.data_model import event_to_json
+    from rtl_433_tpu_torch.parallel.sharding import ShardedEngine
+    from torch_bench_blocks import build_blocks, burst_of
+
+    rot = MC_ROTATIONS
+    t = time.perf_counter()
+    host_blocks, n_bursts = build_blocks(channels, n, rot)
+    build_s = time.perf_counter() - t
+    blocks = [torch.from_numpy(b).to(dev) for b in host_blocks]
+    del host_blocks
+    torch.cuda.synchronize()
+    # bench.py:195-201
+    params = DetectorParams(sample_rate=250_000, fsk_minmax=False,
+                            enable_fm=True, chunk=128, ring=8, eops=2,
+                            arena=65536)
+
+    def no_cache(reg):
+        """Keep at most one entry in the registry's train memo and decode
+        cache: the timed blocks repeat the warm-up's byte for byte, so
+        that their trains decode as new input, as live input's do."""
+        reg.train_cache_max = reg.dec_cache_max = 0
+
+    def engine(c, cold=False):
+        reg = Registry()
+        reg.register_all()
+        if cold:
+            no_cache(reg)
+        return ShardedEngine(params, c, mesh, registry=reg,
+                             pkg_cap_total=cap)
+
+    def count_memo_builds(eng, acc):
+        """Count, into ``acc["memo_builds"]``, the pulse trains that the
+        engine's registry slices and plans anew (train memo misses)."""
+        reg = eng.registry
+        build = reg._build_train_memo
+
+        def counted(*a, **k):
+            acc["memo_builds"] = acc.get("memo_builds", 0) + 1
+            return build(*a, **k)
+        reg._build_train_memo = counted
+
+    def timed_blocks(eng, acc):
+        """``n_blocks`` blocks with the harvest timed and the packages
+        counted into ``acc``; returns (events, wall seconds)."""
+        take = eng.take_packages
+
+        def counted_take():
+            t0 = time.perf_counter()
+            pkgs = take()
+            acc["take"] = acc.get("take", 0.0) + time.perf_counter() - t0
+            acc["packages"] = acc.get("packages", 0) + len(pkgs)
+            return pkgs
+
+        eng.take_packages = counted_take
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            events = run_blocks(eng, n_blocks, acc=acc)
+            torch.cuda.synchronize()
+        finally:
+            eng.take_packages = take
+        return events, time.perf_counter() - t0
+
+    def pool_blocks(eng):
+        """A warm-up rotation and ``n_blocks`` timed blocks on the forked
+        decode pool; returns (events, wall seconds)."""
+        try:
+            run_blocks(eng, rot)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            events = run_blocks(eng, n_blocks)
+            torch.cuda.synchronize()
+            return events, time.perf_counter() - t0
+        finally:
+            eng.close_decode_pool()
+
+    def split(acc, wall):
+        return {"ms_per_block": wall / n_blocks * 1e3,
+                "msps": samples / wall / 1e6,
+                "step_ms_per_block": acc["push"] / n_blocks * 1e3,
+                "harvest_ms_per_block": acc["take"] / n_blocks * 1e3,
+                "host_decode_ms_per_block":
+                    (acc["drain"] - acc["take"]) / n_blocks * 1e3,
+                "packages_per_block": acc["packages"] / n_blocks,
+                "memo_builds_per_block": acc.get("memo_builds", 0)
+                / n_blocks}
+
+    def as_json(events):
+        return [(c, event_to_json(e)) for c, e in events]
+
+    def run_blocks(eng, count, select=None, acc=None):
+        """Push ``count`` blocks of the rotation, each followed by a drain,
+        and return the events; ``select`` cuts the channels of each
+        block; ``acc`` gathers the seconds of the pushes and drains."""
+        out = []
+        for k in range(count):
+            blk = blocks[k % rot]
+            if select is not None:
+                blk = blk[select]
+            t0 = time.perf_counter()
+            eng.push(blk)
+            t1 = time.perf_counter()
+            out.extend(eng.drain_events())
+            if acc is not None:
+                acc["push"] = acc.get("push", 0.0) + t1 - t0
+                acc["drain"] = acc.get("drain", 0.0) \
+                    + time.perf_counter() - t1
+        return out
+
+    def overflow(eng):
+        st = eng.state
+        got = {k: int(st[k].sum())
+               for k in ("n_ring_ovf", "n_fsk_ovf", "n_pkg_drop")}
+        got["n_pkg_dropped"] = eng.n_pkg_dropped
+        if any(got.values()):
+            fail(f"multichannel overflow or drops: {got}")
+        return got
+
+    bursts = n_bursts / rot * n_blocks
+    floor = 1.5 * bursts * 0.8          # bench.py:297-300
+    samples = channels * n * n_blocks
+    workers = max(1, (os.cpu_count() or 1) - 1)
+
+    real_time = garage.time
+    garage.time = types.SimpleNamespace(monotonic=lambda: 0.0)
+    try:
+        # warm-up rotation: its compaction calls, and the last front-end
+        # and detector calls, are recorded and held to the plain version
+        # below
+        eng = engine(channels)
+        recorded, real_compact = [], eng._compact
+        last = {}
+        orig = {"frontend": fe.frontend_cuda,
+                "detector_scan": det.detector_scan_cuda}
+
+        def recording_compact(st):
+            recorded.append([st[k].clone() for k in COMPACT_INS])
+            return real_compact(st)
+
+        def recorder(kind):
+            def run(*args, **kw):
+                last[kind] = ([a.clone() for a in args], kw)
+                return orig[kind](*args, **kw)
+            return run
+
+        eng._compact = recording_compact
+        fe.frontend_cuda = recorder("frontend")
+        det.detector_scan_cuda = recorder("detector_scan")
+        try:
+            t = time.perf_counter()
+            warm = run_blocks(eng, rot)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t
+        finally:
+            eng._compact = real_compact
+            fe.frontend_cuda = orig["frontend"]
+            det.detector_scan_cuda = orig["detector_scan"]
+
+        # the timed blocks: the main path of this phase
+        acc = {}
+        count_memo_builds(eng, acc)
+        _cuda.reset_launches()
+        inline, wall = timed_blocks(eng, acc)
+        launches = dict(_cuda.LAUNCHES)
+        for k, v in launches.items():
+            if v <= 0:
+                fail(f"kernel {k} was not launched on the multichannel path")
+        ovf = overflow(eng)
+        if len(inline) < floor:
+            fail(f"multichannel: {len(inline)} events for {bursts:.0f} "
+                 f"bursts (bench.py's floor: 1.5 x bursts x 0.8)")
+        inline_json = as_json(inline)
+
+        # the same engine on more blocks under torch.profiler
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            traced = run_blocks(eng, n_blocks)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1e3
+        if len(traced) < floor:
+            fail(f"multichannel traced run: {len(traced)} events")
+        dgroups = {}
+        for e in prof.key_averages():
+            us = device_us(e)
+            if us > 0:
+                g = group_of(e.key)
+                dgroups[g] = dgroups.get(g, 0.0) + us / 1e3
+        busy = sum(dgroups.values())
+        del eng, prof, traced
+        torch.cuda.empty_cache()
+
+        # the last warm-up block's front-end and detector calls: two whole
+        # channel groups of each against the plain version
+        t = time.perf_counter()
+        frontend_check_sampled(compare, *last["frontend"],
+                               "multichannel warm-up, sampled channels")
+        detector_check_sampled(compare, *last["detector_scan"],
+                               "multichannel warm-up, sampled channels")
+        shapes = {k: [list(a.shape) for a in v[0]] for k, v in last.items()}
+        del last
+        torch.cuda.empty_cache()
+        sampled_s = time.perf_counter() - t
+
+        # each compaction call of the warm-up against the plain version,
+        # and the kernel's numbers at the last one (the main path's shape)
+        n_calls = len(recorded)
+        for i, ins in enumerate(recorded):
+            compact_check(compare, ins, cap, f"multichannel warm-up call {i}")
+        numbers = compact_measure(recorded[-1], cap)
+        del recorded
+        torch.cuda.empty_cache()
+
+        # sampled channels, each alone through ShardedEngine(channels=1):
+        # as many of each burst kind and rotation, and of the quiet ones,
+        # spread over the channel range
+        groups = {}
+        for c in range(channels):
+            groups.setdefault(burst_of(c, rot), []).append(c)
+        per = n_sample // len(groups)
+        sample = []
+        for key, g in groups.items():
+            k = per + (n_sample - per * len(groups) if key is None else 0)
+            sample += g[::max(1, len(g) // k)][:k]
+        sample.sort()
+        cover = {burst_of(c, rot) for c in sample}
+        if len(cover) != 2 * rot + 1:
+            fail(f"the channel sample misses a burst kind or rotation: "
+                 f"{sorted(cover, key=str)}")
+        t = time.perf_counter()
+        alone = Counter()
+        for c in sample:
+            e1 = engine(1)
+            run_blocks(e1, rot, select=slice(c, c + 1))
+            alone.update((c, j) for _, j in as_json(
+                run_blocks(e1, n_blocks, select=slice(c, c + 1))))
+        alone_s = time.perf_counter() - t
+        in_sample = set(sample)
+        picked = Counter(x for x in inline_json if x[0] in in_sample)
+        if picked != alone or not picked:
+            fail(f"multichannel: the sampled channels' events differ from "
+                 f"their single-channel runs ({sum(picked.values())} vs "
+                 f"{sum(alone.values())})")
+
+        # a fresh engine on the forked decode pool: the inline events
+        eng = engine(channels)
+        eng.use_decode_pool(workers)
+        pooled, pool_wall = pool_blocks(eng)
+        if as_json(pooled) != inline_json:
+            fail(f"multichannel: the pool's {len(pooled)} events differ "
+                 f"from the inline run's {len(inline)}")
+        pool_ovf = overflow(eng)
+        del eng
+
+        # the same blocks with the train memo and the decode cache cut to
+        # one entry, inline and on the pool (whose forked workers build
+        # their registries with the same cut): the same events, at the cost
+        # of input whose trains the caches have not seen
+        eng = engine(channels, cold=True)
+        run_blocks(eng, rot)
+        cold_acc = {}
+        count_memo_builds(eng, cold_acc)
+        cold, cold_wall = timed_blocks(eng, cold_acc)
+        if as_json(cold) != inline_json:
+            fail(f"multichannel: {len(cold)} events without the caches, "
+                 f"{len(inline)} with them")
+        cold_ovf = overflow(eng)
+        del eng
+        eng = engine(channels, cold=True)
+        real_init = Registry.__init__
+
+        def cold_init(self, *a, **k):
+            real_init(self, *a, **k)
+            no_cache(self)
+
+        Registry.__init__ = cold_init
+        try:
+            eng.use_decode_pool(workers)
+        finally:
+            Registry.__init__ = real_init
+        cold_pooled, cold_pool_wall = pool_blocks(eng)
+        if as_json(cold_pooled) != inline_json:
+            fail(f"multichannel: the pool's {len(cold_pooled)} events "
+                 f"without the caches differ from the inline run's")
+        overflow(eng)
+        del eng
+    finally:
+        garage.time = real_time
+    del blocks
+    torch.cuda.empty_cache()
+    row = {
+        "phase": "multichannel", "channels": channels, "n": n,
+        "rotations": rot, "blocks": n_blocks, "cap": cap,
+        "bursts_per_block": n_bursts / rot, "build_blocks_s": build_s,
+        "warmup_s": warm_s, "warmup_events": len(warm),
+        "events": len(inline), "event_floor": floor, "wall_s": wall,
+        **split(acc, wall),
+        "launches": launches, "overflow": ovf,
+        "sampled_kernel_checks": {"shapes": shapes, "bit_exact": True,
+                                  "channels": 64, "seconds": sampled_s},
+        "traced": {"wall_ms": traced_ms,
+                   "device_ms_per_block": {k: v / n_blocks
+                                           for k, v in dgroups.items()},
+                   "device_busy_share": busy / traced_ms},
+        "compact_calls_checked": n_calls,
+        "sample": {"channels": len(sample),
+                   "events": sum(picked.values()), "equal": True,
+                   "seconds": alone_s},
+        "pool": {"workers": workers, "events_equal_in_order": True,
+                 "msps": samples / pool_wall / 1e6,
+                 "ms_per_block": pool_wall / n_blocks * 1e3,
+                 "gain": wall / pool_wall, "overflow": pool_ovf},
+        "no_cache": {"events_equal_in_order": True, "overflow": cold_ovf,
+                     **split(cold_acc, cold_wall),
+                     "pool": {"workers": workers,
+                              "events_equal_in_order": True,
+                              "msps": samples / cold_pool_wall / 1e6,
+                              "ms_per_block":
+                                  cold_pool_wall / n_blocks * 1e3,
+                              "gain": cold_wall / cold_pool_wall}}}
+    return row, launches, numbers
 
 
 def main():
@@ -406,7 +881,6 @@ def main():
         edge[case_name] = {"c": int(args[0].shape[1]),
                            "quiet_share": float(got[5].float().mean()) / G}
     p = DetectorParams(pkg_cap=32)
-    R = p.ring
     times = {}
     for Ct in (1, 4096):
         x = iq[torch.arange(Ct, device=dev) % C].contiguous()
@@ -426,20 +900,8 @@ def main():
             q1 = int(det.detector_scan_cuda(am, fm, regs, gen0,
                                             params=p)[5][0])
         else:
-            got = det.detector_scan_cuda(am, fm, regs, gen0, params=p)
-            torch.cuda.synchronize()
-            # two whole channel groups of the kernel, one at each end
-            sel = torch.cat([torch.arange(0, 32, device=dev),
-                             torch.arange(Ct - 32, Ct, device=dev)])
-            want = det.detector_scan_plain(
-                am[:, sel].contiguous(), fm[:, sel].contiguous(),
-                regs[:, sel].contiguous(), gen0[sel].contiguous(), params=p)
-            rows = (sel[:, None] * R + torch.arange(R, device=dev)).reshape(-1)
-            got = (got[0][:, sel], got[1][rows], got[2][rows], got[3][rows],
-                   got[4][sel], got[5][sel])
-            compare("detector_scan", got, want, DET_OUTS,
-                    "C=4096, sampled channels")
-            del got
+            detector_check_sampled(compare, (am, fm, regs, gen0),
+                                   {"params": p}, "C=4096, sampled channels")
         del am, fm, regs
         torch.cuda.empty_cache()
     G = N_BLOCK // p.chunk
@@ -453,6 +915,40 @@ def main():
           "edge_cases": edge, "ms_c1": times[1], "ms_c4096": times[4096],
           "quiet_share_c1": q1 / G, "plain_ms_c1": plain_ms,
           "sm_clock_mhz_c1": mhz, "sampled_c4096": 64})
+
+    # ---- 4b. compaction kernel vs plain: ragged states at bench.py's widths
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def compact_state(active):
+        """out_n over 0..12 (beyond S=8) on a share ``active`` of the
+        channels; pulse and gap over 0..2^31, meta over all of int32."""
+        C_, S_, P_ = MC_CHANNELS, 8, 1200
+        on = torch.rand(C_, device=dev, generator=gen) < active
+        out_n = (torch.randint(0, 13, (C_,), device=dev, generator=gen)
+                 * on).to(torch.int32)
+        rnd = lambda lo, *sh: torch.randint(
+            lo, (1 << 31) - 1, sh, device=dev, generator=gen,
+            dtype=torch.int64).to(torch.int32)
+        return [out_n, rnd(0, C_, S_, P_), rnd(0, C_, S_, P_),
+                rnd(-(1 << 31), C_, S_, 9)]
+
+    errs["compact"] = 0
+    states = {"sparse": compact_state(0.02), "dense": compact_state(1.0)}
+    totals = {k: int(v[0].clamp(0, 8).sum()) for k, v in states.items()}
+    if not (totals["sparse"] < 768 and totals["dense"] > 2048):
+        fail(f"compaction states do not straddle the caps: {totals}")
+    for kind, ins in states.items():
+        if int((ins[3].abs() > (1 << 24)).sum()) == 0:
+            fail("compaction meta has no value above 2^24")
+        for cap in (768, 2048):
+            compact_check(compare, ins, cap, f"{kind} state, cap={cap}")
+    ctimes = {f"dense_cap{cap}": compact_measure(states["dense"], cap)
+              for cap in (768, 2048)}
+    del states
+    torch.cuda.empty_cache()
+    emit({"phase": "compact", "c": MC_CHANNELS, "s": 8, "p": 1200,
+          "totals": totals, "max_abs_err": errs["compact"],
+          "bit_exact": True, "times": ctimes})
 
     # ---- 5. main path: every fixture through RtlTpu on the card
     fx = [(d, nums, cu8, expected(cu8)) for d, nums, cu8 in fixture_cases()]
@@ -476,7 +972,7 @@ def main():
     decode_fixtures()
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t
-    launches = dict(_cuda.LAUNCHES)
+    launches = {k: _cuda.LAUNCHES[k] for k in REPLAY_KERNELS}
     emit({"phase": "main", "fixtures": len(fx), "by_rate": by_rate,
           "all_match": True, "seconds": round(main_s, 3),
           "launches": launches})
@@ -555,8 +1051,8 @@ def main():
         s = time.perf_counter() - t
         if got != want:
             fail(f"stream {name}: {len(got)} events, want {len(want)}")
-        for k, v in _cuda.LAUNCHES.items():
-            if v <= 0:
+        for k in REPLAY_KERNELS:
+            if _cuda.LAUNCHES[k] <= 0:
                 fail(f"kernel {k} was not launched on stream {name}")
         row = {"phase": "stream", "fixture": name, "samples": n,
                "blocks": blocks, "events": len(got), "seconds": s,
@@ -746,6 +1242,15 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # ---- 6b. multichannel: bench.py's workload through ShardedEngine
+    from rtl_433_tpu_torch.parallel import make_mesh
+    mesh = make_mesh()
+    if mesh.size != 1:
+        fail(f"the multichannel phase wants one card, the mesh has "
+             f"{mesh.size}")
+    row, mc_launches, kinds["compact"] = multichannel(dev, mesh, compare)
+    emit(row)
+
     # ---- 7. kernels
     meta = {
         "frontend": ("rtl_433_tpu_torch/csrc/frontend.cu",
@@ -770,11 +1275,29 @@ def main():
             "cycles_per_sample": m["ms"] * 1e-3 * m["mhz"] * 1e6 / N_BLOCK,
             "ms_c4096": m["ms_c4096"],
             "bound_ms_c4096": 4096 * max(bytes_ms, ops_ms),
+            "launches_multichannel": mc_launches[k],
             "shape": [1, N_BLOCK]})
-    emit({"kernel_launches": launches})
+    m = kinds["compact"]
+    rows.append({
+        "name": "compact", "route": "cuda",
+        "source": "rtl_433_tpu_torch/csrc/compact.cu",
+        "replaces": "rtl_433_tpu/dsp/engine.py:1307",
+        "launches": mc_launches["compact"], "max_abs_err": errs["compact"],
+        "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+        "bound_by": "bytes", "library_ms": m["library_ms"],
+        "call_ms": m["call_ms"], "library_call_ms": m["library_call_ms"],
+        "rows": m["rows"], "count": m["count"],
+        "dense_cap768_ms": ctimes["dense_cap768"]["ms"],
+        "dense_cap2048_ms": ctimes["dense_cap2048"]["ms"],
+        "dense_cap2048_bound_ms": ctimes["dense_cap2048"]["bound_ms"],
+        "shape": [MC_CHANNELS, 8, 1200, MC_CAP]})
+    launches["compact"] = mc_launches["compact"]
+    emit({"kernel_launches": launches,
+          "kernel_launches_multichannel": mc_launches})
     emit({"kernels": rows})
     print(smi_line(), flush=True)
-    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
 

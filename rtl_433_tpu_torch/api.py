@@ -5,12 +5,15 @@ state, the protocol registry and the output sinks; drives IQ blocks through
 the engine on ``device`` and routes published packages through slicers +
 decoders to events (ref src/r_flow.c:104-372, src/r_api.c:632-839).
 
-This slice carries single-channel file replay (``-r``) and the ``-y``
-test-string entry point (``decode_test_string``), and the body of the
-``-M stats`` report (``stats_report``, ``flush_report_data``) over the frame
-and per-decoder counters. Live input, squelch and autolevel, dumpers, the
-pulse analyzer (``-A``) and SigMF are not ported yet and raise when asked
-for; the stats report's interval trigger and CLI flag are not ported yet.
+This slice carries file replay (``-r``) and ``[C, N, 2]`` multi-channel
+blocks through ``push_block``, the ``-y`` test-string entry point
+(``decode_test_string``), the noise floor (squelch, ``-M noise`` reports and
+autolevel, from channel 0's block level), and the body of the ``-M stats``
+report (``stats_report``, ``flush_report_data``) over the frame and
+per-decoder counters. Live input, dumpers, raw taps, the sample grabber
+(``-S``), the pulse analyzer (``-A``) and SigMF are not ported yet and raise
+when asked for; the stats report's interval trigger and CLI flag are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -23,11 +26,12 @@ import numpy as np
 import torch
 
 from .decoders import Registry
+from .dsp import baseband
 from .dsp.engine import (DetectorParams, PKG_FSK, detector_init,
                          process_block, take_packages)
 from .io import load_iq, parse_filename
 from .output.data_model import Event, convert_units
-from .output.logger import LOG_ERROR, print_logf
+from .output.logger import LOG_ERROR, LOG_NOTICE, LOG_WARNING, print_logf
 from .pulse import slicers as _slicers
 from .pulse.data import PulseData, rfraw_check, rfraw_parse
 
@@ -50,7 +54,7 @@ def _not_ported(what: str):
 
 
 class RtlTpu:
-    """One receiver flow on one device."""
+    """One receiver flow (single- or multi-channel) on one device."""
 
     def __init__(self, sample_rate: int = 250_000,
                  center_frequency: float = 433_920_000.0,
@@ -79,12 +83,8 @@ class RtlTpu:
                  ppm_error: int = 0,
                  verbose_bits: bool = False,
                  device="cuda"):
-        if channels != 1:
-            _not_ported("multi-channel input")
         if analyze:
             _not_ported("the pulse analyzer (-A)")
-        if squelch or report_noise or auto_level:
-            _not_ported("squelch, noise reports and autolevel")
         if device_slice:
             _not_ported("device slicing")
         if report_time not in ("off", "samples", "iso"):
@@ -114,6 +114,7 @@ class RtlTpu:
             self.registry.register_all()
         self.events: List[Event] = []
         self.sinks = []
+        self._current_file = None
         self._state = None
         self._params = None
         self._stream_pos = 0
@@ -121,7 +122,14 @@ class RtlTpu:
         # the frame counters and their start time feed stats_report
         self.frames_count = 0
         self.frames_events = 0
+        # noise tracking / squelch (ref src/r_flow.c:166-194)
+        self.squelch = squelch
+        self.report_noise = int(report_noise)
+        self.auto_level = int(auto_level)
+        self.min_level_auto = min_level_db
+        self.noise_level = 0.0
         self.total_frames_squelch = 0
+        self._last_noise_report = 0
         self._frames_since = _time.time()
 
     # -- config ---------------------------------------------------------------
@@ -139,6 +147,19 @@ class RtlTpu:
             self._ovf_seen = 0
             self._drop_seen = 0
         self._stream_pos = 0
+
+    def _relevel(self):
+        """Apply the autolevel-adjusted minimum level (pulse_detect_set_levels
+        equivalent, ref src/pulse_detect.c:86-105). The level is the state's
+        "min_high" tensor, so a retune is one device write."""
+        if self._params is None or self._state is None:
+            return
+        p = self._params._replace(min_high_level=self.min_level_auto)
+        self._params = p
+        self._state = dict(
+            self._state,
+            min_high=torch.full_like(self._state["min_high"],
+                                     p.ook_min_high_level))
 
     @property
     def fsk_minmax(self) -> bool:
@@ -161,15 +182,17 @@ class RtlTpu:
                 enable_fm=enable_fm,
                 fixed_high_level=(-abs(self.fixed_level_db)
                                   if self.fixed_level_db else 0.0),
-                min_high_level=self.min_level_db,
+                min_high_level=self.min_level_auto,
                 high_low_ratio=self.min_snr_db,
                 fm_low_pass=self.fm_filter,
                 chunk=128,
                 ring=8,
                 eops=2,
-                # file replay can finish more than 8 packages per block on
-                # one channel (the reference has no such cap)
-                pkg_cap=32)
+                # file replay / few-channel runs can finish more than 8
+                # packages per block on one channel (the reference has no
+                # such cap); many channels keep the small cap, since the
+                # out buffers scale with C * pkg_cap * max_pulses
+                pkg_cap=32 if self.channels <= 16 else 8)
             self._state = detector_init(self._params, self.channels,
                                         self.device)
             # loss counters already surfaced (push_block warns on deltas)
@@ -180,7 +203,7 @@ class RtlTpu:
     # -- block flow -------------------------------------------------------------
 
     def push_block(self, iq: np.ndarray, flush: bool = False):
-        """Feed CU8 [N, 2] samples (one channel)."""
+        """Feed CU8 [N, 2] (single channel) or [C, N, 2] samples."""
         self._ensure_pipeline()
         if iq.ndim == 2:
             iq = iq[None]
@@ -195,8 +218,21 @@ class RtlTpu:
         # full blocks need no tail masking
         n_valid = None if pad == 0 else N
         x = torch.from_numpy(np.ascontiguousarray(iq)).to(self.device)
-        self._state, _avg_db = process_block(self._params, self._state, x,
-                                             n_valid, flush=flush)
+        noise = self.squelch or self.report_noise or self.auto_level
+        # squelch: skip noise-only frames entirely in live mode; frames are
+        # always processed for file replay (ref src/r_flow.c:166-176)
+        must_process = bool(self._current_file)
+        if noise and not must_process:
+            noise_only = self._track_noise(self._block_avg_db(x))
+            if self.squelch and noise_only:
+                self.total_frames_squelch += 1
+                self.frames_count += 1
+                self._stream_pos += N
+                return 0
+        self._state, avg_db = process_block(self._params, self._state, x,
+                                            n_valid, flush=flush)
+        if noise and must_process:
+            self._track_noise(float(avg_db[0]))
         pkgs, self._state = take_packages(self._state)
         # any capacity overflow is loud: records/packages must never
         # vanish silently
@@ -222,6 +258,48 @@ class RtlTpu:
             self.frames_events += 1
         self._stream_pos += N
         return events
+
+    def _block_avg_db(self, x) -> float:
+        """Mean block level in dB for channel 0 (squelch prescreen)."""
+        fn = (baseband.magnitude_est_cu8 if self.use_mag_est
+              else baseband.envelope_detect_cu8)
+        return float(fn(x[:1])[1][0])
+
+    def _track_noise(self, avg_db: float) -> bool:
+        """Noise EWMA + periodic -M noise report (ref src/r_flow.c:166-194).
+
+        Returns True when the frame is noise-only.
+        """
+        if self.noise_level == 0.0:
+            self.noise_level = self.min_level_auto - 3.0
+        noise_only = avg_db < self.noise_level + 3.0
+        if noise_only:
+            self.noise_level = (self.noise_level * 7 + avg_db) / 8
+            # -Y autolevel: track the noise floor down/up with min level
+            # (ref src/r_flow.c:179-186)
+            if (self.auto_level > 0
+                    and self.noise_level < self.min_level_db - 3.0
+                    and abs(self.min_level_auto - self.noise_level - 3.0)
+                    > 1.0):
+                self.min_level_auto = self.noise_level + 3.0
+                print_logf(LOG_WARNING, "Auto Level",
+                           "Estimated noise level is %.1f dB, adjusting "
+                           "minimum detection level to %.1f dB",
+                           self.noise_level, self.min_level_auto)
+                self._relevel()
+        else:
+            self.noise_level = (self.noise_level * 31 + avg_db) / 32
+        if self.report_noise:
+            now = int(_time.time())
+            if (now != self._last_noise_report
+                    and now % self.report_noise == 0):
+                self._last_noise_report = now
+                print_logf(LOG_NOTICE, "Auto Level",
+                           "Current %s level %.1f dB, estimated noise "
+                           "%.1f dB",
+                           "noise" if noise_only else "signal", avg_db,
+                           self.noise_level)
+        return noise_only
 
     def _handle_package(self, pkg: dict, block_len: int) -> int:
         pd = PulseData(
@@ -331,6 +409,7 @@ class RtlTpu:
         """-r equivalent: replay a sample file (ref src/rtl_433.c:1688-1866)."""
         if self.report_time == "iso":
             self.report_time = "samples"  # file mode defaults to @position
+        self._current_file = path
         if path.lower().endswith(".sigmf"):
             _not_ported("SigMF input")
         info = parse_filename(path)

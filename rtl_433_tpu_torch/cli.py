@@ -12,6 +12,11 @@ usage, :399-1002 parser):
                  with an optional decoder argument; repeatable
   -F json|kv     output format (default: kv)
   -Y <mode>      FSK detector: auto|classic|minmax[,ampest|magest]
+                 [,squelch][,autolevel[=<n>]]: squelch skips noise-only
+                 frames of live input; autolevel tracks the minimum level
+                 with the noise floor
+  -M noise[:<secs>]  report the block level and the noise floor every
+                 <secs> seconds (default 1); no other -M is ported yet
   --device cuda|cpu   where the engine runs (default: cuda; with no GPU
                  the run fails rather than falling back to the CPU)
 
@@ -32,6 +37,7 @@ def main(argv=None):
     in_files, outputs, reg_actions, test_codes = [], [], [], []
     fsk_mode = "auto"
     use_mag_est = False
+    y_opts, noise_parts, report_noise = {}, [], 0
     device = "cuda"
     i = 0
     while i < len(argv):
@@ -64,9 +70,24 @@ def main(argv=None):
                     use_mag_est = True
                 elif part == "ampest":
                     use_mag_est = False
+                elif part == "squelch":
+                    y_opts["squelch"] = True
+                elif part.startswith("autolevel"):
+                    # autolevel or autolevel=N (ref src/rtl_433.c:944-946)
+                    y_opts["auto_level"] = (int(part[10:])
+                                            if part[9:10] == "=" else 1)
                 else:
                     print(f"-Y {part} is not ported yet", file=sys.stderr)
                     return 2
+        elif a == "-M":
+            key, *parts = val().split(":")
+            if key != "noise":
+                print(f"-M {key} is not ported yet", file=sys.stderr)
+                return 2
+            # repeated -M noise accumulates, like the reference applying
+            # each invocation in turn (ref src/rtl_433.c:714-800)
+            noise_parts.extend(parts)
+            report_noise = int(noise_parts[0]) if noise_parts else 1
         elif a == "--device":
             device = val()
         elif a.startswith("--device="):
@@ -83,7 +104,8 @@ def main(argv=None):
 
     rx = RtlTpu(fsk_mode=fsk_mode, use_mag_est=use_mag_est,
                 report_time="iso" if (in_files or test_codes) else "off",
-                register_all=False, device=device)
+                register_all=False, report_noise=report_noise,
+                device=device, **y_opts)
     # any -R suppresses the default registration; a negative -R first
     # registers all defaults; -R 0 clears everything registered so far
     # (ref src/rtl_433.c:820-851)

@@ -18,7 +18,9 @@ A block runs in three passes:
   rebuilds the carry of the still-open package.
 
 Published packages are in ``state["out_*"]``; :func:`take_packages`
-fetches them to the host. Caps and overflows are counted in diagnostics
+fetches them to the host, or :func:`compact_packages` (one CUDA kernel)
+gathers them into dense rows first and :func:`packages_from_compact` reads
+only those rows. Caps and overflows are counted in diagnostics
 rather than silently lost. Sequential state carried across blocks: IIR
 carries, detector FSM state, the open package's pulse train, lead-in
 counter, level estimates.
@@ -37,6 +39,7 @@ from ..ops.detector import (
     PD_MAX_PULSES, PD_MIN_PULSE_SAMPLES, PD_MIN_PULSES, PKG_FSK, PKG_NONE,
     PKG_OOK, ST_GAP, ST_GAP_START, ST_IDLE, ST_PULSE, detector_scan,
     pack_regs, unpack_regs)
+from ..ops import compact as _compact
 from ..ops.frontend import frontend
 
 # Dedup window after validity compaction: between a record and its
@@ -499,3 +502,48 @@ def take_packages(state):
     state = dict(state)
     state["out_n"] = torch.zeros_like(state["out_n"])
     return pkgs, state
+
+
+def compact_packages(state, cap: int) -> dict:
+    """Device-side package compaction: every published package of every
+    channel gathered into dense ``[cap, ...]`` rows, in the order of
+    :func:`take_packages` (``ops/compact.py``; one CUDA kernel for a state
+    on the card).
+
+    Returns dict(pulse[cap,P], gap[cap,P], meta[cap,F], channel[cap],
+    count, rows) -- rows with channel == -1 are padding, ``count`` (a 0-dim
+    tensor) may exceed ``cap``, and the first four are views of ``rows``.
+    """
+    return _compact.compact_packages(state["out_n"], state["out_p"],
+                                     state["out_g"], state["out_meta"], cap)
+
+
+def packages_from_compact(comp):
+    """Host-side: a :func:`compact_packages` result -> the package dicts of
+    :func:`take_packages`, and the count of valid slots. Only the first
+    ``min(count, cap)`` rows, the non-padding ones, are read to the host,
+    in one copy of the packed ``rows`` buffer."""
+    count = int(comp["count"])
+    n = min(count, comp["channel"].shape[0])
+    P, F = comp["pulse"].shape[1], comp["meta"].shape[1]
+    rows = comp["rows"][:n].cpu().numpy()
+    pulse, gap = rows[:, :P], rows[:, P:2 * P]
+    meta, channel = rows[:, 2 * P:2 * P + F], rows[:, 2 * P + F]
+    pkgs = []
+    for s in range(n):
+        m = meta[s]
+        num = int(m[M_NUM])
+        pkgs.append({
+            "channel": int(channel[s]),
+            "type": int(m[M_TYPE]),
+            "num_pulses": num,
+            "pulse": pulse[s, :num].copy(),
+            "gap": gap[s, :num].copy(),
+            "ook_low_estimate": int(m[M_LOW]),
+            "ook_high_estimate": int(m[M_HIGH]),
+            "fsk_f1_est": int(m[M_F1]),
+            "fsk_f2_est": int(m[M_F2]),
+            "start": int(m[M_START]),
+            "end": int(m[M_END]),
+        })
+    return pkgs, count

@@ -27,7 +27,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel name -> source file in csrc/ (headers in csrc/ are hashed too)
-SOURCES = {"frontend": "frontend.cu", "detector_scan": "detector.cu"}
+SOURCES = {"frontend": "frontend.cu", "detector_scan": "detector.cu",
+           "compact": "compact.cu"}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # kernel name -> (C launcher, its argument types); each returns the
@@ -44,6 +45,11 @@ LAUNCHERS = {
     "detector_scan": ("rtl433_detector_scan",
                       [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    # out_n, out_p, out_g, out_meta, C, S, P, F, cap, W, vec, row_src,
+    # rows, count, stream
+    "compact": ("rtl433_compact",
+                [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                 _P]),
 }
 
 LAUNCHES = {name: 0 for name in SOURCES}

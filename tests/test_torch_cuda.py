@@ -12,6 +12,7 @@ import torch
 
 from rtl_433_tpu_torch.dsp.engine import DetectorParams, detector_init
 from rtl_433_tpu_torch.ops import _cuda
+from rtl_433_tpu_torch.ops import compact as cmp
 from rtl_433_tpu_torch.ops import detector as det
 from rtl_433_tpu_torch.ops import frontend as fe
 
@@ -145,3 +146,59 @@ def test_detector_quiet_cases_match_plain(name):
         assert torch.equal(g.cpu(), w.cpu())
     G = 16384 // case["params"].chunk
     assert 0 < int(want[5].min()) and int(want[5].max()) < G
+
+
+@pytest.mark.parametrize("C", [1, 33, 4096])
+@pytest.mark.parametrize("cap", [1, 7, 768])
+@pytest.mark.parametrize("P", [1200, 13])
+def test_compact_kernel_matches_plain(C, cap, P):
+    """Ragged states (out_n over the slot count, meta over the whole int32
+    range): all five outputs bit-exact, and the packed buffer they view,
+    its zero padding columns included. P=13 takes the scalar row copy."""
+    dev = _gpu()
+    rng = np.random.default_rng(C * 1000 + cap)
+    S = 8
+    ins = [rng.integers(0, 13, C).astype(np.int32),
+           rng.integers(0, 1 << 31, (C, S, P), dtype=np.int64).astype(
+               np.int32),
+           rng.integers(0, 1 << 31, (C, S, P), dtype=np.int64).astype(
+               np.int32),
+           rng.integers(-(1 << 31), 1 << 31, (C, S, 9), dtype=np.int64)
+           .astype(np.int32)]
+    ins = [torch.from_numpy(a).to(dev) for a in ins]
+    before = _cuda.LAUNCHES["compact"]
+    got = cmp.compact_packages_cuda(*ins, cap)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["compact"] == before + 1
+    want = cmp.compact_packages_plain(*ins, cap)
+    for k in ("pulse", "gap", "meta", "channel", "count", "rows"):
+        assert torch.equal(got[k].cpu(), want[k].cpu()), k
+
+
+def test_sharded_engine_on_the_card_matches_cpu():
+    """ShardedEngine on a one-GPU mesh and on the CPU: the same packages,
+    through the compaction kernel on the card."""
+    from rtl_433_tpu_torch.parallel.sharding import ShardedEngine, make_mesh
+    dev = _gpu()
+    rng = np.random.default_rng(6)
+    C, N = 16, 32768
+    iq = rng.integers(120, 136, (C, N, 2), dtype=np.uint8)
+    for c in range(C):
+        for k in range(6):
+            s = 500 + k * 5000 + c * 13
+            iq[c, s:s + 1200] = rng.integers(10, 246, (1200, 2),
+                                             dtype=np.uint8)
+    p = DetectorParams(pkg_cap=4)
+    out = {}
+    for d in ("cpu", dev):
+        eng = ShardedEngine(p, C, make_mesh(devices=[d]), pkg_cap_total=40)
+        before = _cuda.LAUNCHES["compact"]
+        eng.push(iq, flush=True)
+        out[str(d)] = (eng.take_packages(), eng.n_pkg_dropped,
+                       _cuda.LAUNCHES["compact"] - before)
+    (cpu, cdrop, claunch), (gpu, gdrop, glaunch) = out["cpu"], out[str(dev)]
+    assert (claunch, glaunch) == (0, 1)
+    assert cdrop == gdrop and len(cpu) == len(gpu) > 0
+    for a, b in zip(cpu, gpu):
+        for k in a:
+            assert np.array_equal(np.asarray(a[k]), np.asarray(b[k])), k

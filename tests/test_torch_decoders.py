@@ -12,7 +12,9 @@ The fast dispatch is held to its twin the same way: the modules of the
 slicer binding, the gates, the declarative bank and its specs (one
 declared difference: how the slicer library is built), the Registry
 members it runs (``_run`` aside), and ``csrc/slicers.cpp``, byte for byte
-with ``native/slicers.cpp``.
+with ``native/slicers.cpp``. The decode pool, ``decoders/pool.py``, is its
+twin with two declared differences (no JAX_PLATFORMS in the worker, flex
+specs refused).
 """
 
 import ast
@@ -264,3 +266,42 @@ def test_register_unregister_add_device_version():
     assert t.active[-1].symbol == "flex"
     with pytest.raises(ValueError):
         t.register(0)
+
+
+def _pool_tree(pkg):
+    with open(os.path.join(REPO, pkg, "decoders", "pool.py")) as f:
+        return ast.parse(f.read())
+
+
+def _body_of(tree, name):
+    """The body list of top-level function ``name``, or of method
+    ``Class.name``."""
+    cls, _, fn = name.rpartition(".")
+    scope = tree.body
+    if cls:
+        scope = next(n for n in scope
+                     if isinstance(n, ast.ClassDef) and n.name == cls).body
+    return next(n for n in scope
+                if isinstance(n, ast.FunctionDef) and n.name == fn).body
+
+
+def test_pool_matches_jax_twin():
+    """decoders/pool.py is its JAX twin but for two declared differences:
+    the worker does not set JAX_PLATFORMS (nothing of JAX runs in it), and
+    a flex spec is refused in DecodePool.__init__ before any worker starts
+    (decoders/flex.py is not ported yet), so the worker has no flex loop."""
+    jax_tree, port_tree = _pool_tree("rtl_433_tpu"), _pool_tree(
+        "rtl_433_tpu_torch")
+    worker = _body_of(jax_tree, "_worker_main")
+    dropped = [n for n in worker
+               if ("JAX_PLATFORMS" in ast.dump(n)
+                   or (isinstance(n, ast.For)
+                       and "flex_specs" in ast.dump(n.iter)))]
+    assert len(dropped) == 2
+    worker[:] = [n for n in worker if n not in dropped]
+    init = _body_of(port_tree, "DecodePool.__init__")
+    refuse = init[0]
+    assert isinstance(refuse, ast.If) and "flex_specs" in ast.dump(
+        refuse.test) and isinstance(refuse.body[0], ast.Raise)
+    del init[0]
+    assert _strip(jax_tree) == _strip(port_tree)

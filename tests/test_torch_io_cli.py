@@ -5,12 +5,14 @@ Sample bytes made from a numpy seed convert to CU8 exactly as the JAX
 package's ``load_iq_bytes`` converts them; a fixture written as cs16 and
 as cs8 decodes in both packages to its committed events. The CLI of each
 package runs in this process on the same arguments and prints the same
-events.
+events; so do the noise floor's options (``-Y squelch``, ``-Y
+autolevel[=N]``, ``-M noise[:secs]``), with the same autolevel warnings.
 """
 
 import contextlib
 import io
 import json
+import os
 
 import numpy as np
 import pytest
@@ -27,6 +29,8 @@ from test_decoder_oracle import VECTORS
 from torch_fixture_cases import cases, expected, normalize
 
 SEED = 20261016
+NEXUS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                     "nexus", "g001_433.92M_250k.cu8")
 
 
 def _raw(fmt, n, rng):
@@ -147,3 +151,48 @@ def test_cli_y_stamps_time():
     assert rc == 0
     ev = json.loads(buf.getvalue().splitlines()[0])
     assert "time" in ev and ev["model"] == "Nexus-TH"
+
+
+def _cli(main, argv):
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = main(argv)
+    events = [json.loads(line) for line in out.getvalue().splitlines()
+              if line.startswith("{")]
+    warn = [line for line in err.getvalue().splitlines()
+            if "adjusting" in line]
+    return rc, events, warn
+
+
+@pytest.mark.parametrize("opts", [["-Y", "squelch"], ["-Y", "autolevel=2"],
+                                  ["-M", "noise"],
+                                  ["-Y", "classic,squelch,autolevel",
+                                   "-M", "noise:5"]])
+def test_cli_noise_options_match_jax(opts, monkeypatch):
+    made = []
+
+    class Recording(RtlTpu):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    monkeypatch.setattr(cli, "RtlTpu", Recording)
+    argv = ["-R", "19", "-r", NEXUS, "-F", "json"] + opts
+    rc, port, pwarn = _cli(cli.main, argv + ["--device", "cpu"])
+    jrc, jax, jwarn = _cli(jax_cli.main, argv)
+    assert rc == jrc == 0
+    assert port == jax and port
+    assert pwarn == jwarn
+    rx = made[0]
+    joined = " ".join(opts)
+    assert rx.squelch == ("squelch" in joined)
+    assert rx.auto_level == (2 if "autolevel=2" in joined else
+                             1 if "autolevel" in joined else 0)
+    assert rx.report_noise == (5 if "noise:5" in joined else
+                               1 if "noise" in joined else 0)
+
+
+def test_cli_other_meta_options_not_ported():
+    rc, _, _ = _cli(cli.main, ["-R", "19", "-r", NEXUS, "-M", "stats",
+                               "--device", "cpu"])
+    assert rc == 2

@@ -1,8 +1,10 @@
 """The port stands alone: it imports neither jax nor the JAX package.
 
 A subprocess with ``jax`` and ``rtl_433_tpu`` made unimportable imports
-every port module and decodes a fixture on the CPU, through the API and
-the CLI. Another runs a copy of the port alone in a directory, with
+every port module (``parallel/`` and ``decoders/pool.py`` among them) and
+decodes a fixture on the CPU, through the API, the CLI, and a
+``ShardedEngine`` on a 2-device CPU mesh whose events come from forked
+``DecodePool`` workers. Another runs a copy of the port alone in a directory, with
 neither ``native/`` nor the JAX package beside it, and decodes a fixture
 under the default registration: the fast dispatch builds its slicer
 library from the port's own ``csrc/slicers.cpp``. The port's sources and
@@ -54,10 +56,32 @@ buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
     rc = cli.main(["-R", "19", "-r", NEXUS, "-F", "json", "--device", "cpu"])
 cli_events = [json.loads(l) for l in buf.getvalue().splitlines() if l]
+# two channels (the fixture, and silence) on a 2-device CPU mesh, decoded
+# on a forked worker pool
+import numpy as np
+import torch
+from rtl_433_tpu_torch.decoders import Registry
+from rtl_433_tpu_torch.dsp.engine import DetectorParams
+from rtl_433_tpu_torch.io import load_iq
+from rtl_433_tpu_torch.parallel.sharding import ShardedEngine, make_mesh
+one = load_iq(NEXUS, "cu8")
+n = one.shape[0] + (-one.shape[0]) % 128
+blk = np.full((2, n, 2), 128, np.uint8)
+blk[0, :one.shape[0]] = one
+reg = Registry()
+reg.register(19)
+eng = ShardedEngine(DetectorParams(), 2,
+                    make_mesh(devices=[torch.device("cpu")] * 2),
+                    registry=reg)
+eng.use_decode_pool(2)
+eng.push(blk, n_valid=one.shape[0], flush=True)
+sharded = [[c, json.loads(event_to_json(e))] for c, e in eng.drain_events()]
+eng.close_decode_pool()
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.")
              or k == "rtl_433_tpu" or k.startswith("rtl_433_tpu."))
 print(json.dumps({"api": api, "cli": cli_events, "rc": rc,
+                  "sharded": sharded,
                   "loaded": [k for k in bad if sys.modules[k] is not None]}))
 '''
 
@@ -136,6 +160,7 @@ def test_port_runs_with_jax_and_reference_blocked():
     assert [e.pop("time").startswith("@") for e in res["cli"]] == \
         [True] * len(want)
     assert res["cli"] == want
+    assert res["sharded"] == [[0, e] for e in want]
 
 
 def _sources():
@@ -181,8 +206,13 @@ def test_cuda_device_refused_without_gpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA GPU is present: the refusal path is not taken")
     from rtl_433_tpu_torch.api import RtlTpu
+    from rtl_433_tpu_torch.parallel import make_mesh
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         RtlTpu(device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        RtlTpu(channels=4)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        make_mesh()
 
 
 def test_chip_smoke_refuses_without_gpu_or_checkout(tmp_path):
