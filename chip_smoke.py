@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 Phases, each printing one JSON line (any failure exits non-zero):
 
 1. device  -- the card's name and power limit;
-2. build   -- compile the three CUDA kernels from csrc/ (one nvcc each,
+2. build   -- compile the five CUDA sources of csrc/ (one nvcc each,
               in parallel) and show ptxas's register report; build the host
               slicer library (csrc/slicers.cpp, host c++) and lower the
               declarative specs, so that neither one-time cost falls into
@@ -37,6 +37,13 @@ Phases, each printing one JSON line (any failure exits non-zero):
               behind a spinning card) and its time per call with the
               host's launch cost, the same two for the gather by
               torch.index_select (the library yardstick), and its bound;
+4c. slice -- device slicing's kernels against their plain versions,
+              bit-exact on every plane of every lane: csrc/slice.cu for each
+              of the nine slicer families on fuzz trains
+              (tests/torch_slice_cases.py) at the bank's caps and at caps
+              that flag most lanes, and csrc/dispatch.cu's content dedup
+              and record gather on those outputs and on planes with
+              planted repeats;
 5. main    -- RtlTpu(device="cuda").decode_file with -R <n> on all 106
               fixtures of tests/fixtures/ (250, 1024 and 4096 kS/s); events
               must equal the committed .json. Then the fixtures are decoded
@@ -45,7 +52,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
               ones), and each recorded call is checked against the plain
               version, bit-exact, the detector's quiet-chunk count
               included; printed by kernel x sample rate x FM on/off (calls,
-              max_abs_err, share of chunks that took the quiet path);
+              max_abs_err, share of chunks that took the quiet path); then
+              all 106 again with device slicing (main_device_slice): the
+              committed events, every slicer family launched, and every
+              kernel call those decodes made held to the plain version
+              (with each family's lanes and flagged lanes);
 6. stream  -- nexus and lacrosse_tx35 concatenated 64 times, lacrosse_tx29
               16 times, decoded end to end: copies x the committed events;
               MS/s and ms/block, then the same decode under torch.profiler
@@ -59,8 +70,14 @@ Phases, each printing one JSON line (any failure exits non-zero):
               file, with the host ms per block spent in the decoders; a
               third decode splits that host time into native slicing,
               gate/plan building, Python decode calls and the declarative
-              bank. mixed_250k is decoded once more on the per-decoder host
-              path (Registry._use_native forced off): the same events;
+              bank. Each is decoded again with device slicing: the same
+              events, no train left to the host slicer, and the prewarm
+              split into the kernels' device spans, the host part of
+              batch_slice, the memo plans and the record freeze; every
+              kernel call of one more such decode of each stream is held
+              to the plain version (slice_inputs). mixed_250k is
+              decoded once more on the per-decoder host path
+              (Registry._use_native forced off): the same events;
 6b. multichannel -- bench.py's signal-dense workload at full width through
               ShardedEngine on the card: C=4096 channels x N=131072 samples,
               four rotation blocks (tests/torch_bench_blocks.py, equal to
@@ -83,14 +100,24 @@ Phases, each printing one JSON line (any failure exits non-zero):
               registry's train memo and decode cache; the same blocks run
               once more inline and on the pool with both cut to one entry
               (no_cache: the cost of trains not seen before), the same
-              events in order;
+              events in order; then inline with both emptied before every
+              drain (no_cache.per_drain): on the host path with the host
+              decode split as the mixed lines carry it, and with device
+              slicing (its prewarm split, memo builds per block), the same
+              events; the device pass's warm-up drain's kernel calls are
+              held to the plain version and timed;
 7. kernels -- one line per kernel with its launches on the main path, its
               largest error against the plain version over every check
               above, its times and bound, and its cycles per sample at
               C=1 at the SM clock that nvidia-smi read while the same
               launch ran back to back (sm_clock_mhz). The front end and the
               detector are timed at C=1, the shape of file replay, and at
-              C=4096; compaction at the multichannel phase's real state.
+              C=4096; compaction at the multichannel phase's real state;
+              the device-slicing kernels (slice_<family>, content_dup,
+              gather_records) with their launches on the device-slicing
+              paths and their times summed over every one of one
+              dense_4096 drain's calls (NRZS, which no default spec runs,
+              at its fuzz call).
 
 Every phase line carries its seconds. The line before the last is
 nvidia-smi's name and power limit; the last
@@ -132,6 +159,8 @@ COMPACT_OUTS = ("pulse", "gap", "meta", "channel", "count")
 # with take_packages; compaction runs on the multichannel path)
 REPLAY_KERNELS = ("frontend", "detector_scan")
 COMPACT_INS = ("out_n", "out_p", "out_g", "out_meta")
+# the kernels of the multichannel path without device slicing
+MC_KERNELS = ("frontend", "detector_scan", "compact")
 
 # bench.py's signal-dense workload (bench.py:183-201)
 MC_CHANNELS = 4096
@@ -139,6 +168,9 @@ MC_ROTATIONS = 4
 MC_BLOCKS = 12
 MC_CAP = 768
 MC_SAMPLE = 64
+# device-slicing kernel calls queued behind one spin of the card when
+# every call of a drain is timed (cuda_ms_all)
+DS_CHUNK = 64
 
 # (fixture, protocol, copies) byte-concatenated into one file per stream
 STREAMS = [("nexus", 19, 64), ("lacrosse_tx35", 75, 64),
@@ -193,6 +225,30 @@ def cuda_ms(fn, reps=5, busy_first=False):
     return a.elapsed_time(b) / reps
 
 
+def cuda_ms_all(fns, reps=3, chunk=DS_CHUNK):
+    """Device ms of every call of ``fns`` once, in order: the mean over
+    ``reps`` after one warm-up pass. Each chunk of ``chunk`` calls is queued
+    behind about 10 ms of a spinning card, as in cuda_ms(busy_first=True),
+    so that the time is the device's alone; the chunks' times are summed."""
+    import torch
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        for i in range(0, len(fns), chunk):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(20_000_000)
+            a.record()
+            for fn in fns[i:i + chunk]:
+                fn()
+            b.record()
+            torch.cuda.synchronize()
+            total += a.elapsed_time(b)
+    return total / reps
+
+
 def sm_clock_mhz(fn):
     """The SM clock, in MHz, that nvidia-smi reads while ``fn`` runs back to
     back on the card."""
@@ -244,6 +300,342 @@ def group_of(key: str) -> str:
     if "memcpy" in key.lower():
         return "copies"
     return "other"
+
+
+def timed(acc, key, fn):
+    """``fn`` with its seconds and calls added to ``acc[key]``."""
+    def run(*a, **k):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            acc[key] = acc.get(key, 0.0) + time.perf_counter() - t
+            acc["n_" + key] = acc.get("n_" + key, 0) + 1
+    return run
+
+
+@contextlib.contextmanager
+def patched(*items):
+    """Set (object, attribute, value) for the block, then restore."""
+    old = [(o, k, o.__dict__[k]) for o, k, _v in items]
+    try:
+        for o, k, v in items:
+            setattr(o, k, v)
+        yield
+    finally:
+        for o, k, v in old:
+            setattr(o, k, v)
+
+
+def split_timers(acc):
+    """Time the parts of the default dispatch: the native slicing call,
+    the train memo around it (gates and plans), the declarative bank
+    and every Python decode function (each wraps the decoder that a
+    new registry picks up from ``_DECODERS``)."""
+    from rtl_433_tpu_torch.decoders import base as dbase
+    from rtl_433_tpu_torch.decoders import declarative
+    from rtl_433_tpu_torch.pulse import native_slicers
+    R, B = dbase.Registry, native_slicers.SlicerBank
+    return patched(
+        (B, "slice", timed(acc, "slice", B.slice)),
+        (R, "_build_train_memo", timed(acc, "memo", R._build_train_memo)),
+        (declarative.DeclRunner, "decode_many",
+         timed(acc, "decl", declarative.DeclRunner.decode_many)),
+        (dbase, "_DECODERS",
+         {k: timed(acc, "python", fn) for k, fn in dbase._DECODERS.items()}))
+
+
+def split_ms(acc, blocks, n_packages=None):
+    """The host decode split, in ms per block, from the ``split_timers``
+    accumulators and the host decode's seconds (``acc["host_decode"]``)."""
+    ms = {k: acc.get(k, 0.0) / blocks * 1e3
+          for k in ("host_decode", "slice", "memo", "python", "decl")}
+    out = {"host_decode_ms_per_block": ms["host_decode"],
+           "native_slicing_ms_per_block": ms["slice"],
+           "gate_plan_ms_per_block": ms["memo"] - ms["slice"],
+           "python_decode_ms_per_block": ms["python"],
+           "decl_bank_ms_per_block": ms["decl"],
+           "rest_ms_per_block": ms["host_decode"] - ms["memo"]
+           - ms["python"] - ms["decl"],
+           "slice_calls": acc.get("n_slice", 0),
+           "memo_builds": acc.get("n_memo", 0),
+           "python_decode_calls": acc.get("n_python", 0),
+           "decl_batches": acc.get("n_decl", 0)}
+    if n_packages:
+        out["host_decode_ms_per_package"] = \
+            acc.get("host_decode", 0.0) * 1e3 / n_packages
+    return out
+
+
+DS_KERNELS = ("slice", "content_dup", "gather_records")
+
+
+@contextlib.contextmanager
+def kernel_timers(spans):
+    """Record a CUDA event pair around every launch of the device
+    slicing's C launchers into ``spans`` [(launcher, start, end)]; the
+    launchers enqueue only, so each pair spans the kernel alone."""
+    import torch
+    from rtl_433_tpu_torch.ops import _cuda
+    old = {k: _cuda.launcher(k) for k in DS_KERNELS}
+
+    def wrap(k, fn):
+        def run(*a):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            err = fn(*a)
+            e1.record()
+            spans.append((k, e0, e1))
+            return err
+        return run
+    try:
+        for k, fn in old.items():
+            _cuda._fns[k] = wrap(k, fn)
+        yield
+    finally:
+        _cuda._fns.update(old)
+
+
+def span_ms(spans):
+    import torch
+    torch.cuda.synchronize()
+    out = {}
+    for k, e0, e1 in spans:
+        out[k] = out.get(k, 0.0) + e0.elapsed_time(e1)
+    return out
+
+
+def prewarm_timers(acc):
+    """Time the device slicing's prewarm and its parts: the batched slice
+    (kernels, their copies to the host, the host slicer's passes over
+    flagged lanes and the specs without a kernel, the banks of flagged
+    spec subsets, and the host assembly of the summaries), the memo
+    plans, and the drain-wide record freeze."""
+    from rtl_433_tpu_torch.decoders import base as dbase
+    from rtl_433_tpu_torch.decoders import device_dispatch as ddp
+    R, D, L = dbase.Registry, ddp.DeviceBank, ddp.LazyRecords
+    real, real_ovf = R.prewarm_trains, D._get_ovf_bank
+
+    def counted(self, *a, **k):
+        n = real(self, *a, **k)
+        acc["built"] = acc.get("built", 0) + n
+        return n
+
+    def ovf_bank(self, key):
+        acc["bank_builds"] = acc.get("bank_builds", 0) + (
+            key not in self._ovf_banks)
+        return real_ovf(self, key)
+    return patched(
+        (R, "prewarm_trains", timed(acc, "prewarm", counted)),
+        (D, "batch_slice", timed(acc, "batch_slice", D.batch_slice)),
+        (D, "_native_piece", timed(acc, "host_slice", D._native_piece)),
+        (D, "_get_ovf_bank", timed(acc, "ovf_bank", ovf_bank)),
+        (R, "_memo_plans", timed(acc, "plans", R._memo_plans)),
+        (L, "freeze_many", staticmethod(timed(acc, "freeze",
+                                              L.freeze_many))))
+
+
+def prewarm_ms(acc, spans, blocks):
+    """The prewarm's split in ms per block; ``kernel`` is the device time
+    of the launches alone, ``batch_slice_host`` the rest of batch_slice."""
+    k = span_ms(spans)
+    kern = sum(k.values())
+    ms = lambda key: acc.get(key, 0.0) / blocks * 1e3
+    return {"prewarm_ms_per_block": ms("prewarm"),
+            "kernel_ms_per_block": kern / blocks,
+            "kernel_ms_by_launcher": {n: v / blocks for n, v in k.items()},
+            "batch_slice_ms_per_block": ms("batch_slice"),
+            "batch_slice_host_ms_per_block": ms("batch_slice")
+            - kern / blocks,
+            "host_slicer_ms_per_block": ms("host_slice"),
+            "host_slicer_calls": acc.get("n_host_slice", 0),
+            "flagged_banks_ms_per_block": ms("ovf_bank"),
+            "flagged_bank_calls": acc.get("n_ovf_bank", 0),
+            "flagged_bank_builds": acc.get("bank_builds", 0),
+            "memo_plans_ms_per_block": ms("plans"),
+            "freeze_ms_per_block": ms("freeze"),
+            "prewarm_rest_ms_per_block": ms("prewarm") - ms("batch_slice")
+            - ms("plans") - ms("freeze"),
+            "prewarm_calls": acc.get("n_prewarm", 0),
+            "memo_builds_per_block": acc.get("built", 0) / blocks,
+            "batch_slice_calls": acc.get("n_batch_slice", 0)}
+
+
+
+SLICE_OUTS = ("bytes", "bits_per_row", "syncs", "num_rows", "n_events", "ovf")
+# int32 operations per lane step of csrc/slice.cu, counted from the
+# sources (compares, selects, adds and the cursor updates; PCM's includes
+# its rates pass, DMC's and PIWM-DC's are per symbol, two per pulse)
+SLICE_OPS = {"ppm": 30, "pwm": 36, "pcm": 90, "mc": 40, "dmc": 36,
+             "piwm_dc": 26, "nrzs": 16, "rzi": 20, "osv1": 44}
+SYMBOL_FAMS = ("dmc", "piwm_dc")
+
+
+def ds_kernel_names():
+    from rtl_433_tpu_torch.ops import _cuda
+    return [f"slice_{f}" for f in _cuda.SLICE_FAMILIES] + [
+        "content_dup", "gather_records"]
+
+
+@contextlib.contextmanager
+def ds_recorder(calls):
+    """Record the device slicing's kernel calls as the main path makes
+    them, into ``calls`` [(kind, args)]. The inputs are fresh tensors that
+    nothing writes afterwards, so references are kept, not copies."""
+    from rtl_433_tpu_torch.decoders import device_dispatch as ddp
+    from rtl_433_tpu_torch.ops import slice as sl
+    slice_cuda, dup, gather = (sl.slice_cuda, ddp._content_dup,
+                               ddp._gather_records)
+
+    def rec_slice(fam, pulse, gap, n_pulses, bounds, caps=sl.SliceCaps()):
+        calls.append(("slice", (fam, pulse, gap, n_pulses, bounds, caps)))
+        return slice_cuda(fam, pulse, gap, n_pulses, bounds, caps)
+
+    def rec_dup(out):
+        calls.append(("content_dup", ({k: out[k] for k in (
+            "bytes", "num_rows", "bits_per_row", "syncs")},)))
+        return dup(out)
+
+    def rec_gather(by, sy, bs, js, es):
+        calls.append(("gather_records", (by, sy, np.array(bs), np.array(js),
+                                         np.array(es))))
+        return gather(by, sy, bs, js, es)
+
+    with patched((sl, "slice_cuda", rec_slice), (ddp, "_content_dup", rec_dup),
+                 (ddp, "_gather_records", rec_gather)):
+        yield
+
+
+def ds_fns(kind, args):
+    """A recorded call as (kernel name, kernel call, plain call, outputs of
+    a result as a list of tensors, their names)."""
+    import torch
+    from rtl_433_tpu_torch.decoders import device_dispatch as ddp
+    from rtl_433_tpu_torch.ops import slice as sl
+    if kind == "slice":
+        fam, pulse, gap, npl, bounds, caps = args
+        cols = bounds if isinstance(bounds, dict) \
+            else sl.table_columns(fam, bounds)
+        return (f"slice_{fam}",
+                lambda: sl.slice_cuda(fam, pulse, gap, npl, bounds, caps),
+                lambda: sl.PLAIN[fam](pulse, gap, npl, cols, caps),
+                lambda o: [o[k] for k in SLICE_OUTS], SLICE_OUTS)
+    if kind == "content_dup":
+        planes, = args
+        return ("content_dup", lambda: ddp._content_dup(planes),
+                lambda: ddp._content_dup_plain(planes), lambda o: [o],
+                ("dup",))
+    by, sy, bs, js, es = args
+    idx = [torch.from_numpy(a.astype(np.int64)).to(by.device)
+           for a in (bs, js, es)]
+    return ("gather_records",
+            lambda: ddp._gather_records(by, sy, bs, js, es),
+            lambda: ddp._gather_records_plain(by, sy, *idx),
+            lambda o: [torch.as_tensor(x).to(by.device) for x in o],
+            ("bytes", "syncs"))
+
+
+def ds_check(calls, compare, what, flagged=None):
+    """Each recorded call once more on the kernel and on its plain version,
+    on the card: bit-exact. Returns {kernel name: calls checked}; adds each
+    slicer family's lanes (padding included) and flagged lanes (sent to
+    the host slicer) to ``flagged``."""
+    import torch
+    n = {}
+    for i, (kind, args) in enumerate(calls):
+        name, kern, plain, outs, names = ds_fns(kind, args)
+        got = outs(kern())
+        torch.cuda.synchronize()
+        compare(name, got, outs(plain()), names, f"{what}, call {i}")
+        n[name] = n.get(name, 0) + 1
+        if flagged is not None and kind == "slice":
+            ovf = got[SLICE_OUTS.index("ovf")]
+            f = flagged.setdefault(name, {"lanes": 0, "flagged": 0})
+            f["lanes"] += ovf.numel()
+            f["flagged"] += int(ovf.sum())
+    return n
+
+
+def ds_cost(kind, args):
+    """(bytes, int32 operations, shape) that one call must move and do:
+    every input read once and every output written once; the operations
+    are those this call's trains need (lane steps x specs)."""
+    if kind == "slice":
+        fam, pulse, _gap, npl, bounds, caps = args
+        B, N = pulse.shape
+        S = len(bounds["ok"]) if isinstance(bounds, dict) else bounds.shape[0]
+        E, R, BY = caps
+        nbytes = 8 * B * N + 4 * B + 4 * 12 * S \
+            + B * S * (E * R * BY + 8 * E * R + 4 * E + 5)
+        steps = int(npl.sum()) * (2 if fam in SYMBOL_FAMS else 1)
+        return nbytes, SLICE_OPS[fam] * S * steps, [B, N, S, E, R, BY]
+    if kind == "content_dup":
+        planes, = args
+        vals = sum(planes[k].numel() for k in ("bytes", "bits_per_row",
+                                                "syncs"))
+        nbytes = planes["bytes"].numel() + 4 * (
+            planes["num_rows"].numel() * 2 + planes["bits_per_row"].numel()
+            + planes["syncs"].numel())
+        return nbytes, vals, list(planes["bytes"].shape)
+    by, _sy, bs, _js, _es = args
+    B, J, E, R, W = by.shape
+    P = len(bs)
+    return 2 * P * (R * W + 4 * R) + 12 * P, 0, [P, R, W]
+
+
+def ds_measure(calls):
+    """Per kernel, summed over every one of ``calls`` (one drain's): device
+    ms (cuda_ms_all), the plain version's ms (all calls back to back, one
+    sync at the end), the bound (bytes and operations of every call) and,
+    for the gather, the library's ms (index_select of the kept records'
+    bytes and syncs, every call)."""
+    import torch
+    from rtl_433_tpu_torch.ops import _cuda
+    rows = {}
+    for kind, args in calls:
+        name, kern, plain, _outs, _names = ds_fns(kind, args)
+        r = rows.setdefault(name, {"calls": 0, "bytes": 0, "ops": 0,
+                                   "shapes": [], "kern": [], "plain": [],
+                                   "library": []})
+        nbytes, ops, shape = ds_cost(kind, args)
+        r["calls"] += 1
+        r["bytes"] += nbytes
+        r["ops"] += ops
+        if len(r["shapes"]) < 16:
+            r["shapes"].append(shape)
+        if kind == "gather_records":
+            # the launcher alone: the wrapper's index upload and the copy of
+            # the result to the host would end each call with a sync
+            by, sy, bs, js, es = args
+            B, J, E, R, W = by.shape
+            P = len(bs)
+            ix = torch.from_numpy(np.stack([bs, js, es]).astype(np.int32))\
+                .to(by.device)
+            ob = torch.empty((P, R, W), dtype=torch.uint8, device=by.device)
+            osy = torch.empty((P, R), dtype=torch.int32, device=by.device)
+            a = (by.data_ptr(), sy.data_ptr(), ix[0].data_ptr(),
+                 ix[1].data_ptr(), ix[2].data_ptr(), P, J, E, R, W,
+                 ob.data_ptr(), osy.data_ptr(), _cuda.stream_of(by))
+            # the default arguments keep the buffers the launch writes
+            kern = (lambda fn=_cuda.launcher("gather_records"), a=a,
+                    keep=(ix, ob, osy): fn(*a))
+            flat = ((ix[0].long() * J + ix[1].long()) * E + ix[2].long())
+            fb, fs = by.reshape(B * J * E, R * W), sy.reshape(B * J * E, R)
+            r["library"].append(lambda fb=fb, fs=fs, flat=flat: (
+                fb.index_select(0, flat), fs.index_select(0, flat)))
+        r["kern"].append(kern)
+        r["plain"].append(plain)
+    for r in rows.values():
+        kern, plain, lib = r.pop("kern"), r.pop("plain"), r.pop("library")
+        r["ms"] = cuda_ms_all(kern)
+        r["plain_ms"] = host_ms(lambda: [p() for p in plain])
+        r["library_ms"] = cuda_ms_all(lib) if lib else None
+        b_ms = r["bytes"] / HBM_BPS * 1e3
+        o_ms = r["ops"] / INT32_OPS * 1e3
+        r["bound_ms"] = max(b_ms, o_ms)
+        r["bound_by"] = "bytes" if b_ms >= o_ms else "operations"
+    return rows
 
 
 def synth_iq(rng, n, rate=250_000):
@@ -361,11 +753,15 @@ def compact_measure(ins, cap):
         "cap": cap, "count": int(valid.sum())}
 
 
-def multichannel(dev, mesh, compare, channels=MC_CHANNELS, n=N_BLOCK,
-                 n_blocks=MC_BLOCKS, n_sample=MC_SAMPLE, cap=MC_CAP):
+def multichannel(dev, mesh, compare, ds_kernels, channels=MC_CHANNELS,
+                 n=N_BLOCK, n_blocks=MC_BLOCKS, n_sample=MC_SAMPLE,
+                 cap=MC_CAP):
     """Phase 6b: bench.py's signal-dense workload through ShardedEngine on
     ``mesh``. Returns (the phase line, the kernel launches of the timed
-    blocks, the compaction kernel's numbers at the main path's state)."""
+    blocks, the compaction kernel's numbers at the main path's state, the
+    device-slicing kernels' launches on the per-drain no-cache pass, and
+    their numbers at one drain's calls). ``ds_kernels``: the device-slicing
+    kernels the default registration must launch."""
     from collections import Counter
 
     import torch
@@ -538,7 +934,7 @@ def multichannel(dev, mesh, compare, channels=MC_CHANNELS, n=N_BLOCK,
         count_memo_builds(eng, acc)
         _cuda.reset_launches()
         inline, wall = timed_blocks(eng, acc)
-        launches = dict(_cuda.LAUNCHES)
+        launches = {k: _cuda.LAUNCHES[k] for k in MC_KERNELS}
         for k, v in launches.items():
             if v <= 0:
                 fail(f"kernel {k} was not launched on the multichannel path")
@@ -661,6 +1057,73 @@ def multichannel(dev, mesh, compare, channels=MC_CHANNELS, n=N_BLOCK,
                  f"without the caches differ from the inline run's")
         overflow(eng)
         del eng
+
+        # no cache, per drain: the train memo and the decode cache emptied
+        # before every drain (no train of an earlier block is reused, as
+        # with live input), so that a drain's prewarm can serve its own
+        # packages. First the host path with its decode split, then device
+        # slicing; one warm-up block each (banks, kernels), whose drain's
+        # kernel calls are recorded in the device pass
+        def per_drain(eng):
+            reg, drain = eng.registry, eng.drain_events
+
+            def fresh_drain(*a, **k):
+                reg._train_cache.clear()
+                reg._dec_cache.clear()
+                return drain(*a, **k)
+            eng.drain_events = fresh_drain
+            return eng
+
+        split_acc = {}
+        with split_timers(split_acc):
+            eng = per_drain(engine(channels))
+            run_blocks(eng, 1)
+            split_acc.clear()
+            h_acc = {}
+            count_memo_builds(eng, h_acc)
+            fresh, fresh_wall = timed_blocks(eng, h_acc)
+        if as_json(fresh) != inline_json:
+            fail("multichannel: the per-drain no-cache host pass's events "
+                 "differ")
+        del eng
+        ds_acc, spans, drain_calls = {}, [], []
+        with split_timers(ds_acc), prewarm_timers(ds_acc), \
+                kernel_timers(spans):
+            eng = per_drain(engine(channels))
+            eng.registry.device_slice = True
+            with ds_recorder(drain_calls):
+                run_blocks(eng, 1)
+            torch.cuda.synchronize()
+            ds_acc.clear()
+            spans.clear()
+            d_acc = {}
+            count_memo_builds(eng, d_acc)
+            _cuda.reset_launches()
+            ds_ev, ds_wall = timed_blocks(eng, d_acc)
+            ds_launches = {k: _cuda.LAUNCHES[k] for k in ds_kernel_names()}
+            ds_pre = prewarm_ms(ds_acc, spans, n_blocks)
+        if as_json(ds_ev) != inline_json:
+            fail(f"multichannel: {len(ds_ev)} events with device slicing, "
+                 f"{len(inline)} without")
+        if d_acc.get("memo_builds", 0):
+            fail(f"multichannel: device slicing left "
+                 f"{d_acc['memo_builds']} trains to the host slicer")
+        for k in ds_kernels:
+            if ds_launches[k] <= 0:
+                fail(f"kernel {k} was not launched on the multichannel "
+                     f"device-slicing pass")
+        ds_overflow = overflow(eng)
+        del eng
+        # the recorded drain's kernel calls: each against the plain version,
+        # then timed (device, plain, library) at these shapes
+        t = time.perf_counter()
+        drain_lanes = {}
+        drain_checked = ds_check(drain_calls, compare, "dense_4096 drain",
+                                 drain_lanes)
+        ds_numbers = ds_measure(drain_calls)
+        ds_numbers_s = time.perf_counter() - t
+        del drain_calls
+        torch.cuda.empty_cache()
     finally:
         garage.time = real_time
     del blocks
@@ -689,13 +1152,33 @@ def multichannel(dev, mesh, compare, channels=MC_CHANNELS, n=N_BLOCK,
                  "gain": wall / pool_wall, "overflow": pool_ovf},
         "no_cache": {"events_equal_in_order": True, "overflow": cold_ovf,
                      **split(cold_acc, cold_wall),
+                     "per_drain": {
+                         "host": {**split(h_acc, fresh_wall),
+                                  "split": split_ms(
+                                      {**split_acc, "host_decode":
+                                       h_acc["drain"] - h_acc["take"]},
+                                      n_blocks, h_acc["packages"])},
+                         "device_slice": {
+                             "events_equal_in_order": True,
+                             "overflow": ds_overflow,
+                             **split(d_acc, ds_wall),
+                             "host_memo_builds_per_block":
+                                 d_acc.get("memo_builds", 0) / n_blocks,
+                             "python_decode_ms_per_block":
+                                 ds_acc.get("python", 0.0) / n_blocks * 1e3,
+                             "decl_bank_ms_per_block":
+                                 ds_acc.get("decl", 0.0) / n_blocks * 1e3,
+                             **ds_pre, "launches": ds_launches,
+                             "drain_calls_checked": drain_checked,
+                             "drain_lanes": drain_lanes,
+                             "drain_measure_s": ds_numbers_s}},
                      "pool": {"workers": workers,
                               "events_equal_in_order": True,
                               "msps": samples / cold_pool_wall / 1e6,
                               "ms_per_block":
                                   cold_pool_wall / n_blocks * 1e3,
                               "gain": cold_wall / cold_pool_wall}}}
-    return row, launches, numbers
+    return row, launches, numbers, ds_launches, ds_numbers
 
 
 def main():
@@ -748,10 +1231,10 @@ def main():
                      f"{e} ({what})")
         return worst
 
-    def decode(nums, path, device="cuda"):
+    def decode(nums, path, device="cuda", device_slice=False):
         """-R <n> for each of ``nums``; None: the default registration."""
         rx = RtlTpu(device=device, register_all=nums is None,
-                    report_time="off")
+                    report_time="off", device_slice=device_slice)
         for n in nums or ():
             rx.registry.register(n)
         return [normalize(json.loads(event_to_json(e)))
@@ -767,7 +1250,7 @@ def main():
     # ---- 2. build
     t = time.perf_counter()
     took = _cuda.build()
-    for k in _cuda.SOURCES:
+    for k in _cuda.LAUNCHERS:
         _cuda.launcher(k)
     t_host = time.perf_counter()
     try:
@@ -950,6 +1433,48 @@ def main():
           "totals": totals, "max_abs_err": errs["compact"],
           "bit_exact": True, "times": ctimes})
 
+    # ---- 4c. slice: kernel A (nine families) and kernels B and C against
+    # their plain versions on fuzz trains (tests/torch_slice_cases.py), at
+    # the bank's caps and at caps that flag most lanes; B and C on the
+    # slicer outputs and on planes with planted repeats
+    from rtl_433_tpu_torch.decoders import device_dispatch as ddp
+    from rtl_433_tpu_torch.ops import slice as sl
+    from torch_slice_cases import (BANK_CAPS, SMALL_CAPS, dup_planes,
+                                   family_devices, family_trains, pack)
+    fuzz, fuzz_calls = {}, {}
+    for i, fam in enumerate(sl.FAMILIES):
+        devs = family_devices(fam)
+        bounds = getattr(sl, f"{fam}_bounds")(devs, 250_000)
+        args = [torch.from_numpy(a).to(dev) for a in
+                pack(family_trains(fam, devs, SEED + i, n=48))]
+        for cname, caps in (("bank", BANK_CAPS[fam]), ("small", SMALL_CAPS)):
+            calls = [("slice", (fam, *args, bounds, caps))]
+            ds_check(calls, compare, f"fuzz, {cname} caps")
+            got = sl.slice_cuda(fam, *args, bounds, caps)
+            calls = [("content_dup", ({k: got[k] for k in SLICE_OUTS[:4]},)),
+                     ("gather_records", (got["bytes"], got["syncs"], *(
+                         rng.integers(0, n, 64).astype(np.int32)
+                         for n in got["num_rows"].shape)))]
+            ds_check(calls, compare, f"{fam} fuzz output, {cname} caps")
+            fuzz[f"{fam}/{cname}"] = {
+                "lanes": got["ovf"].numel(), "flagged": int(got["ovf"].sum()),
+                "events": int(got["n_events"].sum())}
+            if cname == "bank":
+                # timed later with the bound table on the card, as the bank
+                # keeps it
+                tab = torch.from_numpy(sl.bound_table(fam, bounds)).to(dev)
+                fuzz_calls[fam] = [("slice", (fam, *args, tab, caps))]
+    planted = {k: torch.from_numpy(v).to(dev) for k, v in
+               dup_planes(SEED, B=5, J=7, E=8, R=6, W=20).items()}
+    ds_check([("content_dup", (planted,))], compare, "planted repeats")
+    repeats = int((ddp._content_dup(planted).cpu()
+                   != torch.arange(8, dtype=torch.int32)).sum())
+    if not repeats:
+        fail("the planted repeats were not found")
+    emit({"phase": "slice", "bit_exact": True, "families": fuzz,
+          "planted_repeats_found": repeats,
+          "max_abs_err": {k: errs[k] for k in ds_kernel_names()}})
+
     # ---- 5. main path: every fixture through RtlTpu on the card
     fx = [(d, nums, cu8, expected(cu8)) for d, nums, cu8 in fixture_cases()]
     if len(fx) < 106:
@@ -1034,6 +1559,43 @@ def main():
           "max_abs_err": {k: errs[k] for k in orig},
           "by_kernel_rate_fm": dict(sorted(groups.items()))})
 
+    # ---- 5c. the fixtures again, with device slicing: every drain's trains
+    # sliced by the kernels, the same committed events; then every kernel
+    # call those decodes made against its plain version, on its inputs
+    ds_paths = {}
+    fx_calls = []
+    _cuda.reset_launches()
+    t = time.perf_counter()
+    for d, nums, cu8, want in fx:
+        calls = []
+        with ds_recorder(calls):
+            got = decode(nums, cu8, device_slice=True)
+        if got != want:
+            fail(f"fixture {d} with device slicing: {got} != {want}")
+        fx_calls.append((d, calls))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t
+    ds_paths["fixtures"] = {k: _cuda.LAUNCHES[k] for k in ds_kernel_names()}
+    for k, v in ds_paths["fixtures"].items():
+        if v <= 0:
+            fail(f"kernel {k} was not launched on the fixtures with device "
+                 f"slicing")
+    t = time.perf_counter()
+    fx_checked, fx_flagged = {}, {}
+    for d, calls in fx_calls:
+        for k, v in ds_check(calls, compare, f"fixture {d} with device "
+                             f"slicing", fx_flagged).items():
+            fx_checked[k] = fx_checked.get(k, 0) + v
+    if any(fx_checked.get(k, 0) < v for k, v in ds_paths["fixtures"].items()):
+        fail(f"the fixtures' checked kernel calls {fx_checked} are fewer "
+             f"than their launches {ds_paths['fixtures']}")
+    del fx_calls, calls
+    emit({"phase": "main_device_slice", "fixtures": len(fx),
+          "all_match": True, "seconds": round(decode_s, 3),
+          "launches": ds_paths["fixtures"], "checked": fx_checked,
+          "bit_exact": True, "lanes": fx_flagged,
+          "check_seconds": round(time.perf_counter() - t, 3)})
+
     # ---- 6. stream: fixtures concatenated, decoded untraced and traced
     from torch.profiler import ProfilerActivity, profile
     from rtl_433_tpu_torch.decoders import garage
@@ -1057,7 +1619,8 @@ def main():
         row = {"phase": "stream", "fixture": name, "samples": n,
                "blocks": blocks, "events": len(got), "seconds": s,
                "msps": n / s / 1e6, "ms_per_block": s / blocks * 1e3,
-               "launches": dict(_cuda.LAUNCHES), **(extra or {}),
+               "launches": {k: _cuda.LAUNCHES[k] for k in MC_KERNELS},
+               **(extra or {}),
                **(untraced() if untraced else {})}
         # the same decode under torch.profiler: device time by kernel
         with profile(activities=[ProfilerActivity.CPU,
@@ -1081,29 +1644,6 @@ def main():
             "device_busy_share": busy / traced_ms if busy else None}
         return row
 
-    def timed(acc, key, fn):
-        """``fn`` with its seconds and calls added to ``acc[key]``."""
-        def run(*a, **k):
-            t = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                acc[key] = acc.get(key, 0.0) + time.perf_counter() - t
-                acc["n_" + key] = acc.get("n_" + key, 0) + 1
-        return run
-
-    @contextlib.contextmanager
-    def patched(*items):
-        """Set (object, attribute, value) for the block, then restore."""
-        old = [(o, k, o.__dict__[k]) for o, k, _v in items]
-        try:
-            for o, k, v in items:
-                setattr(o, k, v)
-            yield
-        finally:
-            for o, k, v in old:
-                setattr(o, k, v)
-
     def dispatch_timers(acc):
         """Time the package decode and count the two dispatch paths."""
         R = dbase.Registry
@@ -1112,22 +1652,6 @@ def main():
              timed(acc, "host_decode", RtlTpu._handle_package)),
             (R, "_run_fast", timed(acc, "run_fast", R._run_fast)),
             (R, "_run_host", timed(acc, "run_host", R._run_host)))
-
-    def split_timers(acc):
-        """Time the parts of the default dispatch: the native slicing call,
-        the train memo around it (gates and plans), the declarative bank
-        and every Python decode function (each wraps the decoder that a
-        new registry picks up from ``_DECODERS``)."""
-        R, B = dbase.Registry, native_slicers.SlicerBank
-        return patched(
-            (B, "slice", timed(acc, "slice", B.slice)),
-            (R, "_build_train_memo",
-             timed(acc, "memo", R._build_train_memo)),
-            (declarative.DeclRunner, "decode_many",
-             timed(acc, "decl", declarative.DeclRunner.decode_many)),
-            (dbase, "_DECODERS",
-             {k: timed(acc, "python", fn)
-              for k, fn in dbase._DECODERS.items()}))
 
     def mixed_stream(rate, host_path):
         """Every fixture at ``rate`` concatenated, decoded on the CPU (the
@@ -1179,20 +1703,60 @@ def main():
             split_s = time.perf_counter() - t
         if got != want:
             fail(f"{name}: the split decode differs")
-        ms = {k: acc.get(k, 0.0) / blocks * 1e3
-              for k in ("host_decode", "slice", "memo", "python", "decl")}
-        row["split"] = {
-            "wall_ms_per_block": split_s / blocks * 1e3,
-            "host_decode_ms_per_block": ms["host_decode"],
-            "native_slicing_ms_per_block": ms["slice"],
-            "gate_plan_ms_per_block": ms["memo"] - ms["slice"],
-            "python_decode_ms_per_block": ms["python"],
-            "decl_bank_ms_per_block": ms["decl"],
-            "rest_ms_per_block": ms["host_decode"] - ms["memo"]
-            - ms["python"] - ms["decl"],
-            "slice_calls": acc.get("n_slice", 0),
-            "python_decode_calls": acc.get("n_python", 0),
-            "decl_batches": acc.get("n_decl", 0)}
+        row["split"] = {"wall_ms_per_block": split_s / blocks * 1e3,
+                        **split_ms(acc, blocks)}
+        # the same file with device slicing (RtlTpu(device_slice=True)):
+        # the same events, no train left to the host slicer, and the
+        # prewarm's split: the kernels' device ms, the host part of
+        # batch_slice, the memo plans, the record freeze
+        acc, spans = {}, []
+        _cuda.reset_launches()
+        with dispatch_timers(acc), split_timers(acc), prewarm_timers(acc), \
+                kernel_timers(spans):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = decode(None, path, device_slice=True)
+            torch.cuda.synchronize()
+            ds_s = time.perf_counter() - t
+        launches = {k: _cuda.LAUNCHES[k] for k in ds_kernel_names()}
+        if got != want:
+            fail(f"{name}: the device-slicing decode differs")
+        if acc.get("n_memo", 0) or acc.get("n_run_host", 0):
+            fail(f"{name}: device slicing left {acc.get('n_memo', 0)} "
+                 f"trains to the host slicer")
+        for k in default_ds_kernels:
+            if launches[k] <= 0:
+                fail(f"kernel {k} was not launched on {name} with device "
+                     f"slicing")
+        ms = lambda k: acc.get(k, 0.0) / blocks * 1e3
+        row["device_slice"] = {
+            "seconds": ds_s, "msps": n / ds_s / 1e6,
+            "ms_per_block": ds_s / blocks * 1e3,
+            "host_decode_ms_per_block": ms("host_decode"),
+            "python_decode_ms_per_block": ms("python"),
+            "decl_bank_ms_per_block": ms("decl"),
+            "host_memo_builds": acc.get("n_memo", 0),
+            **prewarm_ms(acc, spans, blocks), "launches": launches}
+        ds_paths[name] = launches
+        # every kernel call of one more such decode against the plain
+        # version, on the inputs this stream gives it
+        calls = []
+        _cuda.reset_launches()
+        with ds_recorder(calls):
+            if decode(None, path, device_slice=True) != want:
+                fail(f"{name}: the recorded device-slicing decode differs")
+        recorded = {k: _cuda.LAUNCHES[k] for k in ds_kernel_names()}
+        t = time.perf_counter()
+        flagged = {}
+        checked = ds_check(calls, compare, f"{name} drain", flagged)
+        if any(checked.get(k, 0) < v for k, v in recorded.items()):
+            fail(f"{name}: the checked kernel calls {checked} are fewer "
+                 f"than the decode's launches {recorded}")
+        emit({"phase": "slice_inputs", "stream": name,
+              "calls_recorded": len(calls), "checked": checked,
+              "bit_exact": True, "lanes": flagged,
+              "check_seconds": round(time.perf_counter() - t, 3)})
+        del calls
         if host_path:
             acc = {}
             no_native = (dbase.Registry, "_use_native", lambda self: False)
@@ -1214,6 +1778,16 @@ def main():
                 "run_host_calls": acc["n_run_host"]}
         os.remove(path)
         return row
+
+    # the kernels the default registration runs with device slicing (no
+    # default spec is NRZS)
+    reg = dbase.Registry()
+    reg.register_all()
+    default_ds_kernels = [f"slice_{f}" for f, mods in ddp._FAM_MODS.items()
+                          if any(d.modulation in mods and d.decode_fn
+                                 for d in reg.active)]
+    default_ds_kernels += ["content_dup", "gather_records"]
+    del reg
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -1248,7 +1822,8 @@ def main():
     if mesh.size != 1:
         fail(f"the multichannel phase wants one card, the mesh has "
              f"{mesh.size}")
-    row, mc_launches, kinds["compact"] = multichannel(dev, mesh, compare)
+    row, mc_launches, kinds["compact"], ds_paths["dense_4096"], ds_numbers = \
+        multichannel(dev, mesh, compare, default_ds_kernels)
     emit(row)
 
     # ---- 7. kernels
@@ -1292,8 +1867,39 @@ def main():
         "dense_cap2048_bound_ms": ctimes["dense_cap2048"]["bound_ms"],
         "shape": [MC_CHANNELS, 8, 1200, MC_CAP]})
     launches["compact"] = mc_launches["compact"]
+    # device slicing's kernels: launches on its paths (the fixtures,
+    # mixed_250k and mixed_1024k, the dense_4096 per-drain pass), times at
+    # the dense drain's calls (a family no default spec runs: at its fuzz
+    # call)
+    jax_lines = {"ppm": 185, "pwm": 248, "pcm": 497, "mc": 663, "dmc": 781,
+                 "piwm_dc": 869, "nrzs": 989, "rzi": 1055, "osv1": 1115}
+    missing = [k for k in ds_kernel_names() if k not in ds_numbers]
+    for k in missing:
+        if not k.startswith("slice_"):
+            fail(f"kernel {k} has no call at the dense drain")
+        m = ds_measure(fuzz_calls[k[len("slice_"):]])[k]
+        ds_numbers[k] = dict(m, measured_at="fuzz trains, bank caps")
+    for k in ds_kernel_names():
+        m = ds_numbers[k]
+        if k.startswith("slice_"):
+            src = "rtl_433_tpu_torch/csrc/slice.cu"
+            rep = f"rtl_433_tpu/ops/slice.py:{jax_lines[k[6:]]}"
+        else:
+            src = "rtl_433_tpu_torch/csrc/dispatch.cu"
+            rep = "rtl_433_tpu/decoders/device_dispatch.py:" + (
+                "91" if k == "content_dup" else "80")
+        rows.append({
+            "name": k, "route": "cuda", "source": src, "replaces": rep,
+            "launches": sum(p[k] for p in ds_paths.values()),
+            "launches_by_path": {p: v[k] for p, v in ds_paths.items()},
+            "max_abs_err": errs[k], "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"], "calls": m["calls"],
+            "shapes": m["shapes"],
+            "measured_at": m.get("measured_at", "dense_4096 drain")})
     emit({"kernel_launches": launches,
-          "kernel_launches_multichannel": mc_launches})
+          "kernel_launches_multichannel": mc_launches,
+          "kernel_launches_device_slice": ds_paths})
     emit({"kernels": rows})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -19,6 +19,7 @@ ported yet.
 from __future__ import annotations
 
 import functools
+import os
 import time as _time
 from typing import List, Optional
 
@@ -85,8 +86,6 @@ class RtlTpu:
                  device="cuda"):
         if analyze:
             _not_ported("the pulse analyzer (-A)")
-        if device_slice:
-            _not_ported("device slicing")
         if report_time not in ("off", "samples", "iso"):
             _not_ported(f"report_time={report_time!r}")
         # gain_db, ppm_error, verbosity, verbose_bits and report_time_tz are
@@ -110,6 +109,11 @@ class RtlTpu:
         self.min_snr_db = min_snr_db
 
         self.registry = Registry()
+        if device_slice or os.environ.get("TPU433_DEVICE_SLICE") == "1":
+            # every drain's trains are sliced on this receiver's device
+            # (Registry.prewarm_trains), then dispatched from the memo
+            self.registry.device_slice = True
+            self.registry.slice_device = self.device
         if register_all:
             self.registry.register_all()
         self.events: List[Event] = []
@@ -252,6 +256,11 @@ class RtlTpu:
             self._ovf_seen, self._drop_seen = ovf, drop
         events = 0
         self.frames_count += 1
+        if self.registry.device_slice and pkgs:
+            # one batched kernel pass slices every new train in this drain
+            self.registry.prewarm_trains(
+                [(pkg["type"] == PKG_FSK, pkg["pulse"], pkg["gap"])
+                 for pkg in pkgs], self.sample_rate)
         for pkg in pkgs:
             events += self._handle_package(pkg, N)
         if events:

@@ -12,9 +12,11 @@ usage, :399-1002 parser):
                  with an optional decoder argument; repeatable
   -F json|kv     output format (default: kv)
   -Y <mode>      FSK detector: auto|classic|minmax[,ampest|magest]
-                 [,squelch][,autolevel[=<n>]]: squelch skips noise-only
-                 frames of live input; autolevel tracks the minimum level
-                 with the noise floor
+                 [,squelch][,autolevel[=<n>]][,deviceslice]: squelch
+                 skips noise-only frames of live input; autolevel tracks
+                 the minimum level with the noise floor; deviceslice
+                 slices each drain's pulse trains in batched kernels on
+                 the --device before decoding
   -M noise[:<secs>]  report the block level and the noise floor every
                  <secs> seconds (default 1); no other -M is ported yet
   --device cuda|cpu   where the engine runs (default: cuda; with no GPU
@@ -76,6 +78,10 @@ def main(argv=None):
                     # autolevel or autolevel=N (ref src/rtl_433.c:944-946)
                     y_opts["auto_level"] = (int(part[10:])
                                             if part[9:10] == "=" else 1)
+                elif part == "deviceslice":
+                    # batch (package, spec) slicing on the device
+                    # (decoders/device_dispatch.py; no reference analogue)
+                    y_opts["device_slice"] = True
                 else:
                     print(f"-Y {part} is not ported yet", file=sys.stderr)
                     return 2

@@ -16,8 +16,10 @@ against every timing spec in one call of the host slicer library
 and runs the declarative decoders as one batch (decoders/declarative.py).
 ``_run_host`` (slicer, then decoder, per device) is taken only where the
 JAX package takes it by design: under decoder debug verbosity, or where a
-caller makes ``_use_native`` return False. Device slicing
-(``prewarm_trains``) and decoder debug logging are not ported yet.
+caller makes ``_use_native`` return False. With ``device_slice`` on,
+``prewarm_trains`` slices a drain's trains on ``slice_device`` in batched
+kernels (decoders/device_dispatch.py) and fills the train memo before the
+packages are dispatched. Decoder debug logging is not ported yet.
 """
 
 from __future__ import annotations
@@ -159,6 +161,14 @@ class Registry:
         # _build_train_memo)
         self._train_cache: dict = {}
         self.train_cache_max = 4096
+        # opt-in device-kernel slicing (decoders/device_dispatch.py):
+        # prewarm_trains() batch-slices a drain's packages on
+        # ``slice_device`` and pre-fills the train-memo cache. Whoever
+        # turns it on sets the device: RtlTpu its own, ShardedEngine its
+        # mesh's first device.
+        self.device_slice = False
+        self.slice_device = "cuda"
+        self._device_banks: dict = {}
         # decoder debug verbosity (-vv.. => 1..3): any level takes the
         # per-decoder host path, as in the JAX package
         self.decoder_verbose = 0
@@ -211,12 +221,14 @@ class Registry:
         Uses the native batch-slicer fast path (one C call slices all
         timing specs, content-deduplicated; decode calls are gated and
         deduplicated). Both paths produce identical events in identical
-        order (tests/test_torch_fast_dispatch.py). Unlike the JAX package,
-        nothing here catches an error of the fast path: a slicer library
-        that does not build raises instead of quietly taking the far slower
-        host path.
+        order (tests/test_torch_fast_dispatch.py). Device slicing
+        (``prewarm_trains``) fills the same fast path's train memo. Unlike
+        the JAX package, nothing here catches an error of the fast path: a
+        slicer library that does not build raises instead of quietly taking
+        the far slower host path.
         """
-        if self._use_native() and not self._verbose_decoding():
+        if (self._use_native() or self.device_slice) \
+                and not self._verbose_decoding():
             return self._run_fast(pulses, want_fsk, event_cb)
         return self._run_host(pulses, want_fsk, event_cb)
 
@@ -254,6 +266,114 @@ class Registry:
                 break
             priority = next_priority
         return p_events
+
+    def _get_device_bank(self, want_fsk: bool, sample_rate: int):
+        from .device_dispatch import DeviceBank
+        key = (want_fsk, sample_rate, self._version, str(self.slice_device))
+        bank = self._device_banks.get(key)
+        if bank is None:
+            devs = [d for d in self.active if d.is_fsk == want_fsk]
+            bank = DeviceBank(devs, sample_rate, self.slice_device)
+            self._device_banks = {k: v for k, v in self._device_banks.items()
+                                  if k[2] == self._version}
+            self._device_banks[key] = bank
+        return bank
+
+    def prewarm_trains(self, trains, sample_rate: int) -> int:
+        """Batch device-kernel slicing for a drain's packages (opt-in).
+
+        ``trains`` is an iterable of (want_fsk, pulse, gap). Every train
+        not in the memo cache is sliced on ``slice_device`` in one batched
+        kernel call per (side, spec family) and its dispatch memo is
+        pre-filled, so the per-package _run_fast path does no host slicing.
+        The records the plans keep, the declarative candidates' cache keys
+        among them, are read in one gather per family for the whole drain.
+        Returns the number of memos built.
+        """
+        import numpy as np
+        if not self.device_slice:
+            return 0
+        if self._dec_cache_version != self._version:
+            self._dec_cache = {}
+            self._train_cache = {}
+            self._dec_cache_version = self._version
+        miss = {False: {}, True: {}}
+        for want_fsk, pulse, gap in trains:
+            p = np.asarray(pulse, np.int32)
+            g = np.asarray(gap, np.int32)
+            tkey = (bool(want_fsk), sample_rate, p.tobytes(), g.tobytes())
+            if tkey not in self._train_cache:
+                miss[bool(want_fsk)].setdefault(tkey, (p, g))
+        built = 0
+        decl_syms = _decl_symbols() if self.decl_decode else ()
+        decl_cands = []   # (want_fsk, dev_idx, dev, memo, off), drain-wide
+        freeze_items = []  # (LazyRecords, needed) — frozen drain-wide
+        for want_fsk, items in miss.items():
+            if not items:
+                continue
+            bank = self._get_device_bank(want_fsk, sample_rate)
+            meta = self._bank_meta(bank)
+            results = bank.batch_slice(list(items.values()))
+            for tkey, (summary, records, group_of) in zip(items.keys(),
+                                                          results):
+                if len(summary) == 0:
+                    memo = {"records": {}, "mats": {}, "priorities": []}
+                else:
+                    memo = self._memo_plans(bank.devices, meta, summary,
+                                            records, group_of)
+                    # the plan fixes which records can ever be touched:
+                    # materialize those (batched drain-wide below), drop
+                    # the lazy kernel/arena refs
+                    needed = set()
+                    for plan in memo["priorities"]:
+                        needed.update(
+                            off for _r, _i, off in plan["stateful"])
+                        needed.update(
+                            off for _i, off, _n, _rw in plan["uniq"])
+                    freeze_items.append((records, needed))
+                    # declarative candidates decode ONCE for the whole
+                    # drain below (one batched kernel call, not one
+                    # per-train call at dispatch time); their cache keys
+                    # hold the record bytes, read after the freeze
+                    for plan in memo["priorities"]:
+                        for i, off, _n, _rw in plan["uniq"]:
+                            dev = bank.devices[i]
+                            if dev.symbol in decl_syms:
+                                decl_cands.append((want_fsk, i, dev, memo,
+                                                   off))
+                if len(self._train_cache) >= self.train_cache_max:
+                    self._train_cache.clear()
+                self._train_cache[tkey] = memo
+                built += 1
+        if freeze_items:
+            from .device_dispatch import LazyRecords
+            LazyRecords.freeze_many(freeze_items)
+        decl_items = []
+        decl_devs = []
+        for want_fsk, i, dev, memo, off in decl_cands:
+            ckey = (want_fsk, i, memo["records"][off])
+            if ckey not in self._dec_cache:
+                decl_items.append((ckey, memo, off))
+                decl_devs.append(dev)
+        if decl_items:
+            from .declarative import FALLBACK, get_runner
+            from ..pulse.native_slicers import materialize_bytes
+            runner = get_runner()
+            mats = []
+            for (ckey, memo, off), dev in zip(decl_items, decl_devs):
+                bitsb = memo["mats"].get(off)
+                if bitsb is None:
+                    bitsb = materialize_bytes(memo["records"][off])
+                    memo["mats"][off] = bitsb
+                mats.append((dev.symbol, bitsb))
+            outs = runner.decode_many(mats)
+            for (ckey, _memo, _off), ret in zip(decl_items, outs):
+                if ret is FALLBACK:
+                    continue  # dispatch falls back to the Python decoder
+                if len(self._dec_cache) >= self.dec_cache_max:
+                    self._dec_cache.clear()
+                self._dec_cache[ckey] = ret
+        return built
 
     def _get_bank(self, want_fsk: bool, sample_rate: int):
         from ..pulse import native_slicers

@@ -1,13 +1,16 @@
 """Build, load and count the hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
+Each ``csrc/<library>.cu`` is compiled by ``nvcc`` into its own shared library
 with a plain C interface (``_build/lib<name>-<hash>.so``) at first use, and
 bound with ``ctypes``. The hash covers the sources and the flags, so an
 edited kernel rebuilds and an unchanged one loads from ``_build/``.
 :func:`build` starts one ``nvcc`` per source, all at once.
 
 ``LAUNCHES`` counts kernel launches per kernel name; each wrapper adds one
-where it launches its kernel and nowhere else.
+where it launches its kernel and nowhere else. The nine slicer families
+share one launcher (``csrc/slice.cu``) and count one name each
+(``slice_<family>``); ``csrc/dispatch.cu`` holds two launchers
+(``content_dup``, ``gather_records``).
 """
 
 from __future__ import annotations
@@ -26,35 +29,56 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# kernel name -> source file in csrc/ (headers in csrc/ are hashed too)
+# library name -> source file in csrc/ (headers in csrc/ are hashed too)
 SOURCES = {"frontend": "frontend.cu", "detector_scan": "detector.cu",
-           "compact": "compact.cu"}
+           "compact": "compact.cu", "slice": "slice.cu",
+           "dispatch": "dispatch.cu"}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# kernel name -> (C launcher, its argument types); each returns the
-# cudaGetLastError() code after the launch
+# launcher name -> (its library, its C symbol, its argument types); each
+# returns the cudaGetLastError() code after the launch
 LAUNCHERS = {
     # iq, C, N, n_valid, use_mag_est, enable_fm, am_a1, am_b, alp1, blp,
     # state, am, fm, env_sum, stream
-    "frontend": ("rtl433_frontend",
+    "frontend": ("frontend", "rtl433_frontend",
                  [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                   _P]),
     # am, fm, fm_i32, N, C, regs, gen0, log_key, log_p, log_g, eop_log,
     # quiet, n_valid, t0, chunk, R, E, spm, fixed, ratio, maxp, minmax,
     # stream
-    "detector_scan": ("rtl433_detector_scan",
+    "detector_scan": ("detector_scan", "rtl433_detector_scan",
                       [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     # out_n, out_p, out_g, out_meta, C, S, P, F, cap, W, vec, row_src,
     # rows, count, stream
-    "compact": ("rtl433_compact",
+    "compact": ("compact", "rtl433_compact",
                 [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                  _P]),
+    # family, pulse, gap, n_pulses, B, N, bounds, S, E, R, BY, bytes,
+    # bits_per_row, syncs, num_rows, n_events, ovf, stream
+    "slice": ("slice", "rtl433_slice",
+              [_I, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P,
+               _P, _P, _P]),
+    # bytes, num_rows, bits_per_row, syncs, BJ, E, R, W, dup, stream
+    "content_dup": ("dispatch", "rtl433_content_dup",
+                    [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
+    # bytes, syncs, bs, js, es, P, J, E, R, W, out_bytes, out_syncs,
+    # stream
+    "gather_records": ("dispatch", "rtl433_gather_records",
+                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                        _P]),
 }
 
-LAUNCHES = {name: 0 for name in SOURCES}
+# the slicer families of csrc/slice.cu, one launch count each
+SLICE_FAMILIES = ("ppm", "pwm", "pcm", "mc", "dmc", "piwm_dc", "nrzs",
+                  "rzi", "osv1")
+KERNELS = ("frontend", "detector_scan", "compact",
+           *(f"slice_{f}" for f in SLICE_FAMILIES), "content_dup",
+           "gather_records")
+LAUNCHES = {name: 0 for name in KERNELS}
 
-_libs: dict = {}   # kernel name -> (loaded library, its launcher)
+_libs: dict = {}   # library name -> the loaded library
+_fns: dict = {}    # launcher name -> its C function
 
 
 def reset_launches():
@@ -116,17 +140,18 @@ def build(names=None) -> dict:
 
 
 def launcher(name: str):
-    """The C launcher of kernel ``name`` with its argument types declared;
-    the library is built on first use."""
-    if name not in _libs:
-        build([name])
-        symbol, argtypes = LAUNCHERS[name]
-        lib = ctypes.CDLL(_lib_path(name))
-        fn = getattr(lib, symbol)
+    """The C launcher ``name`` with its argument types declared; its
+    library is built on first use."""
+    if name not in _fns:
+        lib_name, symbol, argtypes = LAUNCHERS[name]
+        if lib_name not in _libs:
+            build([lib_name])
+            _libs[lib_name] = ctypes.CDLL(_lib_path(lib_name))
+        fn = getattr(_libs[lib_name], symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _libs[name] = (lib, fn)
-    return _libs[name][1]
+        _fns[name] = fn
+    return _fns[name]
 
 
 def check(err: int, name: str):

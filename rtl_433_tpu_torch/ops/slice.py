@@ -1,0 +1,1089 @@
+"""Device slicing: the nine batched slicer scans, each wrapper beside its
+plain version.
+
+Every (train, spec) pair of a drain is one *lane*: the lane runs one
+reference slicer's state machine over its train's pulses and writes
+bitbuffers. ``slice_<family>(pulse, gap, n_pulses, bounds, caps)`` takes
+pulse/gap int32 ``[B, N]``, n_pulses int32 ``[B]`` and the family's per-spec
+bound columns (``<family>_bounds``, host NumPy, ``[S]`` each), and returns
+
+- ``bytes`` uint8 ``[B, S, E, R, BY]``: packed bit rows;
+- ``bits_per_row``, ``syncs`` int32 ``[B, S, E, R]``;
+- ``num_rows`` int32 ``[B, S, E]``; ``n_events`` int32 and ``ovf`` bool
+  ``[B, S]``.
+
+The contract is the JAX package's ``ops/slice.py``, to the integer: each
+family mirrors its host slicer (pulse/slicers.py) statement for statement
+while the lane stays inside its caps; a capacity overflow (events, rows,
+row bytes) or a float32 rounding near a boundary (PCM) raises the lane's
+``ovf`` instead, and an integration routes flagged lanes to the host
+slicer. Writes outside the caps are dropped, as the JAX scatters drop them.
+
+For a CUDA tensor each wrapper launches ``csrc/slice.cu`` (one thread per
+lane, the train staged in shared memory); for a CPU tensor it runs the
+plain version: the JAX ``step`` of the family as vectorized torch over the
+``[B, S]`` lane grid in a Python loop over the pulses (stopping at the
+longest train: padded steps are inactive), and the JAX assembly by
+scatter-adds (``_lane_scatter_add``, ``_assemble``, ``_assemble_runs``,
+PCM's delta-scatter and cumulative sum).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import _cuda
+
+_BIG = 1 << 30
+
+
+class SliceCaps(NamedTuple):
+    events: int = 4       # events per (package, spec)
+    rows: int = 16        # rows per event
+    row_bytes: int = 20   # bytes per row
+
+
+# ---------------------------------------------------------------------------
+# per-spec bound columns (host NumPy)
+# ---------------------------------------------------------------------------
+
+class _P:  # _timings reads only sample_rate
+    def __init__(self, sample_rate):
+        self.sample_rate = sample_rate
+
+
+def ppm_bounds(devices, sample_rate: int):
+    """Per-spec PPM windows [S] (mirrors pulse/slicers.py slicer_ppm)."""
+    from ..pulse.slicers import _timings
+
+    cols = {k: [] for k in ("zero_l", "zero_u", "one_l", "one_u",
+                            "sync_l", "sync_u", "reset", "ok")}
+    p = _P(sample_rate)
+    for dev in devices:
+        t = _timings(p, dev)
+        if t is None:
+            for k in cols:
+                cols[k].append(0 if k != "ok" else False)
+            continue
+        s_short, s_long = t["short"], t["long"]
+        s_gap, s_reset = t["gap"], t["reset"]
+        s_sync, s_tol = t["sync"], t["tolerance"]
+        sync_l = sync_u = 0
+        if s_tol > 0:
+            zero_l, zero_u = s_short - s_tol, s_short + s_tol
+            one_l, one_u = s_long - s_tol, s_long + s_tol
+            if s_sync > 0:
+                sync_l, sync_u = s_sync - s_tol, s_sync + s_tol
+        else:
+            zero_l = 0
+            zero_u = (s_short + s_long) // 2 + 1
+            one_l = zero_u - 1
+            one_u = s_gap if s_gap else s_reset
+        for k, v in (("zero_l", zero_l), ("zero_u", zero_u),
+                     ("one_l", one_l), ("one_u", one_u),
+                     ("sync_l", sync_l), ("sync_u", sync_u),
+                     ("reset", s_reset), ("ok", True)):
+            cols[k].append(v)
+    return {k: np.asarray(v, np.int32 if k != "ok" else bool)
+            for k, v in cols.items()}
+
+
+def pwm_bounds(devices, sample_rate: int):
+    """Per-spec PWM windows [S] (mirrors pulse/slicers.py slicer_pwm)."""
+    from ..pulse.slicers import _timings
+
+    cols = {k: [] for k in ("one_l", "one_u", "zero_l", "zero_u",
+                            "sync_l", "sync_u", "gap", "reset", "ok")}
+    p = _P(sample_rate)
+    for dev in devices:
+        t = _timings(p, dev)
+        if t is None:
+            for k in cols:
+                cols[k].append(0 if k != "ok" else False)
+            continue
+        s_short, s_long, s_reset = t["short"], t["long"], t["reset"]
+        s_gap, s_sync, s_tol = t["gap"], t["sync"], t["tolerance"]
+        sync_l = sync_u = 0
+        if s_tol > 0:
+            one_l, one_u = s_short - s_tol, s_short + s_tol
+            zero_l, zero_u = s_long - s_tol, s_long + s_tol
+            if s_sync > 0:
+                sync_l, sync_u = s_sync - s_tol, s_sync + s_tol
+        elif s_sync <= 0:
+            one_l, one_u = 0, (s_short + s_long) // 2 + 1
+            zero_l, zero_u = one_u - 1, _BIG
+        elif s_sync < s_short:
+            sync_l, sync_u = 0, (s_sync + s_short) // 2 + 1
+            one_l, one_u = sync_u - 1, (s_short + s_long) // 2 + 1
+            zero_l, zero_u = one_u - 1, _BIG
+        elif s_sync < s_long:
+            one_l, one_u = 0, (s_short + s_sync) // 2 + 1
+            sync_l, sync_u = one_u - 1, (s_sync + s_long) // 2 + 1
+            zero_l, zero_u = sync_u - 1, _BIG
+        else:
+            one_l, one_u = 0, (s_short + s_long) // 2 + 1
+            zero_l, zero_u = one_u - 1, (s_long + s_sync) // 2 + 1
+            sync_l, sync_u = zero_u - 1, _BIG
+        for k, v in (("one_l", one_l), ("one_u", one_u),
+                     ("zero_l", zero_l), ("zero_u", zero_u),
+                     ("sync_l", sync_l), ("sync_u", sync_u),
+                     ("gap", s_gap), ("reset", s_reset), ("ok", True)):
+            cols[k].append(v)
+    return {k: np.asarray(v, np.int32 if k != "ok" else bool)
+            for k, v in cols.items()}
+
+
+def pcm_bounds(devices, sample_rate: int):
+    """Per-spec PCM parameters [S] (mirrors pulse/slicers.py slicer_pcm).
+
+    Bit-rate seeds ``f0s``/``f0l`` are computed in float64 and cast to
+    float32; every rounding site of the scan carries an uncertainty flag
+    wide enough to cover the float32-vs-float64 gap, so unflagged lanes
+    are bit-exact against the host slicer.
+    """
+    from ..pulse.slicers import _timings
+
+    cols = {k: [] for k in ("short", "long", "reset", "gap_limit", "tol",
+                            "max_zeros", "min_count", "is_rz",
+                            "f0s", "f0l", "ok")}
+    p = _P(sample_rate)
+    spu = np.float32(sample_rate) / np.float32(1.0e6)
+    for dev in devices:
+        t = _timings(p, dev)
+        if t is None:
+            for k in cols:
+                cols[k].append(False if k == "ok" else 0)
+            continue
+        s_short, s_long, s_reset = t["short"], t["long"], t["reset"]
+        s_gap, s_tol = t["gap"], t["tolerance"]
+        f0s = 1.0 / float(np.float32(dev.short_width) * spu) \
+            if dev.short_width > 0 else 0.0
+        f0l = 1.0 / float(np.float32(dev.long_width) * spu) \
+            if dev.long_width > 0 else 0.0
+        gap_limit = s_gap if s_gap else s_reset
+        max_zeros = gap_limit // s_long if s_long else 0
+        if s_tol <= 0:
+            s_tol = s_long // 4
+        for k, v in (("short", s_short), ("long", s_long),
+                     ("reset", s_reset), ("gap_limit", gap_limit),
+                     ("tol", s_tol), ("max_zeros", max_zeros),
+                     ("min_count", 12 if s_short == s_long else 4),
+                     ("is_rz", s_short != s_long),
+                     ("f0s", f0s), ("f0l", f0l), ("ok", True)):
+            cols[k].append(v)
+    out = {}
+    for k, v in cols.items():
+        if k in ("f0s", "f0l"):
+            out[k] = np.asarray(v, np.float32)
+        elif k in ("is_rz", "ok"):
+            out[k] = np.asarray(v, bool)
+        else:
+            out[k] = np.asarray(v, np.int32)
+    return out
+
+
+def _timing_cols(devices, sample_rate: int, fields):
+    """Shared per-spec timing-column builder: ``fields`` maps a column
+    name to a callable over the resolved _timings dict; specs whose
+    timings don't resolve get 0/False and ok=False."""
+    from ..pulse.slicers import _timings
+
+    p = _P(sample_rate)
+    ts = [_timings(p, dev) for dev in devices]
+    out = {"ok": np.asarray([t is not None for t in ts], bool)}
+    for k, fn in fields.items():
+        vals = [fn(t) for t in ts if t is not None]
+        isbool = bool(vals) and isinstance(vals[0], (bool, np.bool_))
+        full = [fn(t) if t is not None else (False if isbool else 0)
+                for t in ts]
+        out[k] = np.asarray(full, bool if isbool else np.int32)
+    return out
+
+
+def mc_bounds(devices, sample_rate: int):
+    """Per-spec MC-zerobit windows [S]. All comparisons are integer
+    (`x > 1.5*s` is evaluated as `2x > 3s`), so the scan is exact with no
+    float-boundary flag."""
+    return _timing_cols(devices, sample_rate, {
+        "short": lambda t: t["short"], "reset": lambda t: t["reset"],
+        "tol": lambda t: t["tolerance"],
+        "has_tol": lambda t: bool(t["tolerance"] > 0)})
+
+
+def dmc_bounds(devices, sample_rate: int):
+    """Per-spec DMC windows [S]; all comparisons are integer-exact."""
+    return _timing_cols(devices, sample_rate, {
+        "short": lambda t: t["short"], "long": lambda t: t["long"],
+        "reset": lambda t: t["reset"], "tol": lambda t: t["tolerance"]})
+
+
+def piwm_dc_bounds(devices, sample_rate: int):
+    """Per-spec PIWM-DC windows [S]; all comparisons are integer-exact."""
+    return _timing_cols(devices, sample_rate, {
+        "short": lambda t: t["short"], "long": lambda t: t["long"],
+        "reset": lambda t: t["reset"], "tol": lambda t: t["tolerance"]})
+
+
+def nrzs_bounds(devices, sample_rate: int):
+    """Per-spec NRZS parameters [S]; integer-exact. A non-positive
+    resolved bit limit is flagged not-ok (as rzi_bounds guards s_long):
+    the scan's guarded division would otherwise emit p//1 ones per pulse,
+    overflow, and drop the lane to the host slicer_nrzs, which divides by
+    zero."""
+    cols = _timing_cols(devices, sample_rate, {
+        "short": lambda t: t["short"], "reset": lambda t: t["reset"]})
+    cols["ok"] = cols["ok"] & (cols["short"] > 0)
+    return cols
+
+
+def rzi_bounds(devices, sample_rate: int):
+    """Per-spec RZI parameters [S] (mirrors pulse/slicers.py slicer_rzi,
+    which bypasses _timings: zero-width check is per present field only)."""
+    cols = {k: [] for k in ("short", "long", "reset", "base", "ok")}
+    spu = np.float32(sample_rate) / np.float32(1.0e6)
+    for dev in devices:
+        s_short = int(np.float32(dev.short_width) * spu)
+        s_long = int(np.float32(dev.long_width) * spu)
+        s_reset = int(np.float32(dev.reset_limit) * spu)
+        bad = ((dev.short_width > 0 and s_short <= 0)
+               or (dev.long_width > 0 and s_long <= 0)
+               or (dev.reset_limit > 0 and s_reset <= 0)
+               or s_long <= 0)
+        for k, v in (("short", s_short), ("long", s_long),
+                     ("reset", s_reset), ("base", s_long - s_short),
+                     ("ok", not bad)):
+            cols[k].append(v)
+    return {k: np.asarray(v, bool if k == "ok" else np.int32)
+            for k, v in cols.items()}
+
+
+def osv1_bounds(devices, sample_rate: int):
+    """Per-spec OSv1 parameters [S]; integer-exact."""
+    return _timing_cols(devices, sample_rate, {
+        "short": lambda t: t["short"], "reset": lambda t: t["reset"]})
+
+
+# family -> (the kernel's family id, its bound columns in the kernel's
+# order, ok last); csrc/slice.cu reads row s of an int32 [S, NCOLS] table:
+# the columns from 0, ok in column NCOLS - 1, float columns (PCM's f0s,
+# f0l) as their bits
+FAMILIES = {
+    "ppm": (0, ("zero_l", "zero_u", "one_l", "one_u", "sync_l", "sync_u",
+                "reset", "ok")),
+    "pwm": (1, ("one_l", "one_u", "zero_l", "zero_u", "sync_l", "sync_u",
+                "gap", "reset", "ok")),
+    "pcm": (2, ("short", "long", "reset", "gap_limit", "tol", "max_zeros",
+                "min_count", "is_rz", "f0s", "f0l", "ok")),
+    "mc": (3, ("short", "reset", "tol", "has_tol", "ok")),
+    "dmc": (4, ("short", "long", "reset", "tol", "ok")),
+    "piwm_dc": (5, ("short", "long", "reset", "tol", "ok")),
+    "nrzs": (6, ("short", "reset", "ok")),
+    "rzi": (7, ("long", "reset", "base", "short", "ok")),
+    "osv1": (8, ("short", "reset", "ok")),
+}
+NCOLS = 12
+
+
+def bound_table(fam: str, bounds) -> np.ndarray:
+    """The family's bound columns as the kernel's int32 [S, NCOLS] table."""
+    names = FAMILIES[fam][1]
+    S = len(np.asarray(bounds["ok"]))
+    tab = np.zeros((S, NCOLS), np.int32)
+    for i, k in enumerate(names):
+        if k == "ok":
+            i = NCOLS - 1
+        v = np.asarray(bounds[k])
+        tab[:, i] = v.view(np.int32) if v.dtype == np.float32 \
+            else v.astype(np.int32)
+    return tab
+
+
+def table_columns(fam: str, tab) -> dict:
+    """The bound columns of a packed table (NumPy or a tensor), as the
+    family's ``<fam>_bounds`` gives them."""
+    tab = np.asarray(tab.cpu() if isinstance(tab, torch.Tensor) else tab,
+                     np.int32)
+    out = {}
+    for i, k in enumerate(FAMILIES[fam][1]):
+        col = tab[:, NCOLS - 1 if k == "ok" else i].copy()
+        if k in ("f0s", "f0l"):
+            out[k] = col.view(np.float32)
+        elif k in ("ok", "is_rz", "has_tol"):
+            out[k] = col != 0
+        else:
+            out[k] = col
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the plain versions (vectorized torch over the [B, S] lane grid)
+# ---------------------------------------------------------------------------
+
+def _cols(bounds, device):
+    """Bound columns as [1, S] tensors on ``device``."""
+    out = {}
+    for k, v in bounds.items():
+        v = np.asarray(v)
+        if v.dtype not in (np.bool_, np.float32):
+            v = v.astype(np.int32)
+        out[k] = torch.as_tensor(v, device=device)[None, :]
+    return out
+
+
+def _steps(n_pulses, per_pulse=1) -> int:
+    return per_pulse * int(n_pulses.max()) if n_pulses.numel() else 0
+
+
+def _scatter_add(shape, idx_cols, vals, mask):
+    """int32 zeros of ``shape`` with ``vals`` added at ``idx_cols`` where
+    ``mask`` holds and every index is in range (out-of-range updates are
+    dropped, as XLA's FILL_OR_DROP drops them)."""
+    ok = mask
+    lin = torch.zeros(mask.shape, dtype=torch.int64, device=mask.device)
+    for c, d in zip(idx_cols, shape):
+        c = torch.as_tensor(c, device=mask.device).to(torch.int64)
+        ok = ok & (c >= 0) & (c < d)
+        lin = lin * d + c
+    out = torch.zeros(math.prod(shape), dtype=torch.int32, device=mask.device)
+    vals = torch.broadcast_to(torch.as_tensor(vals, device=mask.device),
+                              mask.shape).to(torch.int32)
+    out.index_add_(0, lin[ok], vals[ok])
+    return out.reshape(shape)
+
+
+def _lane_scatter_add(B, S, shape, idx_cols, vals, mask):
+    """Masked scatter-add over the flattened B*S lane grid (the shared
+    assembly primitive): prepends the lane coordinate and returns
+    [B, S, *shape] int32 sums. idx_cols/vals/mask are [L, K], L = B*S."""
+    L = B * S
+    lane = torch.arange(L, device=mask.device)[:, None].expand(mask.shape)
+    out = _scatter_add((L,) + tuple(shape), [lane] + list(idx_cols), vals,
+                       mask)
+    return out.reshape((B, S) + tuple(shape))
+
+
+def _flat(ys, i, B, S):
+    """Component ``i`` of the per-step outputs as [L, steps]."""
+    if not ys:
+        return torch.zeros((B * S, 0), dtype=torch.int32)
+    return torch.stack([y[i] for y in ys], dim=-1).reshape(B * S, len(ys))
+
+
+def _assemble(ys, B, S, n_ev, ovf, caps: SliceCaps):
+    """Per-step emissions -> packed bitbuffers + summaries via
+    scatter-adds (each 1-bit's target is unique, so add == or)."""
+    E, R, BY = caps
+    dev = n_ev.device
+
+    def flat(i):
+        return _flat(ys, i, B, S).to(dev)
+
+    (is_bit, bitval, b_ev, b_row, b_bir, is_sync, s_ev, s_row,
+     is_flush, f_ev, f_rows) = (flat(i) for i in range(11))
+
+    def scat(shape, idx_cols, vals, mask):
+        return _lane_scatter_add(B, S, shape, idx_cols, vals, mask)
+
+    m_bit = is_bit.bool()
+    bytes_ = scat((E, R, BY), [b_ev, b_row, b_bir // 8],
+                  bitval * _bit(b_bir), m_bit)
+    bits_per_row = scat((E, R), [b_ev, b_row], 1, m_bit)
+    syncs = scat((E, R), [s_ev, s_row], 1, is_sync.bool())
+    num_rows = scat((E,), [f_ev], f_rows, is_flush.bool())
+    return {"bytes": bytes_.to(torch.uint8), "bits_per_row": bits_per_row,
+            "syncs": syncs, "num_rows": num_rows, "n_events": n_ev,
+            "ovf": ovf}
+
+
+def _bit(pos):
+    """The byte value of bit ``pos`` of a row (MSB first)."""
+    return torch.ones_like(pos) << (7 - pos % 8)
+
+
+def _zeros(B, S, dev):
+    return torch.zeros((B, S), dtype=torch.int32, device=dev)
+
+
+def _falses(B, S, dev):
+    return torch.zeros((B, S), dtype=torch.bool, device=dev)
+
+
+def _step_inputs(pulse, gap, n_pulses, n):
+    """Column ``n`` of pulse and gap, and the valid and last masks, as
+    [B, 1]."""
+    return (pulse[:, n:n + 1].to(torch.int32), gap[:, n:n + 1].to(torch.int32),
+            (n < n_pulses)[:, None], (n == n_pulses - 1)[:, None])
+
+
+def _symbol_inputs(pulse, gap, n_pulses, i):
+    """Symbol ``i`` of the interleaved pulse/gap axis, valid and last."""
+    src = gap if i % 2 else pulse
+    sym = src[:, i // 2:i // 2 + 1].to(torch.int32)
+    return sym, (i < 2 * n_pulses)[:, None], (i == 2 * n_pulses - 1)[:, None]
+
+
+def slice_ppm_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
+    """Plain version of the PPM scan (JAX ``slice_ppm``)."""
+    B, N = pulse.shape
+    dev = pulse.device
+    E, R, BY = caps
+    b = _cols(bounds, dev)
+    S = b["reset"].shape[1]
+    zl, zu, ol, ou = b["zero_l"], b["zero_u"], b["one_l"], b["one_u"]
+    syl, syu, rst, okm = b["sync_l"], b["sync_u"], b["reset"], b["ok"]
+    w = torch.where
+    ev = row = bir = frb = _zeros(B, S, dev)
+    ovf = _falses(B, S, dev)
+    ys = []
+    for n in range(_steps(n_pulses)):
+        _p, g, valid, last = _step_inputs(pulse, gap, n_pulses, n)
+        act = valid & okm
+        is0 = act & (zl < g) & (g < zu)
+        is1 = act & ~is0 & (ol < g) & (g < ou)
+        issy = act & ~is0 & ~is1 & (syl < g) & (g < syu)
+        isrb = act & ~is0 & ~is1 & ~issy & (g < rst)
+        isbit = is0 | is1
+        sy_row = w(bir > 0, row + 1, row)
+        row2 = w(issy, sy_row, row)
+        bir2 = w(issy & (bir > 0), 0, bir)
+        row2 = w(isrb, row2 + 1, row2)
+        bir2 = w(isrb, 0, bir2)
+        b_ev, b_row, b_bir = ev, row2, bir2
+        bir3 = w(isbit, bir2 + 1, bir2)
+        frb2 = w(isbit & (row2 == 0), frb + isbit.to(torch.int32), frb)
+        flush = act & ((g >= rst) | last) & ((frb2 > 0) | (row2 > 0))
+        f_rows = row2 + 1
+        ev2 = w(flush, ev + 1, ev)
+        row3 = w(flush, 0, row2)
+        bir4 = w(flush, 0, bir3)
+        frb3 = w(flush, 0, frb2)
+        ovf = ovf | (ev2 >= E) | (row2 >= R) | (bir3 >= BY * 8)
+        ys.append((isbit, is1.to(torch.int32), b_ev, b_row, b_bir, issy, ev,
+                   sy_row, flush, ev, f_rows))
+        ev, row, bir, frb = ev2, row3, bir4, frb3
+    return _assemble(ys, B, S, ev, ovf, caps)
+
+
+def slice_pwm_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
+    """Plain version of the PWM scan (JAX ``slice_pwm``)."""
+    B, N = pulse.shape
+    dev = pulse.device
+    E, R, BY = caps
+    b = _cols(bounds, dev)
+    S = b["reset"].shape[1]
+    ol, ou, zl, zu = b["one_l"], b["one_u"], b["zero_l"], b["zero_u"]
+    syl, syu, gp, rst = b["sync_l"], b["sync_u"], b["gap"], b["reset"]
+    okm = b["ok"]
+    w = torch.where
+    ev = row = bir = _zeros(B, S, dev)
+    touched = ovf = _falses(B, S, dev)
+    ys = []
+    for n in range(_steps(n_pulses)):
+        p, g, valid, last = _step_inputs(pulse, gap, n_pulses, n)
+        act = valid & okm
+        is1 = act & (ol < p) & (p < ou)
+        is0 = act & ~is1 & (zl < p) & (p < zu)
+        issy = act & ~is1 & ~is0 & (syl < p) & (p < syu)
+        isspur = act & ~is1 & ~is0 & ~issy & (p <= ol)
+        isrb = act & ~is1 & ~is0 & ~issy & ~isspur
+        isbit = is1 | is0
+        sy_row = w(bir > 0, row + 1, row)
+        row2 = w(issy, sy_row, row)
+        bir2 = w(issy & (bir > 0), 0, bir)
+        row2 = w(isrb, row2 + 1, row2)
+        bir2 = w(isrb, 0, bir2)
+        b_ev, b_row, b_bir = ev, row2, bir2
+        bir3 = w(isbit, bir2 + 1, bir2)
+        touched2 = touched | isbit | issy | isrb
+        flush = act & ((g > rst) | last) & touched2
+        f_rows = row2 + 1
+        brk = act & ~flush & (gp > 0) & (g > gp) & touched2 & (bir3 > 0)
+        ev2 = w(flush, ev + 1, ev)
+        row3 = w(flush, 0, w(brk, row2 + 1, row2))
+        bir4 = w(flush | brk, 0, bir3)
+        touched3 = touched2 & ~flush
+        ovf = ovf | (ev2 >= E) | (torch.maximum(row2, row3) >= R) \
+            | (bir3 >= BY * 8)
+        ys.append((isbit, is1.to(torch.int32), b_ev, b_row, b_bir, issy, ev,
+                   sy_row, flush, ev, f_rows))
+        ev, row, bir, touched = ev2, row3, bir4, touched3
+    return _assemble(ys, B, S, ev, ovf, caps)
+
+
+_F32 = torch.float32
+
+
+def _trunc05(v):
+    """int(v + 0.5) with trunc-toward-zero, plus a boundary flag wide
+    enough to absorb float32-vs-float64 evaluation differences."""
+    x = v + torch.tensor(0.5, dtype=_F32, device=v.device)
+    n = torch.trunc(x).to(torch.int32)
+    eps = torch.tensor(1e-6, dtype=_F32, device=v.device) \
+        + x.abs() * torch.tensor(2e-6, dtype=_F32, device=v.device)
+    near = (x - torch.round(x)).abs() < eps
+    return n, near
+
+
+def _pcm_rates(pulse, gap, n_pulses, b):
+    """Pass 1: preamble bit-rate re-estimation -> per-lane f_short/f_long
+    and the float-boundary flag (JAX ``_pcm_rates``): RZ/NRZ preamble runs
+    in a loop, then the order-free anywhere-in-stream fallbacks."""
+    B, N = pulse.shape
+    dev = pulse.device
+    sh, lo, tol = b["short"], b["long"], b["tol"]
+    is_rz, mc0 = b["is_rz"], b["min_count"]
+    S = sh.shape[1]
+    w = torch.where
+    fs = b["f0s"].expand(B, S)
+    fl = b["f0l"].expand(B, S)
+    z = _zeros(B, S, dev)
+    cnt = sw = lw = plen = z
+    mc = mc0.expand(B, S)
+    prev_c = flag = _falses(B, S, dev)
+
+    def eval_run(cnt, sw, lw, mc, fs, fl, plen):
+        acc = cnt >= mc
+        cntf = cnt.to(_F32)
+        fs_rz = w(sw > 0, cntf / sw.to(_F32), fs)
+        fl_rz = w(lw > 0, cntf / lw.to(_F32), fl)
+        f_nrz = w(sw > 0, cntf / sw.to(_F32), fs)
+        fs2 = w(acc, w(is_rz, fs_rz, f_nrz), fs)
+        fl2 = w(acc, w(is_rz, fl_rz, f_nrz), fl)
+        return w(acc, cnt, mc), fs2, fl2, w(acc, cnt, plen)
+
+    for n in range(_steps(n_pulses)):
+        p, g, vm, _last = _step_inputs(pulse, gap, n_pulses, n)
+        c_rz = ((p >= sh - tol) & (p <= sh + tol)
+                & (p + g >= lo - tol) & (p + g <= lo + tol))
+        hp, near_p = _trunc05(p.to(_F32) * fs)
+        hg, near_g = _trunc05(g.to(_F32) * fl)
+        c_nrz = (hp == 1) & (hg == 1)
+        c = vm & w(is_rz, c_rz, c_nrz)
+        flag = flag | (vm & ~is_rz & ((near_p & (hp <= 2))
+                                      | (near_g & (hg <= 2))))
+        ended = prev_c & ~c
+        new = eval_run(cnt, sw, lw, mc, fs, fl, plen)
+        mc, fs, fl, plen = (w(ended, a, o) for a, o in
+                            zip(new, (mc, fs, fl, plen)))
+        d_sw = w(is_rz, p, p + g)
+        d_lw = p + g
+        d_cnt = w(is_rz, 1, 2)
+        cnt = w(c, cnt + d_cnt, 0)
+        sw = w(c, sw + d_sw, 0)
+        lw = w(c, lw + d_lw, 0)
+        prev_c = c
+    # a run still open at the train's end (evaluated at the first padded
+    # step of the JAX scan, or after its last step)
+    new = eval_run(cnt, sw, lw, mc, fs, fl, plen)
+    mc, fs, fl, plen = (w(cnt > 0, a, o) for a, o in
+                        zip(new, (mc, fs, fl, plen)))
+
+    # fallbacks (anywhere-in-stream, order-free)
+    p3 = pulse[:, :, None].to(torch.int32)
+    g3 = gap[:, :, None].to(torch.int32)
+    vm3 = torch.arange(N, device=dev)[None, :, None] < n_pulses[:, None, None]
+    sh3, lo3, tol3 = sh[:, None], lo[:, None], tol[:, None]
+    c_rz3 = vm3 & ((p3 >= sh3 - tol3) & (p3 <= sh3 + tol3)
+                   & (p3 + g3 >= lo3 - tol3) & (p3 + g3 <= lo3 + tol3))
+    isum = lambda x: x.sum(dim=1, dtype=torch.int32)
+    rzc = isum(c_rz3)
+    rzs = isum(w(c_rz3, p3, 0))
+    rzl = isum(w(c_rz3, p3 + g3, 0))
+    use_rzfb = is_rz & (plen == 0) & (rzc > 8)
+    fs = w(use_rzfb, rzc.to(_F32) / rzs.clamp(min=1).to(_F32), fs)
+    fl = w(use_rzfb, rzc.to(_F32) / rzl.clamp(min=1).to(_F32), fl)
+    # NRZ fallback: four independent windows, each pulse/gap may add twice
+    w1 = vm3 & (p3 >= sh3 - tol3) & (p3 <= sh3 + tol3)
+    w2 = vm3 & (p3 >= 2 * sh3 - tol3) & (p3 <= 2 * sh3 + tol3)
+    w3 = vm3 & (g3 >= lo3 - tol3) & (g3 <= lo3 + tol3)
+    w4 = vm3 & (g3 >= 2 * lo3 - tol3) & (g3 <= 2 * lo3 + tol3)
+    nw = (isum(w(w1, p3, 0)) + isum(w(w2, p3, 0)) + isum(w(w3, g3, 0))
+          + isum(w(w4, g3, 0)))
+    nc = isum(w1) + 2 * isum(w2) + isum(w3) + 2 * isum(w4)
+    use_nrzfb = ~is_rz & (plen == 0) & (nc > 20)
+    fnrz = nc.to(_F32) / nw.clamp(min=1).to(_F32)
+    return w(use_nrzfb, fnrz, fs), w(use_nrzfb, fnrz, fl), flag
+
+
+def _runs_to_bits(lead, starts, lens, mask, width, BITS):
+    """Runs of 1-bits (``lens`` long from ``starts``, where ``mask``) into
+    a packed [*lead_shape, BITS // 8] uint8 plane: +1/-1 deltas at the
+    clipped run ends, a cumulative sum, bytes. ``lead`` is the list of
+    leading index columns with their sizes in ``width``."""
+    delta_shape = tuple(width) + (BITS + 1,)
+    a = _scatter_add(delta_shape, lead + [starts.clamp(0, BITS)], 1, mask)
+    b = _scatter_add(delta_shape, lead + [(starts + lens).clamp(0, BITS)], 1,
+                     mask)
+    ind = (torch.cumsum(a - b, dim=-1)[..., :BITS] > 0).to(torch.int32)
+    wts = _bit(torch.arange(8, dtype=torch.int32, device=ind.device))
+    return (ind.reshape(delta_shape[:-1] + (BITS // 8, 8)) * wts).sum(-1)\
+        .to(torch.uint8)
+
+
+def slice_pcm_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
+    """Plain version of the PCM scan (JAX ``slice_pcm``): variable
+    bits-per-pulse emitted as runs, ``bitbuffer_clear`` handled by a
+    segment id per run (only runs of the segment an event flushed are
+    kept), float32 roundings near a boundary flagged."""
+    B, N = pulse.shape
+    dev = pulse.device
+    E, R, BY = caps
+    BITS = BY * 8
+    b = _cols(bounds, dev)
+    S = b["short"].shape[1]
+    fs, fl, fflag = _pcm_rates(pulse, gap, n_pulses, b)
+    sh, lo, rst, gpl = b["short"], b["long"], b["reset"], b["gap_limit"]
+    tol, mz, is_rz, okm = b["tol"], b["max_zeros"], b["is_rz"], b["ok"]
+    w = torch.where
+    ev = row = bir = frb = seg = _zeros(B, S, dev)
+    ovf = _falses(B, S, dev)
+    ys = []
+    for n in range(_steps(n_pulses)):
+        p, g, valid, last = _step_inputs(pulse, gap, n_pulses, n)
+        act = valid & okm
+        h, near_h = _trunc05(p.to(_F32) * fs)
+        l0, near_l = _trunc05((g + sh - lo).to(_F32) * fl)
+        near_l = near_l & (l0 <= mz + 1)
+        h = w(act, h.clamp(min=0), 0)
+        l = w(act, torch.minimum(l0.clamp(min=0), mz), 0)
+        ovf2 = ovf | (act & (near_h | near_l))
+        b_ev, b_row, b_start = ev, row, bir
+        bir2 = bir + h + l
+        frb2 = w(row == 0, frb + h + l, frb)
+        do_clear = act & is_rz & ((p - sh).abs() > tol)
+        do_break = act & ~do_clear & (g > gpl) & (g <= rst)
+        seg2 = w(do_clear, seg + 1, seg)
+        row2 = w(do_clear, 0, w(do_break, row + 1, row))
+        bir3 = w(do_clear | do_break, 0, bir2)
+        frb3 = w(do_clear, 0, frb2)
+        flush = act & ((g > rst) | last) & ((frb3 > 0) | (row2 > 0))
+        f_rows = row2 + 1
+        ev2 = w(flush, ev + 1, ev)
+        ovf = ovf2 | (ev2 >= E) | (torch.maximum(row2, row) >= R) \
+            | (bir2 >= BITS)
+        ys.append((h, l, b_ev, b_row, b_start, seg, flush, ev, f_rows))
+        ev, row = ev2, w(flush, 0, row2)
+        bir, frb, seg = w(flush, 0, bir3), w(flush, 0, frb3), \
+            w(flush, 0, seg2)
+    ovf = ovf | fflag
+
+    L = B * S
+
+    def flat(i):
+        return _flat(ys, i, B, S).to(dev)
+
+    h, l, ev_l, b_row, b_start, seg_l, flush, f_ev, f_rows = \
+        (flat(i) for i in range(9))
+    lane = torch.arange(L, device=dev)[:, None].expand(h.shape)
+    m_flush = flush.bool()
+    # final segment id per (lane, event); -1 for never-flushed events
+    fseg = _scatter_add((L, E), [lane, f_ev], seg_l + 1, m_flush) - 1
+    sel = torch.gather(fseg, 1, ev_l.clamp(0, E - 1).to(torch.int64))
+    live = (seg_l == sel) & (ev_l < E)
+    m_bits = live & (h + l > 0)
+    bytes_ = _runs_to_bits([lane, ev_l, b_row], b_start, h, live & (h > 0),
+                           (L, E, R), BITS).reshape(B, S, E, R, BY)
+    bits_per_row = _lane_scatter_add(B, S, (E, R), [ev_l, b_row], h + l,
+                                     m_bits)
+    num_rows = _lane_scatter_add(B, S, (E,), [f_ev], f_rows, m_flush)
+    syncs = torch.zeros((B, S, E, R), dtype=torch.int32, device=dev)
+    return {"bytes": bytes_, "bits_per_row": bits_per_row, "syncs": syncs,
+            "num_rows": num_rows, "n_events": ev, "ovf": ovf}
+
+
+def slice_mc_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
+    """Plain version of the Manchester-zerobit scan (JAX ``slice_mc``):
+    every buffer starts with a hardcoded 0 bit; up to three bits per
+    pulse (sync-resync 1, post-row 0, mid-bit 1/0)."""
+    B, N = pulse.shape
+    dev = pulse.device
+    E, R, BY = caps
+    BITS = BY * 8
+    b = _cols(bounds, dev)
+    S = b["short"].shape[1]
+    sh, rst, tol, has_tol, okm = (b[k] for k in ("short", "reset", "tol",
+                                                 "has_tol", "ok"))
+    w = torch.where
+    ev = row = tsl = _zeros(B, S, dev)
+    bir = _zeros(B, S, dev) + 1
+    ovf = _falses(B, S, dev)
+    ys = []
+    for n in range(_steps(n_pulses)):
+        p, g, valid, last = _step_inputs(pulse, gap, n_pulses, n)
+        act = valid & okm
+        out = act & has_tol & ((p < sh - tol) | (p > 2 * sh + tol)
+                               | (g < sh - tol) | (g > 2 * sh + tol))
+        c1_out = out & (2 * p > 3 * sh) & (p <= 2 * sh + tol)
+        c1_mid = act & ~out & (2 * (p + tsl) > 3 * sh)
+        c1 = c1_out | c1_mid
+        e1 = (ev, row, bir)
+        bir2 = w(c1, bir + 1, bir)
+        row2 = w(out, row + 1, row)
+        bir3 = w(out, 1, bir2)
+        tsl2 = w(out | c1_mid, 0, tsl + p)
+        flush = act & ((g > rst) | last)
+        f_rows = row2 + 1
+        c3 = act & ~flush & (2 * (g + tsl2) > 3 * sh)
+        e3 = (ev, row2, bir3)
+        bir4 = w(c3, bir3 + 1, bir3)
+        tsl3 = w(flush | c3, 0, tsl2 + g)
+        ev2 = w(flush, ev + 1, ev)
+        ovf = ovf | (row2 >= R) | (bir4 > BITS) \
+            | (bir2.clamp(min=1) > BITS) | (flush & (ev2 >= E))
+        ys.append((c1, *e1, out, ev, row2, c3, *e3, flush, ev, f_rows, ev2))
+        ev, row, bir, tsl = ev2, w(flush, 0, row2), w(flush, 1, bir4), tsl3
+    (c1, e1e, e1r, e1b, c2, e2e, e2r, c3, e3e, e3r, _e3b, flush, f_ev,
+     f_rows, ev_after) = (_flat(ys, i, B, S).to(dev) for i in range(15))
+    cat = lambda *xs: torch.cat(xs, dim=1)
+    m_all = cat(c1, c2, c3, flush).bool()      # flush: next ev's lead 0
+    bits_per_row = _lane_scatter_add(
+        B, S, (E, R), [cat(e1e, e2e, e3e, ev_after),
+                       cat(e1r, e2r, e3r, torch.zeros_like(e1r))], 1, m_all)
+    # event 0's hardcoded leading 0
+    bits_per_row[:, :, 0, 0] += okm.to(torch.int32)
+    bytes_ = _lane_scatter_add(B, S, (E, R, BY), [e1e, e1r, e1b // 8],
+                               _bit(e1b), c1.bool())
+    num_rows = _lane_scatter_add(B, S, (E,), [f_ev], f_rows, flush.bool())
+    syncs = torch.zeros((B, S, E, R), dtype=torch.int32, device=dev)
+    return {"bytes": bytes_.to(torch.uint8), "bits_per_row": bits_per_row,
+            "syncs": syncs, "num_rows": num_rows, "n_events": ev,
+            "ovf": ovf}
+
+
+def slice_dmc_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
+    """Plain version of the differential-Manchester scan (JAX
+    ``slice_dmc``) over the interleaved pulse/gap symbol axis; a carried
+    ``pending`` flag models the host slicer's data-dependent stride."""
+    B, N = pulse.shape
+    dev = pulse.device
+    E, R, BY = caps
+    b = _cols(bounds, dev)
+    S = b["short"].shape[1]
+    sh, lo, rst, tol, okm = (b[k] for k in ("short", "long", "reset", "tol",
+                                            "ok"))
+    w = torch.where
+    ev = row = bir = _zeros(B, S, dev)
+    pend = has = ovf = _falses(B, S, dev)
+    nope = _falses(B, S, dev)
+    ys = []
+    for i in range(_steps(n_pulses, 2)):
+        sym, valid, _last = _symbol_inputs(pulse, gap, n_pulses, i)
+        act = valid & okm
+        d_short = (sym - sh).abs()
+        in_short = d_short < tol
+        in_long = (sym - lo).abs() < tol
+        is_rst = sym >= rst - tol
+        row_has = bir > 0
+        mist = d_short > tol
+        p_consume = act & pend & ~mist
+        p_fall = act & pend & mist & is_rst
+        p_break = act & pend & mist & ~is_rst & row_has
+        p_done = act & pend & mist & ~is_rst & ~row_has
+        norm = act & (~pend | p_fall)
+        n_one = norm & in_short
+        n_zero = norm & ~in_short & in_long
+        n_flush = norm & ~in_short & ~in_long & is_rst & has
+        isbit = n_one | n_zero
+        b_ev, b_row, b_bir = ev, row, bir
+        bir2 = w(isbit, bir + 1, bir)
+        has2 = has | isbit
+        row2 = w(p_break, row + 1, row)
+        bir3 = w(p_break, 0, bir2)
+        f_rows = row2 + 1
+        ev2 = w(n_flush, ev + 1, ev)
+        pend2 = act & n_one & ~(p_consume | p_break | p_done)
+        ovf = ovf | (row2 >= R) | (bir2 > BY * 8) | (n_flush & (ev2 >= E))
+        ys.append((isbit, n_one.to(torch.int32), b_ev, b_row, b_bir, nope,
+                   ev, row, n_flush, ev, f_rows))
+        ev, row, bir = ev2, w(n_flush, 0, row2), w(n_flush, 0, bir3)
+        has, pend = has2 & ~n_flush, pend2
+    return _assemble(ys, B, S, ev, ovf, caps)
+
+
+def slice_piwm_dc_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
+    """Plain version of the PIWM-DC scan (JAX ``slice_piwm_dc``) over the
+    interleaved pulse/gap symbol axis."""
+    B, N = pulse.shape
+    dev = pulse.device
+    E, R, BY = caps
+    b = _cols(bounds, dev)
+    S = b["short"].shape[1]
+    sh, lo, rst, tol, okm = (b[k] for k in ("short", "long", "reset", "tol",
+                                            "ok"))
+    w = torch.where
+    ev = row = bir = _zeros(B, S, dev)
+    touched = ovf = _falses(B, S, dev)
+    nope = _falses(B, S, dev)
+    ys = []
+    for i in range(_steps(n_pulses, 2)):
+        sym, valid, last = _symbol_inputs(pulse, gap, n_pulses, i)
+        act = valid & okm
+        in1 = act & ((sym - sh).abs() < tol)
+        in0 = act & ~in1 & ((sym - lo).abs() < tol)
+        isrb = act & ~in1 & ~in0 & (sym < rst) & touched & (bir > 0)
+        isbit = in1 | in0
+        b_ev, b_row, b_bir = ev, row, bir
+        bir2 = w(isbit, bir + 1, bir)
+        touched2 = touched | isbit
+        row2 = w(isrb, row + 1, row)
+        bir3 = w(isrb, 0, bir2)
+        flush = act & ((sym > rst) | last) & touched2
+        f_rows = row2 + 1
+        ev2 = w(flush, ev + 1, ev)
+        ovf = ovf | (row2 >= R) | (bir2 > BY * 8) | (flush & (ev2 >= E))
+        ys.append((isbit, in1.to(torch.int32), b_ev, b_row, b_bir, nope,
+                   ev, row, flush, ev, f_rows))
+        ev, row, bir = ev2, w(flush, 0, row2), w(flush, 0, bir3)
+        touched = touched2 & ~flush
+    return _assemble(ys, B, S, ev, ovf, caps)
+
+
+def _assemble_runs(B, S, caps: SliceCaps, ys, ev_f, ovf):
+    """Shared assembly for slicers that only ever write row 0: per-step
+    runs of ``ones`` 1-bits at ``start`` followed by ``zeros`` 0-bits,
+    packed by the same delta-scatter and cumulative sum as PCM. ``ys``
+    holds (ones, zeros, b_ev, start, flush, f_ev, f_rows) per step."""
+    E, R, BY = caps
+    BITS = BY * 8
+    L = B * S
+    dev = ev_f.device
+    hl, zl, ev_l, sl, flush, f_ev, f_rows = \
+        (_flat(ys, i, B, S).to(dev) for i in range(7))
+    lane = torch.arange(L, device=dev)[:, None].expand(hl.shape)
+    row0 = _runs_to_bits([lane, ev_l], sl, hl, hl > 0, (L, E), BITS)
+    bytes_ = torch.zeros((B, S, E, R, BY), dtype=torch.uint8, device=dev)
+    bytes_[:, :, :, 0, :] = row0.reshape(B, S, E, BY)
+    bits_per_row = torch.zeros((B, S, E, R), dtype=torch.int32, device=dev)
+    bits_per_row[:, :, :, 0] = _lane_scatter_add(B, S, (E,), [ev_l], hl + zl,
+                                                 hl + zl > 0)
+    num_rows = _lane_scatter_add(B, S, (E,), [f_ev], f_rows, flush.bool())
+    syncs = torch.zeros((B, S, E, R), dtype=torch.int32, device=dev)
+    return {"bytes": bytes_, "bits_per_row": bits_per_row, "syncs": syncs,
+            "num_rows": num_rows, "n_events": ev_f, "ovf": ovf}
+
+
+def slice_nrzs_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
+    """Plain version of the NRZS scan (JAX ``slice_nrzs``): a pulse longer
+    than the bit limit emits ``pulse // limit`` ones then a zero, a
+    shorter one a zero, an exact-limit one nothing; every reset gap (or
+    the final pulse) flushes an event, empty ones included."""
+    B, N = pulse.shape
+    dev = pulse.device
+    E, R, BY = caps
+    BITS = BY * 8
+    b = _cols(bounds, dev)
+    S = b["short"].shape[1]
+    sh, rst, okm = b["short"], b["reset"], b["ok"]
+    w = torch.where
+    ev = bir = _zeros(B, S, dev)
+    ovf = _falses(B, S, dev)
+    ys = []
+    for n in range(_steps(n_pulses)):
+        p, g, valid, last = _step_inputs(pulse, gap, n_pulses, n)
+        act = valid & okm
+        h = w(act & (p > sh), torch.div(p, sh.clamp(min=1),
+                                        rounding_mode="floor"), 0)
+        z = w(act & (p != sh), 1, 0)
+        bir2 = bir + h + z
+        flush = act & ((g >= rst) | last)
+        f_rows = w(bir2 > 0, 1, 0)
+        ev2 = w(flush, ev + 1, ev)
+        ovf = ovf | (bir2 > BITS) | (flush & (ev2 >= E))
+        ys.append((h, z, ev, bir, flush, ev, f_rows))
+        ev, bir = ev2, w(flush, 0, bir2)
+    return _assemble_runs(B, S, caps, ys, ev, ovf)
+
+
+def slice_rzi_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
+    """Plain version of the RZI scan (JAX ``slice_rzi``): each pulse emits
+    ``round(high / long)`` ones (the first pulse of a message without the
+    base offset), each sub-reset gap a zero; a reset gap or the final
+    pulse flushes non-empty events."""
+    B, N = pulse.shape
+    dev = pulse.device
+    E, R, BY = caps
+    BITS = BY * 8
+    b = _cols(bounds, dev)
+    S = b["long"].shape[1]
+    lo, rst, base, okm = b["long"], b["reset"], b["base"], b["ok"]
+    w = torch.where
+    half = torch.div(lo, 2, rounding_mode="floor")
+    ev = bir = _zeros(B, S, dev)
+    at_start = ~_falses(B, S, dev)
+    ovf = _falses(B, S, dev)
+    ys = []
+    for n in range(_steps(n_pulses)):
+        p, g, valid, last = _step_inputs(pulse, gap, n_pulses, n)
+        act = valid & okm
+        num = w(at_start, p + half, p - base + half)
+        ones = w(act, torch.div(num, lo.clamp(min=1),
+                                rounding_mode="floor").clamp(min=0), 0)
+        bir2 = bir + ones
+        flush = act & ((g > rst) | last)
+        emitted = flush & (bir2 > 0)
+        zz = w(act & ~flush, 1, 0)
+        ev2 = w(emitted, ev + 1, ev)
+        ovf = ovf | (bir2 + zz > BITS) | (emitted & (ev2 >= E))
+        ys.append((ones, zz, ev, bir, emitted, ev, torch.ones_like(ev)))
+        ev, bir = ev2, w(flush, 0, bir2 + zz)
+        at_start = w(act, flush, at_start)
+    return _assemble_runs(B, S, caps, ys, ev, ovf)
+
+
+def slice_osv1_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
+    """Plain version of the OSv1 scan (JAX ``slice_osv1``): a phase
+    machine (preamble count, sync pulse and polarity bit, half-bit
+    Manchester transitions, done); at most one event, all bits in row 0."""
+    B, N = pulse.shape
+    dev = pulse.device
+    E, R, BY = caps
+    BITS = BY * 8
+    b = _cols(bounds, dev)
+    S = b["short"].shape[1]
+    sh, rst, okm = b["short"], b["reset"], b["ok"]
+    w = torch.where
+    hmin = torch.div(sh, 2, rounding_mode="floor")
+    hmax = torch.div(sh * 3, 2, rounding_mode="floor")
+    sync_min = 2 * hmax
+    phase = cnt = manbit = bir = nev = _zeros(B, S, dev)
+    touched = ovf = _falses(B, S, dev)
+    ys = []
+    for n in range(_steps(n_pulses)):
+        p, g, valid, last = _step_inputs(pulse, gap, n_pulses, n)
+        act = valid & okm
+        ph0 = act & (phase == 0)
+        ph1 = act & (phase == 1)
+        ph2 = act & (phase == 2)
+        pass0 = (p > hmin) & (g > hmin)
+        cnt2 = w(ph0 & pass0, cnt + 1, cnt)
+        brk = ph0 & pass0 & (g > hmax)
+        phase2_ = w(ph0 & ~pass0, 3, phase)
+        phase2_ = w(brk, w(cnt2 == 12, 1, 3), phase2_)
+        pass1 = (p >= sync_min) & (g >= sync_min)
+        phase3_ = w(ph1, w(pass1, 2, 3), phase2_)
+        sync0 = ph1 & pass1 & (g > p)
+        m = w(sync0, 1, manbit)
+        phit = p > hmax
+        c1 = ph2 & (phit | (m == 0))
+        mp = w(phit, m, 1 - m)
+        b1 = bir
+        bir2 = bir + c1.to(torch.int32)
+        touched2 = touched | c1 | sync0
+        flush = ph2 & (last | (g > rst)) & touched2
+        ghit = g > hmax
+        c0 = (ph2 & ~flush & (ghit | (mp == 0))) | sync0
+        bir3 = bir2 + c0.to(torch.int32)
+        manbit = w(ph2 & ~flush, w(ghit, mp, 1 - mp), w(flush, mp, m))
+        touched = touched2 | c0
+        phase = w(flush, 3, phase3_)
+        nev = nev + flush.to(torch.int32)
+        ovf = ovf | (bir3 > BITS)
+        ys.append((c1, b1, c0))
+        cnt, bir = cnt2, bir3
+    c1, b1, c0 = (_flat(ys, i, B, S).to(dev) for i in range(3))
+    m1 = c1.bool()
+    bp1 = b1.clamp(0, BITS - 1)
+    row0 = _lane_scatter_add(B, S, (BY,), [bp1 // 8], _bit(bp1), m1)
+    bytes_ = torch.zeros((B, S, E, R, BY), dtype=torch.uint8, device=dev)
+    bytes_[:, :, 0, 0, :] = row0.to(torch.uint8)
+    bits_per_row = torch.zeros((B, S, E, R), dtype=torch.int32, device=dev)
+    bits_per_row[:, :, 0, 0] = (c1.sum(1, dtype=torch.int32)
+                                + c0.sum(1, dtype=torch.int32)).reshape(B, S)
+    num_rows = torch.zeros((B, S, E), dtype=torch.int32, device=dev)
+    num_rows[:, :, 0] = (nev > 0).to(torch.int32)
+    syncs = torch.zeros((B, S, E, R), dtype=torch.int32, device=dev)
+    return {"bytes": bytes_, "bits_per_row": bits_per_row, "syncs": syncs,
+            "num_rows": num_rows, "n_events": nev, "ovf": ovf}
+
+
+PLAIN = {"ppm": slice_ppm_plain, "pwm": slice_pwm_plain,
+         "pcm": slice_pcm_plain, "mc": slice_mc_plain,
+         "dmc": slice_dmc_plain, "piwm_dc": slice_piwm_dc_plain,
+         "nrzs": slice_nrzs_plain, "rzi": slice_rzi_plain,
+         "osv1": slice_osv1_plain}
+
+
+# ---------------------------------------------------------------------------
+# the kernel (csrc/slice.cu) and the wrappers
+# ---------------------------------------------------------------------------
+
+def _check(pulse, gap, n_pulses, caps):
+    if pulse.dim() != 2 or gap.shape != pulse.shape:
+        raise ValueError("slice: pulse and gap must be [B, N]")
+    if n_pulses.shape != (pulse.shape[0],):
+        raise ValueError("slice: n_pulses must be [B]")
+    if any(t.dtype != torch.int32 for t in (pulse, gap, n_pulses)):
+        raise ValueError("slice: pulse, gap and n_pulses must be int32")
+    if min(caps) < 1:
+        raise ValueError(f"slice: caps must be positive, not {caps}")
+
+
+def slice_cuda(fam: str, pulse, gap, n_pulses, bounds,
+               caps: SliceCaps = SliceCaps()) -> dict:
+    """Launch ``csrc/slice.cu`` for family ``fam``; same contract as the
+    family's plain version (``bounds`` as its ``<fam>_bounds`` gives them,
+    or already packed by :func:`bound_table`)."""
+    _check(pulse, gap, n_pulses, caps)
+    dev = pulse.device
+    if not all(t.is_cuda and t.device == dev for t in (gap, n_pulses)) \
+            or not pulse.is_cuda:
+        raise ValueError("slice: pulse, gap and n_pulses must be CUDA "
+                         "tensors on one device")
+    pulse, gap, n_pulses = (t.contiguous() for t in (pulse, gap, n_pulses))
+    tab = bounds if isinstance(bounds, torch.Tensor) \
+        else torch.from_numpy(bound_table(fam, bounds))
+    tab = tab.to(dev, torch.int32).contiguous()
+    if tab.dim() != 2 or tab.shape[1] != NCOLS:
+        raise ValueError(f"slice: the bound table must be [S, {NCOLS}]")
+    B, N = pulse.shape
+    S = tab.shape[0]
+    E, R, BY = (int(c) for c in caps)
+    z = lambda *sh, dt=torch.int32: torch.zeros(sh, dtype=dt, device=dev)
+    out = {"bytes": z(B, S, E, R, BY, dt=torch.uint8),
+           "bits_per_row": z(B, S, E, R), "syncs": z(B, S, E, R),
+           "num_rows": z(B, S, E), "n_events": z(B, S),
+           "ovf": z(B, S, dt=torch.uint8)}
+    if B and S:
+        fn = _cuda.launcher("slice")
+        _cuda.LAUNCHES["slice_" + fam] += 1
+        err = fn(FAMILIES[fam][0], pulse.data_ptr(), gap.data_ptr(),
+                 n_pulses.data_ptr(), B, N, tab.data_ptr(), S, E, R, BY,
+                 out["bytes"].data_ptr(), out["bits_per_row"].data_ptr(),
+                 out["syncs"].data_ptr(), out["num_rows"].data_ptr(),
+                 out["n_events"].data_ptr(), out["ovf"].data_ptr(),
+                 _cuda.stream_of(pulse))
+        _cuda.check(err, "slice_" + fam)
+    out["ovf"] = out["ovf"].view(torch.bool)
+    return out
+
+
+def _wrapper(fam):
+    plain = PLAIN[fam]
+
+    def run(pulse, gap, n_pulses, bounds, caps: SliceCaps = SliceCaps()):
+        if pulse.is_cuda:
+            return slice_cuda(fam, pulse, gap, n_pulses, bounds, caps)
+        _check(pulse, gap, n_pulses, caps)
+        return plain(pulse, gap, n_pulses, bounds, caps)
+
+    run.__name__ = run.__qualname__ = f"slice_{fam}"
+    run.__doc__ = (f"{fam.upper()} slicing: ``csrc/slice.cu`` for CUDA "
+                   f"tensors (``bounds`` as ``{fam}_bounds`` gives them or "
+                   f"as their :func:`bound_table`), :func:`{plain.__name__}` "
+                   f"for CPU tensors.")
+    return run
+
+
+slice_ppm = _wrapper("ppm")
+slice_pwm = _wrapper("pwm")
+slice_pcm = _wrapper("pcm")
+slice_mc = _wrapper("mc")
+slice_dmc = _wrapper("dmc")
+slice_piwm_dc = _wrapper("piwm_dc")
+slice_nrzs = _wrapper("nrzs")
+slice_rzi = _wrapper("rzi")
+slice_osv1 = _wrapper("osv1")

@@ -262,6 +262,14 @@ class ShardedEngine:
         pool = getattr(self, "_decode_pool", None)
         out = []
         pkgs = self.take_packages()
+        if self.registry.device_slice and pkgs:
+            # one batched kernel pass on the mesh's first device slices
+            # every new train in this drain; the pool's workers, forked
+            # before, do not see the memo and slice on the host
+            self.registry.slice_device = self.mesh.devices[0]
+            self.registry.prewarm_trains(
+                [(pkg["type"] == PKG_FSK, pkg["pulse"], pkg["gap"])
+                 for pkg in pkgs], self.params.sample_rate)
         for pkg in pkgs:
             pd = PulseData(
                 pulse=pkg["pulse"].tolist(), gap=pkg["gap"].tolist(),

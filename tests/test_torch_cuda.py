@@ -202,3 +202,128 @@ def test_sharded_engine_on_the_card_matches_cpu():
     for a, b in zip(cpu, gpu):
         for k in a:
             assert np.array_equal(np.asarray(a[k]), np.asarray(b[k])), k
+
+
+# ---- device slicing: csrc/slice.cu (kernel A) and csrc/dispatch.cu (B, C)
+
+def _slice_inputs(fam, seed, n, dev, repeat=1):
+    from rtl_433_tpu_torch.ops import slice as sl
+    from torch_slice_cases import family_devices, family_trains, pack
+    devs = family_devices(fam)
+    trains = family_trains(fam, devs, seed, n=n)
+    trains = [(p * repeat, g * repeat) for p, g in trains]
+    bounds = getattr(sl, f"{fam}_bounds")(devs, 250_000)
+    return [torch.from_numpy(a).to(dev) for a in pack(trains)], bounds
+
+
+def _same_planes(got, want):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        assert torch.equal(got[k].cpu().to(torch.int64),
+                           want[k].cpu().to(torch.int64)), k
+
+
+@pytest.mark.parametrize("caps", ["bank", "small"])
+@pytest.mark.parametrize("fam", ["ppm", "pwm", "pcm", "mc", "dmc", "piwm_dc",
+                                 "nrzs", "rzi", "osv1"])
+def test_slice_kernel_matches_plain(fam, caps):
+    """Every plane on every lane, flagged lanes included, at the bank's
+    caps and at caps that flag most lanes; one launch per call."""
+    from rtl_433_tpu_torch.ops import slice as sl
+    from torch_slice_cases import BANK_CAPS, SMALL_CAPS
+    dev = _gpu()
+    caps = BANK_CAPS[fam] if caps == "bank" else SMALL_CAPS
+    args, bounds = _slice_inputs(fam, 5, 24, dev)
+    key = f"slice_{fam}"
+    before = _cuda.LAUNCHES[key]
+    got = sl.slice_cuda(fam, *args, bounds, caps)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[key] == before + 1
+    want = sl.PLAIN[fam](*[a.cpu() for a in args], bounds, caps)
+    _same_planes(got, want)
+    assert want["n_events"].sum() > 0
+
+
+@pytest.mark.parametrize("fam", ["ppm", "pcm", "dmc"])
+def test_slice_kernel_long_trains(fam):
+    """Trains of hundreds of pulses (the symbol families walk twice as
+    many), padded to N = 8192: 64 KB of staging, above the default
+    dynamic shared memory."""
+    from rtl_433_tpu_torch.ops import slice as sl
+    from torch_slice_cases import BANK_CAPS, pack
+    dev = _gpu()
+    args, bounds = _slice_inputs(fam, 7, 6, dev, repeat=12)
+    cpu = [a.cpu() for a in args]
+    want = sl.PLAIN[fam](*cpu, bounds, BANK_CAPS[fam])
+    pulse, gap, npl = cpu
+    wide = [torch.zeros((pulse.shape[0], 8192), dtype=torch.int32)
+            for _ in range(2)]
+    for w, a in zip(wide, (pulse, gap)):
+        w[:, :a.shape[1]] = a
+    got = sl.slice_cuda(fam, wide[0].to(dev), wide[1].to(dev), npl.to(dev),
+                        bounds, BANK_CAPS[fam])
+    torch.cuda.synchronize()
+    _same_planes(got, want)
+
+
+def _dup_planes(seed, dev):
+    from torch_slice_cases import dup_planes
+    return {k: torch.from_numpy(v).to(dev) for k, v in
+            dup_planes(seed, B=5, J=7, E=8, R=6, W=20).items()}
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+def test_content_dup_kernel_matches_plain(seed):
+    from rtl_433_tpu_torch.decoders import device_dispatch as ddp
+    dev = _gpu()
+    planes = _dup_planes(seed, dev)
+    before = _cuda.LAUNCHES["content_dup"]
+    got = ddp._content_dup(planes)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["content_dup"] == before + 1
+    want = ddp._content_dup_plain(planes)
+    assert torch.equal(got.cpu(), want.cpu())
+    E = want.shape[2]
+    assert (want.cpu() != torch.arange(E, dtype=torch.int32)).any()
+
+
+def test_gather_records_kernel_matches_plain():
+    from rtl_433_tpu_torch.decoders import device_dispatch as ddp
+    dev = _gpu()
+    planes = _dup_planes(3, dev)
+    rng = np.random.default_rng(3)
+    idx = [rng.integers(0, n, 40).astype(np.int32)
+           for n in planes["bytes"].shape[:3]]
+    before = _cuda.LAUNCHES["gather_records"]
+    got = ddp._gather_records(planes["bytes"], planes["syncs"], *idx)
+    assert _cuda.LAUNCHES["gather_records"] == before + 1
+    want = ddp._gather_records_plain(
+        planes["bytes"], planes["syncs"],
+        *(torch.from_numpy(a.astype(np.int64)).to(dev) for a in idx))
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w.cpu().numpy())
+
+
+def test_device_slicing_on_the_card_matches_cpu():
+    """RtlTpu(device_slice=True) on the card: a fixture's events equal the
+    CPU run's, through the slicer, dedup and gather kernels."""
+    import os
+    from rtl_433_tpu_torch.api import RtlTpu
+    from rtl_433_tpu_torch.output.data_model import event_to_json
+    dev = _gpu()
+    path = os.path.join(os.path.dirname(__file__), "fixtures",
+                        "lacrosse_tx35", "g054_433.92M_250k.cu8")
+    out = {}
+    for d in ("cpu", dev):
+        _cuda.reset_launches()
+        rx = RtlTpu(device=d, device_slice=True, report_time="off")
+        out[str(d)] = ([event_to_json(e) for e in rx.decode_file(path)],
+                       dict(_cuda.LAUNCHES))
+    (cpu, cl), (gpu, gl) = out["cpu"], out[str(dev)]
+    assert cpu == gpu and cpu
+    assert not any(cl.values())
+    # an FSK capture: the FSK side's families
+    for k in ("slice_pcm", "slice_pwm", "slice_mc", "content_dup",
+              "gather_records"):
+        assert gl[k] > 0, k

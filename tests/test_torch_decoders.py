@@ -11,7 +11,9 @@ defaults.
 The fast dispatch is held to its twin the same way: the modules of the
 slicer binding, the gates, the declarative bank and its specs (one
 declared difference: how the slicer library is built), the Registry
-members it runs (``_run`` aside), and ``csrc/slicers.cpp``, byte for byte
+members it runs (``_run``, ``_get_device_bank`` and ``prewarm_trains``
+aside), and
+``csrc/slicers.cpp``, byte for byte
 with ``native/slicers.cpp``. The decode pool, ``decoders/pool.py``, is its
 twin with two declared differences (no JAX_PLATFORMS in the worker, flex
 specs refused).
@@ -112,9 +114,12 @@ DISPATCH_DIFFERENCES = {
                                 "_SO"},
 }
 
-# Registry members copied from the JAX package as they are; ``_run`` is the
-# one deliberate difference (no device slicing, and no ``except
-# RuntimeError`` that would turn a failed build into the host path)
+# Registry members copied from the JAX package as they are; ``_run`` (no
+# ``except RuntimeError`` that would turn a failed build into the host
+# path), ``_get_device_bank`` (the bank runs on ``slice_device``) and
+# ``prewarm_trains`` (the decode-cache keys are read after the drain-wide
+# record freeze; tests/test_torch_device_dispatch.py holds its memo and
+# decode cache to JAX's) are the deliberate differences
 REGISTRY_COPIED = ["_verbose_decoding", "_use_native", "_get_bank",
                    "_bank_meta", "_build_train_memo", "_memo_plans",
                    "_run_fast", "run_ook_demods", "run_fsk_demods"]
@@ -188,7 +193,7 @@ def test_registry_dispatch_state():
     j, t = jdec.Registry(), tdec.Registry()
     for k in ("_banks", "_dec_cache", "_dec_cache_version", "dec_cache_max",
               "_train_cache", "train_cache_max", "decoder_verbose",
-              "decl_decode"):
+              "decl_decode", "device_slice", "_device_banks"):
         assert getattr(t, k) == getattr(j, k), k
     assert tbase._MISS is not None and tbase._MISS is not jbase._MISS
     assert tbase._decl_symbols() == jbase._decl_symbols()

@@ -1,0 +1,441 @@
+"""The port's device-slicing dispatch against the JAX package's, on the
+CPU.
+
+``decoders/device_dispatch.py`` is the JAX module with its declared
+differences (an AST comparison holds the rest to its twin): the bank runs
+on an explicit ``torch.device``, host reads of kernel outputs go through
+``.cpu()``, a lazy record's bytes come through the gather, and
+``_content_dup`` returns the first equal event e' <= e, where the JAX
+code's reversed mask always returns e itself (a JAX-side fault: its
+dedup never merges; the events do not change, the grouping only saves
+decode calls). Then, on the same inputs:
+
+- ``_content_dup`` against a NumPy statement of its contract, with planted
+  duplicate events (and against JAX's where no event repeats);
+- ``_gather_records`` against JAX's;
+- ``DeviceBank.batch_slice``: summaries and every record's bytes equal
+  JAX's; ``group_of`` merges JAX's groups only where records are equal;
+- ``Registry.prewarm_trains``: the memo is filled, the decode cache
+  holds JAX's keys and decodes (the port reads the records in one gather
+  per family for the whole drain, the decode-cache keys included, where
+  JAX reads each key's record alone), and the fuzz dispatch's events and
+  stats equal the JAX device path's and the port's own host path's
+  (Security+ on a frozen clock);
+- the CLI's ``-Y deviceslice`` and ``TPU433_DEVICE_SLICE=1``
+  (fixtures of every slicer family: tests/test_torch_device_fixtures.py);
+- ``ShardedEngine`` with device slicing on a 4-device CPU mesh: the JAX
+  engine's events, in order.
+"""
+
+import ast
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import rtl_433_tpu.decoders.device_dispatch as jdd
+import rtl_433_tpu.decoders.garage as jgarage
+from rtl_433_tpu.decoders import Registry as JaxRegistry
+from rtl_433_tpu.output.data_model import event_to_json as jax_event_to_json
+import rtl_433_tpu_torch.decoders.device_dispatch as tdd
+import rtl_433_tpu_torch.decoders.garage as tgarage
+from rtl_433_tpu_torch.api import RtlTpu
+from rtl_433_tpu_torch.decoders import Registry
+from rtl_433_tpu_torch.ops import _cuda
+from rtl_433_tpu_torch.output.data_model import event_to_json
+from rtl_433_tpu_torch.pulse.data import PulseData
+
+from torch_slice_cases import dup_planes, mixed_trains
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RATE = 250_000
+
+
+class _Frozen:
+    @staticmethod
+    def monotonic():
+        return 0.0
+
+
+@pytest.fixture
+def frozen_clock(monkeypatch):
+    """Security+ pairs its halves within 0.8 s of time.monotonic(): one
+    fixed clock for both packages, so pairing does not depend on speed."""
+    monkeypatch.setattr(jgarage, "time", _Frozen)
+    monkeypatch.setattr(tgarage, "time", _Frozen)
+
+
+# ---------------------------------------------------------------------------
+# the module against its twin
+# ---------------------------------------------------------------------------
+
+# top-level names the port defines differently (the two kernels and their
+# plain versions), and class members that differ: the port's bank always
+# has the host slicer library (a failed build raises), so it has no
+# Python slicing path (``_python_rows``) and no branch for a missing
+# library in ``_get_ovf_bank``, ``_rest_cols`` and ``batch_slice``
+MODULE_DIFFERENCES = {"_gather_jit", "_gather_records", "_content_dup",
+                      "_planes", "_content_dup_plain",
+                      "_gather_records_plain"}
+MEMBER_DIFFERENCES = {("LazyRecords", "__getitem__"),
+                      ("DeviceBank", "__init__"),
+                      ("DeviceBank", "batch_slice"),
+                      ("DeviceBank", "_get_ovf_bank"),
+                      ("DeviceBank", "_rest_cols"),
+                      ("DeviceBank", "_python_rows")}
+
+
+def _stripped(node):
+    node = ast.parse(ast.unparse(node))
+    for n in ast.walk(node):
+        body = getattr(n, "body", None)
+        if isinstance(body, list) and body \
+                and isinstance(body[0], ast.Expr) \
+                and isinstance(body[0].value, ast.Constant) \
+                and isinstance(body[0].value.value, str):
+            n.body = body[1:] or [ast.Pass()]
+    return ast.dump(node, include_attributes=False)
+
+
+def _members(pkg):
+    path = os.path.join(REPO, pkg, "decoders", "device_dispatch.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    out = {}
+    for n in tree.body:
+        if isinstance(n, (ast.Import, ast.ImportFrom)):
+            continue
+        if isinstance(n, ast.ClassDef):
+            for m in n.body:
+                if isinstance(m, ast.FunctionDef):
+                    out[(n.name, m.name)] = m
+            continue
+        if isinstance(n, ast.Expr):
+            continue            # the module docstring
+        names = [n.name] if hasattr(n, "name") else \
+            [t.id for t in getattr(n, "targets", []) if hasattr(t, "id")]
+        for name in names:
+            out[name] = n
+    return out
+
+
+def test_module_matches_jax_twin():
+    j, t = _members("rtl_433_tpu"), _members("rtl_433_tpu_torch")
+    skip = MODULE_DIFFERENCES | MEMBER_DIFFERENCES
+    shared = sorted((k for k in j if k not in skip), key=str)
+    assert shared and set(shared) <= set(t)
+    for k in shared:
+        assert _stripped(j[k]) == _stripped(t[k]), f"{k} differs from JAX"
+    # nothing else is new in the port
+    assert {k for k in t if k not in j} <= skip
+
+
+# ---------------------------------------------------------------------------
+# content dedup and record gather
+# ---------------------------------------------------------------------------
+
+def _dup_contract(p):
+    """dup[b, j, e]: the first e' <= e whose row count, and bit counts,
+    syncs and bytes of the rows below it, equal e's."""
+    nb, nr, bpr, sy = (p[k] for k in ("bytes", "num_rows", "bits_per_row",
+                                      "syncs"))
+    B, J, E, R, _W = nb.shape
+    out = np.zeros((B, J, E), np.int32)
+    for b in range(B):
+        for j in range(J):
+            for e in range(E):
+                rows = min(max(nr[b, j, e], 0), R)
+                out[b, j, e] = next(
+                    e2 for e2 in range(e + 1)
+                    if nr[b, j, e2] == nr[b, j, e]
+                    and np.array_equal(bpr[b, j, e2, :rows],
+                                       bpr[b, j, e, :rows])
+                    and np.array_equal(sy[b, j, e2, :rows],
+                                       sy[b, j, e, :rows])
+                    and np.array_equal(nb[b, j, e2, :rows],
+                                       nb[b, j, e, :rows]))
+    return out
+
+
+def _torch(p):
+    return {k: torch.from_numpy(v) for k, v in p.items()}
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_content_dup_finds_the_first_equal_earlier_event(seed):
+    p = dup_planes(seed)
+    want = _dup_contract(p)
+    assert (want != np.arange(p["bytes"].shape[2])).sum() >= 3
+    got = tdd._content_dup(_torch(p))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    # the JAX mask keeps e' >= e, so JAX returns e for every event
+    jax_dup = np.asarray(jdd._content_dup(p))
+    assert np.array_equal(jax_dup, np.broadcast_to(
+        np.arange(p["bytes"].shape[2]), jax_dup.shape))
+
+
+def test_content_dup_equals_jax_where_no_event_repeats():
+    p = dup_planes(4, plant=False)
+    got = tdd._content_dup(_torch(p)).numpy()
+    assert np.array_equal(got, np.asarray(jdd._content_dup(p)))
+
+
+def test_gather_records_matches_jax():
+    p = dup_planes(5)
+    rng = np.random.default_rng(5)
+    P = 16
+    idx = [rng.integers(0, n, P).astype(np.int32)
+           for n in p["bytes"].shape[:3]]
+    want = jdd._gather_records(p["bytes"], p["syncs"], *idx)
+    before = dict(_cuda.LAUNCHES)
+    got = tdd._gather_records(torch.from_numpy(p["bytes"]),
+                              torch.from_numpy(p["syncs"]), *idx)
+    assert _cuda.LAUNCHES == before
+    for g, w in zip(got, want):
+        assert isinstance(g, np.ndarray)
+        assert np.array_equal(g, np.asarray(w))
+    with pytest.raises(ValueError, match="out of range"):
+        tdd._gather_records(torch.from_numpy(p["bytes"]),
+                            torch.from_numpy(p["syncs"]), idx[0], idx[1],
+                            idx[2] + 100)
+
+
+# ---------------------------------------------------------------------------
+# the bank
+# ---------------------------------------------------------------------------
+
+def _active(reg_cls, fsk):
+    reg = reg_cls()
+    reg.register_all()
+    return [d for d in reg.active if d.is_fsk == fsk]
+
+
+def _repeat(p, g, k):
+    """A train sent ``k`` times, each copy ended by a reset gap: its
+    events repeat within every lane that decodes it."""
+    return list(p) * k, (list(g[:-1]) + [max(g[-1], 20000)]) * k
+
+
+@pytest.mark.parametrize("fsk", [False, True])
+def test_batch_slice_matches_jax(fsk):
+    tdevs, jdevs = _active(Registry, fsk), _active(JaxRegistry, fsk)
+    assert [d.symbol for d in tdevs] == [d.symbol for d in jdevs]
+    trains = mixed_trains(tdevs, 21, n=10)
+    trains += [_repeat(*trains[i], 3) for i in range(3)]
+    trains = [(np.asarray(p, np.int32), np.asarray(g, np.int32))
+              for p, g in trains]
+    jres = jdd.DeviceBank(jdevs, RATE).batch_slice(trains)
+    tres = tdd.DeviceBank(tdevs, RATE, "cpu").batch_slice(trains)
+    assert len(tres) == len(jres) == len(trains)
+    merged = 0
+    for (ts, tr, tg), (js, jr, jg) in zip(tres, jres):
+        assert np.array_equal(ts, js)
+        k = len(ts)
+        tr.materialize_many(range(k))
+        jr.materialize_many(range(k))
+        blobs = [tr[i] for i in range(k)]
+        assert blobs == [jr[i] for i in range(k)]
+        # the port's groups are unions of JAX's, of equal records
+        for i in range(k):
+            g = int(tg[i])
+            assert int(tg[int(jg[i])]) == g
+            assert ts[g, 0] == ts[i, 0] and blobs[g] == blobs[i]
+            merged += g != int(jg[i])
+    assert merged > 0
+
+
+def test_lazy_record_reads_one_record_through_the_gather():
+    devs = _active(Registry, False)
+    trains = [(np.asarray(p, np.int32), np.asarray(g, np.int32))
+              for p, g in mixed_trains(devs, 8, n=4)]
+    bank = tdd.DeviceBank(devs, RATE, torch.device("cpu"))
+    summary, records, _g = bank.batch_slice(trains)[0]
+    lazy = [i for i in range(len(summary)) if records._kind[i] >= 0]
+    assert lazy
+    one = records[lazy[0]]
+    again = tdd.DeviceBank(devs, RATE, "cpu").batch_slice(trains)[0][1]
+    again.materialize_many([lazy[0]])
+    assert one == again[lazy[0]]
+
+
+def test_device_bank_refuses_cuda_without_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA GPU is present: the refusal path is not taken")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        tdd.DeviceBank(_active(Registry, False), RATE, "cuda")
+
+
+# ---------------------------------------------------------------------------
+# the registry: prewarm and dispatch
+# ---------------------------------------------------------------------------
+
+def _fuzz_trains(n, seed=7):
+    from test_device_dispatch import _fuzz_trains
+    return _fuzz_trains(np.random.default_rng(seed), n)
+
+
+def _registry(cls, device_slice):
+    reg = cls()
+    reg.register_all()
+    reg.device_slice = device_slice
+    if device_slice and cls is Registry:
+        reg.slice_device = "cpu"
+    return reg
+
+
+def _dispatch_all(reg, trains, prewarm):
+    """Every train through the registry: (events, stats)."""
+    if prewarm:
+        assert reg.prewarm_trains(trains, RATE) > 0
+    out = []
+    for fsk, p, g in trains:
+        pd = PulseData(sample_rate=RATE)
+        pd.pulse, pd.gap = list(p), list(g)
+        got = []
+        reg._run(pd, want_fsk=fsk, event_cb=lambda dev, ev: got.append(
+            (dev.num, dev.symbol, repr(list(ev.fields)))))
+        out.append(got)
+    stats = {d.symbol: (d.decode_events, d.decode_ok,
+                        dict(sorted(d.decode_fails.items())))
+             for d in reg.active}
+    return out, stats
+
+
+def test_prewarm_fills_the_memo_cache():
+    trains = _fuzz_trains(6, seed=11)
+    reg = _registry(Registry, True)
+    assert reg.prewarm_trains(trains, RATE) == len(
+        {(bool(f), tuple(p), tuple(g)) for f, p, g in trains})
+    for fsk, p, g in trains:
+        assert (bool(fsk), RATE, np.asarray(p, np.int32).tobytes(),
+                np.asarray(g, np.int32).tobytes()) in reg._train_cache
+    # a second prewarm of the same drain builds nothing
+    assert reg.prewarm_trains(trains, RATE) == 0
+    # without device slicing, prewarm is a no-op
+    assert _registry(Registry, False).prewarm_trains(trains, RATE) == 0
+
+
+def _cache_view(reg):
+    """The decode cache as comparable values: per key, the events' fields
+    or the decode code."""
+    return {k: [repr(list(e.fields)) for e in v] if isinstance(v, list)
+            else v for k, v in reg._dec_cache.items()}
+
+
+def test_prewarm_decodes_the_same_candidates_as_jax():
+    """The port reads the declarative candidates' cache keys after the
+    drain-wide freeze, where JAX reads each before it: the same keys and
+    the same decodes."""
+    trains = _fuzz_trains(24, seed=5)
+    t, j = _registry(Registry, True), _registry(JaxRegistry, True)
+    assert t.prewarm_trains(trains, RATE) == j.prewarm_trains(trains, RATE)
+    assert t._dec_cache and _cache_view(t) == _cache_view(j)
+
+
+def test_prewarm_reads_records_in_batched_gathers(monkeypatch):
+    """No record of a drain is read alone: every gather of a prewarm comes
+    from the drain-wide freeze (one call per family) or from a MIC gate's
+    batch, none from a single lazy record read."""
+    trains = _fuzz_trains(24, seed=5)
+    depth, gathers = [0], {"batched": 0, "single": 0}
+    real_gather = tdd._gather_records
+    real_many = tdd.LazyRecords.materialize_many
+    real_freeze = tdd.LazyRecords.freeze_many
+
+    def gather(*a):
+        gathers["batched" if depth[0] else "single"] += 1
+        return real_gather(*a)
+
+    def batched(fn):
+        def run(*a, **k):
+            depth[0] += 1
+            try:
+                return fn(*a, **k)
+            finally:
+                depth[0] -= 1
+        return run
+
+    freezes = []
+    monkeypatch.setattr(tdd, "_gather_records", gather)
+    monkeypatch.setattr(tdd.LazyRecords, "materialize_many",
+                        batched(real_many))
+    monkeypatch.setattr(tdd.LazyRecords, "freeze_many", staticmethod(
+        batched(lambda items: freezes.append(1) or real_freeze(items))))
+    reg = _registry(Registry, True)
+    assert reg.prewarm_trains(trains, RATE) > 0
+    assert reg._dec_cache
+    assert gathers["single"] == 0 and gathers["batched"] > 0
+    assert len(freezes) == 1
+
+
+def test_fuzz_dispatch_matches_jax_and_host(frozen_clock):
+    trains = _fuzz_trains(40)
+    dev_ev, dev_stats = _dispatch_all(_registry(Registry, True), trains,
+                                      prewarm=True)
+    host_ev, host_stats = _dispatch_all(_registry(Registry, False), trains,
+                                        prewarm=False)
+    jax_ev, jax_stats = _dispatch_all(_registry(JaxRegistry, True), trains,
+                                      prewarm=True)
+    assert sum(map(len, dev_ev)) > 0
+    for i, (d, h, j) in enumerate(zip(dev_ev, host_ev, jax_ev)):
+        assert d == h, f"train {i}: device {d[:2]} != host {h[:2]}"
+        assert d == j, f"train {i}: port {d[:2]} != JAX {j[:2]}"
+    assert dev_stats == host_stats == jax_stats
+
+
+# ---------------------------------------------------------------------------
+# end to end: fixtures, the CLI, ShardedEngine
+# ---------------------------------------------------------------------------
+
+def test_cli_deviceslice_and_environment(capsys, monkeypatch):
+    from rtl_433_tpu_torch import cli
+    nexus = os.path.join(REPO, "tests", "fixtures", "nexus",
+                         "g001_433.92M_250k.cu8")
+    outs = []
+    for extra in ([], ["-Y", "deviceslice"]):
+        assert cli.main(["-R", "19", "-r", nexus, "-F", "json", "--device",
+                         "cpu", *extra]) == 0
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and outs[0].strip()
+    monkeypatch.setenv("TPU433_DEVICE_SLICE", "1")
+    rx = RtlTpu(device="cpu")
+    assert rx.registry.device_slice
+    assert rx.registry.slice_device == torch.device("cpu")
+
+
+def test_sharded_engine_device_slice_matches_jax():
+    """tests/test_device_dispatch.py's ShardedEngine case on both
+    packages: 4 channels on a 4-device CPU mesh, device slicing on."""
+    from rtl_433_tpu.parallel.sharding import ShardedEngine as JaxEngine
+    from rtl_433_tpu.parallel.sharding import make_mesh as jax_make_mesh
+    from rtl_433_tpu_torch.dsp.engine import DetectorParams
+    from rtl_433_tpu_torch.parallel.sharding import (ShardedEngine,
+                                                     make_mesh)
+    from test_sharding import _nexus_iq
+    from test_sharding import _params as jax_params
+
+    channels, n = 4, 98304
+    iq = np.zeros((channels, n, 2), np.uint8) + 128
+    for c in range(0, channels, 2):
+        iq[c] = _nexus_iq(n, seed=c)
+    runs = {}
+    for mode in (False, True):
+        reg = _registry(Registry, mode)
+        eng = ShardedEngine(DetectorParams(sample_rate=250_000, pkg_cap=4),
+                            channels, make_mesh(devices=["cpu"] * 4),
+                            registry=reg)
+        eng.push(iq, flush=True)
+        runs[mode] = [(c, event_to_json(ev)) for c, ev in
+                      eng.drain_events()]
+        if mode:
+            assert reg._train_cache
+            assert reg.slice_device == torch.device("cpu")
+    jreg = _registry(JaxRegistry, True)
+    jeng = JaxEngine(jax_params(), channels, jax_make_mesh(4),
+                     registry=jreg)
+    jeng.push(iq, flush=True)
+    want = [(c, jax_event_to_json(ev)) for c, ev in jeng.drain_events()]
+    assert runs[True] == runs[False] == want
+    assert any("Nexus" in e for _, e in want)

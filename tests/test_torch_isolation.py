@@ -51,6 +51,12 @@ from rtl_433_tpu_torch.output.data_model import event_to_json
 rx = RtlTpu(register_all=False, report_time="off", device="cpu")
 rx.registry.register(19)
 api = [json.loads(event_to_json(e)) for e in rx.decode_file(NEXUS)]
+# device slicing (decoders/device_dispatch.py, ops/slice.py) on the CPU
+rx = RtlTpu(register_all=False, report_time="off", device="cpu",
+            device_slice=True)
+rx.registry.register(19)
+sliced = [json.loads(event_to_json(e)) for e in rx.decode_file(NEXUS)]
+assert rx.registry._train_cache
 from rtl_433_tpu_torch import cli
 buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
@@ -81,7 +87,7 @@ bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.")
              or k == "rtl_433_tpu" or k.startswith("rtl_433_tpu."))
 print(json.dumps({"api": api, "cli": cli_events, "rc": rc,
-                  "sharded": sharded,
+                  "sharded": sharded, "sliced": sliced,
                   "loaded": [k for k in bad if sys.modules[k] is not None]}))
 '''
 

@@ -1,0 +1,265 @@
+"""Pulse trains and spec lists for the device-slicing scans, made from a
+seed with numpy.
+
+Shared by the CPU tests (the port's plain versions against the JAX
+package's scans), ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` (the
+CUDA kernel against the plain version). Imports only the port. The
+generators are those of ``tests/test_device_slice.py``, one per family,
+plus PCM trains whose widths sit on a rounding boundary of the bit-rate
+products (so that the float-boundary flag fires) and capacities small
+enough to flag lanes for events, rows and row bytes.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from rtl_433_tpu_torch.decoders import Registry
+from rtl_433_tpu_torch.decoders.device_dispatch import _FAM_MODS
+from rtl_433_tpu_torch.ops.slice import SliceCaps
+
+RATE = 250_000
+SPU = RATE / 1e6
+
+# the caps DeviceBank gives each family
+BANK_CAPS = {"ppm": SliceCaps(4, 16, 20), "pwm": SliceCaps(4, 16, 20),
+             "pcm": SliceCaps(4, 16, 40), "mc": SliceCaps(8, 24, 20),
+             "dmc": SliceCaps(8, 24, 20), "piwm_dc": SliceCaps(8, 24, 20),
+             "nrzs": SliceCaps(4, 16, 40), "rzi": SliceCaps(4, 16, 40),
+             "osv1": SliceCaps(4, 16, 40)}
+# caps small enough to flag lanes on events, rows and row bytes
+SMALL_CAPS = SliceCaps(2, 3, 2)
+
+
+def family_devices(fam, k=12):
+    """Specs of family ``fam`` with a decode function: a mix of those with
+    and without a tolerance (and, for PCM, of RZ and NRZ), at most ``k``."""
+    mods = _FAM_MODS[fam]
+    devs = [d for d in Registry().slots
+            if d is not None and d.decode_fn and d.modulation in mods]
+    if fam == "pcm":
+        rz = [d for d in devs if d.short_width != d.long_width][: k // 2]
+        return rz + [d for d in devs
+                     if d.short_width == d.long_width][: k - len(rz)]
+    tol = [d for d in devs if d.tolerance > 0][: k // 2]
+    return tol + [d for d in devs if d.tolerance == 0][: k - len(tol)]
+
+
+def _w(us):
+    return max(1, int(us * SPU))
+
+
+def _ppm(dev, rng):
+    n = int(rng.integers(6, 60))
+    cands = [dev.short_width, dev.long_width, dev.sync_width or 0,
+             dev.reset_limit * 1.2, dev.short_width + dev.long_width]
+    gaps = [max(1, int(cands[int(rng.integers(len(cands)))]
+                       * (1 + rng.uniform(-0.15, 0.15)) * SPU))
+            for _ in range(n)]
+    pulses = [max(1, int(dev.short_width * SPU * 0.5))] * n
+    gaps[-1] = int(dev.reset_limit * SPU * 1.5) + 10
+    return pulses, gaps
+
+
+def _pwm(dev, rng):
+    n = int(rng.integers(6, 60))
+    pc = [dev.short_width, dev.long_width, dev.sync_width or 0,
+          dev.short_width * 0.2, dev.long_width * 2.5]
+    gc = [dev.short_width, dev.gap_limit * 1.2 or dev.short_width,
+          dev.reset_limit * 1.2]
+    pulses, gaps = [], []
+    for _ in range(n):
+        p = pc[int(rng.integers(len(pc)))]
+        g = gc[int(rng.integers(len(gc)))]
+        pulses.append(max(1, int(p * (1 + rng.uniform(-0.15, 0.15)) * SPU)))
+        gaps.append(max(1, int(g * (1 + rng.uniform(-0.15, 0.15)) * SPU)))
+    gaps[-1] = int(dev.reset_limit * SPU * 1.5) + 10
+    return pulses, gaps
+
+
+def _pcm(dev, rng):
+    s, lg = _w(dev.short_width), _w(dev.long_width)
+    rst = max(2, int(dev.reset_limit * SPU))
+    pulses, gaps = [], []
+    for _ in range(int(rng.integers(0, 20))):       # a preamble run
+        pulses.append(s)
+        gaps.append(max(1, lg - s))
+    for _ in range(int(rng.integers(4, 40))):
+        p = int(s * int(rng.integers(1, 4)) * (1 + rng.uniform(-0.1, 0.1)))
+        g = int(lg * int(rng.integers(1, 5)) * (1 + rng.uniform(-0.1, 0.1)))
+        if rng.uniform() < 0.1:
+            g = rst + int(rng.integers(1, rst))     # mid-train end of package
+        pulses.append(max(1, p))
+        gaps.append(max(1, g))
+    gaps[-1] = rst * 2 + 10
+    return pulses, gaps
+
+
+def _pcm_boundary(dev, rng):
+    """PCM widths at k + 1/2 bit periods: ``p * f + 0.5`` lands on an
+    integer, inside the float-boundary flag's band."""
+    s, lg = _w(dev.short_width), _w(dev.long_width)
+    rst = max(2, int(dev.reset_limit * SPU))
+    pulses, gaps = [], []
+    for _ in range(int(rng.integers(6, 30))):
+        k = int(rng.integers(0, 3))
+        pulses.append(max(1, (2 * k + 1) * s // 2 if rng.uniform() < 0.5
+                          else s * (k + 1)))
+        kg = int(rng.integers(0, 3))
+        gaps.append(max(1, (2 * kg + 1) * lg // 2 + lg - s
+                        if rng.uniform() < 0.5 else lg * (kg + 1)))
+    gaps[-1] = rst * 2 + 10
+    return pulses, gaps
+
+
+def _mc(dev, rng):
+    s = _w(dev.short_width)
+    rst = max(2, int(dev.reset_limit * SPU))
+    pulses, gaps = [], []
+    for _ in range(int(rng.integers(6, 60))):
+        kp = [1, 1, 2, 2, 3][int(rng.integers(5))]
+        kg = [1, 1, 2, 2, 4][int(rng.integers(5))]
+        pulses.append(max(1, int(s * kp * (1 + rng.uniform(-0.2, 0.2)))))
+        g = max(1, int(s * kg * (1 + rng.uniform(-0.2, 0.2))))
+        if rng.uniform() < 0.06:
+            g = rst + int(rng.integers(1, rst))
+        gaps.append(g)
+    gaps[-1] = rst * 2 + 10
+    return pulses, gaps
+
+
+def _dmc(dev, rng, i=1, jitter=0.08):
+    s, lg = _w(dev.short_width), _w(dev.long_width)
+    rst = max(2, int(dev.reset_limit * SPU))
+    pulses, gaps = [], []
+    for _ in range(int(rng.integers(6, 60))):
+        pw = [s, s, lg, lg, int(lg * 1.7)][int(rng.integers(5))]
+        gw = [s, s, lg, lg, rst + 5][int(rng.integers(5))]
+        pulses.append(max(1, int(pw * (1 + rng.uniform(-jitter, jitter)))))
+        gaps.append(max(1, int(gw * (1 + rng.uniform(-jitter, jitter)))))
+    if i % 3:
+        gaps[-1] = rst * 2 + 10
+    return pulses, gaps
+
+
+def _nrzs(dev, rng, i):
+    s = _w(dev.short_width)
+    rst = max(2, int(dev.reset_limit * SPU))
+    pulses, gaps = [], []
+    for _ in range(int(rng.integers(6, 30))):
+        pulses.append(max(1, [s, s - 1, s + 1, s * 3, s * 7][
+            int(rng.integers(5))]))
+        gaps.append(max(1, [s, s * 2, rst + 3][int(rng.integers(3))]))
+    if i % 3:
+        gaps[-1] = rst + 10
+    return pulses, gaps
+
+
+def _rzi(dev, rng, i):
+    s, lg = _w(dev.short_width), _w(dev.long_width)
+    rst = max(2, int(dev.reset_limit * SPU))
+    pulses, gaps = [], []
+    for _ in range(int(rng.integers(6, 30))):
+        pw = [s, lg, lg * 2, lg * 3, max(1, s // 2)][int(rng.integers(5))]
+        pulses.append(max(1, int(pw * (1 + rng.uniform(-0.1, 0.1)))))
+        gaps.append(max(1, [s, lg, rst + 3][int(rng.integers(3))]))
+    if i % 3:
+        gaps[-1] = rst + 10
+    return pulses, gaps
+
+
+def _osv1(dev, rng, i):
+    s = _w(dev.short_width)
+    rst = max(2, int(dev.reset_limit * SPU))
+    hmax = s * 3 // 2
+    sync = 2 * hmax + 5
+    pulses, gaps = [], []
+    npre = 12 if i % 4 else int(rng.integers(8, 15))
+    for j in range(npre):
+        pulses.append(int(s * (1 + rng.uniform(-0.2, 0.2))))
+        g = int(s * (1 + rng.uniform(-0.2, 0.2)))
+        gaps.append(min(g, hmax) if j < npre - 1 else hmax + 3)
+    if i % 5 == 3:                                   # a corrupt preamble
+        pulses[int(rng.integers(npre))] = max(1, s // 4)
+    pulses.append(sync + int(rng.integers(0, 20)))
+    gaps.append(sync + int(rng.integers(0, 20)) if i % 7 else max(1, s))
+    for _ in range(int(rng.integers(8, 40))):
+        pulses.append([s, 2 * s][int(rng.integers(2))])
+        gaps.append([s, 2 * s][int(rng.integers(2))])
+    if i % 3:
+        gaps[-1] = rst + 10
+    return pulses, gaps
+
+
+def family_trains(fam, devs, seed, n=24):
+    """``n`` trains for family ``fam``, the i-th shaped by spec i mod S."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        dev = devs[i % len(devs)]
+        if fam == "ppm":
+            out.append(_ppm(dev, rng))
+        elif fam == "pwm":
+            out.append(_pwm(dev, rng))
+        elif fam == "pcm":
+            out.append((_pcm_boundary if i % 4 == 3 else _pcm)(dev, rng))
+        elif fam == "mc":
+            out.append(_mc(dev, rng))
+        elif fam in ("dmc", "piwm_dc"):
+            out.append(_dmc(dev, rng, i, 0.08 if fam == "dmc" else 0.1))
+        else:
+            out.append({"nrzs": _nrzs, "rzi": _rzi, "osv1": _osv1}[fam](
+                dev, rng, i))
+    return out
+
+
+def pack(trains, n_min=1):
+    """Trains as int32 pulse/gap [B, N] (zero-padded) and n_pulses [B]."""
+    N = max([n_min] + [len(p) for p, _g in trains])
+    B = len(trains)
+    pulse = np.zeros((B, N), np.int32)
+    gap = np.zeros((B, N), np.int32)
+    n_pulses = np.zeros((B,), np.int32)
+    for i, (p, g) in enumerate(trains):
+        pulse[i, :len(p)] = p
+        gap[i, :len(g)] = g
+        n_pulses[i] = len(p)
+    return pulse, gap, n_pulses
+
+
+def mixed_trains(devs, seed, n=12):
+    """Trains of every family's shape, for one bank over ``devs``."""
+    rng = np.random.default_rng(seed)
+    fams = list(_FAM_MODS)
+    out = []
+    for i in range(n):
+        fam = fams[i % len(fams)]
+        fd = [d for d in devs if d.modulation in _FAM_MODS[fam]] or devs
+        out += family_trains(fam, fd, int(rng.integers(1 << 30)), n=1)
+    return out
+
+
+def dup_planes(seed, B=3, J=4, E=6, R=5, W=7, plant=True):
+    """Slicer-output planes (NumPy: bytes, num_rows, bits_per_row, syncs)
+    in which events repeat earlier events of their lane; the repeats'
+    rows at or past the row count differ (they are scratch). Without
+    ``plant`` every event of a lane is distinct."""
+    rng = np.random.default_rng(seed)
+    nb = rng.integers(0, 4, (B, J, E, R, W)).astype(np.uint8)
+    nr = rng.integers(0, R + 2, (B, J, E)).astype(np.int32)
+    bpr = rng.integers(0, 3, (B, J, E, R)).astype(np.int32)
+    sy = rng.integers(0, 2, (B, J, E, R)).astype(np.int32)
+    if plant:
+        for _ in range(3 * B * J):
+            b, j = rng.integers(B), rng.integers(J)
+            e2, e = sorted(rng.choice(E, 2, replace=False))
+            nr[b, j, e] = nr[b, j, e2]
+            rows = min(nr[b, j, e2], R)
+            nb[b, j, e, :rows] = nb[b, j, e2, :rows]
+            bpr[b, j, e, :rows] = bpr[b, j, e2, :rows]
+            sy[b, j, e, :rows] = sy[b, j, e2, :rows]
+            nb[b, j, e, rows:] = rng.integers(0, 255, (R - rows, W))
+    else:
+        nb[:, :, :, 0, 0] = np.arange(E, dtype=np.uint8)
+        nr[:] = np.maximum(nr, 1)
+    return {"bytes": nb, "num_rows": nr, "bits_per_row": bpr, "syncs": sy}
