@@ -105,7 +105,26 @@ Phases, each printing one JSON line (any failure exits non-zero):
               decode split as the mixed lines carry it, and with device
               slicing (its prewarm split, memo builds per block), the same
               events; the device pass's warm-up drain's kernel calls are
-              held to the plain version and timed;
+              held to the plain version and timed; each process's rows of
+              the four rotation blocks are saved for 6d;
+6c. timeshard -- nexus x 64, lacrosse_tx35 x 64 and the default
+              registration's mixed_250k and mixed_1024k, 131072-sample blocks
+              at one channel, through TimeShardEngine on Mesh([cuda] * D)
+              for D in 8 and 32 and, in the same call, the one-channel
+              ShardedEngine: equal events, fallbacks and verified blocks,
+              wall ms per block of both, and under torch.profiler the
+              device ms per block of both by kernel (front end, detector,
+              timeshard_chain, timeshard_gather, compaction, copies, other:
+              the drain); every per-lane-origin front-end and detector call
+              and every chain and gather call of one more lacrosse_tx35
+              decode held to its plain version;
+6d. multihost -- two processes on the one card (gloo on loopback), each
+              with 2048 channels of the rotation blocks through
+              MultiHostEngine: per block, their events in process order
+              equal the multichannel warm-up's one-process events, and
+              their all-reduced noise floor its noise floor within 1e-4
+              dB; each process's wall ms per block, cold and cached, and
+              the all-reduce's ms;
 7. kernels -- one line per kernel with its launches on the main path, its
               largest error against the plain version over every check
               above, its times and bound, and its cycles per sample at
@@ -117,7 +136,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
               gather_records) with their launches on the device-slicing
               paths and their times summed over every one of one
               dense_4096 drain's calls (NRZS, which no default spec runs,
-              at its fuzz call).
+              at its fuzz call); the time-shard chain and gather with
+              their launches on the timeshard phase and their times at
+              its first lacrosse_tx35 call at the most segments that made
+              one (a block that fails verification stops after the chain,
+              so the gather runs only on verified blocks), the gather
+              beside index_select and torch.where.
 
 Every phase line carries its seconds. The line before the last is
 nvidia-smi's name and power limit; the last
@@ -175,6 +199,20 @@ DS_CHUNK = 64
 # (fixture, protocol, copies) byte-concatenated into one file per stream
 STREAMS = [("nexus", 19, 64), ("lacrosse_tx35", 75, 64),
            ("lacrosse_tx29", 76, 16)]
+
+# time sharding of one channel (parallel/timeshard.py): segments per block,
+# the kernels of its path, and the stream whose every kernel call is held
+# to the plain version
+TS_SEGMENTS = (8, 32)
+TS_KERNELS = ("frontend", "detector_scan", "timeshard_chain",
+              "timeshard_gather")
+TS_CHECKED = "lacrosse_tx35"
+# blocks of each stream decoded under torch.profiler, per engine
+TS_TRACED = 8
+CHAIN_OUTS = ("sel", "delta", "out", "by_key", "bad")
+GATHER_OUTS = ("log_key", "log_p", "log_g", "eop_log")
+# processes of the multihost phase (parallel/multihost.py), on one card
+MH_PROCS = 2
 
 
 _T_PHASE = [time.perf_counter()]
@@ -291,6 +329,10 @@ def device_us(evt) -> float:
 
 
 def group_of(key: str) -> str:
+    if "timeshard_chain_kernel" in key:
+        return "timeshard_chain"
+    if "timeshard_gather_kernel" in key:
+        return "timeshard_gather"
     if "frontend_kernel" in key:
         return "frontend"
     if "detector_kernel" in key:
@@ -300,6 +342,17 @@ def group_of(key: str) -> str:
     if "memcpy" in key.lower():
         return "copies"
     return "other"
+
+
+def profile_groups(prof):
+    """Device ms by kernel group of a torch.profiler run."""
+    groups = {}
+    for e in prof.key_averages():
+        us = device_us(e)
+        if us > 0:
+            g = group_of(e.key)
+            groups[g] = groups.get(g, 0.0) + us / 1e3
+    return groups
 
 
 def timed(acc, key, fn):
@@ -753,15 +806,18 @@ def compact_measure(ins, cap):
         "cap": cap, "count": int(valid.sum())}
 
 
-def multichannel(dev, mesh, compare, ds_kernels, channels=MC_CHANNELS,
-                 n=N_BLOCK, n_blocks=MC_BLOCKS, n_sample=MC_SAMPLE,
-                 cap=MC_CAP):
+def multichannel(dev, mesh, compare, ds_kernels, mh_dir,
+                 channels=MC_CHANNELS, n=N_BLOCK, n_blocks=MC_BLOCKS,
+                 n_sample=MC_SAMPLE, cap=MC_CAP):
     """Phase 6b: bench.py's signal-dense workload through ShardedEngine on
     ``mesh``. Returns (the phase line, the kernel launches of the timed
     blocks, the compaction kernel's numbers at the main path's state, the
-    device-slicing kernels' launches on the per-drain no-cache pass, and
-    their numbers at one drain's calls). ``ds_kernels``: the device-slicing
-    kernels the default registration must launch."""
+    device-slicing kernels' launches on the per-drain no-cache pass, their
+    numbers at one drain's calls, and the warm-up rotation's events and
+    noise floor per block). ``ds_kernels``: the device-slicing kernels the
+    default registration must launch. Each of the MH_PROCS processes' rows
+    of every rotation block is saved to ``mh_dir`` for the multihost
+    phase."""
     from collections import Counter
 
     import torch
@@ -779,6 +835,11 @@ def multichannel(dev, mesh, compare, ds_kernels, channels=MC_CHANNELS,
     t = time.perf_counter()
     host_blocks, n_bursts = build_blocks(channels, n, rot)
     build_s = time.perf_counter() - t
+    per = channels // MH_PROCS
+    for r, b in enumerate(host_blocks):
+        for p in range(MH_PROCS):
+            np.save(os.path.join(mh_dir, f"r{r}_p{p}.npy"),
+                    b[p * per:(p + 1) * per])
     blocks = [torch.from_numpy(b).to(dev) for b in host_blocks]
     del host_blocks
     torch.cuda.synchronize()
@@ -861,10 +922,11 @@ def multichannel(dev, mesh, compare, ds_kernels, channels=MC_CHANNELS,
     def as_json(events):
         return [(c, event_to_json(e)) for c, e in events]
 
-    def run_blocks(eng, count, select=None, acc=None):
+    def run_blocks(eng, count, select=None, acc=None, per_block=None):
         """Push ``count`` blocks of the rotation, each followed by a drain,
         and return the events; ``select`` cuts the channels of each
-        block; ``acc`` gathers the seconds of the pushes and drains."""
+        block; ``acc`` gathers the seconds of the pushes and drains;
+        ``per_block`` gets each block's (events as JSON, noise floor)."""
         out = []
         for k in range(count):
             blk = blocks[k % rot]
@@ -873,7 +935,10 @@ def multichannel(dev, mesh, compare, ds_kernels, channels=MC_CHANNELS,
             t0 = time.perf_counter()
             eng.push(blk)
             t1 = time.perf_counter()
-            out.extend(eng.drain_events())
+            got = eng.drain_events()
+            out.extend(got)
+            if per_block is not None:
+                per_block.append((as_json(got), float(eng.noise_floor_db)))
             if acc is not None:
                 acc["push"] = acc.get("push", 0.0) + t1 - t0
                 acc["drain"] = acc.get("drain", 0.0) \
@@ -921,7 +986,8 @@ def multichannel(dev, mesh, compare, ds_kernels, channels=MC_CHANNELS,
         det.detector_scan_cuda = recorder("detector_scan")
         try:
             t = time.perf_counter()
-            warm = run_blocks(eng, rot)
+            warm_blocks = []
+            warm = run_blocks(eng, rot, per_block=warm_blocks)
             torch.cuda.synchronize()
             warm_s = time.perf_counter() - t
         finally:
@@ -953,12 +1019,7 @@ def multichannel(dev, mesh, compare, ds_kernels, channels=MC_CHANNELS,
             traced_ms = (time.perf_counter() - t0) * 1e3
         if len(traced) < floor:
             fail(f"multichannel traced run: {len(traced)} events")
-        dgroups = {}
-        for e in prof.key_averages():
-            us = device_us(e)
-            if us > 0:
-                g = group_of(e.key)
-                dgroups[g] = dgroups.get(g, 0.0) + us / 1e3
+        dgroups = profile_groups(prof)
         busy = sum(dgroups.values())
         del eng, prof, traced
         torch.cuda.empty_cache()
@@ -1178,7 +1239,468 @@ def multichannel(dev, mesh, compare, ds_kernels, channels=MC_CHANNELS,
                               "ms_per_block":
                                   cold_pool_wall / n_blocks * 1e3,
                               "gain": cold_wall / cold_pool_wall}}}
-    return row, launches, numbers, ds_launches, ds_numbers
+    return row, launches, numbers, ds_launches, ds_numbers, warm_blocks
+
+
+def timeshard_streams(fx, rate_of):
+    """The phase's single-channel streams: (name, -R numbers or None for
+    the default registration, cu8 samples [n, 2], sample rate)."""
+    from rtl_433_tpu_torch.io import load_iq
+    out = []
+    for d, num, copies in STREAMS[:2]:
+        cu8 = next(f[2] for f in fx if f[0] == d)
+        out.append((d, [num], np.concatenate([load_iq(cu8, "cu8")] * copies),
+                    rate_of(cu8)))
+    for rate in (250_000, 1_024_000):
+        files = [cu8 for _d, _n, cu8, _w in fx if rate_of(cu8) == rate]
+        raw = b"".join(open(f, "rb").read() for f in files)
+        out.append((f"mixed_{rate // 1000}k", None,
+                    np.frombuffer(raw, np.uint8).reshape(-1, 2), rate))
+    return out
+
+
+def ts_recorder(calls):
+    """Record every per-lane-origin front-end and detector call and every
+    chain and gather call while the block runs (wrappers swapped in their
+    modules, restored on exit)."""
+    from rtl_433_tpu_torch.ops import detector as det
+    from rtl_433_tpu_torch.ops import frontend as fe
+    from rtl_433_tpu_torch.ops import timeshard as ots
+
+    def wrap(kind, fn, lanes_only):
+        def run(*args, **kw):
+            if not lanes_only or kw.get("lane_t0") is not None:
+                calls.append((kind, [a.clone() for a in args],
+                              {k: v.clone() if hasattr(v, "clone") else v
+                               for k, v in kw.items()}))
+            return fn(*args, **kw)
+        return run
+    return patched(
+        (fe, "frontend_cuda", wrap("frontend", fe.frontend_cuda, True)),
+        (det, "detector_scan_cuda",
+         wrap("detector_scan", det.detector_scan_cuda, True)),
+        (ots, "timeshard_chain_cuda",
+         wrap("timeshard_chain", ots.timeshard_chain_cuda, False)),
+        (ots, "timeshard_gather_cuda",
+         wrap("timeshard_gather", ots.timeshard_gather_cuda, False)))
+
+
+def ts_check(calls, compare, what):
+    """Each recorded call rerun on the card and held to its plain version
+    on the same inputs. Returns the calls checked by kernel."""
+    import torch
+    from rtl_433_tpu_torch.ops import detector as det
+    from rtl_433_tpu_torch.ops import frontend as fe
+    from rtl_433_tpu_torch.ops import timeshard as ots
+    fns = {"frontend": (fe.frontend_cuda, fe.frontend_plain, FE_OUTS),
+           "detector_scan": (det.detector_scan_cuda, det.detector_scan_plain,
+                             DET_OUTS),
+           "timeshard_chain": (ots.timeshard_chain_cuda,
+                               ots.timeshard_chain_plain, CHAIN_OUTS),
+           "timeshard_gather": (ots.timeshard_gather_cuda,
+                                ots.timeshard_gather_plain, GATHER_OUTS)}
+    checked = {}
+    for i, (kind, args, kw) in enumerate(calls):
+        kernel, plain, names = fns[kind]
+        got = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        compare(kind, got, plain(*args, **kw), names, f"{what}, call {i}")
+        checked[kind] = checked.get(kind, 0) + 1
+    return checked
+
+
+def ts_measure(picks):
+    """The chain's and the gather's device time (queued behind a spinning
+    card), plain time and bound at one recorded call of each (``picks``:
+    segments -> kernel -> (args, kw); each kernel's call at the most
+    segments that recorded one), and for the gather the library's time:
+    index_select of the selected lanes' rows and torch.where for the
+    rebase. The bound counts the bytes the function needs: the selected
+    candidates' registers or logs read once (a third of the candidate
+    tensors), the other inputs read once, the outputs written once."""
+    import torch
+    from rtl_433_tpu_torch.ops import detector as det
+    from rtl_433_tpu_torch.ops import timeshard as ots
+    pick = {}
+    for D in sorted(picks):
+        pick.update(picks[D])
+    for k in ("timeshard_chain", "timeshard_gather"):
+        if k not in pick:
+            fail(f"timeshard: no recorded {k} call to time")
+    out = {}
+    args, kw = pick["timeshard_chain"]
+    start, fin, rowinfo = args
+    D = kw["D"]
+    C = start.shape[1] // D
+    nbytes = 4 * (start.numel() + fin.numel() // 3 + rowinfo.numel()
+                  + 2 * D * C + start.shape[0] * C + D)
+    out["timeshard_chain"] = {
+        "ms": cuda_ms(lambda: ots.timeshard_chain_cuda(*args, **kw), reps=20,
+                      busy_first=True),
+        "plain_ms": host_ms(lambda: ots.timeshard_chain_plain(*args, **kw)),
+        "library_ms": None, "bound_ms": nbytes / HBM_BPS * 1e3,
+        "bytes": nbytes, "shape": {"start": list(start.shape),
+                                   "fin": list(fin.shape), "D": D}}
+    args, kw = pick["timeshard_gather"]
+    key3, p3, g3, eop3, sel, delta = args
+    R = kw["R"]
+    D, C = sel.shape
+    G = key3.shape[1]
+    logs = key3.numel() + p3.numel() + g3.numel() + eop3.numel()
+    nbytes = 4 * (2 * logs // 3 + 2 * D * C)
+    lanes = ((sel.long() * D + torch.arange(D, device=sel.device)[:, None])
+             * C + torch.arange(C, device=sel.device)[None]).reshape(-1)
+    drep = (delta.reshape(-1).repeat_interleave(R)[:, None]
+            * (1 << det.KEY_IDX_BITS)).expand(D * C * R, G)
+    egen = torch.zeros_like(eop3[:D * C])
+    egen[:, :, det.M_GEN] = delta.reshape(-1, 1)
+
+    def library():
+        k = key3.view(3 * D * C, R, G).index_select(0, lanes).view(-1, G)
+        torch.where(k < det.KEY_INVALID, k + drep, k)
+        p3.view(3 * D * C, R, G).index_select(0, lanes)
+        g3.view(3 * D * C, R, G).index_select(0, lanes)
+        e = eop3.index_select(0, lanes)
+        torch.where(e[:, :, det.M_TYPE:det.M_TYPE + 1] != det.PKG_NONE,
+                    e + egen, e)
+
+    out["timeshard_gather"] = {
+        "ms": cuda_ms(lambda: ots.timeshard_gather_cuda(*args, **kw),
+                      reps=20, busy_first=True),
+        "plain_ms": host_ms(lambda: ots.timeshard_gather_plain(*args, **kw)),
+        "library_ms": cuda_ms(library, reps=20, busy_first=True),
+        "bound_ms": nbytes / HBM_BPS * 1e3, "bytes": nbytes,
+        "shape": {"key3": list(key3.shape), "eop3": list(eop3.shape),
+                  "D": D}}
+    return out
+
+
+def ts_reasons(params, mesh, blocks, dev):
+    """Why blocks fall back: the time-shard step with its per-link,
+    per-key failure flags on every block, each from the sequential
+    engine's true state. Returns the links, the failed ones, those that
+    failed on low_est/high_est alone, the keys that fail most, and the
+    wall ms per block of the time-shard step alone (with debug, which runs
+    a failed block to the end) and of the sequential step (process_block)
+    on the same blocks, each synchronised."""
+    from collections import Counter
+
+    import torch
+    from rtl_433_tpu_torch.dsp.engine import detector_init, process_block
+    from rtl_433_tpu_torch.ops.timeshard import verify_layout
+    from rtl_433_tpu_torch.parallel import timeshard as pts
+    names, _ = verify_layout(*pts._verify_keys(params), pts._COUNTER_KEYS)
+    steps = {f: pts.timeshard_process_block(params, mesh, flush=f,
+                                            debug=True)
+             for f in (False, True)}
+    st = detector_init(params, 1, dev)
+    links = failed = hedge = 0
+    step_s = seq_s = 0.0
+    keys = Counter()
+    for blk, nv, flush in blocks:
+        x = torch.from_numpy(blk).to(dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        flags = steps[flush](st, x, nv)[3].cpu()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        st, _ = process_block(params, st, x, nv, flush=flush)
+        torch.cuda.synchronize()
+        step_s += t1 - t
+        seq_s += time.perf_counter() - t1
+        for row in flags:
+            links += 1
+            if row.any():
+                failed += 1
+                bad = {names[k] for k in range(len(names)) if row[k]}
+                keys.update(bad)
+                hedge += bad <= {"low_est", "high_est"}
+    nb = len(blocks)
+    return {"links": links, "failed_links": failed,
+            "failed_on_low_high_only": hedge,
+            "failed_links_by_key": dict(keys.most_common(8)),
+            "step_ms_per_block": step_s / nb * 1e3,
+            "sequential_step_ms_per_block": seq_s / nb * 1e3}
+
+
+def timeshard_phase(dev, compare, fx, rate_of):
+    """Phase 6c: the single-channel streams through TimeShardEngine on
+    Mesh([cuda] * D) and, in the same call, through the one-channel
+    ShardedEngine: equal events, fallbacks, wall ms per block of both, and
+    under torch.profiler the device ms per block of both by kernel. Every
+    per-lane-origin front-end and detector call and every chain and gather
+    call of TS_CHECKED's decode is held to its plain version. Returns (the
+    phase lines, the launches of the time-sharded decodes, the chain's and
+    gather's numbers)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from rtl_433_tpu_torch.decoders import Registry
+    from rtl_433_tpu_torch.dsp.engine import DetectorParams
+    from rtl_433_tpu_torch.ops import _cuda
+    from rtl_433_tpu_torch.output.data_model import event_to_json
+    from rtl_433_tpu_torch.parallel.sharding import Mesh, ShardedEngine
+    from rtl_433_tpu_torch.parallel.timeshard import TimeShardEngine
+
+    def registry(nums):
+        reg = Registry()
+        if nums is None:
+            reg.register_all()
+        for n in nums or ():
+            reg.register(n)
+        return reg
+
+    def drive(eng, blocks):
+        """Push and drain every block; (events as JSON, wall seconds)."""
+        out = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for blk, nv, flush in blocks:
+            eng.push(blk, n_valid=nv, flush=flush)
+            out.extend(eng.drain_events())
+        torch.cuda.synchronize()
+        return ([(c, event_to_json(e)) for c, e in out],
+                time.perf_counter() - t)
+
+    def traced(mk, blocks):
+        """A fresh engine over ``blocks`` under torch.profiler: (events,
+        wall ms per block, device ms per block by kernel, busy share)."""
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            evs, wall = drive(mk(), blocks)
+        groups = profile_groups(prof)
+        nb = len(blocks)
+        return evs, {
+            "blocks": nb, "wall_ms_per_block": wall / nb * 1e3,
+            "device_ms_per_block": {k: v / nb for k, v in groups.items()},
+            "device_ms_per_block_total": sum(groups.values()) / nb,
+            "device_busy_share": sum(groups.values()) / (wall * 1e3)}
+
+    rows = []
+    launches = {k: 0 for k in TS_KERNELS}
+    picks = {}
+    for name, nums, samples, rate in timeshard_streams(fx, rate_of):
+        reg = registry(nums)
+        params = DetectorParams(
+            sample_rate=rate, fsk_minmax=False,
+            enable_fm=any(d.is_fsk for d in reg.active), pkg_cap=32)
+        n = samples.shape[0]
+        blocks = []
+        for pos in range(0, n, N_BLOCK):
+            blk = samples[pos:pos + N_BLOCK]
+            nv = blk.shape[0]
+            blk = np.pad(blk, ((0, N_BLOCK - nv), (0, 0)),
+                         constant_values=128)[None]
+            blocks.append((blk, nv, pos + N_BLOCK >= n))
+        nb = len(blocks)
+        seq_mesh = Mesh([dev], ("ch",), (1,))
+        seq = lambda: ShardedEngine(params, 1, seq_mesh,
+                                    registry=registry(nums))
+        want, seq_s = drive(seq(), blocks)
+        if not want:
+            fail(f"timeshard {name}: the sequential engine decoded no "
+                 f"events")
+        # the profiler's cost grows with the ops it records: trace the
+        # first TS_TRACED blocks of each engine
+        short = blocks[:TS_TRACED]
+        seq_evs, seq_traced = traced(seq, short)
+        row = {"phase": "timeshard", "stream": name, "samples": n,
+               "blocks": nb, "sample_rate": rate,
+               "sequential": {"events": len(want),
+                              "wall_ms_per_block": seq_s / nb * 1e3,
+                              "traced": seq_traced},
+               "segments": {}}
+        for D in TS_SEGMENTS:
+            ts_mesh = Mesh([dev] * D, ("sp",), (D,))
+            ts = lambda: TimeShardEngine(params, 1, ts_mesh,
+                                         registry=registry(nums))
+            _cuda.reset_launches()
+            eng = ts()
+            got, ts_s = drive(eng, blocks)
+            # this run's own launches, read before any other run; a block
+            # that fails verification stops after the chain, so the gather
+            # runs only where a block verified
+            seg_launches = {k: _cuda.LAUNCHES[k] for k in TS_KERNELS}
+            for k in TS_KERNELS:
+                if seg_launches[k] <= 0 and (k != "timeshard_gather"
+                                             or eng.verified):
+                    fail(f"kernel {k} was not launched on timeshard {name} "
+                         f"D={D}")
+                launches[k] += seg_launches[k]
+            if got != want:
+                fail(f"timeshard {name} D={D}: {len(got)} events, the "
+                     f"sequential engine {len(want)}")
+            if eng.fallbacks + eng.verified != nb:
+                fail(f"timeshard {name} D={D}: {eng.verified} verified + "
+                     f"{eng.fallbacks} fallbacks != {nb} blocks")
+            evs, ts_traced = traced(ts, short)
+            if evs != seq_evs:
+                fail(f"traced timeshard {name} D={D}: events differ from "
+                     f"the traced sequential engine's")
+            seg = {"events": len(got), "events_equal": True,
+                   "fallbacks": eng.fallbacks, "verified": eng.verified,
+                   "wall_ms_per_block": ts_s / nb * 1e3,
+                   "launches": seg_launches,
+                   "traced": ts_traced,
+                   "why": ts_reasons(params, ts_mesh, blocks, dev)}
+            if name == TS_CHECKED:
+                # every kernel call of one more decode, held to the plain
+                # versions on its inputs
+                rec = []
+                with ts_recorder(rec):
+                    if drive(ts(), blocks)[0] != want:
+                        fail(f"timeshard {name} D={D}: the recorded decode "
+                             f"differs")
+                t = time.perf_counter()
+                seg["checked"] = ts_check(rec, compare,
+                                          f"timeshard {name} D={D}")
+                seg["check_seconds"] = time.perf_counter() - t
+                # each kernel's first call at the most segments it ran at
+                for call in rec:
+                    picks.setdefault(D, {}).setdefault(call[0], call[1:])
+                del rec
+            row["segments"][str(D)] = seg
+        rows.append(row)
+    for k in TS_KERNELS:
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the timeshard phase")
+    return rows, launches, ts_measure(picks)
+
+
+def _mh_worker(rank, files, port, out, device):
+    """One process of the multihost phase: MultiHostEngine on ``device``
+    over its rows of the rotation blocks (``files``), once compared and
+    once timed; writes its events, noise floors and times to ``out``."""
+    sys.path[:0] = [HERE, os.path.join(HERE, "tests")]
+    import torch
+    import torch.distributed as dist
+    from rtl_433_tpu_torch.decoders import Registry, garage
+    from rtl_433_tpu_torch.dsp.engine import DetectorParams
+    from rtl_433_tpu_torch.ops import _cuda
+    from rtl_433_tpu_torch.output.data_model import event_to_json
+    from rtl_433_tpu_torch.parallel import multihost
+    garage.time = types.SimpleNamespace(monotonic=lambda: 0.0)
+    multihost.initialize(f"127.0.0.1:{port}", MH_PROCS, rank)
+    try:
+        dev = torch.device(device)
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (
+            lambda: None)
+        blocks = [torch.from_numpy(np.load(f)).to(dev) for f in files]
+        # the multichannel phase's configuration (bench.py:195-201)
+        params = DetectorParams(sample_rate=250_000, fsk_minmax=False,
+                                enable_fm=True, chunk=128, ring=8, eops=2,
+                                arena=65536)
+        reg = Registry()
+        reg.register_all()
+        eng = multihost.MultiHostEngine(params, blocks[0].shape[0],
+                                        registry=reg, pkg_cap_total=MC_CAP,
+                                        devices=[dev])
+        reduce_s = []
+        real = dist.all_reduce
+
+        def timed_reduce(*a, **k):
+            t = time.perf_counter()
+            try:
+                return real(*a, **k)
+            finally:
+                reduce_s.append(time.perf_counter() - t)
+        dist.all_reduce = timed_reduce
+        per_block, walls = [], []
+        _cuda.reset_launches()
+        for blk in blocks:
+            sync()
+            t = time.perf_counter()
+            eng.push(blk)
+            ev = eng.local_events()
+            sync()
+            walls.append(time.perf_counter() - t)
+            per_block.append(([(c, event_to_json(e)) for c, e in ev],
+                              eng.noise_floor_db))
+        launches = {k: _cuda.LAUNCHES[k]
+                    for k in ("frontend", "detector_scan", "compact")}
+        # the rotation again: its trains hit the train memo and decode
+        # cache, as the multichannel phase's timed blocks do
+        sync()
+        t = time.perf_counter()
+        for blk in blocks:
+            eng.push(blk)
+            eng.local_events()
+        sync()
+        cached_s = time.perf_counter() - t
+        with open(out, "w") as f:
+            json.dump({"rank": rank, "channels": blocks[0].shape[0],
+                       "per_block": per_block,
+                       "wall_ms_per_block": [w * 1e3 for w in walls],
+                       "cached_wall_ms_per_block":
+                           cached_s / len(blocks) * 1e3,
+                       "all_reduce_ms": [x * 1e3 for x in reduce_s],
+                       "launches": launches,
+                       "n_pkg_dropped": eng.n_pkg_dropped}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def multihost_phase(dev, mh_dir, warm_blocks):
+    """Phase 6d: MH_PROCS processes on cuda:0 (gloo on loopback), each
+    with its rows of the multichannel phase's rotation blocks through
+    MultiHostEngine. Per block, their events in process order must equal
+    the multichannel warm-up's one-process events, and every process's
+    all-reduced noise floor the one-process floor within 1e-4 dB."""
+    import multiprocessing
+    import socket
+    rot = len(warm_blocks)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    outs = [os.path.join(mh_dir, f"w{p}.json") for p in range(MH_PROCS)]
+    procs = [ctx.Process(target=_mh_worker, args=(
+        p, [os.path.join(mh_dir, f"r{r}_p{p}.npy") for r in range(rot)],
+        port, outs[p], str(dev))) for p in range(MH_PROCS)]
+    t = time.perf_counter()
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=600)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    wall = time.perf_counter() - t
+    for i, p in enumerate(procs):
+        if p.exitcode != 0:
+            fail(f"multihost: process {i} exited with {p.exitcode}")
+    res = [json.load(open(o)) for o in outs]
+    worst = 0.0
+    for r, (want, noise) in enumerate(warm_blocks):
+        got = [tuple(e) for w in res for e in w["per_block"][r][0]]
+        if got != [tuple(e) for e in want]:
+            fail(f"multihost: block {r}: {len(got)} events from "
+                 f"{MH_PROCS} processes, one process {len(want)}")
+        for w in res:
+            worst = max(worst, abs(w["per_block"][r][1] - noise))
+    if worst >= 1e-4:
+        fail(f"multihost: noise floor {worst} dB from the one-process one")
+    for w in res:
+        if dev.type == "cuda" and min(w["launches"].values()) <= 0:
+            fail(f"multihost: process {w['rank']} launched "
+                 f"{w['launches']}")
+    reduce_ms = [x for w in res for x in w["all_reduce_ms"]]
+    return {"phase": "multihost", "processes": MH_PROCS,
+            "channels_per_process": res[0]["channels"],
+            "blocks": rot, "events": sum(len(w) for w, _ in warm_blocks),
+            "events_equal": True, "noise_max_abs_diff_db": worst,
+            "wall_ms_per_block": {w["rank"]: w["wall_ms_per_block"]
+                                  for w in res},
+            "cached_wall_ms_per_block": {
+                w["rank"]: w["cached_wall_ms_per_block"] for w in res},
+            "all_reduce_ms": {"calls": len(reduce_ms),
+                              "mean": sum(reduce_ms) / len(reduce_ms),
+                              "max": max(reduce_ms)},
+            "launches": {w["rank"]: w["launches"] for w in res},
+            "n_pkg_dropped": sum(w["n_pkg_dropped"] for w in res),
+            "processes_wall_s": wall}
 
 
 def main():
@@ -1631,12 +2153,7 @@ def main():
             traced_ms = (time.perf_counter() - t) * 1e3
         if got != want:
             fail(f"traced stream {name}: {len(got)} events")
-        groups = {}
-        for e in prof.key_averages():
-            us = device_us(e)
-            if us > 0:
-                g = group_of(e.key)
-                groups[g] = groups.get(g, 0.0) + us / 1e3
+        groups = profile_groups(prof)
         busy = sum(groups.values())
         row["traced"] = {
             "wall_ms": traced_ms,
@@ -1822,9 +2339,31 @@ def main():
     if mesh.size != 1:
         fail(f"the multichannel phase wants one card, the mesh has "
              f"{mesh.size}")
-    row, mc_launches, kinds["compact"], ds_paths["dense_4096"], ds_numbers = \
-        multichannel(dev, mesh, compare, default_ds_kernels)
-    emit(row)
+    mh_dir = tempfile.mkdtemp(prefix="chip_smoke_mh_")
+    try:
+        (row, mc_launches, kinds["compact"], ds_paths["dense_4096"],
+         ds_numbers, warm_blocks) = multichannel(dev, mesh, compare,
+                                                 default_ds_kernels, mh_dir)
+        emit(row)
+
+        # ---- 6c. timeshard: one channel's blocks split over time, on the
+        # fixed Security+ clock of the mixed streams
+        real_time = garage.time
+        garage.time = types.SimpleNamespace(monotonic=lambda: 0.0)
+        try:
+            ts_rows, ts_launches, ts_numbers = timeshard_phase(
+                dev, compare, fx, rate_of)
+        finally:
+            garage.time = real_time
+        for r in ts_rows:
+            emit(r)
+
+        # ---- 6d. multihost: MH_PROCS processes over the multichannel
+        # phase's blocks
+        emit(multihost_phase(dev, mh_dir, warm_blocks))
+        del warm_blocks
+    finally:
+        shutil.rmtree(mh_dir, ignore_errors=True)
 
     # ---- 7. kernels
     meta = {
@@ -1851,6 +2390,7 @@ def main():
             "ms_c4096": m["ms_c4096"],
             "bound_ms_c4096": 4096 * max(bytes_ms, ops_ms),
             "launches_multichannel": mc_launches[k],
+            "launches_timeshard": ts_launches[k],
             "shape": [1, N_BLOCK]})
     m = kinds["compact"]
     rows.append({
@@ -1897,9 +2437,24 @@ def main():
             "library_ms": m["library_ms"], "calls": m["calls"],
             "shapes": m["shapes"],
             "measured_at": m.get("measured_at", "dense_4096 drain")})
+    # the time-shard kernels: launches on the timeshard phase's decodes,
+    # times at the first call of TS_CHECKED at the most segments that ran it
+    for k, line in (("timeshard_chain", 189), ("timeshard_gather", 245)):
+        m = ts_numbers[k]
+        rows.append({
+            "name": k, "route": "cuda",
+            "source": "rtl_433_tpu_torch/csrc/timeshard.cu",
+            "replaces": f"rtl_433_tpu/parallel/timeshard.py:{line}",
+            "launches": ts_launches[k], "max_abs_err": errs[k],
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": "bytes",
+            "library_ms": m["library_ms"], "bytes": m["bytes"],
+            "shape": m["shape"],
+            "measured_at": f"{TS_CHECKED}, D={m['shape']['D']}"})
     emit({"kernel_launches": launches,
           "kernel_launches_multichannel": mc_launches,
-          "kernel_launches_device_slice": ds_paths})
+          "kernel_launches_device_slice": ds_paths,
+          "kernel_launches_timeshard": ts_launches})
     emit({"kernels": rows})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

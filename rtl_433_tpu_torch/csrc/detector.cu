@@ -18,6 +18,12 @@
 // reprocessing quirk is in fsm_step. quiet [C] counts the chunks at whose
 // start the channel's own quiet_chunk_ok held (a diagnostic; the plain
 // version counts the same; the warp skips a chunk when all its lanes hold).
+// A per-channel origin vector lane_t0 (non-null) gives channel c its own
+// t0 = lane_t0[c]: the time-shard segments and hedge candidates of
+// parallel/timeshard.py run as the channels of one launch, each over its
+// own region of the block (the JAX engine's per-device t0, _block_scan
+// :969-971); a null lane_t0 takes the LANES=false instantiation, the scalar
+// path's code unchanged.
 //
 // What bounds it. Each channel is one serial chain of N FSM steps with
 // branchy state, so at C=1 the time is the chain's latency: a full
@@ -155,23 +161,21 @@ __device__ void stage_rows(T* dst, const T* src, int rows, int Lc, int Lm,
     }
 }
 
-template <bool MINMAX, typename FmT>
+template <bool MINMAX, bool LANES, typename FmT>
 __global__ void __launch_bounds__(kThreads, 1)
 detector_kernel(const int16_t* __restrict__ am, const FmT* __restrict__ fm,
                 int N, int C, int* __restrict__ regs,
                 const int* __restrict__ gen0, int* __restrict__ log_key,
                 int* __restrict__ log_p, int* __restrict__ log_g,
                 int* __restrict__ eop_log, int* __restrict__ quiet,
-                int n_valid, int t0, int chunk, int R, int E, Plan pl,
-                Params prm) {
+                int n_valid, int t0, const int* __restrict__ lane_t0,
+                int chunk, int R, int E, Plan pl, Params prm) {
     extern __shared__ __align__(16) unsigned char smem[];
     const int S = pl.S, Lm = pl.Lm;
     const int cbase = blockIdx.x * pl.lanes;
     const int Lc = min(pl.lanes, C - cbase);
     const int G = N / chunk;
     const int ntiles = (G + S - 1) / S;
-    int n_act = n_valid - t0;
-    n_act = n_act < 0 ? 0 : (n_act > N ? N : n_act);
 
     // shared layout; every buffer starts 16-byte aligned
     const int rows = S * chunk;
@@ -261,9 +265,11 @@ detector_kernel(const int16_t* __restrict__ am, const FmT* __restrict__ fm,
         }
     };
 
-    // FSM warp: lane -> channel registers
+    // FSM warp: lane -> channel registers and region
     const bool act = warp == 0 && lane < Lc;
     const int c = cbase + lane;
+    const int t0l = LANES && act ? lane_t0[c] : t0;
+    const int n_act = min(max(n_valid - t0l, 0), N);
     Regs r;
     int g0 = 0, nq = 0;
     if (act) {
@@ -363,7 +369,7 @@ detector_kernel(const int16_t* __restrict__ am, const FmT* __restrict__ fm,
                             const int kn = k + 1 < n ? k + 1 : k;
                             an = As[kn * Lm];
                             fn = static_cast<int>(Fs[kn * Lm]);
-                            fsm_step<MINMAX>(r, prm, a, f, t0 + lo + k, e);
+                            fsm_step<MINMAX>(r, prm, a, f, t0l + lo + k, e);
                             if (e.rec) {
                                 if (wpos >= R) {
                                     r.n_ring_ovf += 1;
@@ -448,8 +454,9 @@ detector_kernel(const int16_t* __restrict__ am, const FmT* __restrict__ fm,
 template <bool MINMAX, typename FmT>
 int launch(const void* am, const void* fm, int N, int C, void* regs,
            const void* gen0, void* log_key, void* log_p, void* log_g,
-           void* eop_log, void* quiet, int n_valid, int t0, int chunk, int R,
-           int E, Params prm, cudaStream_t stream) {
+           void* eop_log, void* quiet, int n_valid, int t0,
+           const int* lane_t0, int chunk, int R, int E, Params prm,
+           cudaStream_t stream) {
     const int G = N / chunk;
     Plan pl;
     if (!plan(chunk, sizeof(FmT), R, E, C, G, &pl))
@@ -460,7 +467,8 @@ int launch(const void* am, const void* fm, int N, int C, void* regs,
                         4 * (size_t)pl.S * pl.Lm *
                             (2 * (4 + 3 * R + E * META_FIELDS)) +
                         4 * (size_t)2 * R * pl.Lm;
-    auto kern = detector_kernel<MINMAX, FmT>;
+    auto kern = lane_t0 ? detector_kernel<MINMAX, true, FmT>
+                        : detector_kernel<MINMAX, false, FmT>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -470,7 +478,7 @@ int launch(const void* am, const void* fm, int N, int C, void* regs,
         static_cast<int*>(regs), static_cast<const int*>(gen0),
         static_cast<int*>(log_key), static_cast<int*>(log_p),
         static_cast<int*>(log_g), static_cast<int*>(eop_log),
-        static_cast<int*>(quiet), n_valid, t0, chunk, R, E, pl, prm);
+        static_cast<int*>(quiet), n_valid, t0, lane_t0, chunk, R, E, pl, prm);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -479,33 +487,36 @@ int launch(const void* am, const void* fm, int N, int C, void* regs,
 // am: int16 [N, C]; fm: int16 [N, C] (int32 when fm_i32: FM off);
 // regs: int32 [NREG, C], updated in place; gen0: int32 [C];
 // log_key/log_p/log_g: int32 [C*R, G]; eop_log: int32 [C, G*E, 9];
-// quiet: int32 [C], the chunks at whose start each channel's quiet test held.
+// quiet: int32 [C], the chunks at whose start each channel's quiet test held;
+// lane_t0: null (every channel at t0), or int32 [C], each channel's t0.
 // Returns cudaGetLastError() after the launch (or an invalid-value code for
 // a ring, EOP count or chunk the kernel cannot hold).
 extern "C" int rtl433_detector_scan(const void* am, const void* fm, int fm_i32,
                                     int N, int C, void* regs, const void* gen0,
                                     void* log_key, void* log_p, void* log_g,
                                     void* eop_log, void* quiet, int n_valid,
-                                    int t0, int chunk, int R, int E, int spm,
-                                    int fixed, int ratio, int maxp,
-                                    int minmax, void* stream) {
+                                    int t0, const void* lane_t0, int chunk,
+                                    int R, int E, int spm, int fixed,
+                                    int ratio, int maxp, int minmax,
+                                    void* stream) {
     if (R < 1 || R > RING_MAX || E < 1 || E > EOPS_MAX || chunk < 1)
         return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const Params prm{spm, fixed, ratio, maxp};
+    const int* t0v = static_cast<const int*>(lane_t0);
     if (minmax && fm_i32)
         return launch<true, int32_t>(am, fm, N, C, regs, gen0, log_key, log_p,
-                                     log_g, eop_log, quiet, n_valid, t0, chunk,
-                                     R, E, prm, s);
+                                     log_g, eop_log, quiet, n_valid, t0, t0v,
+                                     chunk, R, E, prm, s);
     if (minmax)
         return launch<true, int16_t>(am, fm, N, C, regs, gen0, log_key, log_p,
-                                     log_g, eop_log, quiet, n_valid, t0, chunk,
-                                     R, E, prm, s);
+                                     log_g, eop_log, quiet, n_valid, t0, t0v,
+                                     chunk, R, E, prm, s);
     if (fm_i32)
         return launch<false, int32_t>(am, fm, N, C, regs, gen0, log_key, log_p,
-                                      log_g, eop_log, quiet, n_valid, t0,
+                                      log_g, eop_log, quiet, n_valid, t0, t0v,
                                       chunk, R, E, prm, s);
     return launch<false, int16_t>(am, fm, N, C, regs, gen0, log_key, log_p,
-                                  log_g, eop_log, quiet, n_valid, t0, chunk, R,
-                                  E, prm, s);
+                                  log_g, eop_log, quiet, n_valid, t0, t0v,
+                                  chunk, R, E, prm, s);
 }

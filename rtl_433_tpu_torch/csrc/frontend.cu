@@ -11,6 +11,12 @@
 //     (:181-259), C truncating division as CUDA's own `/`;
 //   - FM low-pass with the runtime alp1/blp (:263-271);
 //   - carries frozen past n_valid; the per-channel uint32 envelope sum.
+// With a per-channel origin vector lane_t0 (time-shard segments as the
+// channels of one launch, parallel/timeshard.py), channel c's valid count is
+// clamp(n_valid - lane_t0[c], 0, N) with n_valid in the block frame, as the
+// JAX engine computes per device (_block_scan :969-971); a null lane_t0
+// keeps one region-local count clamp(n_valid, 0, N) for every channel (the
+// LANES=false instantiation: the scalar path's code is unchanged).
 // With FM off the fm stream is the raw envelope as int32 (the reference's
 // buf.temp/buf.fm union alias).
 //
@@ -54,6 +60,7 @@ constexpr int kThreads = 256;
 constexpr int kLanes = 32;                 // channels per block
 constexpr int kSmemBudget = 160 * 1024;
 constexpr int kSmall = 7 * kLanes;         // per-channel carries and sums
+constexpr int kSmallNv = kSmall + kLanes;  // ... and valid counts
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int sext16(int v) {
@@ -132,10 +139,11 @@ __device__ __forceinline__ int chain(int* k, int n, int y, int a4) {
     return y;
 }
 
-template <bool MAG_EST, bool FM, typename FmT>
+template <bool MAG_EST, bool FM, bool LANES, typename FmT>
 __global__ void __launch_bounds__(kThreads, 1)
 frontend_kernel(const uint8_t* __restrict__ iq, int C, int N, int n_valid,
-                int T, int am_a1, int am_b, int alp1, int blp,
+                const int* __restrict__ lane_t0, int T, int am_a1, int am_b,
+                int alp1, int blp,
                 int* __restrict__ state, int16_t* __restrict__ am,
                 FmT* __restrict__ fm, int* __restrict__ env_sum) {
     extern __shared__ __align__(16) unsigned char smem[];
@@ -157,11 +165,13 @@ frontend_kernel(const uint8_t* __restrict__ iq, int C, int N, int n_valid,
     int* s_xr = small + 4 * kLanes;    // I, Q at the last valid sample
     int* s_xi = small + 5 * kLanes;
     unsigned* s_sum = reinterpret_cast<unsigned*>(small + 6 * kLanes);
+    int* s_nv = small + 7 * kLanes;    // valid samples of each channel
 
     const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-    const int nv = min(max(n_valid, 0), N);
+    const int nv0 = min(max(n_valid, 0), N);     // the one count of !LANES
     if (tid < Lc) {
         const int c = cbase + tid;
+        if (LANES) s_nv[tid] = min(max(n_valid - lane_t0[c], 0), N);
         s_yam[tid] = state[0 * C + c]; s_pe[tid] = state[1 * C + c];
         s_yfm[tid] = state[2 * C + c]; s_pp[tid] = state[3 * C + c];
         s_xr[tid] = state[4 * C + c]; s_xi[tid] = state[5 * C + c];
@@ -207,6 +217,7 @@ frontend_kernel(const uint8_t* __restrict__ iq, int C, int N, int n_valid,
             const uchar2* X = iqs + c * T;
             uint16_t* Ev = envs + c * ES;
             int16_t* Ph = phis + c * ES;
+            const int nv = LANES ? s_nv[c] : nv0;
             unsigned acc = 0u;
             for (int t = tid; t < Tj; t += kThreads) {
                 const uchar2 s = X[t];
@@ -247,6 +258,7 @@ frontend_kernel(const uint8_t* __restrict__ iq, int C, int N, int n_valid,
         for (int c = 0; c < Lc; ++c) {
             const uint16_t* Ev = envs + c * ES;
             const int16_t* Ph = phis + c * ES;
+            const int nv = LANES ? s_nv[c] : nv0;
             for (int t = tid; t < Tj; t += kThreads) {
                 const int p = min(t0 + t, nv) - 1;
                 const int pe = p >= t0 ? static_cast<int>(Ev[p - t0]) : s_pe[c];
@@ -260,7 +272,8 @@ frontend_kernel(const uint8_t* __restrict__ iq, int C, int N, int n_valid,
         __syncthreads();
 
         // C. the two chains, one lane per channel; warp 2 takes the carries
-        const int nvl = min(max(nv - t0, 0), Tj);
+        const int nvl =
+            min(max((LANES ? (lane < Lc ? s_nv[lane] : 0) : nv0) - t0, 0), Tj);
         if (warp == 0 && lane < Lc) {
             s_yam[lane] = chain(ka + lane * KS, nvl, s_yam[lane], a4am);
         } else if (FM && warp == 1 && lane < Lc) {
@@ -280,6 +293,7 @@ frontend_kernel(const uint8_t* __restrict__ iq, int C, int N, int n_valid,
         // D. coalesced stores; past n_valid from the frozen carries
         if (sc < Lc) {
             const int ya0 = s_yam[sc], yf0 = s_yfm[sc];
+            const int nvl = min(max((LANES ? s_nv[sc] : nv0) - t0, 0), Tj);
             for (int t = st0; t < Tj; t += sstep) {
                 const size_t o = (size_t)(t0 + t) * C + cbase + sc;
                 int ya = ka[sc * KS + t];
@@ -309,23 +323,25 @@ frontend_kernel(const uint8_t* __restrict__ iq, int C, int N, int n_valid,
 constexpr int kBytesPerSample = 2 * 2 + 4 + 4 + 2 + 2;
 
 template <bool MAG_EST, bool FM, typename FmT>
-int launch(const void* iq, int C, int N, int n_valid, int am_a1, int am_b,
-           int alp1, int blp, void* state, void* am, void* fm, void* env_sum,
-           cudaStream_t stream) {
+int launch(const void* iq, int C, int N, int n_valid, const int* lane_t0,
+           int am_a1, int am_b, int alp1, int blp, void* state, void* am,
+           void* fm, void* env_sum, cudaStream_t stream) {
     const int Lm = C < kLanes ? C : kLanes;
     int T = (kSmemBudget - kSmall * 4 - 64) / (kBytesPerSample * Lm) / 64 * 64;
     const int n64 = (N + 63) / 64 * 64;
     if (T > n64) T = n64;
     const size_t smem = (size_t)Lm * T * 2 * 2 + (size_t)Lm * (T + 1) * 4 * 2 +
-                        (size_t)Lm * (T + 2) * 2 * 2 + kSmall * 4;
-    auto kern = frontend_kernel<MAG_EST, FM, FmT>;
+                        (size_t)Lm * (T + 2) * 2 * 2 +
+                        (lane_t0 ? kSmallNv : kSmall) * 4;
+    auto kern = lane_t0 ? frontend_kernel<MAG_EST, FM, true, FmT>
+                        : frontend_kernel<MAG_EST, FM, false, FmT>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     const int blocks = (C + kLanes - 1) / kLanes;
     kern<<<blocks, kThreads, smem, stream>>>(
-        static_cast<const uint8_t*>(iq), C, N, n_valid, T, am_a1, am_b, alp1,
-        blp, static_cast<int*>(state), static_cast<int16_t*>(am),
+        static_cast<const uint8_t*>(iq), C, N, n_valid, lane_t0, T, am_a1,
+        am_b, alp1, blp, static_cast<int*>(state), static_cast<int16_t*>(am),
         static_cast<FmT*>(fm), static_cast<int*>(env_sum));
     return static_cast<int>(cudaGetLastError());
 }
@@ -334,23 +350,26 @@ int launch(const void* iq, int C, int N, int n_valid, int am_a1, int am_b,
 
 // iq: uint8 [C, N, 2]; state: int32 [6, C] (lp_y, lp_x, fm_y, fm_phi_prev,
 // fm_xr, fm_xi), updated in place; am: int16 [N, C]; fm: int16 [N, C], or
-// int32 [N, C] with FM off; env_sum: int32 [C] (uint32 bits).
+// int32 [N, C] with FM off; env_sum: int32 [C] (uint32 bits); lane_t0:
+// null, or int32 [C], each channel's block-frame origin (n_valid is then in
+// the block frame).
 // Returns cudaGetLastError() after the launch.
 extern "C" int rtl433_frontend(const void* iq, int C, int N, int n_valid,
-                               int use_mag_est, int enable_fm, int am_a1,
-                               int am_b, int alp1, int blp, void* state,
-                               void* am, void* fm, void* env_sum,
-                               void* stream) {
+                               const void* lane_t0, int use_mag_est,
+                               int enable_fm, int am_a1, int am_b, int alp1,
+                               int blp, void* state, void* am, void* fm,
+                               void* env_sum, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int* t0v = static_cast<const int*>(lane_t0);
     if (use_mag_est && enable_fm)
-        return launch<true, true, int16_t>(iq, C, N, n_valid, am_a1, am_b,
+        return launch<true, true, int16_t>(iq, C, N, n_valid, t0v, am_a1, am_b,
                                            alp1, blp, state, am, fm, env_sum, s);
     if (use_mag_est)
-        return launch<true, false, int32_t>(iq, C, N, n_valid, am_a1, am_b,
+        return launch<true, false, int32_t>(iq, C, N, n_valid, t0v, am_a1, am_b,
                                             alp1, blp, state, am, fm, env_sum, s);
     if (enable_fm)
-        return launch<false, true, int16_t>(iq, C, N, n_valid, am_a1, am_b,
+        return launch<false, true, int16_t>(iq, C, N, n_valid, t0v, am_a1, am_b,
                                             alp1, blp, state, am, fm, env_sum, s);
-    return launch<false, false, int32_t>(iq, C, N, n_valid, am_a1, am_b, alp1,
-                                         blp, state, am, fm, env_sum, s);
+    return launch<false, false, int32_t>(iq, C, N, n_valid, t0v, am_a1, am_b,
+                                         alp1, blp, state, am, fm, env_sum, s);
 }

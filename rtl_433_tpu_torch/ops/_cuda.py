@@ -10,7 +10,11 @@ edited kernel rebuilds and an unchanged one loads from ``_build/``.
 where it launches its kernel and nowhere else. The nine slicer families
 share one launcher (``csrc/slice.cu``) and count one name each
 (``slice_<family>``); ``csrc/dispatch.cu`` holds two launchers
-(``content_dup``, ``gather_records``).
+(``content_dup``, ``gather_records``), and so does ``csrc/timeshard.cu``
+(``timeshard_chain``, ``timeshard_gather``).
+
+:func:`check_lane_t0` and :func:`origin_groups` serve the wrappers whose
+kernels take a per-lane region origin (the front end and the detector).
 """
 
 from __future__ import annotations
@@ -32,23 +36,23 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # library name -> source file in csrc/ (headers in csrc/ are hashed too)
 SOURCES = {"frontend": "frontend.cu", "detector_scan": "detector.cu",
            "compact": "compact.cu", "slice": "slice.cu",
-           "dispatch": "dispatch.cu"}
+           "dispatch": "dispatch.cu", "timeshard": "timeshard.cu"}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # launcher name -> (its library, its C symbol, its argument types); each
 # returns the cudaGetLastError() code after the launch
 LAUNCHERS = {
-    # iq, C, N, n_valid, use_mag_est, enable_fm, am_a1, am_b, alp1, blp,
-    # state, am, fm, env_sum, stream
+    # iq, C, N, n_valid, lane_t0, use_mag_est, enable_fm, am_a1, am_b,
+    # alp1, blp, state, am, fm, env_sum, stream
     "frontend": ("frontend", "rtl433_frontend",
-                 [_P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
-                  _P]),
+                 [_P, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                  _P, _P]),
     # am, fm, fm_i32, N, C, regs, gen0, log_key, log_p, log_g, eop_log,
-    # quiet, n_valid, t0, chunk, R, E, spm, fixed, ratio, maxp, minmax,
-    # stream
+    # quiet, n_valid, t0, lane_t0, chunk, R, E, spm, fixed, ratio, maxp,
+    # minmax, stream
     "detector_scan": ("detector_scan", "rtl433_detector_scan",
                       [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
-                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+                       _I, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     # out_n, out_p, out_g, out_meta, C, S, P, F, cap, W, vec, row_src,
     # rows, count, stream
     "compact": ("compact", "rtl433_compact",
@@ -67,6 +71,16 @@ LAUNCHERS = {
     "gather_records": ("dispatch", "rtl433_gather_records",
                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                         _P]),
+    # start, fin, rowinfo, NROW, D, C, ratio, low, high, ook_state,
+    # min_high, gen, sel, delta, out, by_key, bad, stream
+    "timeshard_chain": ("timeshard", "rtl433_timeshard_chain",
+                        [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P, _P, _P, _P, _P, _P]),
+    # key3, p3, g3, eop3, sel, delta, D, C, R, G, EM, key, p, g, eop,
+    # stream
+    "timeshard_gather": ("timeshard", "rtl433_timeshard_gather",
+                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
+                          _P, _P, _P, _P]),
 }
 
 # the slicer families of csrc/slice.cu, one launch count each
@@ -74,7 +88,7 @@ SLICE_FAMILIES = ("ppm", "pwm", "pcm", "mc", "dmc", "piwm_dc", "nrzs",
                   "rzi", "osv1")
 KERNELS = ("frontend", "detector_scan", "compact",
            *(f"slice_{f}" for f in SLICE_FAMILIES), "content_dup",
-           "gather_records")
+           "gather_records", "timeshard_chain", "timeshard_gather")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _libs: dict = {}   # library name -> the loaded library
@@ -163,3 +177,26 @@ def check(err: int, name: str):
 def stream_of(t) -> int:
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_lane_t0(lane_t0, C, device, name):
+    """Check a per-lane origin vector for a kernel: None, or int32 [C] on
+    ``device`` (returned contiguous)."""
+    import torch
+    if lane_t0 is None:
+        return None
+    if lane_t0.shape != (C,) or lane_t0.dtype != torch.int32 \
+            or lane_t0.device != device:
+        raise ValueError(f"{name}: lane_t0 must be int32 [C] on the "
+                         f"input's device")
+    return lane_t0.contiguous()
+
+
+def origin_groups(lane_t0):
+    """The lanes of each distinct origin: [(t0, index tensor)] in the order
+    of t0, for the plain versions of per-lane-origin calls."""
+    import torch
+    t0s = lane_t0.cpu().tolist()
+    return [(t0, torch.tensor([i for i, v in enumerate(t0s) if v == t0],
+                              device=lane_t0.device))
+            for t0 in sorted(set(t0s))]

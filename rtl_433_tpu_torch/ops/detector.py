@@ -16,6 +16,11 @@ as the kernel's ``detector_step.cuh``.
 Registers travel packed as int32 ``[NREG, C]`` rows in :data:`REG_KEYS`
 order (``csrc/detector_step.cuh`` enumerates the same order).
 
+With ``lane_t0`` (int32 ``[C]``) each channel runs from its own block-frame
+position (the time-shard segments and hedge candidates of
+``parallel/timeshard.py`` as the channels of one launch); the plain version
+of such a call is one plain call per distinct origin.
+
 Quiet chunks: the kernel skips the FSM for a chunk in which every channel
 of its warp is IDLE and provably stays below threshold
 (:func:`quiet_chunk_ok`), running only the noise EWMA
@@ -427,13 +432,15 @@ def _scan_channel(am, fm, regs, gen0, *, N, t0, n_valid, chunk, R, E, spm,
     return regs, keys, lp, lg, eops, quiet
 
 
-def _scan_args(params, n_valid, t0, N):
+def _scan_args(params, n_valid, t0, N, lane_t0=None):
     ch, R, E = params.chunk, params.ring, params.eops
     if N % ch:
         raise ValueError("detector_scan: N must be a multiple of chunk")
     if not (1 <= R <= RING_MAX and 1 <= E <= EOPS_MAX):
         raise ValueError(f"detector_scan: ring must be 1..{RING_MAX} and "
                          f"eops 1..{EOPS_MAX}")
+    if lane_t0 is not None and n_valid is None:
+        raise ValueError("detector_scan: lane_t0 needs a block-frame n_valid")
     nv = (t0 + N) if n_valid is None else int(n_valid)
     return dict(chunk=ch, R=R, E=E, spm=params.sample_rate // 1000,
                 fixed=params.ook_fixed_high_level,
@@ -441,12 +448,30 @@ def _scan_args(params, n_valid, t0, N):
                 minmax=bool(params.fsk_minmax), n_valid=nv, t0=int(t0))
 
 
-def detector_scan_plain(am, fm, regs, gen0, *, params, n_valid=None, t0=0):
-    """Plain version of the kernel; same contract as :func:`detector_scan`."""
+def detector_scan_plain(am, fm, regs, gen0, *, params, n_valid=None, t0=0,
+                        lane_t0=None):
+    """Plain version of the kernel; same contract as :func:`detector_scan`.
+    With ``lane_t0``, one call per distinct origin."""
     N, C = am.shape
-    a = _scan_args(params, n_valid, t0, N)
+    a = _scan_args(params, n_valid, t0, N, lane_t0)
     R, E = a["R"], a["E"]
     G = N // a["chunk"]
+    if lane_t0 is not None:
+        outs = [regs.new_empty((NREG, C)), regs.new_empty((C * R, G)),
+                regs.new_empty((C * R, G)), regs.new_empty((C * R, G)),
+                regs.new_empty((C, G * E, META_FIELDS)), regs.new_empty(C)]
+        for lt0, idx in _cuda.origin_groups(lane_t0):
+            got = detector_scan_plain(am[:, idx], fm[:, idx], regs[:, idx],
+                                      gen0[idx], params=params,
+                                      n_valid=n_valid, t0=lt0)
+            rows = (idx[:, None] * R + torch.arange(R, device=idx.device)
+                    ).reshape(-1)
+            outs[0][:, idx] = got[0]
+            for o, g in zip(outs[1:4], got[1:4]):
+                o[rows] = g
+            outs[4][idx] = got[4]
+            outs[5][idx] = got[5]
+        return tuple(outs)
     am_l = am.t().cpu().tolist()
     fm_l = fm.t().cpu().tolist()
     regs_l = regs.t().cpu().tolist()
@@ -474,7 +499,8 @@ def detector_scan_plain(am, fm, regs, gen0, *, params, n_valid=None, t0=0):
             torch.from_numpy(quiet).to(dev))
 
 
-def detector_scan_cuda(am, fm, regs, gen0, *, params, n_valid=None, t0=0):
+def detector_scan_cuda(am, fm, regs, gen0, *, params, n_valid=None, t0=0,
+                       lane_t0=None):
     """Launch ``csrc/detector.cu``; same contract as :func:`detector_scan`."""
     N, C = am.shape
     dev = am.device
@@ -490,7 +516,8 @@ def detector_scan_cuda(am, fm, regs, gen0, *, params, n_valid=None, t0=0):
         raise ValueError("detector_scan: regs must be int32 [NREG, C]")
     if gen0.shape != (C,) or gen0.dtype != torch.int32 or gen0.device != dev:
         raise ValueError("detector_scan: gen0 must be int32 [C]")
-    a = _scan_args(params, n_valid, t0, N)
+    a = _scan_args(params, n_valid, t0, N, lane_t0)
+    t0v = _cuda.check_lane_t0(lane_t0, C, dev, "detector_scan")
     R, E = a["R"], a["E"]
     G = N // a["chunk"]
     regs = regs.contiguous().clone()
@@ -507,21 +534,25 @@ def detector_scan_cuda(am, fm, regs, gen0, *, params, n_valid=None, t0=0):
         err = fn(am.data_ptr(), fm.data_ptr(), int(fm.dtype == torch.int32),
                  N, C, regs.data_ptr(), gen0.data_ptr(), log_key.data_ptr(),
                  log_p.data_ptr(), log_g.data_ptr(), eop_log.data_ptr(),
-                 quiet.data_ptr(), a["n_valid"], a["t0"], a["chunk"], R, E,
+                 quiet.data_ptr(), a["n_valid"], a["t0"],
+                 None if t0v is None else t0v.data_ptr(), a["chunk"], R, E,
                  a["spm"], a["fixed"], a["ratio"], a["maxp"], int(a["minmax"]),
                  _cuda.stream_of(am))
         _cuda.check(err, "detector_scan")
     return regs, log_key, log_p, log_g, eop_log, quiet
 
 
-def detector_scan(am, fm, regs, gen0, *, params, n_valid=None, t0=0):
+def detector_scan(am, fm, regs, gen0, *, params, n_valid=None, t0=0,
+                  lane_t0=None):
     """Run the detector over one region's filtered streams.
 
     am: int16 ``[N, C]``; fm: int16 ``[N, C]`` (int32 with FM off: the raw
     envelope); regs: int32 ``[NREG, C]`` (not modified); gen0: int32
     ``[C]``, the block-incoming package generation the record keys are made
     relative to. ``t0`` is the block-frame position of sample 0 and
-    ``n_valid`` (block frame) freezes every sample at or past it.
+    ``n_valid`` (block frame) freezes every sample at or past it; with
+    ``lane_t0`` (int32 ``[C]``, ``n_valid`` then required) channel ``c``
+    starts at ``lane_t0[c]`` instead.
 
     Returns ``(regs, log_key, log_p, log_g, eop_log, quiet)``: log planes
     int32 ``[C*R, G]`` (row ``c*R + slot``, column = chunk), ``eop_log``
@@ -531,4 +562,5 @@ def detector_scan(am, fm, regs, gen0, *, params, n_valid=None, t0=0):
     plain version for a CPU tensor.
     """
     run = detector_scan_cuda if am.is_cuda else detector_scan_plain
-    return run(am, fm, regs, gen0, params=params, n_valid=n_valid, t0=t0)
+    return run(am, fm, regs, gen0, params=params, n_valid=n_valid, t0=t0,
+               lane_t0=lane_t0)

@@ -9,6 +9,13 @@ per-channel envelope sum behind the block-mean dB (ref src/baseband.c).
 :func:`frontend_plain` for a CPU tensor. The plain version computes the
 estimator, discriminator and atan2 as vectorized torch and the two IIRs as
 a sequential loop over Python ints per channel.
+
+With ``lane_t0`` (int32 ``[C]``) each channel is a region of the block
+starting at its own block-frame position and ``n_valid`` is in the block
+frame: channel ``c`` has ``clamp(n_valid - lane_t0[c], 0, N)`` valid
+samples. The time-shard engine (``parallel/timeshard.py``) runs its
+segments as the channels of one launch this way. The plain version of such
+a call is one plain call per distinct origin.
 """
 
 from __future__ import annotations
@@ -40,11 +47,24 @@ def _iir(x, y, px, a1, b, nv):
     return out, y, px
 
 
-def frontend_plain(iq, st, *, use_mag_est, enable_fm, alp1, blp, n_valid):
+def frontend_plain(iq, st, *, use_mag_est, enable_fm, alp1, blp, n_valid,
+                   lane_t0=None):
     """Plain version of the kernel. ``iq`` uint8 [C, N, 2]; ``st`` int32
     [6, C] in :data:`STATE_KEYS` order. Returns (am int16 [N, C], fm int16
-    [N, C] or int32 with FM off, new st int32 [6, C], env sum int64 [C])."""
+    [N, C] or int32 with FM off, new st int32 [6, C], env sum int64 [C]).
+    With ``lane_t0``, one call per distinct origin (module docstring)."""
     C, N, _ = iq.shape
+    if lane_t0 is not None:
+        outs = None
+        for t0, idx in _cuda.origin_groups(lane_t0):
+            got = frontend_plain(iq[idx], st[:, idx], use_mag_est=use_mag_est,
+                                 enable_fm=enable_fm, alp1=alp1, blp=blp,
+                                 n_valid=min(max(int(n_valid) - t0, 0), N))
+            if outs is None:      # every output has the lanes last
+                outs = [g.new_empty(g.shape[:-1] + (C,)) for g in got]
+            for o, g in zip(outs, got):
+                o[..., idx] = g
+        return tuple(outs)
     nv = min(max(int(n_valid), 0), N)
     if use_mag_est:
         env, _ = baseband.magnitude_est_cu8(iq)
@@ -89,7 +109,8 @@ def frontend_plain(iq, st, *, use_mag_est, enable_fm, alp1, blp, n_valid):
             env_sum)
 
 
-def frontend_cuda(iq, st, *, use_mag_est, enable_fm, alp1, blp, n_valid):
+def frontend_cuda(iq, st, *, use_mag_est, enable_fm, alp1, blp, n_valid,
+                  lane_t0=None):
     """Launch ``csrc/frontend.cu``; same contract as :func:`frontend_plain`
     (``st`` is not modified; the returned one is new)."""
     if not iq.is_cuda or iq.dtype != torch.uint8 or iq.dim() != 3 \
@@ -99,6 +120,7 @@ def frontend_cuda(iq, st, *, use_mag_est, enable_fm, alp1, blp, n_valid):
     C, N, _ = iq.shape
     if st.shape != (6, C) or st.dtype != torch.int32 or st.device != iq.device:
         raise ValueError("frontend: state must be int32 [6, C] on iq's device")
+    t0v = _cuda.check_lane_t0(lane_t0, C, iq.device, "frontend")
     st = st.contiguous().clone()
     am = torch.empty((N, C), dtype=torch.int16, device=iq.device)
     fm = torch.empty((N, C), dtype=torch.int16 if enable_fm else torch.int32,
@@ -107,7 +129,9 @@ def frontend_cuda(iq, st, *, use_mag_est, enable_fm, alp1, blp, n_valid):
     if C and N:
         fn = _cuda.launcher("frontend")
         _cuda.LAUNCHES["frontend"] += 1
-        err = fn(iq.data_ptr(), C, N, int(n_valid), int(bool(use_mag_est)),
+        err = fn(iq.data_ptr(), C, N, int(n_valid),
+                 None if t0v is None else t0v.data_ptr(),
+                 int(bool(use_mag_est)),
                  int(bool(enable_fm)), baseband.AM_LP_A1, baseband.AM_LP_B,
                  int(alp1), int(blp), st.data_ptr(), am.data_ptr(),
                  fm.data_ptr(), env_sum.data_ptr(), _cuda.stream_of(iq))
@@ -119,7 +143,7 @@ def frontend_cuda(iq, st, *, use_mag_est, enable_fm, alp1, blp, n_valid):
 
 def frontend(iq, state, *, sample_rate, use_mag_est=False, enable_fm=True,
              fm_low_pass=0.0, fsk_minmax=True, time_block=256, n_valid=None,
-             time_major=False):
+             time_major=False, lane_t0=None):
     """Run the fused front-end over a CU8 block.
 
     iq: uint8 ``[C, N, 2]``; state: dict with int32 ``[C]`` keys ``lp_y``,
@@ -131,16 +155,20 @@ def frontend(iq, state, *, sample_rate, use_mag_est=False, enable_fm=True,
     channel. Launches the CUDA kernel for a CUDA tensor, and runs the plain
     version for a CPU tensor. ``time_block`` (the TPU kernel's time tile)
     has no effect: the kernel sizes its own tiles to its shared memory.
+    ``lane_t0``: per-channel origins (module docstring); ``n_valid`` is then
+    required, in the block frame.
     """
     C, N, _ = iq.shape
     alp1, blp = _coeffs(sample_rate, enable_fm, fm_low_pass, fsk_minmax)
     st = torch.stack([torch.as_tensor(state[k], device=iq.device).to(
         torch.int32) for k in STATE_KEYS])
+    if lane_t0 is not None and n_valid is None:
+        raise ValueError("frontend: lane_t0 needs a block-frame n_valid")
     nv = N if n_valid is None else int(n_valid)
     run = frontend_cuda if iq.is_cuda else frontend_plain
     am, fm, st, env_sum = run(iq, st, use_mag_est=use_mag_est,
                               enable_fm=enable_fm, alp1=alp1, blp=blp,
-                              n_valid=nv)
+                              n_valid=nv, lane_t0=lane_t0)
     if not time_major:
         am, fm = am.t(), fm.t()
     new_state = dict(state)

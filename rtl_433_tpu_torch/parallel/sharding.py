@@ -13,7 +13,8 @@ global mean. On a one-device mesh the state is one dict of tensors on
 that device: no split, concatenation or copy per block. A mesh of several
 CPU devices (``[torch.device("cpu")] * 8``) runs the shards one after the
 other, which is how the tests mirror the JAX package's 8-device CPU mesh.
-Several processes over ``torch.distributed`` are not ported yet.
+Several processes over ``torch.distributed`` are ``parallel/multihost.py``;
+one channel's samples split over time are ``parallel/timeshard.py``.
 """
 
 from __future__ import annotations
@@ -203,20 +204,31 @@ class ShardedEngine:
         """Fetch device packages, stamping the publishing block's base.
         Each shard is compacted on its device; the shards' rows, in channel
         order and cut at ``pkg_cap_total``, are the global compaction's."""
+        self._publish(*self._compact_shards())
+
+    def _compact_shards(self):
+        """Compact every shard and reset its slots. Returns this engine's
+        packages in channel order, cut at ``pkg_cap_total``, and their
+        count before the cut."""
         pkgs, count = [], 0
-        per = self.channels // len(self.shards)
         for i, st in enumerate(self.shards):
             got, n = packages_from_compact(self._compact(st))
+            per = st["out_n"].shape[0]
             for pkg in got:
                 pkg["channel"] += i * per
             pkgs.extend(got)
             count += n
             st["out_n"] = torch.zeros_like(st["out_n"])
-        pkgs = pkgs[:self.pkg_cap_total]
+        return pkgs[:self.pkg_cap_total], count
+
+    def _publish(self, pkgs, count, channel0=0):
+        """Queue harvested packages: count the dropped ones, stamp each
+        with the block's base and offset its channel by ``channel0``."""
         if count > len(pkgs):
             self.n_pkg_dropped += count - len(pkgs)
         for pkg in pkgs:
             pkg["base"] = self._base
+            pkg["channel"] += channel0
         self._pending.extend(pkgs)
         self._undrained = False
 

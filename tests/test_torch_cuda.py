@@ -327,3 +327,153 @@ def test_device_slicing_on_the_card_matches_cpu():
     for k in ("slice_pcm", "slice_pwm", "slice_mc", "content_dup",
               "gather_records"):
         assert gl[k] > 0, k
+
+
+# ---- time sharding: per-lane origins in csrc/frontend.cu and
+# csrc/detector.cu, and csrc/timeshard.cu's chain and gather
+
+def _segment_lanes(dev, D, C, S, seed):
+    """A [D*C, S, 2] batch of segments (lane d*C + c) with OOK bursts, the
+    lanes' block-frame origins and seeded front-end carries."""
+    rng = np.random.default_rng(seed)
+    iq = rng.integers(120, 136, (C, D * S, 2), dtype=np.uint8)
+    for c in range(C):
+        for s in range(300 + 11 * c, D * S - 900, 2300):
+            iq[c, s:s + 700] = rng.integers(10, 246, (700, 2), dtype=np.uint8)
+    lanes = torch.from_numpy(iq).view(C, D, S, 2).transpose(0, 1).reshape(
+        D * C, S, 2).contiguous().to(dev)
+    t0 = (torch.arange(D, dtype=torch.int32)[:, None] * S).expand(
+        D, C).reshape(-1).contiguous().to(dev)
+    st = torch.from_numpy(rng.integers(-100, 100, (6, D * C)).astype(
+        np.int32)).to(dev)
+    return lanes, t0, st
+
+
+@pytest.mark.parametrize("D,C,nv_seg", [(8, 1, 5.5), (32, 1, 32),
+                                        (4, 9, 2.25)])
+def test_lane_origin_kernels_match_per_segment_plain(D, C, nv_seg):
+    """The front end and the detector with a per-lane origin against their
+    plain versions, one plain call per segment with a scalar t0; n_valid
+    inside a segment, at the block's end, and over 32-lane groups."""
+    dev = _gpu()
+    S = 4096
+    nv = int(nv_seg * S)
+    iq, t0, st = _segment_lanes(dev, D, C, S, seed=D + C)
+    alp1, blp = fe._coeffs(250_000, True, 0.0, False)
+    kw = dict(use_mag_est=False, enable_fm=True, alp1=alp1, blp=blp,
+              n_valid=nv, lane_t0=t0)
+    got = fe.frontend_cuda(iq, st, **kw)
+    torch.cuda.synchronize()
+    want = fe.frontend_plain(iq, st, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g.to(torch.int64), w.to(torch.int64))
+    p = DetectorParams(fsk_minmax=False)
+    state = detector_init(p, D * C, dev)
+    regs = det.pack_regs(state)
+    regs[det.REG_KEYS.index("lead_in")] = 2000
+    gen0 = state["gen"].clone()
+    args = (got[0], got[1], regs, gen0)
+    before = _cuda.LAUNCHES["detector_scan"]
+    dgot = det.detector_scan_cuda(*args, params=p, n_valid=nv, lane_t0=t0)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["detector_scan"] == before + 1
+    dwant = det.detector_scan_plain(*args, params=p, n_valid=nv, lane_t0=t0)
+    for g, w in zip(dgot, dwant):
+        assert torch.equal(g, w)
+    assert int((dgot[1] < det.KEY_INVALID).sum()) > 0
+
+
+@pytest.mark.parametrize("seed,D,C", [(1, 8, 5), (2, 32, 40), (3, 1, 3),
+                                      (4, 2, 300)])
+def test_timeshard_chain_kernel_matches_plain(seed, D, C):
+    from rtl_433_tpu_torch.ops import timeshard as ots
+    from rtl_433_tpu_torch.parallel import timeshard as pts
+    from torch_timeshard_cases import random_chain
+    dev = _gpu()
+    start, fin = random_chain(seed, D, C)
+    _, rowinfo = ots.verify_layout(*pts._verify_keys(DetectorParams()),
+                                   pts._COUNTER_KEYS)
+    args = [torch.from_numpy(start), torch.from_numpy(fin), rowinfo]
+    ratio = DetectorParams().ook_high_low_ratio
+    before = _cuda.LAUNCHES["timeshard_chain"]
+    got = ots.timeshard_chain_cuda(*(a.to(dev) for a in args), D=D,
+                                   ratio=ratio)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["timeshard_chain"] == before + 1
+    want = ots.timeshard_chain_plain(*args, D=D, ratio=ratio)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    if D > 2:
+        assert int(want[4][0]) == 1 and int(want[3].ne(0).sum()) > 0
+
+
+@pytest.mark.parametrize("D,C,R,G,E", [(8, 3, 8, 4, 2), (32, 1, 8, 32, 2),
+                                       (1, 2, 4, 2, 3), (4, 70, 2, 9, 1)])
+def test_timeshard_gather_kernel_matches_plain(D, C, R, G, E):
+    from rtl_433_tpu_torch.ops import timeshard as ots
+    from torch_timeshard_cases import random_logs
+    dev = _gpu()
+    args = [torch.from_numpy(a) for a in random_logs(D + C, D, C, R, G, E)]
+    before = _cuda.LAUNCHES["timeshard_gather"]
+    got = ots.timeshard_gather_cuda(*(a.to(dev) for a in args), R=R)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["timeshard_gather"] == before + 1
+    want = ots.timeshard_gather_plain(*args, R=R)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("D,cut", [(8, 0), (32, 0), (8, 40000)])
+def test_timeshard_engine_on_the_card_matches_sequential(D, cut):
+    """TimeShardEngine on Mesh([cuda] * D) over a three-block stream (a
+    quiet block that verifies, then two blocks of packages longer than the
+    halo, the last partial, that fall back): the sequential engine's
+    packages, the same fallbacks and final state as the same engine on the
+    CPU, and every kernel of the path launched."""
+    import synth
+    from rtl_433_tpu_torch.parallel.sharding import Mesh, ShardedEngine
+    from rtl_433_tpu_torch.parallel.timeshard import TimeShardEngine
+    dev = _gpu()
+    train = []
+    for rep in range(6):
+        train += synth.ppm_pulses("10110010", pulse_us=500, gap_zero_us=1000,
+                                  gap_one_us=2000, reset_us=6000, repeats=2)
+        train += [(0, 30_000)]
+    iq = synth.synth_ook(train, rate=250_000, lead_in_us=20_000,
+                         tail_us=60_000, seed=3)
+    N = 131072
+    iq = np.pad(iq, ((0, 2 * N - iq.shape[0]), (0, 0)),
+                constant_values=128)[:2 * N - cut]
+    quiet = synth.synth_ook([(0, 500_000)], rate=250_000,
+                            lead_in_us=20_000, tail_us=20_000, seed=4)
+    blocks = [(quiet[None, :N], N, False),
+              (iq[None, :N], N, False),
+              (np.pad(iq[None, N:], ((0, 0), (0, cut), (0, 0)),
+                      constant_values=128), N - cut, True)]
+    p = DetectorParams()
+    mesh = lambda d: Mesh([torch.device(d)] * D, ("sp",), (D,))
+    runs = {}
+    _cuda.reset_launches()
+    for name, eng in (
+            ("seq", ShardedEngine(p, 1, Mesh([dev], ("ch",), (1,)))),
+            ("gpu", TimeShardEngine(p, mesh=mesh(dev))),
+            ("cpu", TimeShardEngine(p, mesh=mesh("cpu")))):
+        pkgs = []
+        for blk, nv, flush in blocks:
+            eng.push(blk, n_valid=nv, flush=flush)
+            pkgs += eng.take_packages()
+        runs[name] = (pkgs, (getattr(eng, "fallbacks", None),
+                             getattr(eng, "verified", None)),
+                      {k: v.cpu() for k, v in eng.state.items()})
+    for k in ("frontend", "detector_scan", "timeshard_chain",
+              "timeshard_gather", "compact"):
+        assert _cuda.LAUNCHES[k] > 0, k
+    seq, gpu, cpu = runs["seq"], runs["gpu"], runs["cpu"]
+    assert len(seq[0]) == len(gpu[0]) >= 6
+    for a, b in zip(seq[0], gpu[0]):
+        for k in a:
+            assert np.array_equal(np.asarray(a[k]), np.asarray(b[k])), k
+    assert gpu[1] == cpu[1]
+    assert gpu[1][0] >= 1 and gpu[1][1] >= 1, gpu[1]
+    for k in cpu[2]:
+        assert torch.equal(gpu[2][k], cpu[2][k]), k

@@ -4,11 +4,13 @@ A subprocess with ``jax`` and ``rtl_433_tpu`` made unimportable imports
 every port module (``parallel/`` and ``decoders/pool.py`` among them) and
 decodes a fixture on the CPU, through the API, the CLI, and a
 ``ShardedEngine`` on a 2-device CPU mesh whose events come from forked
-``DecodePool`` workers. Another runs a copy of the port alone in a directory, with
+``DecodePool`` workers, and a ``TimeShardEngine`` on a 4-segment CPU mesh.
+Another runs a copy of the port alone in a directory, with
 neither ``native/`` nor the JAX package beside it, and decodes a fixture
 under the default registration: the fast dispatch builds its slicer
-library from the port's own ``csrc/slicers.cpp``. The port's sources and
-chip_smoke.py are scanned for imports of either; the port's sources name
+library from the port's own ``csrc/slicers.cpp``. The port's sources,
+chip_smoke.py and the jax-free test helpers (the multihost worker, the
+time-shard cases) are scanned for imports of either; the port's sources name
 neither ``native/`` nor the JAX package. The GPU entry points refuse to
 run, rather than fall back to the CPU, where there is no GPU.
 """
@@ -83,11 +85,23 @@ eng.use_decode_pool(2)
 eng.push(blk, n_valid=one.shape[0], flush=True)
 sharded = [[c, json.loads(event_to_json(e))] for c, e in eng.drain_events()]
 eng.close_decode_pool()
+# one channel split over time on a 4-segment CPU mesh
+from rtl_433_tpu_torch.parallel import Mesh, TimeShardEngine
+reg = Registry()
+reg.register(19)
+eng = TimeShardEngine(DetectorParams(), 1,
+                      Mesh([torch.device("cpu")] * 4, ("sp",), (4,)),
+                      registry=reg)
+tblk = np.full((1, one.shape[0] + (-one.shape[0]) % 512, 2), 128, np.uint8)
+tblk[0, :one.shape[0]] = one
+eng.push(tblk, n_valid=one.shape[0], flush=True)
+timeshard = [json.loads(event_to_json(e)) for c, e in eng.drain_events()]
 bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.")
              or k == "rtl_433_tpu" or k.startswith("rtl_433_tpu."))
 print(json.dumps({"api": api, "cli": cli_events, "rc": rc,
                   "sharded": sharded, "sliced": sliced,
+                  "timeshard": timeshard,
                   "loaded": [k for k in bad if sys.modules[k] is not None]}))
 '''
 
@@ -167,13 +181,17 @@ def test_port_runs_with_jax_and_reference_blocked():
         [True] * len(want)
     assert res["cli"] == want
     assert res["sharded"] == [[0, e] for e in want]
+    assert res["timeshard"] == want
 
 
 def _sources():
     files = [f for f in glob.glob(os.path.join(PKG, "**", "*.py"),
                                   recursive=True)
              if os.sep + "_build" + os.sep not in f]
-    return sorted(files) + [os.path.join(REPO, "chip_smoke.py")]
+    # and the helpers the port's GPU runs and process workers import
+    helpers = ["chip_smoke.py", "tests/torch_multihost_worker.py",
+               "tests/torch_timeshard_cases.py"]
+    return sorted(files) + [os.path.join(REPO, h) for h in helpers]
 
 
 @pytest.mark.parametrize("path", _sources(),
