@@ -8,7 +8,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 Phases, each printing one JSON line (any failure exits non-zero):
 
 1. device  -- the card's name and power limit;
-2. build   -- compile the five CUDA sources of csrc/ (one nvcc each,
+2. build   -- compile every CUDA source of csrc/ (one nvcc each,
               in parallel) and show ptxas's register report; build the host
               slicer library (csrc/slicers.cpp, host c++) and lower the
               declarative specs, so that neither one-time cost falls into
@@ -44,6 +44,19 @@ Phases, each printing one JSON line (any failure exits non-zero):
               that flag most lanes, and csrc/dispatch.cu's content dedup
               and record gather on those outputs and on planes with
               planted repeats;
+4d. decl_bank -- the declarative decode bank's kernel (csrc/decl_bank.cu)
+              against its plain version, bit-exact on code and raws, on a
+              fuzz batch of 8192 candidates over all 77 specs
+              (tests/torch_decl_cases.py: the oracle vectors' candidates,
+              flipped, inverted and with stale stored bits; planted
+              preambles, Manchester rows, n from 0 to 512); its device
+              time, the plain version's and the bound;
+4e. mic   -- each of the twelve MIC digests (csrc/mic.cu) at 65536 rows,
+              with the nbytes/poly/key cases of tests/test_mic_kernels.py,
+              uint8 and int32 rows, bit-exact against the plain version and
+              against bits/util.py on a sample of rows; through the entry
+              points with the launch counts set to 0 before and read after;
+              device time, plain time, bound;
 5. main    -- RtlTpu(device="cuda").decode_file with -R <n> on all 106
               fixtures of tests/fixtures/ (250, 1024 and 4096 kS/s); events
               must equal the committed .json. Then the fixtures are decoded
@@ -56,7 +69,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
               all 106 again with device slicing (main_device_slice): the
               committed events, every slicer family launched, and every
               kernel call those decodes made held to the plain version
-              (with each family's lanes and flagged lanes);
+              (with each family's lanes and flagged lanes), the
+              declarative bank's launches among them (the prewarm's
+              drain-wide batch runs on the card), and each device-backed
+              DeclRunner.decode_many of those decodes timed on the card
+              and on the NumPy host backend on the same items (the same
+              result), with its kernel, plain and bound times;
 6. stream  -- nexus and lacrosse_tx35 concatenated 64 times, lacrosse_tx29
               16 times, decoded end to end: copies x the committed events;
               MS/s and ms/block, then the same decode under torch.profiler
@@ -75,7 +93,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
               split into the kernels' device spans, the host part of
               batch_slice, the memo plans and the record freeze; every
               kernel call of one more such decode of each stream is held
-              to the plain version (slice_inputs). mixed_250k is
+              to the plain version, and its decode_many calls timed on the
+              card and on the host backend (slice_inputs). mixed_250k is
               decoded once more on the per-decoder host path
               (Registry._use_native forced off): the same events;
 6b. multichannel -- bench.py's signal-dense workload at full width through
@@ -105,7 +124,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
               decode split as the mixed lines carry it, and with device
               slicing (its prewarm split, memo builds per block), the same
               events; the device pass's warm-up drain's kernel calls are
-              held to the plain version and timed; each process's rows of
+              held to the plain version and timed, its declarative batch
+              on the card against the host backend; each process's rows of
               the four rotation blocks are saved for 6d;
 6c. timeshard -- nexus x 64, lacrosse_tx35 x 64 and the default
               registration's mixed_250k and mixed_1024k, 131072-sample blocks
@@ -141,7 +161,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
               its first lacrosse_tx35 call at the most segments that made
               one (a block that fails verification stops after the chain,
               so the gather runs only on verified blocks), the gather
-              beside index_select and torch.where.
+              beside index_select and torch.where; the declarative bank
+              with its launches on the device-slicing paths, timed at the
+              dense_4096 drain's batch and at the fuzz batch; each MIC
+              digest with its launches and times at the mic phase.
 
 Every phase line carries its seconds. The line before the last is
 nvidia-smi's name and power limit; the last
@@ -192,6 +215,8 @@ MC_ROTATIONS = 4
 MC_BLOCKS = 12
 MC_CAP = 768
 MC_SAMPLE = 64
+# candidates of the decl_bank phase's fuzz batch
+DECL_FUZZ = 8192
 # device-slicing kernel calls queued behind one spin of the card when
 # every call of a drain is timed (cuda_ms_all)
 DS_CHUNK = 64
@@ -420,7 +445,7 @@ def split_ms(acc, blocks, n_packages=None):
     return out
 
 
-DS_KERNELS = ("slice", "content_dup", "gather_records")
+DS_KERNELS = ("slice", "content_dup", "gather_records", "decl_bank")
 
 
 @contextlib.contextmanager
@@ -528,18 +553,35 @@ SYMBOL_FAMS = ("dmc", "piwm_dc")
 def ds_kernel_names():
     from rtl_433_tpu_torch.ops import _cuda
     return [f"slice_{f}" for f in _cuda.SLICE_FAMILIES] + [
-        "content_dup", "gather_records"]
+        "content_dup", "gather_records", "decl_bank"]
 
 
 @contextlib.contextmanager
-def ds_recorder(calls):
+def ds_recorder(calls, dcalls=None, host_calls=None):
     """Record the device slicing's kernel calls as the main path makes
-    them, into ``calls`` [(kind, args)]. The inputs are fresh tensors that
-    nothing writes afterwards, so references are kept, not copies."""
+    them, into ``calls`` [(kind, args)], its device-backed
+    ``DeclRunner.decode_many`` calls into ``dcalls`` [(items, device)] and
+    those on the NumPy backend (the per-train dispatch's) into
+    ``host_calls``.
+    The inputs are fresh tensors that nothing writes afterwards, so
+    references are kept, not copies."""
+    from rtl_433_tpu_torch.decoders import declarative
     from rtl_433_tpu_torch.decoders import device_dispatch as ddp
+    from rtl_433_tpu_torch.ops import decode_bank as dbk
     from rtl_433_tpu_torch.ops import slice as sl
     slice_cuda, dup, gather = (sl.slice_cuda, ddp._content_dup,
                                ddp._gather_records)
+    run_torch, decode_many = dbk.run_torch, declarative.DeclRunner.decode_many
+
+    def rec_bank(bank, bits, n_bits, sid, n_store=None):
+        calls.append(("decl_bank", (bank, bits, n_bits, sid, n_store)))
+        return run_torch(bank, bits, n_bits, sid, n_store)
+
+    def rec_many(self, items, device=None):
+        into = host_calls if device is None else dcalls
+        if into is not None:
+            into.append((list(items), device))
+        return decode_many(self, items, device=device)
 
     def rec_slice(fam, pulse, gap, n_pulses, bounds, caps=sl.SliceCaps()):
         calls.append(("slice", (fam, pulse, gap, n_pulses, bounds, caps)))
@@ -556,7 +598,9 @@ def ds_recorder(calls):
         return gather(by, sy, bs, js, es)
 
     with patched((sl, "slice_cuda", rec_slice), (ddp, "_content_dup", rec_dup),
-                 (ddp, "_gather_records", rec_gather)):
+                 (ddp, "_gather_records", rec_gather),
+                 (dbk, "run_torch", rec_bank),
+                 (declarative.DeclRunner, "decode_many", rec_many)):
         yield
 
 
@@ -579,6 +623,10 @@ def ds_fns(kind, args):
         return ("content_dup", lambda: ddp._content_dup(planes),
                 lambda: ddp._content_dup_plain(planes), lambda o: [o],
                 ("dup",))
+    if kind == "decl_bank":
+        from rtl_433_tpu_torch.ops import decode_bank as dbk
+        return ("decl_bank", lambda: dbk.run_torch(*args),
+                lambda: dbk.run_torch_plain(*args), list, ("code", "raws"))
     by, sy, bs, js, es = args
     idx = [torch.from_numpy(a.astype(np.int64)).to(by.device)
            for a in (bs, js, es)]
@@ -631,6 +679,8 @@ def ds_cost(kind, args):
             planes["num_rows"].numel() * 2 + planes["bits_per_row"].numel()
             + planes["syncs"].numel())
         return nbytes, vals, list(planes["bytes"].shape)
+    if kind == "decl_bank":
+        return decl_cost(*args)
     by, _sy, bs, _js, _es = args
     B, J, E, R, W = by.shape
     P = len(bs)
@@ -689,6 +739,220 @@ def ds_measure(calls):
         r["bound_ms"] = max(b_ms, o_ms)
         r["bound_by"] = "bytes" if b_ms >= o_ms else "operations"
     return rows
+
+
+def decl_cost(bank, bits, n_bits, sid, n_store=None):
+    """(bytes, int32 operations, shape) of one decode-bank call: the
+    candidates' bits, lengths and spec ids read once, code and raws
+    written once; per spec present its spec row and the weight tables it
+    reads, each once: the table of each live check slot (GF(2) or
+    additive, by its kind) and of each of its field rows. Per candidate
+    the preamble offsets its search tries up to its first match (one
+    compare, xor and mask per pattern word), the frame (an extraction and
+    a select per bit, two more for Manchester) and each live check slot
+    and field row (a select and a sum per bit)."""
+    import torch
+    from rtl_433_tpu_torch.ops import decode_bank as dbk
+    tabs = dbk.bank_tables(bank, bits.device)
+    B, IN = bits.shape
+    FB, C, R = bank.frame_bits, bank.n_checks, bank.n_raws
+    PW = (bank.pat_len + 31) // 32
+
+    def live_slots(sp):
+        return sum((sp[:, dbk.SP_CHECKS + dbk.CK_FIELDS * c]
+                    != dbk.CK_OFF).long() for c in range(C))
+
+    present = tabs["spec"][torch.unique(sid).long()]
+    tables = int((live_slots(present) + present[:, dbk.SP_NRAW]).sum())
+    nbytes = B * (IN + 12 + 4 + 4 * R) + 4 * present.numel() \
+        + 4 * FB * tables
+    s = sid.long()
+    n = n_bits.long()
+    found, pos = dbk.preamble_plain(bank, tabs, bits, n, s)
+    plen = tabs["plen"][s].long()
+    start = tabs["pre_start"][s].long().clamp(min=0)
+    end = torch.where(found, pos + 1, (n - plen + 1).clamp(max=IN))
+    tried = torch.where(plen > 0, (end - start).clamp(min=0), 0)
+    sp = tabs["spec"][s]
+    live = live_slots(sp)
+    per = FB * (2 + 2 * live + 2 * sp[:, dbk.SP_NRAW].long()
+                + 2 * (tabs["transform"][s] == dbk.TF_MANCHESTER).long())
+    ops = int((tried * 3 * PW).sum() + per.sum())
+    return nbytes, ops, [B, IN, FB, C, R]
+
+
+def decl_measure(dcalls, kcalls, cpu=False):
+    """The device-backed decode_many calls ``dcalls`` of a path and the
+    decl_bank kernel calls ``kcalls`` they made: candidates per call, the
+    kernel's device ms (cuda_ms_all), the plain version's ms, the bound,
+    and the whole decode_many on the card against the NumPy host backend
+    on the same items (host wall, each call synchronized; the same
+    results, or the run fails); with ``cpu``, also decode_many on
+    ``device="cpu"`` (the torch bank's plain version, as CPU device
+    slicing runs it). All summed over the path's calls."""
+    import torch
+    from rtl_433_tpu_torch.decoders.declarative import get_runner
+    from rtl_433_tpu_torch.output.data_model import event_to_json
+    runner = get_runner()
+    norm = lambda rets: [[event_to_json(e) for e in r]
+                         if isinstance(r, list) else repr(r) for r in rets]
+    card = host = on_cpu = 0.0
+    for items, device in dcalls:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = runner.decode_many(items, device=device)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        want = runner.decode_many(items)
+        t2 = time.perf_counter()
+        card += t1 - t
+        host += t2 - t1
+        if norm(got) != norm(want):
+            fail("decode_many on the card differs from the host backend")
+        if cpu:
+            t = time.perf_counter()
+            got = runner.decode_many(items, device="cpu")
+            on_cpu += time.perf_counter() - t
+            if norm(got) != norm(want):
+                fail("decode_many on the CPU torch bank differs from the "
+                     "NumPy backend")
+    m = ds_measure(kcalls).get("decl_bank", {}) if kcalls else {}
+    cands = [int(args[1].shape[0]) for _k, args in kcalls]
+    return {"decode_many_calls": len(dcalls), "launches": len(kcalls),
+            "candidates": sum(cands),
+            "candidates_per_call": {"min": min(cands, default=0),
+                                    "max": max(cands, default=0)},
+            "decode_many_card_ms": card * 1e3,
+            "decode_many_host_ms": host * 1e3,
+            **({"decode_many_cpu_torch_ms": on_cpu * 1e3} if cpu else {}),
+            "kernel_ms": m.get("ms"), "plain_ms": m.get("plain_ms"),
+            "bound_ms": m.get("bound_ms"), "bound_by": m.get("bound_by"),
+            "equal_results": True}
+
+
+def per_train_decl(tcalls, compare, what):
+    """The default path's per-train decode_many calls ``tcalls`` (NumPy
+    backend) once more with the bank on the card: a first pass records
+    the kernel calls they make and holds each to the plain version, then
+    decl_measure times each call on the card against NumPy."""
+    from rtl_433_tpu_torch.decoders.declarative import get_runner
+    dcalls = [(items, "cuda") for items, _d in tcalls]
+    kcalls = []
+    with ds_recorder(kcalls):
+        for items, device in dcalls:
+            get_runner().decode_many(items, device=device)
+    kcalls = [c for c in kcalls if c[0] == "decl_bank"]
+    ds_check(kcalls, compare, what)
+    return decl_measure(dcalls, kcalls)
+
+
+# the MIC phase: (digest, nbytes, parameters), the cases of
+# tests/test_mic_kernels.py; int32 operations per message byte, counted
+# from csrc/mic.cu (per bit a test, a shift, a xor and a mask for the CRCs;
+# a test and a xor for the LFSR digests)
+MIC_CASES = ([("crc8", *c) for c in ((4, 0x31, 0), (7, 0x31, 0),
+                                    (2, 0x07, 0), (14, 0x2F, 0),
+                                    (8, 0x31, 0xFF), (6, 0x81, 0),
+                                    (5, 0x9C, 0x3D))]
+             + [("crc8le", 7, 0x31, 0), ("crc8le", 5, 0x9C, 0x3D)]
+             + [(f, *c) for f in ("crc16", "crc16lsb")
+                for c in ((10, 0x8005, 0xFFFF), (14, 0x8005, 0xFFFF),
+                          (6, 0x1021, 0), (9, 0x1021, 0xFFFF),
+                          (4, 0x8810, 0))]
+             + [(f, *c) for f in ("lfsr_digest8", "lfsr_digest8_reverse",
+                                  "lfsr_digest8_reflect")
+                for c in ((5, 0x98, 0xF1), (7, 0x83, 0x7A), (9, 0x31, 0xF4))]
+             + [("lfsr_digest16", *c) for c in ((5, 0x8810, 0xABF9),
+                                                (9, 0x8810, 0x5412),
+                                                (11, 0x8810, 0x0ACC))]
+             + [(f, n) for f in ("xor_bytes", "add_bytes", "add_nibbles",
+                                 "parity_bytes") for n in (1, 7, 13)])
+MIC_OPS = {"crc8": 33, "crc8le": 33, "crc16": 34, "crc16lsb": 33,
+           "lfsr_digest8": 17, "lfsr_digest8_reverse": 17,
+           "lfsr_digest8_reflect": 17, "lfsr_digest16": 17, "xor_bytes": 1,
+           "add_bytes": 1, "add_nibbles": 4, "parity_bytes": 1}
+MIC_ROWS = 65536
+# the JAX functions (rtl_433_tpu/ops/mic.py)
+MIC_LINES = {"crc8": 32, "crc8le": 45, "crc16": 59, "crc16lsb": 72,
+             "lfsr_digest8": 110, "lfsr_digest8_reverse": 118,
+             "lfsr_digest8_reflect": 128, "lfsr_digest16": 141,
+             "xor_bytes": 149, "add_bytes": 154, "add_nibbles": 159,
+             "parity_bytes": 164}
+
+
+def mic_phase(dev, compare, rng):
+    """Phase 4e: every MIC case through its entry point at MIC_ROWS rows of
+    16 bytes, uint8 and int32 (garbage above the low byte), with the launch
+    counts set to 0 before and read after; each result against the plain
+    version (bit-exact) and against bits/util.py on 64 sampled rows; then,
+    per digest, its largest case timed (device ms, the calls queued behind
+    a spinning card), its plain version, its bound and, for add_bytes, the
+    one PyTorch call that computes it (``torch.sum`` of the rows' first
+    nbytes bytes into int32; equal to the kernel, or the run fails).
+    Returns the phase line and the kernels' rows of numbers."""
+    import torch
+    from rtl_433_tpu_torch.bits import util
+    from rtl_433_tpu_torch.ops import _cuda
+    from rtl_433_tpu_torch.ops import mic
+    msgs = rng.integers(0, 256, (MIC_ROWS, 16), dtype=np.uint8)
+    high = (msgs.astype(np.int32)
+            + (rng.integers(-99, 99, msgs.shape) << 8).astype(np.int32))
+    ins = {"uint8": torch.from_numpy(msgs).to(dev),
+           "int32": torch.from_numpy(high).to(dev)}
+    sample = rng.integers(0, MIC_ROWS, 64)
+    launches = {f"mic_{a}": 0 for a in _cuda.MIC_ALGOS}
+    outs = []
+    for k in launches:
+        _cuda.LAUNCHES[k] = 0
+    for name, nbytes, *params in MIC_CASES:
+        for t in ins.values():
+            outs.append((name, nbytes, params, t,
+                         mic.DIGESTS[name][0](t, nbytes, *params)))
+    torch.cuda.synchronize()
+    for k in launches:
+        launches[k] = _cuda.LAUNCHES[k]
+        if not launches[k]:
+            fail(f"kernel {k} was not launched on the mic phase")
+    for name, nbytes, params, t, got in outs:
+        want = mic.DIGESTS[name][1](t, nbytes, *params)
+        compare(f"mic_{name}", [got], [want], ("digest",),
+                f"{name} nbytes={nbytes} {params} {t.dtype}")
+        host = [getattr(util, name)(bytes(msgs[i]), nbytes, *params)
+                for i in sample]
+        if got.cpu().numpy()[sample].tolist() != host:
+            fail(f"mic_{name} differs from bits/util.py ({nbytes}, "
+                 f"{params})")
+    del outs
+    rows = {}
+    for name in _cuda.MIC_ALGOS:
+        _n, nbytes, *params = max((c for c in MIC_CASES if c[0] == name),
+                                  key=lambda c: c[1])
+        t = ins["uint8"]
+        fn, plain = mic.DIGESTS[name]
+        ms = cuda_ms(lambda: fn(t, nbytes, *params), reps=20,
+                     busy_first=True)
+        plain_ms = host_ms(lambda: plain(t, nbytes, *params))
+        library_ms = None
+        if name == "add_bytes":
+            def library():
+                return torch.sum(t[..., :nbytes], -1, dtype=torch.int32)
+            compare(f"mic_{name}", [fn(t, nbytes)], [library()],
+                    ("digest",), f"{name} nbytes={nbytes} against torch.sum")
+            library_ms = cuda_ms(library, reps=20, busy_first=True)
+        b_ms = (MIC_ROWS * (nbytes + 4) + 32 * nbytes) / HBM_BPS * 1e3
+        o_ms = MIC_ROWS * nbytes * MIC_OPS[name] / INT32_OPS * 1e3
+        rows[f"mic_{name}"] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations",
+            "library_ms": library_ms, "launches": launches[f"mic_{name}"],
+            "shape": [MIC_ROWS, 16, nbytes]}
+    line = {"phase": "mic", "rows": MIC_ROWS, "cases": len(MIC_CASES),
+            "inputs": list(ins), "bit_exact": True, "host_sampled_rows": 64,
+            "launches": launches,
+            "ms": {k: v["ms"] for k, v in rows.items()},
+            "library_ms": {k: v["library_ms"] for k, v in rows.items()
+                           if v["library_ms"] is not None}}
+    return line, rows
 
 
 def synth_iq(rng, n, rate=250_000):
@@ -1147,12 +1411,12 @@ def multichannel(dev, mesh, compare, ds_kernels, mh_dir,
             fail("multichannel: the per-drain no-cache host pass's events "
                  "differ")
         del eng
-        ds_acc, spans, drain_calls = {}, [], []
+        ds_acc, spans, drain_calls, drain_dcalls = {}, [], [], []
         with split_timers(ds_acc), prewarm_timers(ds_acc), \
                 kernel_timers(spans):
             eng = per_drain(engine(channels))
             eng.registry.device_slice = True
-            with ds_recorder(drain_calls):
+            with ds_recorder(drain_calls, drain_dcalls):
                 run_blocks(eng, 1)
             torch.cuda.synchronize()
             ds_acc.clear()
@@ -1183,7 +1447,9 @@ def multichannel(dev, mesh, compare, ds_kernels, mh_dir,
                                  drain_lanes)
         ds_numbers = ds_measure(drain_calls)
         ds_numbers_s = time.perf_counter() - t
-        del drain_calls
+        drain_decl = decl_measure(drain_dcalls, [
+            c for c in drain_calls if c[0] == "decl_bank"], cpu=True)
+        del drain_calls, drain_dcalls
         torch.cuda.empty_cache()
     finally:
         garage.time = real_time
@@ -1232,14 +1498,16 @@ def multichannel(dev, mesh, compare, ds_kernels, mh_dir,
                              **ds_pre, "launches": ds_launches,
                              "drain_calls_checked": drain_checked,
                              "drain_lanes": drain_lanes,
-                             "drain_measure_s": ds_numbers_s}},
+                             "drain_measure_s": ds_numbers_s,
+                             "drain_decl": drain_decl}},
                      "pool": {"workers": workers,
                               "events_equal_in_order": True,
                               "msps": samples / cold_pool_wall / 1e6,
                               "ms_per_block":
                                   cold_pool_wall / n_blocks * 1e3,
                               "gain": cold_wall / cold_pool_wall}}}
-    return row, launches, numbers, ds_launches, ds_numbers, warm_blocks
+    return (row, launches, numbers, ds_launches, ds_numbers, drain_decl,
+            warm_blocks)
 
 
 def timeshard_streams(fx, rate_of):
@@ -1995,7 +2263,41 @@ def main():
         fail("the planted repeats were not found")
     emit({"phase": "slice", "bit_exact": True, "families": fuzz,
           "planted_repeats_found": repeats,
-          "max_abs_err": {k: errs[k] for k in ds_kernel_names()}})
+          "max_abs_err": {k: errs[k] for k in ds_kernel_names()
+                          if k != "decl_bank"}})
+
+    # ---- 4d. decl_bank: the declarative bank's kernel against its plain
+    # version on a fuzz batch that reaches every stage, at the bank's widths
+    from rtl_433_tpu_torch.ops import decode_bank as dbk
+    from torch_decl_cases import fuzz_batch
+    bank = get_runner().bank
+    fz = fuzz_batch(SEED, DECL_FUZZ)
+    fz_args = [torch.from_numpy(a).to(dev) for a in fz[:3]]
+    fz_ns = torch.from_numpy(fz[3]).to(dev)
+    decl_fuzz_call = [("decl_bank", (bank, *fz_args, fz_ns))]
+    ds_check(decl_fuzz_call, compare, "fuzz batch, stale bits")
+    zeroed = fz_args[0] * (torch.arange(bank.in_bits, device=dev)[None, :]
+                           < fz_args[1][:, None])
+    ds_check([("decl_bank", (bank, zeroed, *fz_args[1:], None))], compare,
+             "fuzz batch, rows zeroed at n")
+    code = dbk.run_torch(bank, *fz_args, fz_ns)[0].cpu().numpy()
+    decl_fuzz = ds_measure(decl_fuzz_call)["decl_bank"]
+    emit({"phase": "decl_bank", "candidates": DECL_FUZZ,
+          "specs": int(np.unique(fz[2]).size),
+          "widths": {"in_bits": bank.in_bits, "frame_bits": bank.frame_bits,
+                     "pat_len": bank.pat_len, "n_checks": bank.n_checks,
+                     "n_raws": bank.n_raws},
+          "codes": {str(c): int((code == c).sum())
+                    for c in np.unique(code)},
+          "stale_rows": int((fz[3] > fz[1]).sum()),
+          "bit_exact": True, "max_abs_err": errs["decl_bank"],
+          **{k: decl_fuzz[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by")}})
+    del fz, fz_args, fz_ns, zeroed, decl_fuzz_call
+
+    # ---- 4e. mic: the twelve digests through their entry points
+    mic_line, mic_rows = mic_phase(dev, compare, rng)
+    emit(mic_line)
 
     # ---- 5. main path: every fixture through RtlTpu on the card
     fx = [(d, nums, cu8, expected(cu8)) for d, nums, cu8 in fixture_cases()]
@@ -2085,12 +2387,13 @@ def main():
     # sliced by the kernels, the same committed events; then every kernel
     # call those decodes made against its plain version, on its inputs
     ds_paths = {}
-    fx_calls = []
+    decl_paths = {}
+    fx_calls, fx_dcalls = [], []
     _cuda.reset_launches()
     t = time.perf_counter()
     for d, nums, cu8, want in fx:
         calls = []
-        with ds_recorder(calls):
+        with ds_recorder(calls, fx_dcalls):
             got = decode(nums, cu8, device_slice=True)
         if got != want:
             fail(f"fixture {d} with device slicing: {got} != {want}")
@@ -2111,12 +2414,17 @@ def main():
     if any(fx_checked.get(k, 0) < v for k, v in ds_paths["fixtures"].items()):
         fail(f"the fixtures' checked kernel calls {fx_checked} are fewer "
              f"than their launches {ds_paths['fixtures']}")
-    del fx_calls, calls
+    check_s = time.perf_counter() - t
+    decl_paths["fixtures"] = decl_measure(
+        fx_dcalls, [c for _d, calls in fx_calls for c in calls
+                    if c[0] == "decl_bank"])
+    del fx_calls, fx_dcalls, calls
     emit({"phase": "main_device_slice", "fixtures": len(fx),
           "all_match": True, "seconds": round(decode_s, 3),
           "launches": ds_paths["fixtures"], "checked": fx_checked,
           "bit_exact": True, "lanes": fx_flagged,
-          "check_seconds": round(time.perf_counter() - t, 3)})
+          "check_seconds": round(check_s, 3),
+          "decl": decl_paths["fixtures"]})
 
     # ---- 6. stream: fixtures concatenated, decoded untraced and traced
     from torch.profiler import ProfilerActivity, profile
@@ -2222,6 +2530,15 @@ def main():
             fail(f"{name}: the split decode differs")
         row["split"] = {"wall_ms_per_block": split_s / blocks * 1e3,
                         **split_ms(acc, blocks)}
+        # the default path's per-train declarative batches (NumPy), each
+        # once more with the bank on the card
+        tcalls = []
+        with ds_recorder([], host_calls=tcalls):
+            if decode(None, path) != want:
+                fail(f"{name}: the recorded default decode differs")
+        row["per_train_decl"] = per_train_decl(
+            tcalls, compare, f"{name} per-train batches")
+        del tcalls
         # the same file with device slicing (RtlTpu(device_slice=True)):
         # the same events, no train left to the host slicer, and the
         # prewarm's split: the kernels' device ms, the host part of
@@ -2257,9 +2574,9 @@ def main():
         ds_paths[name] = launches
         # every kernel call of one more such decode against the plain
         # version, on the inputs this stream gives it
-        calls = []
+        calls, dcalls = [], []
         _cuda.reset_launches()
-        with ds_recorder(calls):
+        with ds_recorder(calls, dcalls):
             if decode(None, path, device_slice=True) != want:
                 fail(f"{name}: the recorded device-slicing decode differs")
         recorded = {k: _cuda.LAUNCHES[k] for k in ds_kernel_names()}
@@ -2269,11 +2586,15 @@ def main():
         if any(checked.get(k, 0) < v for k, v in recorded.items()):
             fail(f"{name}: the checked kernel calls {checked} are fewer "
                  f"than the decode's launches {recorded}")
+        check_s = time.perf_counter() - t
+        decl_paths[name] = decl_measure(
+            dcalls, [c for c in calls if c[0] == "decl_bank"])
         emit({"phase": "slice_inputs", "stream": name,
               "calls_recorded": len(calls), "checked": checked,
               "bit_exact": True, "lanes": flagged,
-              "check_seconds": round(time.perf_counter() - t, 3)})
-        del calls
+              "check_seconds": round(check_s, 3),
+              "decl": decl_paths[name]})
+        del calls, dcalls
         if host_path:
             acc = {}
             no_native = (dbase.Registry, "_use_native", lambda self: False)
@@ -2303,7 +2624,7 @@ def main():
     default_ds_kernels = [f"slice_{f}" for f, mods in ddp._FAM_MODS.items()
                           if any(d.modulation in mods and d.decode_fn
                                  for d in reg.active)]
-    default_ds_kernels += ["content_dup", "gather_records"]
+    default_ds_kernels += ["content_dup", "gather_records", "decl_bank"]
     del reg
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
@@ -2342,8 +2663,8 @@ def main():
     mh_dir = tempfile.mkdtemp(prefix="chip_smoke_mh_")
     try:
         (row, mc_launches, kinds["compact"], ds_paths["dense_4096"],
-         ds_numbers, warm_blocks) = multichannel(dev, mesh, compare,
-                                                 default_ds_kernels, mh_dir)
+         ds_numbers, decl_paths["dense_4096"], warm_blocks) = multichannel(
+             dev, mesh, compare, default_ds_kernels, mh_dir)
         emit(row)
 
         # ---- 6c. timeshard: one channel's blocks split over time, on the
@@ -2424,6 +2745,9 @@ def main():
         if k.startswith("slice_"):
             src = "rtl_433_tpu_torch/csrc/slice.cu"
             rep = f"rtl_433_tpu/ops/slice.py:{jax_lines[k[6:]]}"
+        elif k == "decl_bank":
+            src = "rtl_433_tpu_torch/csrc/decl_bank.cu"
+            rep = "rtl_433_tpu/ops/decode_bank.py:334"
         else:
             src = "rtl_433_tpu_torch/csrc/dispatch.cu"
             rep = "rtl_433_tpu/decoders/device_dispatch.py:" + (
@@ -2437,6 +2761,22 @@ def main():
             "library_ms": m["library_ms"], "calls": m["calls"],
             "shapes": m["shapes"],
             "measured_at": m.get("measured_at", "dense_4096 drain")})
+        if k == "decl_bank":
+            rows[-1].update(
+                fuzz={x: decl_fuzz[x] for x in ("ms", "plain_ms",
+                                                "bound_ms", "bound_by")},
+                fuzz_candidates=DECL_FUZZ, by_path=decl_paths)
+    # the MIC digests: launches and times at the mic phase
+    for k, m in mic_rows.items():
+        rows.append({
+            "name": k, "route": "cuda",
+            "source": "rtl_433_tpu_torch/csrc/mic.cu",
+            "replaces": f"rtl_433_tpu/ops/mic.py:{MIC_LINES[k[4:]]}",
+            "launches": m["launches"], "max_abs_err": errs[k],
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m["library_ms"], "shape": m["shape"],
+            "measured_at": "mic phase"})
     # the time-shard kernels: launches on the timeshard phase's decodes,
     # times at the first call of TS_CHECKED at the most segments that ran it
     for k, line in (("timeshard_chain", 189), ("timeshard_gather", 245)):
@@ -2454,7 +2794,9 @@ def main():
     emit({"kernel_launches": launches,
           "kernel_launches_multichannel": mc_launches,
           "kernel_launches_device_slice": ds_paths,
-          "kernel_launches_timeshard": ts_launches})
+          "kernel_launches_timeshard": ts_launches,
+          "kernel_launches_mic": {k: m["launches"]
+                                  for k, m in mic_rows.items()}})
     emit({"kernels": rows})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

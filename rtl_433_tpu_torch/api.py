@@ -31,6 +31,7 @@ from .dsp import baseband
 from .dsp.engine import (DetectorParams, PKG_FSK, detector_init,
                          process_block, take_packages)
 from .io import load_iq, parse_filename
+from .ops._cuda import resolve_device
 from .output.data_model import Event, convert_units
 from .output.logger import LOG_ERROR, LOG_NOTICE, LOG_WARNING, print_logf
 from .pulse import slicers as _slicers
@@ -38,16 +39,6 @@ from .pulse.data import PulseData, rfraw_check, rfraw_parse
 
 DEFAULT_BUF_SAMPLES = 131072   # 256 KiB cu8 (ref include/sdr.h:17)
 FSK_PULSE_DETECTOR_LIMIT = 800_000_000  # ref include/rtl_433.h:18
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device must exist (no silent
-    fallback to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but no CUDA GPU is "
-                           "available (pass device='cpu' to run on the CPU)")
-    return dev
 
 
 def _not_ported(what: str):

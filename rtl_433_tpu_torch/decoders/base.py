@@ -287,7 +287,9 @@ class Registry:
         kernel call per (side, spec family) and its dispatch memo is
         pre-filled, so the per-package _run_fast path does no host slicing.
         The records the plans keep, the declarative candidates' cache keys
-        among them, are read in one gather per family for the whole drain.
+        among them, are read in one gather per family for the whole drain,
+        and the declarative candidates decode in one batch on
+        ``slice_device`` (the decode bank's kernel on the card).
         Returns the number of memos built.
         """
         import numpy as np
@@ -366,7 +368,9 @@ class Registry:
                     bitsb = materialize_bytes(memo["records"][off])
                     memo["mats"][off] = bitsb
                 mats.append((dev.symbol, bitsb))
-            outs = runner.decode_many(mats)
+            # the drain's one batch runs on the slicing device (the JAX
+            # package runs it on NumPy): the CUDA kernel on the card
+            outs = runner.decode_many(mats, device=self.slice_device)
             for (ckey, _memo, _off), ret in zip(decl_items, outs):
                 if ret is FALLBACK:
                     continue  # dispatch falls back to the Python decoder

@@ -292,10 +292,17 @@ class DeclRunner:
         return out, m
 
     def decode_many(self, items: Sequence[Tuple[str, object]],
-                    xp=np) -> List[object]:
+                    device=None) -> List[object]:
         """items: (symbol, BitBuffer) pairs. Returns per item: a list of
         Events, a negative DECODE_* code, or FALLBACK (row too long —
-        caller must run the Python decoder)."""
+        caller must run the Python decoder).
+
+        The candidates are built and the events formatted on the host; the
+        bank (``dbk.run_on``) runs on NumPy when ``device`` is None (the
+        per-train host dispatch's backend, JAX's ``xp=np``), else as torch
+        on ``device`` (the CUDA kernel on a CUDA device, which must exist;
+        its plain version on the CPU; JAX's ``xp=jnp``). Both give the same
+        result."""
         rets: List[object] = [None] * len(items)
         cand_bits: List[np.ndarray] = []
         cand_n: List[int] = []
@@ -329,10 +336,10 @@ class DeclRunner:
                 rets[ix] = DECODE_ABORT_EARLY
         if not cand_bits:
             return rets
-        code, raws = dbk.run(self.bank, np.stack(cand_bits),
-                             np.asarray(cand_n, np.int32),
-                             np.asarray(cand_sid, np.int32), xp=xp,
-                             n_store=np.asarray(cand_ns, np.int32))
+        code, raws = dbk.run_on(device, self.bank, np.stack(cand_bits),
+                                np.asarray(cand_n, np.int32),
+                                np.asarray(cand_sid, np.int32),
+                                n_store=np.asarray(cand_ns, np.int32))
         code = np.asarray(code)
         raws = np.asarray(raws)
         # group candidate rows back to items, in row order

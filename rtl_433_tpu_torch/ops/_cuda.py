@@ -11,7 +11,9 @@ where it launches its kernel and nowhere else. The nine slicer families
 share one launcher (``csrc/slice.cu``) and count one name each
 (``slice_<family>``); ``csrc/dispatch.cu`` holds two launchers
 (``content_dup``, ``gather_records``), and so does ``csrc/timeshard.cu``
-(``timeshard_chain``, ``timeshard_gather``).
+(``timeshard_chain``, ``timeshard_gather``). ``csrc/decl_bank.cu`` is the
+declarative decode bank (``decl_bank``); the twelve MIC digests share one
+launcher (``csrc/mic.cu``) and count one name each (``mic_<digest>``).
 
 :func:`check_lane_t0` and :func:`origin_groups` serve the wrappers whose
 kernels take a per-lane region origin (the front end and the detector).
@@ -36,7 +38,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # library name -> source file in csrc/ (headers in csrc/ are hashed too)
 SOURCES = {"frontend": "frontend.cu", "detector_scan": "detector.cu",
            "compact": "compact.cu", "slice": "slice.cu",
-           "dispatch": "dispatch.cu", "timeshard": "timeshard.cu"}
+           "dispatch": "dispatch.cu", "timeshard": "timeshard.cu",
+           "decl_bank": "decl_bank.cu", "mic": "mic.cu"}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # launcher name -> (its library, its C symbol, its argument types); each
@@ -81,14 +84,27 @@ LAUNCHERS = {
     "timeshard_gather": ("timeshard", "rtl433_timeshard_gather",
                          [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                           _P, _P, _P, _P]),
+    # bits, n_bits, n_store, sid, B, IN, spec, K, S, gf2, add, raw, FB, C,
+    # R, PW, code, raws, stream
+    "decl_bank": ("decl_bank", "rtl433_decl_bank",
+                  [_P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I,
+                   _I, _I, _P, _P, _P]),
+    # algo, is_i32, msg, rows, stride, nbytes, p1, p2, keys, out, stream
+    "mic": ("mic", "rtl433_mic",
+            [_I, _I, _P, _I, _I, _I, _I, _I, _P, _P, _P]),
 }
 
 # the slicer families of csrc/slice.cu, one launch count each
 SLICE_FAMILIES = ("ppm", "pwm", "pcm", "mc", "dmc", "piwm_dc", "nrzs",
                   "rzi", "osv1")
+# the digests of csrc/mic.cu (its enum Algo), one launch count each
+MIC_ALGOS = ("crc8", "crc8le", "crc16", "crc16lsb", "lfsr_digest8",
+             "lfsr_digest8_reverse", "lfsr_digest8_reflect", "lfsr_digest16",
+             "xor_bytes", "add_bytes", "add_nibbles", "parity_bytes")
 KERNELS = ("frontend", "detector_scan", "compact",
            *(f"slice_{f}" for f in SLICE_FAMILIES), "content_dup",
-           "gather_records", "timeshard_chain", "timeshard_gather")
+           "gather_records", "timeshard_chain", "timeshard_gather",
+           "decl_bank", *(f"mic_{a}" for a in MIC_ALGOS))
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _libs: dict = {}   # library name -> the loaded library
@@ -172,6 +188,17 @@ def check(err: int, name: str):
     """Raise on a non-zero ``cudaGetLastError`` from a launcher."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def resolve_device(device):
+    """``device`` as a torch.device; a CUDA device must exist (no silent
+    fallback to the CPU)."""
+    import torch
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but no CUDA GPU is "
+                           "available (pass device='cpu' to run on the CPU)")
+    return dev
 
 
 def stream_of(t) -> int:

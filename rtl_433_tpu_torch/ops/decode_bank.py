@@ -24,11 +24,15 @@ program evaluates any mix of (bitbuffer row, protocol) candidates:
 The tables come from the *host* scalar library (bits/util.py digests of
 unit-bit messages), so kernel semantics are inherited, not re-derived.
 
-One engine over an array namespace: ``run(xp=...)`` selects it. The
-per-train host dispatch runs it on NumPy (a single batched call replaces
-dozens of Python decode calls); a torch backend on the card for
-drain-scale batches is not ported yet. tests/test_torch_fast_dispatch.py
-holds this copy to the JAX package's NumPy backend.
+Two backends, bit-identical. ``run`` is the JAX package's function on
+NumPy, for the per-train host dispatch (a single batched call replaces
+dozens of Python decode calls; tests/test_torch_fast_dispatch.py holds it
+to the JAX package's). ``run_torch`` is the JAX ``xp=jnp`` path, for
+drain-scale batches on a device: on a CUDA tensor it launches
+``csrc/decl_bank.cu`` (one warp per candidate), on a CPU tensor it runs
+its plain version, :func:`run_torch_plain` (tests/test_torch_decode_bank.py
+holds it to JAX's ``run(xp=jnp)``). Both read the bank's tables as tensors
+on their device (:func:`bank_tables`, built once per bank and device).
 
 Stage codes (ref include/r_device.h:45-53): candidates fail with the
 DECODE_* code of the first failing stage so the per-decoder fail counters
@@ -40,8 +44,13 @@ from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
-import numpy as np
+import weakref
 
+import numpy as np
+import torch
+
+from . import _cuda
+from .mic import xor_reduce
 from ..bits import util as bu
 
 DECODE_FAIL_OTHER = 0
@@ -481,3 +490,263 @@ def run(bank: CompiledBank, bits, n_bits, sid, xp=np, n_store=None):
     code = xp.where(ok_len & ok_pre & ok_need & ok_tf & ok_mic,
                     0, code)
     return code, raws
+
+
+# ---- the torch backend (the JAX ``xp=jnp`` path)
+
+# the spec row of csrc/decl_bank.cu: the scalars, then CK_FIELDS per check
+# slot (kind, negated, GF(2) target, modulus, additive target), then the
+# pattern and its care mask as 32-bit words, MSB first
+SP_MIN, SP_MAX, SP_EL, SP_LA_LEN, SP_LA_OFF, SP_PLEN = 0, 1, 2, 6, 8, 10
+SP_PRE_START, SP_ALIGN, SP_NEED, SP_TF, SP_MC_MIN, SP_NRAW = range(11, 17)
+SP_CHECKS = 17
+CK_FIELDS = 5
+
+_TABLES = weakref.WeakKeyDictionary()   # bank -> {device: tables}
+
+
+def _i32(a) -> np.ndarray:
+    """Integers as int32 storage of their low 32 bits."""
+    a = np.asarray(a, np.int64)
+    return ((a + (1 << 31)) % (1 << 32) - (1 << 31)).astype(np.int32)
+
+
+def _u32(t):
+    """int32 storage of uint32 values as int64 values."""
+    return t.to(torch.int64) & 0xFFFFFFFF
+
+
+def spec_rows(bank: CompiledBank) -> np.ndarray:
+    """The bank's per-spec scalars as int32 rows ``[S, K]`` (the layout of
+    SP_* and CK_FIELDS)."""
+    S, C = bank.n_specs, bank.n_checks
+    PW = (bank.pat_len + 31) // 32
+    assert bank.exact_lens.shape[1] == 4 and bank.la_len.shape[1] == 2
+    sp = np.zeros((S, SP_CHECKS + CK_FIELDS * C + 2 * PW), np.int64)
+    sp[:, SP_MIN] = bank.min_bits
+    sp[:, SP_MAX] = bank.max_bits
+    sp[:, SP_EL:SP_EL + 4] = bank.exact_lens
+    sp[:, SP_LA_LEN:SP_LA_LEN + 2] = bank.la_len
+    sp[:, SP_LA_OFF:SP_LA_OFF + 2] = bank.la_off
+    sp[:, SP_PLEN] = bank.plen
+    sp[:, SP_PRE_START] = bank.pre_start
+    sp[:, SP_ALIGN] = bank.align_off
+    sp[:, SP_NEED] = bank.need_bits
+    sp[:, SP_TF] = bank.transform
+    sp[:, SP_MC_MIN] = bank.mc_min
+    # raw rows past the spec's last non-zero one sum to 0: skipped
+    nz = bank.raw_w.any(axis=2)
+    sp[:, SP_NRAW] = np.where(nz.any(axis=1),
+                              nz.shape[1] - np.argmax(nz[:, ::-1], axis=1), 0)
+    for c in range(C):
+        o = SP_CHECKS + CK_FIELDS * c
+        sp[:, o] = bank.ck_kind[:, c]
+        sp[:, o + 1] = bank.ck_neq[:, c]
+        sp[:, o + 2] = bank.ck_tc[:, c]
+        sp[:, o + 3] = _i32(bank.ck_mod[:, c])
+        sp[:, o + 4] = _i32(bank.ck_tca[:, c])
+    o = SP_CHECKS + CK_FIELDS * C
+    j = np.arange(PW * 32)
+    care = np.zeros((S, PW * 32), np.int64)
+    pat = np.zeros((S, PW * 32), np.int64)
+    PL = bank.pat.shape[1] if bank.pat_len else 0
+    care[:, :PL] = (bank.pmask[:, :PL] != 0) & (j[None, :PL]
+                                                < bank.plen[:, None])
+    pat[:, :PL] = bank.pat[:, :PL] & care[:, :PL]
+    weight = 1 << (31 - (j % 32))
+    for k in range(PW):
+        w = slice(32 * k, 32 * k + 32)
+        sp[:, o + k] = (pat[:, w] * weight[w]).sum(1)
+        sp[:, o + PW + k] = (care[:, w] * weight[w]).sum(1)
+    return _i32(sp)
+
+
+def bank_tables(bank: CompiledBank, device) -> dict:
+    """The bank's tables as tensors on ``device``, built once per bank and
+    device: the arrays of :class:`CompiledBank` under their names (uint32
+    ones as int32 storage, ``ck_mod`` and ``ck_tca`` as the int32 the JAX
+    path casts them to) and ``spec``, the kernel's spec rows."""
+    device = torch.device(device)
+    per = _TABLES.setdefault(bank, {})
+    tabs = per.get(device)
+    if tabs is None:
+        arrays = {k: getattr(bank, k) for k in (
+            "min_bits", "max_bits", "exact_lens", "la_len", "la_off", "plen",
+            "pat", "pmask", "pre_start", "align_off", "need_bits",
+            "transform", "mc_min", "ck_kind", "ck_neq", "ck_add")}
+        for k in ("ck_gf2", "ck_tc", "ck_mod", "ck_tca", "raw_w"):
+            arrays[k] = _i32(getattr(bank, k))
+        arrays["spec"] = spec_rows(bank)
+        tabs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in arrays.items()}
+        per[device] = tabs
+    return tabs
+
+
+def _check(bank, bits, n_bits, sid, n_store):
+    if bits.dim() != 2 or bits.dtype != torch.uint8 or bits.shape[1] < 1:
+        raise ValueError("decl_bank: bits must be uint8 [B, IN], IN >= 1")
+    B = bits.shape[0]
+    for name, t in (("n_bits", n_bits), ("sid", sid), ("n_store", n_store)):
+        if t is not None and (t.shape != (B,) or t.dtype != torch.int32
+                              or t.device != bits.device):
+            raise ValueError(f"decl_bank: {name} must be int32 [B] on the "
+                             f"bits' device")
+
+
+def preamble_plain(bank: CompiledBank, tabs: dict, bits, n, sid):
+    """The preamble search of the JAX path: per candidate, whether its
+    spec's masked pattern occurs at an offset ``t >= pre_start`` with
+    ``t + plen <= n``, and the first such ``t`` (0 where none)."""
+    B, IN = bits.shape
+    if not bank.pat_len:
+        zero = torch.zeros(B, dtype=torch.int64, device=bits.device)
+        return zero.bool(), zero
+    PL, T = bank.pat_len, IN
+    plen = tabs["plen"][sid].long()
+    pat, pmask = tabs["pat"][sid], tabs["pmask"][sid]
+    t = torch.arange(T, device=bits.device)[None, :]
+    padded = torch.cat([bits, bits.new_zeros((B, PL))], 1)
+    m = torch.ones((B, T), dtype=torch.bool, device=bits.device)
+    for k in range(PL):
+        bk = padded[:, k:k + T]
+        care = (pmask[:, k:k + 1] != 0) & (k < plen)[:, None]
+        m = m & (~care | (bk == pat[:, k:k + 1]))
+    m = m & (t >= tabs["pre_start"][sid][:, None]) \
+        & (t + plen[:, None] <= n[:, None])
+    return m.any(1), m.to(torch.uint8).argmax(1)
+
+
+def run_torch_plain(bank: CompiledBank, bits, n_bits, sid, n_store=None):
+    """Plain version of the bank on any device: the JAX ``xp=jnp`` path of
+    :func:`run` (every stage, shape-static) in torch. Returns (code int32
+    [B], raws [B, R] uint32 as int32 storage)."""
+    tabs = bank_tables(bank, bits.device)
+    B, IN = bits.shape
+    FB, dev = bank.frame_bits, bits.device
+    n = n_bits.long()
+    ns = n if n_store is None else n_store.long()
+    s = sid.long()
+
+    ok_len = (n >= tabs["min_bits"][s]) & (n <= tabs["max_bits"][s])
+    el = tabs["exact_lens"][s]                               # [B, 4]
+    ok_len = ok_len & (~(el > 0).any(1) | (el == n[:, None]).any(1))
+
+    # preamble: first match wins (ref bitbuffer.c:232-253)
+    found, pos = preamble_plain(bank, tabs, bits, n, s)
+    plen = tabs["plen"][s].long()
+    has_pat = plen > 0
+    ok_pre = ~has_pat | found
+    frame_off = torch.where(has_pat, pos + plen, 0) + tabs["align_off"][s]
+    la_len = tabs["la_len"][s]
+    frame_off = frame_off + torch.where(
+        (la_len > 0) & (la_len == n[:, None]), tabs["la_off"][s], 0).sum(1)
+    ok_need = frame_off + tabs["need_bits"][s] <= n
+
+    # frame extraction: stale stored bits below n_store are read, zero
+    # outside [0, n_store)
+    j = torch.arange(FB, device=dev)[None, :]
+    src = frame_off[:, None] + j                             # [B, FB]
+    inb = (src >= 0) & (src < ns[:, None])
+    fb = torch.gather(bits, 1, src.clamp(0, IN - 1))
+    fb = torch.where(inb, fb, 0)
+
+    # transforms: invert flips only bits below n (ref bitbuffer.c:135-149)
+    tf = tabs["transform"][s]
+    fb = torch.where((tf == TF_INVERT)[:, None] & (src < n[:, None]),
+                     fb ^ 1, fb)
+    ok_tf = torch.ones(B, dtype=torch.bool, device=dev)
+    if int(np.any(bank.transform == TF_MANCHESTER)):
+        H = FB // 2
+        b1 = fb[:, 0:2 * H:2]
+        b2 = fb[:, 1:2 * H:2]
+        # pair exists while its first bit is inside the row
+        avail = src[:, 0:2 * H:2] < n[:, None]
+        stop = (b1 == b2) | ~avail
+        n_out = torch.where(stop.any(1), stop.to(torch.uint8).argmax(1), H)
+        mc = torch.where(torch.arange(H, device=dev)[None, :]
+                         < n_out[:, None], b2, 0)
+        mc = torch.cat([mc, mc.new_zeros((B, FB - H))], 1)
+        is_mc = tf == TF_MANCHESTER
+        fb = torch.where(is_mc[:, None], mc, fb)
+        ok_tf = ~is_mc | (n_out >= tabs["mc_min"][s])
+
+    # checks: one XOR-reduce and one wrapping int32 sum per slot
+    ok_mic = torch.ones(B, dtype=torch.bool, device=dev)
+    fbit = fb != 0
+    for c in range(bank.n_checks):
+        kind = tabs["ck_kind"][s, c]
+        x = torch.where(fbit, _u32(tabs["ck_gf2"][s, c]), 0)
+        gf2_ok = xor_reduce(x) == _u32(tabs["ck_tc"][s, c])
+        w = torch.where(fbit, tabs["ck_add"][s, c].long(), 0).sum(1)
+        w = (w + (1 << 31)) % (1 << 32) - (1 << 31)          # int32 wrap
+        mod = tabs["ck_mod"][s, c].long()
+        add_ok = (w % mod + mod) % mod == tabs["ck_tca"][s, c]
+        ck = torch.where(kind == CK_GF2, gf2_ok, add_ok) ^ tabs["ck_neq"][s, c]
+        ok_mic = ok_mic & ((kind == CK_OFF) | ck)
+
+    # fields: wrapping uint32 dot products
+    if bank.n_raws:
+        fb64 = fb.long()
+        raws = torch.stack([(fb64 * _u32(tabs["raw_w"][s, r])).sum(1)
+                            for r in range(bank.n_raws)], 1)
+        raws = (raws + (1 << 31)) % (1 << 32) - (1 << 31)
+    else:
+        raws = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+
+    stage = ok_len & ok_pre & ok_need & ok_tf
+    code = torch.full((B,), DECODE_ABORT_LENGTH, dtype=torch.int32,
+                      device=dev)
+    code = torch.where(ok_len, DECODE_ABORT_EARLY, code)
+    code = torch.where(stage, DECODE_FAIL_MIC, code)
+    code = torch.where(stage & ok_mic, 0, code)
+    return code, raws.to(torch.int32)
+
+
+def run_torch(bank: CompiledBank, bits, n_bits, sid, n_store=None):
+    """Evaluate a candidate batch against the bank on the tensors' device:
+    :func:`run`'s contract (``bits`` uint8 0/1 ``[B, IN]``, ``n_bits``,
+    ``sid`` with values in ``[0, n_specs)`` and ``n_store`` int32 ``[B]``)
+    as the JAX ``xp=jnp`` path computes it. Returns (code int32 [B], raws
+    [B, R] uint32 as int32 storage) on that device. A CUDA tensor launches
+    ``csrc/decl_bank.cu``, a CPU tensor runs :func:`run_torch_plain`."""
+    _check(bank, bits, n_bits, sid, n_store)
+    if not bits.is_cuda:
+        return run_torch_plain(bank, bits, n_bits, sid, n_store)
+    tabs = bank_tables(bank, bits.device)
+    B, IN = bits.shape
+    bits, n_bits, sid = (t.contiguous() for t in (bits, n_bits, sid))
+    ns = n_bits if n_store is None else n_store.contiguous()
+    R = bank.n_raws
+    code = torch.empty(B, dtype=torch.int32, device=bits.device)
+    raws = (torch.empty if R else torch.zeros)(
+        (B, max(R, 1)), dtype=torch.int32, device=bits.device)
+    if B:
+        spec = tabs["spec"]
+        fn = _cuda.launcher("decl_bank")
+        _cuda.LAUNCHES["decl_bank"] += 1
+        err = fn(bits.data_ptr(), n_bits.data_ptr(), ns.data_ptr(),
+                 sid.data_ptr(), B, IN, spec.data_ptr(), spec.shape[1],
+                 bank.n_specs, tabs["ck_gf2"].data_ptr(),
+                 tabs["ck_add"].data_ptr(), tabs["raw_w"].data_ptr(),
+                 bank.frame_bits, bank.n_checks, R,
+                 (bank.pat_len + 31) // 32, code.data_ptr(),
+                 raws.data_ptr(), _cuda.stream_of(bits))
+        _cuda.check(err, "decl_bank")
+    return code, raws
+
+
+def run_on(device, bank: CompiledBank, bits, n_bits, sid, n_store=None):
+    """:func:`run`'s NumPy arguments and results: :func:`run` on NumPy
+    where ``device`` is None, else :func:`run_torch` on ``device`` (a CUDA
+    device must exist)."""
+    if device is None:
+        return run(bank, bits, n_bits, sid, n_store=n_store)
+    dev = _cuda.resolve_device(device)
+    args = [torch.from_numpy(np.ascontiguousarray(a, t)).to(dev)
+            for a, t in ((bits, np.uint8), (n_bits, np.int32),
+                         (sid, np.int32))]
+    ns = None if n_store is None else torch.from_numpy(
+        np.ascontiguousarray(n_store, np.int32)).to(dev)
+    code, raws = run_torch(bank, *args, n_store=ns)
+    return code.cpu().numpy(), raws.cpu().numpy().view(np.uint32)

@@ -325,7 +325,7 @@ def test_device_slicing_on_the_card_matches_cpu():
     assert not any(cl.values())
     # an FSK capture: the FSK side's families
     for k in ("slice_pcm", "slice_pwm", "slice_mc", "content_dup",
-              "gather_records"):
+              "gather_records", "decl_bank"):
         assert gl[k] > 0, k
 
 
@@ -477,3 +477,128 @@ def test_timeshard_engine_on_the_card_matches_sequential(D, cut):
     assert gpu[1][0] >= 1 and gpu[1][1] >= 1, gpu[1]
     for k in cpu[2]:
         assert torch.equal(gpu[2][k], cpu[2][k]), k
+
+
+# ---- the declarative decode bank (csrc/decl_bank.cu) and the MIC digests
+# (csrc/mic.cu)
+
+@pytest.mark.parametrize("B,stale", [(2048, True), (1024, False), (5, True),
+                                     (1, True)])
+def test_decl_bank_kernel_matches_plain(B, stale):
+    """The fuzz batch of tests/torch_decl_cases.py (every spec and stage),
+    with stale bits below n_store or canonically zero-padded rows, and
+    batches that leave a CTA partly empty."""
+    from rtl_433_tpu_torch.decoders.declarative import get_runner
+    from rtl_433_tpu_torch.ops import decode_bank as dbk
+    from torch_decl_cases import fuzz_batch
+    dev = _gpu()
+    bank = get_runner().bank
+    bits, n, sid, ns = fuzz_batch(3, max(B, 16))
+    bits, n, sid, ns = bits[:B], n[:B], sid[:B], ns[:B]
+    if not stale:
+        bits = (bits * (np.arange(bank.in_bits) < n[:, None])).astype(
+            np.uint8)
+    args = [torch.from_numpy(a).to(dev) for a in (bits, n, sid)]
+    nst = torch.from_numpy(ns).to(dev) if stale else None
+    before = _cuda.LAUNCHES["decl_bank"]
+    got = dbk.run_torch(bank, *args, nst)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["decl_bank"] == before + 1
+    want = dbk.run_torch_plain(bank, *args, nst)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.int32 and torch.equal(g, w)
+
+
+def test_decl_bank_kernel_odd_rows():
+    """Rows of 500 bits (not a multiple of 32) with n and n_store past
+    them: the clamped reads of the JAX path."""
+    from rtl_433_tpu_torch.decoders.declarative import get_runner
+    from rtl_433_tpu_torch.ops import decode_bank as dbk
+    from torch_decl_cases import fuzz_batch
+    dev = _gpu()
+    bank = get_runner().bank
+    bits, n, sid, ns = fuzz_batch(4, 512)
+    rng = np.random.default_rng(4)
+    n = np.where(rng.random(512) < 0.2, rng.integers(500, 560, 512),
+                 np.minimum(n, 500)).astype(np.int32)
+    ns = np.maximum(ns, n).astype(np.int32)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (bits[:, :500], n, sid, ns)]
+    got = dbk.run_torch(bank, *args[:3], args[3])
+    torch.cuda.synchronize()
+    want = dbk.run_torch_plain(bank, *args[:3], args[3])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_decode_many_on_the_card_matches_host():
+    from rtl_433_tpu_torch.bits.bitbuffer import BitBuffer
+    from rtl_433_tpu_torch.decoders.declarative import get_runner
+    from rtl_433_tpu_torch.output.data_model import event_to_json
+    from torch_decl_cases import oracle_items
+    dev = _gpu()
+    items = [(s, BitBuffer.parse(c)) for s, c in oracle_items()]
+    norm = lambda r: [event_to_json(e) for e in r] \
+        if isinstance(r, list) else repr(r)
+    runner = get_runner()
+    before = _cuda.LAUNCHES["decl_bank"]
+    got = [norm(r) for r in runner.decode_many(items, device=dev)]
+    assert _cuda.LAUNCHES["decl_bank"] == before + 1
+    assert got == [norm(r) for r in runner.decode_many(items)]
+    assert sum(isinstance(r, list) and bool(r) for r in got) > 50
+
+
+# (digest, nbytes, parameters): the cases of tests/test_mic_kernels.py
+MIC_CASES = ([("crc8", 4, 0x31, 0x00), ("crc8", 8, 0x31, 0xFF),
+              ("crc8le", 7, 0x31, 0x00), ("crc8le", 5, 0x9C, 0x3D),
+              ("crc16", 10, 0x8005, 0xFFFF), ("crc16", 6, 0x1021, 0x0000),
+              ("crc16lsb", 9, 0x1021, 0xFFFF), ("crc16lsb", 4, 0x8810, 0),
+              ("lfsr_digest8", 5, 0x98, 0xF1),
+              ("lfsr_digest8_reverse", 7, 0x83, 0x7A),
+              ("lfsr_digest8_reflect", 9, 0x31, 0xF4),
+              ("lfsr_digest16", 11, 0x8810, 0x0ACC)]
+             + [(f, n) for f in ("xor_bytes", "add_bytes", "add_nibbles",
+                                 "parity_bytes") for n in (0, 7, 13)])
+
+
+@pytest.mark.parametrize("case", MIC_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_mic_kernel_matches_plain_and_host(case):
+    from rtl_433_tpu_torch.bits import util
+    from rtl_433_tpu_torch.ops import mic
+    dev = _gpu()
+    name, nbytes, *params = case
+    fn, plain = mic.DIGESTS[name]
+    rng = np.random.default_rng(nbytes)
+    msgs = rng.integers(0, 256, (3, 257, 15), dtype=np.uint8)
+    high = msgs.astype(np.int32) + (rng.integers(-9, 9, msgs.shape)
+                                    << 8).astype(np.int32)
+    host = np.array([getattr(util, name)(bytes(m), nbytes, *params)
+                     for m in msgs.reshape(-1, 15)]).reshape(3, 257)
+    for m in (msgs, high):
+        t = torch.from_numpy(m).to(dev)
+        before = _cuda.LAUNCHES[f"mic_{name}"]
+        got = fn(t, nbytes, *params)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES[f"mic_{name}"] == before + 1
+        assert got.dtype == torch.int32 and got.shape == (3, 257)
+        assert torch.equal(got, plain(t, nbytes, *params))
+        assert np.array_equal(got.cpu().numpy(), host)
+    # array-like input goes to the card; shapes [] and [0]
+    assert fn(msgs[0, 0], nbytes, *params).device.type == "cuda"
+    assert int(fn(msgs[0, 0], nbytes, *params)) == host[0, 0]
+    assert fn(msgs[:0, 0], nbytes, *params).shape == (0,)
+
+
+def test_mic_tensor_is_not_moved():
+    from rtl_433_tpu_torch.ops import mic
+    dev = _gpu()
+    msgs = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (64, 9), dtype=np.uint8))
+    on_card = msgs.to(dev)
+    assert torch.equal(mic.crc16(on_card, 9, 0x1021, 0, device="cuda"),
+                       mic.crc16(on_card, 9, 0x1021, 0))
+    with pytest.raises(ValueError, match="not moved"):
+        mic.crc16(msgs, 9, 0x1021, 0, device="cuda")
+    with pytest.raises(ValueError, match="not moved"):
+        mic.crc16(on_card, 9, 0x1021, 0, device="cpu")

@@ -9,8 +9,10 @@ a decode function exists), and ``register_all`` activates the same
 defaults.
 
 The fast dispatch is held to its twin the same way: the modules of the
-slicer binding, the gates, the declarative bank and its specs (one
-declared difference: how the slicer library is built), the Registry
+slicer binding, the gates, the declarative bank and its specs (declared
+differences: how the slicer library is built, the decode bank's torch
+backend, and ``DeclRunner.decode_many``'s ``device`` where JAX has
+``xp``, the rest of that method held to its twin), the Registry
 members it runs (``_run``, ``_get_device_bank`` and ``prewarm_trains``
 aside), and
 ``csrc/slicers.cpp``, byte for byte
@@ -105,14 +107,29 @@ DISPATCH_MODULES = ["pulse/native_slicers.py", "decoders/gates.py",
                     "decoders/mic_gates.py", "ops/decode_bank.py",
                     "decoders/declarative.py", "decoders/decl_specs.py"]
 
-# deliberate differences, as top-level names left out of the comparison:
-# the port builds its slicer library from its own csrc/slicers.cpp
-# (ops/_native.py) and raises when that fails, where the JAX package runs
-# make in native/ and reports a failure as "unavailable"
+# deliberate differences, as names left out of the comparison (top-level,
+# or ``Class.method``): the port builds its slicer library from its own
+# csrc/slicers.cpp (ops/_native.py) and raises when that fails, where the
+# JAX package runs make in native/ and reports a failure as "unavailable";
+# the decode bank's torch backend (``run_torch``: the CUDA kernel and its
+# plain version, the JAX ``xp=jnp`` path, tests/test_torch_decode_bank.py)
+# is the port's own, and ``DeclRunner.decode_many`` selects it with
+# ``device=`` where JAX takes ``xp=`` (test_decode_many_differs_only_in_
+# its_backend holds the rest of the method to its twin)
 DISPATCH_DIFFERENCES = {
     "pulse/native_slicers.py": {"_load", "_NATIVE_DIR", "_ASAN", "_SO_NAME",
                                 "_SO"},
+    "ops/decode_bank.py": {
+        *(f"SP_{k}" for k in ("MIN", "MAX", "EL", "LA_LEN", "LA_OFF", "PLEN",
+                              "PRE_START", "ALIGN", "NEED", "TF", "MC_MIN",
+                              "NRAW", "CHECKS")),
+        "CK_FIELDS", "_TABLES", "_i32", "_u32", "spec_rows", "bank_tables",
+        "_check", "preamble_plain", "run_torch_plain", "run_torch",
+        "run_on"},
+    "decoders/declarative.py": {"DeclRunner.decode_many"},
 }
+# imports beyond numpy, ctypes and threading: the torch backend's
+DISPATCH_IMPORTS = {"ops/decode_bank.py": {"torch", "weakref"}}
 
 # Registry members copied from the JAX package as they are; ``_run`` (no
 # ``except RuntimeError`` that would turn a failed build into the host
@@ -126,14 +143,21 @@ REGISTRY_COPIED = ["_verbose_decoding", "_use_native", "_get_bank",
 
 
 def _drop_names(tree, names):
-    def named(node):
+    def named(node, names):
         if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
             return node.name in names
         if isinstance(node, ast.Assign):
-            return all(isinstance(t, ast.Name) and t.id in names
-                       for t in node.targets)
+            return all(isinstance(t, (ast.Name, ast.Tuple)) and all(
+                isinstance(e, ast.Name) and e.id in names
+                for e in (t.elts if isinstance(t, ast.Tuple) else [t]))
+                for t in node.targets)
         return False
-    tree.body = [n for n in tree.body if not named(n)]
+    tree.body = [n for n in tree.body if not named(n, names)]
+    for cls in tree.body:
+        if isinstance(cls, ast.ClassDef):
+            members = {k.split(".", 1)[1] for k in names
+                       if k.startswith(cls.name + ".")}
+            cls.body = [n for n in cls.body if not named(n, members)]
     return tree
 
 
@@ -157,7 +181,41 @@ def test_dispatch_module_imports_stay_inside_the_port(rel):
                 node.module
         elif isinstance(node, ast.Import):
             for a in node.names:
-                assert a.name in ("numpy", "ctypes", "threading"), a.name
+                assert a.name in ("numpy", "ctypes", "threading",
+                                  *DISPATCH_IMPORTS.get(rel, ())), a.name
+
+
+def _decode_many(pkg):
+    with open(os.path.join(REPO, pkg, "decoders", "declarative.py")) as f:
+        tree = ast.parse(f.read())
+    cls = next(n for n in tree.body
+               if isinstance(n, ast.ClassDef) and n.name == "DeclRunner")
+    return next(n for n in cls.body
+                if isinstance(n, ast.FunctionDef) and n.name == "decode_many")
+
+
+def test_decode_many_differs_only_in_its_backend():
+    """``DeclRunner.decode_many`` is its JAX twin but for the backend: the
+    parameter ``device`` (JAX: ``xp``) and the bank call, where JAX calls
+    ``dbk.run(..., xp=xp)`` and the port ``dbk.run_on(device, ...)``."""
+    def bank_call(node):
+        calls = [n for n in ast.walk(node) if isinstance(n, ast.Call)
+                 and isinstance(n.func, ast.Attribute)
+                 and isinstance(n.func.value, ast.Name)
+                 and n.func.value.id == "dbk"]
+        return bool(calls)
+
+    dumps = []
+    for pkg in ("rtl_433_tpu", "rtl_433_tpu_torch"):
+        fn = _decode_many(pkg)
+        assert [a.arg for a in fn.args.args][:2] == ["self", "items"]
+        fn.args.args = fn.args.args[:2]
+        fn.args.defaults = []
+        fn.body = [n for n in fn.body if not bank_call(n)]
+        dumps.append(_strip(ast.Module(body=[fn], type_ignores=[])))
+    assert [a.arg for a in _decode_many("rtl_433_tpu_torch").args.args] \
+        == ["self", "items", "device"]
+    assert dumps[0] == dumps[1]
 
 
 def test_slicer_source_is_a_byte_copy():
