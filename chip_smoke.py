@@ -156,12 +156,18 @@ Phases, each printing one JSON line (any failure exits non-zero):
               gather_records) with their launches on the device-slicing
               paths and their times summed over every one of one
               dense_4096 drain's calls (NRZS, which no default spec runs,
-              at its fuzz call); the time-shard chain and gather with
-              their launches on the timeshard phase and their times at
-              its first lacrosse_tx35 call at the most segments that made
-              one (a block that fails verification stops after the chain,
-              so the gather runs only on verified blocks), the gather
-              beside index_select and torch.where; the declarative bank
+              at its fuzz call), and per path (fixtures, mixed_250k,
+              mixed_1024k, the dense_4096 drain) their device ms summed
+              over every recorded call of that path (ms_by_path beside
+              calls_by_path and launches_by_path); the time-shard chain
+              and gather with their launches on the timeshard phase and
+              their times at its first lacrosse_tx35 call at the most
+              segments that made one (a block that fails verification
+              stops after the chain, so the gather runs only on verified
+              blocks), the chain also at each D with its launches by D,
+              beside the device time of a one-element fill queued the
+              same way (launch_floor_ms), the gather beside index_select
+              and torch.where; the declarative bank
               with its launches on the device-slicing paths, timed at the
               dense_4096 drain's batch and at the fuzz batch; each MIC
               digest with its launches and times at the mic phase.
@@ -687,17 +693,57 @@ def ds_cost(kind, args):
     return 2 * P * (R * W + 4 * R) + 12 * P, 0, [P, R, W]
 
 
+def ds_timed(kind, args):
+    """A recorded call as it is timed: (kernel name, the kernel call, the
+    library call or None). The gather is timed at its launcher alone (the
+    wrapper's index upload and the copy of the result to the host would
+    end each call with a sync); the library call is index_select of the
+    kept records' bytes and syncs."""
+    import torch
+    from rtl_433_tpu_torch.ops import _cuda
+    name, kern, _plain, _outs, _names = ds_fns(kind, args)
+    if kind != "gather_records":
+        return name, kern, None
+    by, sy, bs, js, es = args
+    B, J, E, R, W = by.shape
+    P = len(bs)
+    ix = torch.from_numpy(np.stack([bs, js, es]).astype(np.int32))\
+        .to(by.device)
+    ob = torch.empty((P, R, W), dtype=torch.uint8, device=by.device)
+    osy = torch.empty((P, R), dtype=torch.int32, device=by.device)
+    a = (by.data_ptr(), sy.data_ptr(), ix[0].data_ptr(),
+         ix[1].data_ptr(), ix[2].data_ptr(), P, J, E, R, W,
+         ob.data_ptr(), osy.data_ptr(), _cuda.stream_of(by))
+    # the default arguments keep the buffers the launch writes
+    kern = (lambda fn=_cuda.launcher("gather_records"), a=a,
+            keep=(ix, ob, osy): fn(*a))
+    flat = ((ix[0].long() * J + ix[1].long()) * E + ix[2].long())
+    fb, fs = by.reshape(B * J * E, R * W), sy.reshape(B * J * E, R)
+    return name, kern, lambda: (fb.index_select(0, flat),
+                                fs.index_select(0, flat))
+
+
+def ds_path_ms(calls):
+    """Device ms of each kernel summed over every one of ``calls`` (one
+    path's recorded calls, cuda_ms_all), with the number of calls."""
+    fns = {}
+    for kind, args in calls:
+        name, kern, _lib = ds_timed(kind, args)
+        fns.setdefault(name, []).append(kern)
+    return {k: {"ms": cuda_ms_all(v), "calls": len(v)}
+            for k, v in sorted(fns.items())}
+
+
 def ds_measure(calls):
     """Per kernel, summed over every one of ``calls`` (one drain's): device
     ms (cuda_ms_all), the plain version's ms (all calls back to back, one
     sync at the end), the bound (bytes and operations of every call) and,
     for the gather, the library's ms (index_select of the kept records'
     bytes and syncs, every call)."""
-    import torch
-    from rtl_433_tpu_torch.ops import _cuda
     rows = {}
     for kind, args in calls:
-        name, kern, plain, _outs, _names = ds_fns(kind, args)
+        name, kern, lib = ds_timed(kind, args)
+        plain = ds_fns(kind, args)[2]
         r = rows.setdefault(name, {"calls": 0, "bytes": 0, "ops": 0,
                                    "shapes": [], "kern": [], "plain": [],
                                    "library": []})
@@ -707,28 +753,10 @@ def ds_measure(calls):
         r["ops"] += ops
         if len(r["shapes"]) < 16:
             r["shapes"].append(shape)
-        if kind == "gather_records":
-            # the launcher alone: the wrapper's index upload and the copy of
-            # the result to the host would end each call with a sync
-            by, sy, bs, js, es = args
-            B, J, E, R, W = by.shape
-            P = len(bs)
-            ix = torch.from_numpy(np.stack([bs, js, es]).astype(np.int32))\
-                .to(by.device)
-            ob = torch.empty((P, R, W), dtype=torch.uint8, device=by.device)
-            osy = torch.empty((P, R), dtype=torch.int32, device=by.device)
-            a = (by.data_ptr(), sy.data_ptr(), ix[0].data_ptr(),
-                 ix[1].data_ptr(), ix[2].data_ptr(), P, J, E, R, W,
-                 ob.data_ptr(), osy.data_ptr(), _cuda.stream_of(by))
-            # the default arguments keep the buffers the launch writes
-            kern = (lambda fn=_cuda.launcher("gather_records"), a=a,
-                    keep=(ix, ob, osy): fn(*a))
-            flat = ((ix[0].long() * J + ix[1].long()) * E + ix[2].long())
-            fb, fs = by.reshape(B * J * E, R * W), sy.reshape(B * J * E, R)
-            r["library"].append(lambda fb=fb, fs=fs, flat=flat: (
-                fb.index_select(0, flat), fs.index_select(0, flat)))
         r["kern"].append(kern)
         r["plain"].append(plain)
+        if lib is not None:
+            r["library"].append(lib)
     for r in rows.values():
         kern, plain, lib = r.pop("kern"), r.pop("plain"), r.pop("library")
         r["ms"] = cuda_ms_all(kern)
@@ -1581,7 +1609,9 @@ def ts_measure(picks):
     """The chain's and the gather's device time (queued behind a spinning
     card), plain time and bound at one recorded call of each (``picks``:
     segments -> kernel -> (args, kw); each kernel's call at the most
-    segments that recorded one), and for the gather the library's time:
+    segments that recorded one; the chain also at every D, beside the
+    device time of a one-element fill, the floor of any launch timed this
+    way), and for the gather the library's time:
     index_select of the selected lanes' rows and torch.where for the
     rebase. The bound counts the bytes the function needs: the selected
     candidates' registers or logs read once (a third of the candidate
@@ -1596,19 +1626,31 @@ def ts_measure(picks):
         if k not in pick:
             fail(f"timeshard: no recorded {k} call to time")
     out = {}
-    args, kw = pick["timeshard_chain"]
-    start, fin, rowinfo = args
-    D = kw["D"]
-    C = start.shape[1] // D
-    nbytes = 4 * (start.numel() + fin.numel() // 3 + rowinfo.numel()
-                  + 2 * D * C + start.shape[0] * C + D)
-    out["timeshard_chain"] = {
-        "ms": cuda_ms(lambda: ots.timeshard_chain_cuda(*args, **kw), reps=20,
-                      busy_first=True),
-        "plain_ms": host_ms(lambda: ots.timeshard_chain_plain(*args, **kw)),
-        "library_ms": None, "bound_ms": nbytes / HBM_BPS * 1e3,
-        "bytes": nbytes, "shape": {"start": list(start.shape),
-                                   "fin": list(fin.shape), "D": D}}
+
+    def chain_numbers(args, kw):
+        start, fin, rowinfo = args
+        D = kw["D"]
+        C = start.shape[1] // D
+        nbytes = 4 * (start.numel() + fin.numel() // 3 + rowinfo.numel()
+                      + 2 * D * C + start.shape[0] * C + D)
+        return {
+            "ms": cuda_ms(lambda: ots.timeshard_chain_cuda(*args, **kw),
+                          reps=20, busy_first=True),
+            "plain_ms": host_ms(
+                lambda: ots.timeshard_chain_plain(*args, **kw)),
+            "library_ms": None, "bound_ms": nbytes / HBM_BPS * 1e3,
+            "bytes": nbytes, "shape": {"start": list(start.shape),
+                                       "fin": list(fin.shape), "D": D}}
+    # at the most segments (the parent's figure), then at every D
+    out["timeshard_chain"] = chain_numbers(*pick["timeshard_chain"])
+    out["timeshard_chain"]["by_D"] = {
+        D: chain_numbers(*picks[D]["timeshard_chain"])
+        for D in sorted(picks) if "timeshard_chain" in picks[D]}
+    # the floor of any launch: a one-element fill, queued the same way
+    one = torch.zeros(1, dtype=torch.int32,
+                      device=pick["timeshard_chain"][0][0].device)
+    out["timeshard_chain"]["launch_floor_ms"] = cuda_ms(
+        lambda: one.fill_(1), reps=20, busy_first=True)
     args, kw = pick["timeshard_gather"]
     key3, p3, g3, eop3, sel, delta = args
     R = kw["R"]
@@ -1745,6 +1787,7 @@ def timeshard_phase(dev, compare, fx, rate_of):
 
     rows = []
     launches = {k: 0 for k in TS_KERNELS}
+    chain_by_D = {D: 0 for D in TS_SEGMENTS}
     picks = {}
     for name, nums, samples, rate in timeshard_streams(fx, rate_of):
         reg = registry(nums)
@@ -1794,6 +1837,7 @@ def timeshard_phase(dev, compare, fx, rate_of):
                     fail(f"kernel {k} was not launched on timeshard {name} "
                          f"D={D}")
                 launches[k] += seg_launches[k]
+            chain_by_D[D] += seg_launches["timeshard_chain"]
             if got != want:
                 fail(f"timeshard {name} D={D}: {len(got)} events, the "
                      f"sequential engine {len(want)}")
@@ -1831,7 +1875,9 @@ def timeshard_phase(dev, compare, fx, rate_of):
     for k in TS_KERNELS:
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the timeshard phase")
-    return rows, launches, ts_measure(picks)
+    numbers = ts_measure(picks)
+    numbers["timeshard_chain"]["launches_by_D"] = chain_by_D
+    return rows, launches, numbers
 
 
 def _mh_worker(rank, files, port, out, device):
@@ -2387,6 +2433,10 @@ def main():
     # sliced by the kernels, the same committed events; then every kernel
     # call those decodes made against its plain version, on its inputs
     ds_paths = {}
+    # per path, each device-slicing kernel's device ms summed over every
+    # recorded call (the fixtures', each mixed stream's one decode, the
+    # dense_4096 drain's)
+    ds_ms_by_path = {}
     decl_paths = {}
     fx_calls, fx_dcalls = [], []
     _cuda.reset_launches()
@@ -2415,6 +2465,8 @@ def main():
         fail(f"the fixtures' checked kernel calls {fx_checked} are fewer "
              f"than their launches {ds_paths['fixtures']}")
     check_s = time.perf_counter() - t
+    ds_ms_by_path["fixtures"] = ds_path_ms(
+        [c for _d, calls in fx_calls for c in calls])
     decl_paths["fixtures"] = decl_measure(
         fx_dcalls, [c for _d, calls in fx_calls for c in calls
                     if c[0] == "decl_bank"])
@@ -2587,6 +2639,7 @@ def main():
             fail(f"{name}: the checked kernel calls {checked} are fewer "
                  f"than the decode's launches {recorded}")
         check_s = time.perf_counter() - t
+        ds_ms_by_path[name] = ds_path_ms(calls)
         decl_paths[name] = decl_measure(
             dcalls, [c for c in calls if c[0] == "decl_bank"])
         emit({"phase": "slice_inputs", "stream": name,
@@ -2665,6 +2718,9 @@ def main():
         (row, mc_launches, kinds["compact"], ds_paths["dense_4096"],
          ds_numbers, decl_paths["dense_4096"], warm_blocks) = multichannel(
              dev, mesh, compare, default_ds_kernels, mh_dir)
+        ds_ms_by_path["dense_4096"] = {
+            k: {"ms": v["ms"], "calls": v["calls"]}
+            for k, v in ds_numbers.items()}
         emit(row)
 
         # ---- 6c. timeshard: one channel's blocks split over time, on the
@@ -2756,6 +2812,10 @@ def main():
             "name": k, "route": "cuda", "source": src, "replaces": rep,
             "launches": sum(p[k] for p in ds_paths.values()),
             "launches_by_path": {p: v[k] for p, v in ds_paths.items()},
+            "ms_by_path": {p: v[k]["ms"] for p, v in ds_ms_by_path.items()
+                           if k in v},
+            "calls_by_path": {p: v[k]["calls"]
+                              for p, v in ds_ms_by_path.items() if k in v},
             "max_abs_err": errs[k], "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"], "calls": m["calls"],
@@ -2791,6 +2851,12 @@ def main():
             "library_ms": m["library_ms"], "bytes": m["bytes"],
             "shape": m["shape"],
             "measured_at": f"{TS_CHECKED}, D={m['shape']['D']}"})
+        if k == "timeshard_chain":
+            rows[-1].update(
+                launches_by_D=m["launches_by_D"],
+                launch_floor_ms=m["launch_floor_ms"],
+                **{f"{x}_by_D": {D: v[x] for D, v in m["by_D"].items()}
+                   for x in ("ms", "plain_ms", "bound_ms")})
     emit({"kernel_launches": launches,
           "kernel_launches_multichannel": mc_launches,
           "kernel_launches_device_slice": ds_paths,

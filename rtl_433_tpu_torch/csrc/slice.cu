@@ -12,21 +12,35 @@
 //   syncs        int32 [B, S, E, R]
 //   num_rows     int32 [B, S, E]
 //   n_events     int32 [B, S], ovf uint8 [B, S]
-// All outputs arrive zeroed. A write outside the caps (event >= E,
-// row >= R, bit >= 8 * BY) is dropped, as the JAX scatters drop it.
+// The kernel writes every element of them once (the wrapper allocates
+// them uninitialized). A write outside the caps (event >= E, row >= R,
+// bit >= 8 * BY) is dropped, as the JAX scatters drop it.
 //
-// Design. A CTA covers one train (blockIdx.y) and up to blockDim.x specs
-// of one family (blockIdx.x); it stages the train's n_pulses[b] pulse and
-// gap values into shared memory once, and every thread then walks only
-// that many steps (2 * n_pulses[b] symbols for DMC and PIWM-DC), reading
-// the same shared word as all its neighbours (a broadcast). The spec's
-// bounds sit in registers. A thread owns its lane's outputs and adds each
-// bit straight into its own [E, R, BY] bytes, so nothing is scattered or
-// reduced: single bits are added (the JAX scatter-add, equal to an or for
-// distinct bits), runs of ones are or-ed (the JAX cumulative sum of +1/-1
-// deltas). One template takes a per-family step function (nine
-// instantiations); the bit writer, the row and event cursors and the
-// overflow flag are shared (struct Lane).
+// Design. A CTA covers one train (blockIdx.y) and `lanes` specs of one
+// family (blockIdx.x; 64, or 32 where S <= 32 or 64 would not fit); it
+// stages the train's n_pulses[b] pulse and gap values into shared memory
+// once, and every thread then walks only that many steps (2 * n_pulses[b]
+// symbols for DMC and PIWM-DC), reading the same shared word as all its
+// neighbours (a broadcast). The spec's bounds sit in registers. One
+// template takes a per-family step function (nine instantiations); the
+// writer is shared (struct Lane, warp_put). Every family writes only its
+// current event, whose index only grows, so a lane stages its events in
+// shared memory: single bits are byte adds (the JAX scatter-add, equal to
+// an or for distinct bits), runs of ones 32-bit word ors (the JAX
+// cumulative sum of +1/-1 deltas), PCM's erases word stores. The warp
+// writes a lane's events to device memory together, consecutive threads
+// on consecutive 16-byte chunks of that lane's contiguous range (bytes
+// where the caps do not allow 16), and writes zeros for the events the
+// lane never reached; so the planes are written once, coalesced, and
+// nothing is read back from device memory. Two staging modes, chosen by
+// ops/slice.py launch_plan:
+//   every event staged (kAll), where the grid then fits on the card at
+//     once: nothing leaves before the lane ends, so the walk never stops
+//     for a write-out (such a call is bound by its slowest lane);
+//   one event staged otherwise (784 bytes at PCM's caps 16 x 40, four
+//     blocks of 64 lanes per SM): at the top of each step, where the lanes
+//     of a block meet (they walk the same train), the warp writes out the
+//     lanes whose family moved past their staged event (warp_moved).
 //
 // Float32 in PCM: the JAX scan and the plain version round each product
 // and sum separately, so every float operation here is an explicit
@@ -34,12 +48,16 @@
 // __int2float_rn), which nvcc never contracts into an FMA; jnp.round is
 // round-half-even (rintf). Built without --use_fast_math.
 //
-// Bound: integer work over B * S * n steps (a few tens of int32 ops per
-// step) against the bytes of the output planes, of which the kernel writes
-// only the bits it emits (the planes are zeroed by the wrapper). At a
-// drain of the 4096-channel workload the planes are tens of MB and the
-// steps a few hundred per lane, so the bytes bound it; this first version
-// is one simple thread per lane, with byte-wide read-modify-writes.
+// Bound: the bytes of the output planes (each written once) against
+// integer work over B * S * n steps (a few tens of int32 ops per step).
+// At a drain of the 4096-channel workload the planes are tens of MB, so
+// the bytes bound it on paper; on the card a call of up to a few
+// thousand lanes is one wave, bound by the latency of its slowest lane's
+// serial walk (one thread, about a microsecond a pulse at PCM), and the
+// large call by that walk plus the planes' write-out. The design takes
+// the write-out off the walk (coalesced, by the warp, never per bit) and,
+// where it fits, out of the walk altogether; it does not shorten the walk
+// itself.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,51 +67,228 @@ namespace {
 
 constexpr int NCOLS = 12;     // ops/slice.py NCOLS
 
+__host__ __device__ __forceinline__ int round16(int v) {
+  return (v + 15) & ~15;
+}
+
+// The output planes and caps of a launch, and the layout of a lane's
+// stage: ES staged events (E with every event staged, else 1), each as
+// rows [R, BYP] (BY rounded up to 4 bytes), then bits_per_row [ES, R],
+// syncs [ES, R] and num_rows [ES], each part rounded up to 16 bytes
+// (ops/slice.py stage_bytes).
+struct Planes {
+  uint8_t* bytes;   // [B, S, E, R, BY]
+  int* bpr;         // [B, S, E, R]
+  int* syncs;       // [B, S, E, R]
+  int* nrows;       // [B, S, E]
+  int E, R, BY, ES;
+  int BYP;          // bytes of a staged row
+  int ob, os, on;   // stage offsets: bits_per_row, syncs, num_rows
+  bool v16;         // rows in 16-byte stores: BY % 4 == 0, R * BY % 16 == 0
+  bool r4;          // counts in 16-byte stores: R % 4 == 0
+  __device__ Planes(uint8_t* b, int* p, int* s, int* n, int E_, int R_,
+                    int BY_, int ES_)
+      : bytes(b), bpr(p), syncs(s), nrows(n), E(E_), R(R_), BY(BY_),
+        ES(ES_), BYP((BY_ + 3) & ~3),
+        ob(round16(ES_ * R_ * ((BY_ + 3) & ~3))),
+        os(round16(ES_ * R_ * ((BY_ + 3) & ~3)) + 4 * ES_ * R_),
+        on(round16(ES_ * R_ * ((BY_ + 3) & ~3)) + round16(8 * ES_ * R_)),
+        v16(BY_ % 4 == 0 && (R_ * BY_) % 16 == 0), r4(R_ % 4 == 0) {}
+  __device__ int stage_words() const { return (on + round16(4 * ES)) / 4; }
+};
+
+// One lane's stage in shared memory. Every family writes only its
+// current event, whose index only grows. With every event staged (kAll),
+// event e is stage slot e and nothing leaves before the lane ends. With
+// one, the slot holds event sev; once the family has moved past it, the
+// warp writes it out at the top of the next step (warp_moved) and the
+// slot takes the next event. The one write past it inside a step, MC's
+// leading 0 of the next event at a flush, is kept in next0 until then.
+// Writes outside the caps are dropped.
+template <bool kAll>
 struct Lane {
-  uint8_t* bytes;   // [E, R, BY] of this lane
-  int* bpr;         // [E, R]
-  int* syncs;       // [E, R]
-  int* nrows;       // [E]
-  int E, R, BY;
+  const Planes& pl;
+  uint8_t* st;      // the stage
+  int E, R, BY, BYP;
+  int sev = 0;      // one event staged: that event (E: none left)
+  int next0 = 0;    // one event staged: bits counted on row 0 of sev + 1
+
+  __device__ Lane(const Planes& p, uint8_t* stage)
+      : pl(p), st(stage), E(p.E), R(p.R), BY(p.BY), BYP(p.BYP) {
+    uint4* s4 = reinterpret_cast<uint4*>(stage);
+    for (int i = 0; i < p.stage_words() / 4; ++i)
+      s4[i] = make_uint4(0, 0, 0, 0);
+  }
+  __device__ int slot(int ev) const { return kAll ? ev : 0; }
+  __device__ uint8_t* row(int ev, int r) const {
+    return st + (slot(ev) * R + r) * BYP;
+  }
+  __device__ int& nbits(int ev, int r) const {
+    return reinterpret_cast<int*>(st + pl.ob)[slot(ev) * R + r];
+  }
+  __device__ int& nsync(int ev, int r) const {
+    return reinterpret_cast<int*>(st + pl.os)[slot(ev) * R + r];
+  }
+  __device__ int& nrow(int ev) const {
+    return reinterpret_cast<int*>(st + pl.on)[slot(ev)];
+  }
 
   __device__ bool in(int ev, int row) const {
     return ev >= 0 && ev < E && row >= 0 && row < R;
   }
+  // one event staged: the slot now holds event ev (< E), row 0 taking
+  // next0
+  __device__ void moved_to(int ev) {
+    sev = ev;
+    if (ev < E) nbits(ev, 0) += next0;
+    next0 = 0;
+  }
+  // ev's slot can take a write; false where ev lies outside the caps. A
+  // write past the one staged event inside a step breaks the contract
+  // above (the lane's stage would be lost): the launch fails.
+  __device__ bool at(int ev) {
+    if (kAll) return ev >= 0 && ev < E;
+    if (ev < sev || ev >= E) return false;
+    if (ev != sev) __trap();
+    return true;
+  }
+
   // one emitted bit: counted on its row, its value added to its byte
-  __device__ void bit(int ev, int row, int bir, int val) {
-    if (!in(ev, row)) return;
-    bpr[ev * R + row] += 1;
+  __device__ void bit(int ev, int r, int bir, int val) {
+    if (!in(ev, r) || !at(ev)) return;
+    nbits(ev, r) += 1;
     if (val && bir >= 0 && bir < 8 * BY)
-      bytes[(ev * R + row) * BY + (bir >> 3)] +=
-          (uint8_t)(0x80u >> (bir & 7));
+      row(ev, r)[bir >> 3] += (uint8_t)(0x80u >> (bir & 7));
   }
-  __device__ void count(int ev, int row, int n) {
-    if (in(ev, row)) bpr[ev * R + row] += n;
+  __device__ void count(int ev, int r, int n) {
+    if (!in(ev, r)) return;
+    if (!kAll && ev == sev + 1 && r == 0) next0 += n;
+    else if (at(ev)) nbits(ev, r) += n;
   }
-  __device__ void sync(int ev, int row) {
-    if (in(ev, row)) syncs[ev * R + row] += 1;
+  __device__ void sync(int ev, int r) {
+    if (in(ev, r) && at(ev)) nsync(ev, r) += 1;
   }
   __device__ void rows(int ev, int n) {
-    if (ev >= 0 && ev < E) nrows[ev] += n;
+    if (at(ev)) nrow(ev) += n;
   }
-  // bits [start, start + len) of a row set to one, clipped at 8 * BY
-  __device__ void run(int ev, int row, int start, int len) {
-    if (len <= 0 || !in(ev, row)) return;
-    int end = min(start + len, 8 * BY);
-    uint8_t* r = bytes + (ev * R + row) * BY;
-    for (int k = max(start, 0); k < end; ++k)
-      r[k >> 3] |= (uint8_t)(0x80u >> (k & 7));
+  // bits [start, start + len) of a row set to one, clipped at 8 * BY: a
+  // row is BYP / 4 words whose bytes hold the row's bits MSB first, so a
+  // word takes the big-endian mask of its 32 bits, byte-swapped
+  __device__ void run(int ev, int r, int start, int len) {
+    if (len <= 0 || !in(ev, r) || !at(ev)) return;
+    const int a = max(start, 0), b = min(start + len, 8 * BY);
+    uint32_t* w = reinterpret_cast<uint32_t*>(row(ev, r));
+    for (int k = a >> 5; a < b && k <= (b - 1) >> 5; ++k) {
+      const int lo = max(a - 32 * k, 0), hi = min(b - 32 * k, 32);
+      const uint32_t m = (0xffffffffu >> lo) &
+                         (hi >= 32 ? 0xffffffffu : ~(0xffffffffu >> hi));
+      w[k] |= __byte_perm(m, 0, 0x0123);
+    }
   }
   // rows [0, last] of an event back to zero (bytes and bit counts)
   __device__ void erase(int ev, int last) {
-    if (ev < 0 || ev >= E) return;
-    for (int row = 0; row <= min(last, R - 1); ++row) {
-      bpr[ev * R + row] = 0;
-      uint8_t* r = bytes + (ev * R + row) * BY;
-      for (int k = 0; k < BY; ++k) r[k] = 0;
-    }
+    if (last < 0 || !at(ev)) return;
+    const int n = min(last, R - 1) + 1;
+    uint32_t* w = reinterpret_cast<uint32_t*>(row(ev, 0));
+    for (int i = 0; i < n * BYP / 4; ++i) w[i] = 0u;
+    for (int r = 0; r < n; ++r) nbits(ev, r) = 0;
+  }
+  // OSV1: a one added at bit bp of event 0's row 0; its bit count and
+  // num_rows set at the end
+  __device__ void add0(int bp) {
+    if (at(0)) row(0, 0)[bp >> 3] += (uint8_t)(0x80u >> (bp & 7));
+  }
+  __device__ void set0(int nb, int nr) {
+    if (!at(0)) return;
+    nbits(0, 0) = nb;
+    nrow(0) = nr;
   }
 };
+
+// The warp writes one lane's events [ev, ev + nev) from its stage `st`
+// (its slots 0..nev-1; nothing where ev >= E) and zeros for the events
+// after them up to `to`; with `clear` it also clears the stage for the
+// lane's next event. Consecutive threads take consecutive 16-byte chunks
+// of the lane's contiguous event range (bytes where the caps do not allow
+// 16). Every thread of `alive` (lanes 0..nt-1) calls it with the same
+// values, after a __syncwarp that makes the lane's stage visible; with
+// `clear`, the lane reads its stage again only after another.
+__device__ void warp_put(const Planes& p, size_t lane, uint8_t* st, int ev,
+                         int nev, int to, bool clear, unsigned alive) {
+  const int t = threadIdx.x & 31, nt = __popc(alive);
+  const int E = p.E, R = p.R;
+  const int EV = R * p.BY;                         // bytes of one event
+  uint8_t* gb = p.bytes + lane * E * EV;
+  int* gp = p.bpr + lane * E * R;
+  int* gs = p.syncs + lane * E * R;
+  int* gn = p.nrows + lane * E;
+  int* sp = reinterpret_cast<int*>(st + p.ob);
+  int* ss = reinterpret_cast<int*>(st + p.os);
+  int* sn = reinterpret_cast<int*>(st + p.on);
+  int from = ev;
+  if (ev < E) {
+    nev = min(nev, E - ev);
+    if (p.v16) {
+      uint4* d = reinterpret_cast<uint4*>(gb + ev * EV);
+      uint4* s4 = reinterpret_cast<uint4*>(st);
+      for (int i = t; i < nev * EV / 16; i += nt) {
+        d[i] = s4[i];
+        if (clear) s4[i] = make_uint4(0, 0, 0, 0);
+      }
+    } else {
+      for (int i = t; i < nev * EV; i += nt)
+        gb[ev * EV + i] = st[(i / p.BY) * p.BYP + i % p.BY];
+      if (clear) {
+        __syncwarp(alive);
+        uint32_t* w = reinterpret_cast<uint32_t*>(st);
+        for (int i = t; i < nev * R * p.BYP / 4; i += nt) w[i] = 0u;
+      }
+    }
+    if (p.r4) {
+      int4* dp = reinterpret_cast<int4*>(gp + ev * R);
+      int4* ds = reinterpret_cast<int4*>(gs + ev * R);
+      int4* sp4 = reinterpret_cast<int4*>(sp);
+      int4* ss4 = reinterpret_cast<int4*>(ss);
+      for (int i = t; i < nev * R / 4; i += nt) {
+        dp[i] = sp4[i];
+        ds[i] = ss4[i];
+        if (clear) sp4[i] = ss4[i] = make_int4(0, 0, 0, 0);
+      }
+    } else {
+      for (int i = t; i < nev * R; i += nt) {
+        gp[ev * R + i] = sp[i];
+        gs[ev * R + i] = ss[i];
+        if (clear) sp[i] = ss[i] = 0;
+      }
+    }
+    for (int i = t; i < nev; i += nt) {
+      gn[ev + i] = sn[i];
+      if (clear) sn[i] = 0;
+    }
+    from = ev + nev;
+  }
+  to = min(to, E);
+  if (from < to) {
+    if (p.v16) {
+      uint4* d = reinterpret_cast<uint4*>(gb);
+      for (int i = from * EV / 16 + t; i < to * EV / 16; i += nt)
+        d[i] = make_uint4(0, 0, 0, 0);
+    } else {
+      for (int i = from * EV + t; i < to * EV; i += nt) gb[i] = 0;
+    }
+    if (p.r4) {
+      int4* dp = reinterpret_cast<int4*>(gp);
+      int4* ds = reinterpret_cast<int4*>(gs);
+      for (int i = from * R / 4 + t; i < to * R / 4; i += nt) {
+        dp[i] = make_int4(0, 0, 0, 0);
+        ds[i] = make_int4(0, 0, 0, 0);
+      }
+    } else {
+      for (int i = from * R + t; i < to * R; i += nt) gp[i] = gs[i] = 0;
+    }
+    for (int e = from + t; e < to; e += nt) gn[e] = 0;
+  }
+}
 
 // float helpers: explicit round-to-nearest, never contracted
 __device__ __forceinline__ float i2f(int v) { return __int2float_rn(v); }
@@ -123,6 +318,7 @@ __device__ __forceinline__ int trunc05(float v, bool& near) {
 
 struct Ppm {
   static constexpr bool kSymbols = false;
+  static constexpr bool kEventZero = false;
   int zl, zu, ol, ou, syl, syu, rst;
   int ev = 0, row = 0, bir = 0, frb = 0;
   bool ovf = false;
@@ -130,8 +326,10 @@ struct Ppm {
       : zl(c[0]), zu(c[1]), ol(c[2]), ou(c[3]), syl(c[4]), syu(c[5]),
         rst(c[6]) {}
   __device__ void pre(const int*, const int*, int) {}
-  __device__ void begin(Lane&) {}
-  __device__ void step(int, int g, bool last, Lane& o) {
+  template <class L>
+  __device__ void begin(L&) {}
+  template <class L>
+  __device__ void step(int, int g, bool last, L& o) {
     bool is0 = zl < g && g < zu;
     bool is1 = !is0 && ol < g && g < ou;
     bool issy = !is0 && !is1 && syl < g && g < syu;
@@ -154,11 +352,13 @@ struct Ppm {
     bir = flush ? 0 : bir3;
     frb = flush ? 0 : frb2;
   }
-  __device__ void end(Lane&) {}
+  template <class L>
+  __device__ void end(L&) {}
 };
 
 struct Pwm {
   static constexpr bool kSymbols = false;
+  static constexpr bool kEventZero = false;
   int ol, ou, zl, zu, syl, syu, gp, rst;
   int ev = 0, row = 0, bir = 0;
   bool touched = false, ovf = false;
@@ -166,8 +366,10 @@ struct Pwm {
       : ol(c[0]), ou(c[1]), zl(c[2]), zu(c[3]), syl(c[4]), syu(c[5]),
         gp(c[6]), rst(c[7]) {}
   __device__ void pre(const int*, const int*, int) {}
-  __device__ void begin(Lane&) {}
-  __device__ void step(int p, int g, bool last, Lane& o) {
+  template <class L>
+  __device__ void begin(L&) {}
+  template <class L>
+  __device__ void step(int p, int g, bool last, L& o) {
     bool is1 = ol < p && p < ou;
     bool is0 = !is1 && zl < p && p < zu;
     bool issy = !is1 && !is0 && syl < p && p < syu;
@@ -193,11 +395,13 @@ struct Pwm {
     bir = (flush || brk) ? 0 : bir3;
     touched = flush ? false : touched2;
   }
-  __device__ void end(Lane&) {}
+  template <class L>
+  __device__ void end(L&) {}
 };
 
 struct Pcm {
   static constexpr bool kSymbols = false;
+  static constexpr bool kEventZero = false;
   int sh, lo, rst, gpl, tol, mz, mc0;
   bool is_rz;
   float fs, fl;
@@ -209,7 +413,8 @@ struct Pcm {
         mc0(c[6]), is_rz(c[7] != 0), fs(bits_to_float(c[8])),
         fl(bits_to_float(c[9])) {}
 
-  __device__ void begin(Lane&) {}
+  template <class L>
+  __device__ void begin(L&) {}
 
   // JAX _pcm_rates: the preamble run estimator (its condition reads the
   // running estimate), then the order-free fallback sums
@@ -270,7 +475,8 @@ struct Pcm {
     ovf = flag;
   }
 
-  __device__ void step(int p, int g, bool last, Lane& o) {
+  template <class L>
+  __device__ void step(int p, int g, bool last, L& o) {
     bool near_h, near_l;
     int h = trunc05(__fmul_rn(i2f(p), fs), near_h);
     int l0 = trunc05(__fmul_rn(i2f(g + sh - lo), fl), near_l);
@@ -304,11 +510,13 @@ struct Pcm {
     frb = flush ? 0 : frb3;
   }
   // the event left open at the end never flushed: none of it is kept
-  __device__ void end(Lane& o) { o.erase(ev, dirty); }
+  template <class L>
+  __device__ void end(L& o) { o.erase(ev, dirty); }
 };
 
 struct Mc {
   static constexpr bool kSymbols = false;
+  static constexpr bool kEventZero = false;
   int sh, rst, tol;
   bool has_tol;
   int ev = 0, row = 0, bir = 1, tsl = 0;
@@ -318,8 +526,10 @@ struct Mc {
   __device__ void pre(const int*, const int*, int) {}
   // every buffer starts with a hardcoded 0 bit (event 0 here, the next
   // event's at each flush)
-  __device__ void begin(Lane& o) { o.count(0, 0, 1); }
-  __device__ void step(int p, int g, bool last, Lane& o) {
+  template <class L>
+  __device__ void begin(L& o) { o.count(0, 0, 1); }
+  template <class L>
+  __device__ void step(int p, int g, bool last, L& o) {
     bool out = has_tol && (p < sh - tol || p > 2 * sh + tol ||
                            g < sh - tol || g > 2 * sh + tol);
     bool c1_out = out && 2 * p > 3 * sh && p <= 2 * sh + tol;
@@ -347,19 +557,23 @@ struct Mc {
     row = flush ? 0 : row2;
     bir = flush ? 1 : bir4;
   }
-  __device__ void end(Lane&) {}
+  template <class L>
+  __device__ void end(L&) {}
 };
 
 struct Dmc {
   static constexpr bool kSymbols = true;
+  static constexpr bool kEventZero = false;
   int sh, lo, rst, tol;
   int ev = 0, row = 0, bir = 0;
   bool pend = false, has = false, ovf = false;
   __device__ explicit Dmc(const int* c)
       : sh(c[0]), lo(c[1]), rst(c[2]), tol(c[3]) {}
   __device__ void pre(const int*, const int*, int) {}
-  __device__ void begin(Lane&) {}
-  __device__ void step(int sym, int, bool, Lane& o) {
+  template <class L>
+  __device__ void begin(L&) {}
+  template <class L>
+  __device__ void step(int sym, int, bool, L& o) {
     int d_short = abs(sym - sh);
     bool in_short = d_short < tol;
     bool in_long = abs(sym - lo) < tol;
@@ -389,19 +603,23 @@ struct Dmc {
     bir = n_flush ? 0 : bir3;
     has = n_flush ? false : has2;
   }
-  __device__ void end(Lane&) {}
+  template <class L>
+  __device__ void end(L&) {}
 };
 
 struct PiwmDc {
   static constexpr bool kSymbols = true;
+  static constexpr bool kEventZero = false;
   int sh, lo, rst, tol;
   int ev = 0, row = 0, bir = 0;
   bool touched = false, ovf = false;
   __device__ explicit PiwmDc(const int* c)
       : sh(c[0]), lo(c[1]), rst(c[2]), tol(c[3]) {}
   __device__ void pre(const int*, const int*, int) {}
-  __device__ void begin(Lane&) {}
-  __device__ void step(int sym, int, bool last, Lane& o) {
+  template <class L>
+  __device__ void begin(L&) {}
+  template <class L>
+  __device__ void step(int sym, int, bool last, L& o) {
     bool in1 = abs(sym - sh) < tol;
     bool in0 = !in1 && abs(sym - lo) < tol;
     bool isrb = !in1 && !in0 && sym < rst && touched && bir > 0;
@@ -420,18 +638,22 @@ struct PiwmDc {
     bir = flush ? 0 : bir3;
     touched = flush ? false : touched2;
   }
-  __device__ void end(Lane&) {}
+  template <class L>
+  __device__ void end(L&) {}
 };
 
 struct Nrzs {
   static constexpr bool kSymbols = false;
+  static constexpr bool kEventZero = false;
   int sh, rst;
   int ev = 0, bir = 0;
   bool ovf = false;
   __device__ explicit Nrzs(const int* c) : sh(c[0]), rst(c[1]) {}
   __device__ void pre(const int*, const int*, int) {}
-  __device__ void begin(Lane&) {}
-  __device__ void step(int p, int g, bool last, Lane& o) {
+  template <class L>
+  __device__ void begin(L&) {}
+  template <class L>
+  __device__ void step(int p, int g, bool last, L& o) {
     int h = p > sh ? p / max(sh, 1) : 0;
     int z = p != sh ? 1 : 0;
     o.run(ev, 0, bir, h);
@@ -444,18 +666,22 @@ struct Nrzs {
     ev = ev2;
     bir = flush ? 0 : bir2;
   }
-  __device__ void end(Lane&) {}
+  template <class L>
+  __device__ void end(L&) {}
 };
 
 struct Rzi {
   static constexpr bool kSymbols = false;
+  static constexpr bool kEventZero = false;
   int lo, rst, base;
   int ev = 0, bir = 0;
   bool at_start = true, ovf = false;
   __device__ explicit Rzi(const int* c) : lo(c[0]), rst(c[1]), base(c[2]) {}
   __device__ void pre(const int*, const int*, int) {}
-  __device__ void begin(Lane&) {}
-  __device__ void step(int p, int g, bool last, Lane& o) {
+  template <class L>
+  __device__ void begin(L&) {}
+  template <class L>
+  __device__ void step(int p, int g, bool last, L& o) {
     int num = at_start ? p + lo / 2 : p - base + lo / 2;
     // floor and truncation agree once the result is clamped at 0
     int ones = max(num / max(lo, 1), 0);
@@ -472,11 +698,13 @@ struct Rzi {
     bir = flush ? 0 : bir2 + zz;
     at_start = flush;
   }
-  __device__ void end(Lane&) {}
+  template <class L>
+  __device__ void end(L&) {}
 };
 
 struct Osv1 {
   static constexpr bool kSymbols = false;
+  static constexpr bool kEventZero = true;   // writes event 0 alone
   int rst, hmin, hmax, sync_min;
   int phase = 0, cnt = 0, manbit = 0, bir = 0, ev = 0, nbits = 0;
   bool touched = false, ovf = false;
@@ -484,8 +712,10 @@ struct Osv1 {
       : rst(c[1]), hmin(c[0] / 2), hmax(c[0] * 3 / 2),
         sync_min(2 * (c[0] * 3 / 2)) {}
   __device__ void pre(const int*, const int*, int) {}
-  __device__ void begin(Lane&) {}
-  __device__ void step(int p, int g, bool last, Lane& o) {
+  template <class L>
+  __device__ void begin(L&) {}
+  template <class L>
+  __device__ void step(int p, int g, bool last, L& o) {
     bool ph0 = phase == 0, ph1 = phase == 1, ph2 = phase == 2;
     bool pass0 = p > hmin && g > hmin;
     int cnt2 = (ph0 && pass0) ? cnt + 1 : cnt;
@@ -502,8 +732,7 @@ struct Osv1 {
     if (c1) {
       // every 1 lands in event 0, row 0; a position past the row is
       // clipped to its last bit and added, as the JAX scatter-add does
-      int bp = min(max(bir, 0), 8 * o.BY - 1);
-      o.bytes[bp >> 3] += (uint8_t)(0x80u >> (bp & 7));
+      o.add0(min(max(bir, 0), 8 * o.BY - 1));
     }
     int bir2 = bir + (c1 ? 1 : 0);
     bool touched2 = touched || c1 || sync0;
@@ -520,23 +749,44 @@ struct Osv1 {
     cnt = cnt2;
     bir = bir3;
   }
-  __device__ void end(Lane& o) {
-    o.bpr[0] = nbits;
-    o.nrows[0] = ev > 0 ? 1 : 0;
-  }
+  template <class L>
+  __device__ void end(L& o) { o.set0(nbits, ev > 0 ? 1 : 0); }
 };
 
+// One event staged: lanes whose family moved past their staged event (a
+// flush in the step before) are written out by the warp, then each stages
+// its new event. Every thread of `alive` calls it at the same step.
 template <class F>
+__device__ __forceinline__ void warp_moved(const F& f, Lane<false>& o,
+                                           bool ok, unsigned alive,
+                                           const Planes& pl, size_t lane0,
+                                           uint8_t* stage0, int SB) {
+  if (F::kEventZero) return;
+  const bool moved = ok && f.ev > o.sev && o.sev < o.E;
+  unsigned m = __ballot_sync(alive, moved);
+  if (!m) return;
+  __syncwarp(alive);
+  for (; m; m &= m - 1) {
+    const int L = __ffs(m) - 1;
+    warp_put(pl, lane0 + L, stage0 + (size_t)L * SB,
+             __shfl_sync(alive, o.sev, L), 1, __shfl_sync(alive, f.ev, L),
+             true, alive);
+  }
+  __syncwarp(alive);
+  if (moved) o.moved_to(min(f.ev, o.E));
+}
+
+template <class F, bool kAll>
 __global__ void slice_lanes(const int* __restrict__ pulse,
                             const int* __restrict__ gap,
                             const int* __restrict__ n_pulses, int N,
                             const int* __restrict__ bounds, int S, int E,
-                            int R, int BY, uint8_t* bytes, int* bpr,
+                            int R, int BY, int SB, uint8_t* bytes, int* bpr,
                             int* syncs, int* nrows, int* n_events,
                             uint8_t* ovf) {
-  extern __shared__ int smem[];
-  int* sp = smem;
-  int* sg = smem + N;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* sp = reinterpret_cast<int*>(smem);
+  int* sg = sp + N;
   const int b = blockIdx.y;
   const int n = min(max(n_pulses[b], 0), N);
   const int* pb = pulse + (size_t)b * N;
@@ -547,46 +797,72 @@ __global__ void slice_lanes(const int* __restrict__ pulse,
   }
   __syncthreads();
   const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  // the warp's lanes inside S: lanes 0..k-1, as s grows with the lane
+  const unsigned alive = __ballot_sync(0xffffffffu, s < S);
   if (s >= S) return;
+  const int t = threadIdx.x & 31;
   const size_t lane = (size_t)b * S + s;
+  uint8_t* stage = smem + round16(8 * N) + (size_t)threadIdx.x * SB;
+  const Planes pl(bytes, bpr, syncs, nrows, E, R, BY, kAll ? E : 1);
   const int* c = bounds + (size_t)s * NCOLS;
   const bool ok = c[NCOLS - 1] != 0;
-  Lane o{bytes + lane * E * R * BY, bpr + lane * E * R,
-         syncs + lane * E * R, nrows + lane * E, E, R, BY};
+  Lane<kAll> o(pl, stage);
   F f(c);
   f.pre(sp, sg, n);      // PCM's rates run on every lane, as in JAX
-  if (ok) {
-    f.begin(o);
-    if (F::kSymbols) {
-      for (int i = 0; i < 2 * n; ++i)
-        f.step((i & 1) ? sg[i >> 1] : sp[i >> 1], 0, i == 2 * n - 1, o);
-    } else {
-      for (int i = 0; i < n; ++i) f.step(sp[i], sg[i], i == n - 1, o);
-    }
-    f.end(o);
+  if (ok) f.begin(o);
+  // every lane of the block walks the same train, so the warp meets at
+  // the top of each step
+  const size_t lane0 = lane - t;
+  uint8_t* stage0 = stage - (size_t)t * SB;
+  const int steps = F::kSymbols ? 2 * n : n;
+  for (int i = 0; i < steps; ++i) {
+    if constexpr (!kAll)
+      warp_moved(f, o, ok, alive, pl, lane0, stage0, SB);
+    if (!ok) continue;
+    if (F::kSymbols)
+      f.step((i & 1) ? sg[i >> 1] : sp[i >> 1], 0, i == steps - 1, o);
+    else
+      f.step(sp[i], sg[i], i == steps - 1, o);
+  }
+  if (ok) f.end(o);
+  if constexpr (!kAll) warp_moved(f, o, ok, alive, pl, lane0, stage0, SB);
+  // each lane's staged events and zeros for the events after them
+  __syncwarp(alive);
+  for (unsigned m = alive; m; m &= m - 1) {
+    const int L = __ffs(m) - 1;
+    warp_put(pl, lane0 + L, stage0 + (size_t)L * SB,
+             kAll ? 0 : __shfl_sync(alive, o.sev, L), kAll ? E : 1, E,
+             false, alive);
   }
   n_events[lane] = f.ev;
   ovf[lane] = f.ovf ? 1 : 0;
 }
 
-// the ok flag is the last column of every family's row
+// the launch plan comes from ops/slice.py launch_plan: `lanes` specs of one
+// train per block (a multiple of 32), every event staged or one, a stage
+// of SB bytes per lane after the train's pulses and gaps, smem bytes in
+// all
 template <class F>
 cudaError_t launch(const int* pulse, const int* gap, const int* n_pulses,
                    int B, int N, const int* bounds, int S, int E, int R,
-                   int BY, uint8_t* bytes, int* bpr, int* syncs, int* nrows,
+                   int BY, int lanes, int every, int SB, int smem,
+                   uint8_t* bytes, int* bpr, int* syncs, int* nrows,
                    int* n_events, uint8_t* ovf, cudaStream_t st) {
-  const int threads = S >= 128 ? 128 : ((S + 31) / 32) * 32;
-  dim3 grid((S + threads - 1) / threads, B);
-  size_t shm = (size_t)2 * N * sizeof(int);
-  if (shm > 48 * 1024) {
+  const int es = every ? E : 1, byp = (BY + 3) & ~3;
+  if (lanes < 32 || lanes > 1024 || lanes % 32 || SB % 16 ||
+      SB < round16(es * R * byp) + round16(8 * es * R) + round16(4 * es) ||
+      (long)smem < round16(8 * N) + (long)min(S, lanes) * SB)
+    return cudaErrorInvalidValue;
+  auto kern = every ? slice_lanes<F, true> : slice_lanes<F, false>;
+  if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        slice_lanes<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)shm);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  slice_lanes<F><<<grid, threads, shm, st>>>(
-      pulse, gap, n_pulses, N, bounds, S, E, R, BY, bytes, bpr, syncs,
-      nrows, n_events, ovf);
+  dim3 grid((S + lanes - 1) / lanes, B);
+  kern<<<grid, lanes, smem, st>>>(pulse, gap, n_pulses, N, bounds, S, E, R,
+                                  BY, SB, bytes, bpr, syncs, nrows, n_events,
+                                  ovf);
   return cudaGetLastError();
 }
 
@@ -594,9 +870,12 @@ cudaError_t launch(const int* pulse, const int* gap, const int* n_pulses,
 
 // bounds is the family's int32 [S, NCOLS] table (ops/slice.py
 // bound_table): its columns from 0 in the family's order, ok in the last.
+// lanes, every, SB and smem: ops/slice.py launch_plan. Every element of
+// the six outputs is written.
 extern "C" int rtl433_slice(int family, const void* pulse, const void* gap,
                             const void* n_pulses, int B, int N,
                             const void* bounds, int S, int E, int R, int BY,
+                            int lanes, int every, int SB, int smem,
                             void* bytes, void* bpr, void* syncs, void* nrows,
                             void* n_events, void* ovf, void* stream) {
   auto P = (const int*)pulse;
@@ -610,9 +889,9 @@ extern "C" int rtl433_slice(int family, const void* pulse, const void* gap,
   auto NE = (int*)n_events;
   auto OV = (uint8_t*)ovf;
   auto st = (cudaStream_t)stream;
-#define RTL433_SLICE(F)                                                     \
-  return (int)launch<F>(P, G, NP, B, N, BD, S, E, R, BY, BYT, BPR, SY, NR, \
-                        NE, OV, st)
+#define RTL433_SLICE(F)                                                  \
+  return (int)launch<F>(P, G, NP, B, N, BD, S, E, R, BY, lanes, every, SB, \
+                        smem, BYT, BPR, SY, NR, NE, OV, st)
   switch (family) {
     case 0: RTL433_SLICE(Ppm);
     case 1: RTL433_SLICE(Pwm);

@@ -24,14 +24,28 @@
 //     the predecessor has a package open), bit 9 set for a write-only
 //     counter (re-based, never compared).
 //
-// timeshard_chain_kernel, one thread per channel, walks the links d = 1..D-1 as
-// JAX's chain (:195-223) does: the predecessor's selected final against
-// segment d's start, the hedge selection sel = clip(dlow + 1, 0, 2), the
-// generation offset delta = t_gen - start_gen and the running t_gen. It
-// writes sel and delta [D, C], the outgoing registers [NROW, C] (the last
-// segment's selected final; counters seed + sum over d of final - start),
-// one bit mask of failed keys per link [D-1] and a flag, both OR-reduced
-// over the channels (a warp reduction, then one atomicOr per warp).
+// timeshard_chain_kernel, one block of 256 threads per group of up to G =
+// 32 channels (fewer where D is so large that the tables below pass 227
+// KB; ops/timeshard.py chain_plan), replaces JAX's chain (:194-243). Every
+// quantity a link compares (dlow = final low_est - start low_est, the
+// selected candidate's high_est, the open gate, each key's mismatch) is a
+// function of the predecessor's candidate k (0-2) and the link d alone;
+// only the choice of k is sequential. So:
+//   phase 1, over (d, k, row chunk, channel), reads coalesced over the
+//     channels: per link and predecessor candidate the mask of failed keys
+//     (bit 31: the predecessor is open), the candidate the link selects,
+//     sel = clip(dlow + 1, 0, 2), and that candidate's generation increment
+//     final gen - start gen, into shared memory;
+//   phase 2, one lane per channel in warp 0: sel_0 = 1, then for d = 1..D-1
+//     the entry of link d for the predecessor's selection: one dependent
+//     shared load per link, the running t_gen (delta = t_gen - start gen)
+//     beside it; the masks OR-ed over the channels (__reduce_or_sync, one
+//     store per link with one block, one atomicOr per warp and link with
+//     several, into flags the wrapper then zeroes);
+//   phase 3, over (row, channel) and (d, channel): the outgoing registers
+//     (the last segment's selected final; a counter is seed + the sum over
+//     d of its selected final - start, :267-281), sel and delta, with sel
+//     read from shared memory, never from what the kernel wrote.
 //
 // timeshard_gather_kernel, one thread per output element, gathers each segment's
 // selected candidate's logs into the block's [C*R, D*G] record planes and
@@ -39,10 +53,15 @@
 // delta to the M_GEN field of valid EOPs. All arithmetic wraps as JAX's
 // int32 does (unsigned in C).
 //
-// What bounds them. The chain reads 2 * NROW ints per channel per link and
-// is a few dependent compares, at C=1 one thread's latency (microseconds).
-// The gather moves every log int once each way: bytes, coalesced on both
-// sides (consecutive threads take consecutive chunk columns of one row).
+// What bounds them. The chain's bytes (NROW ints per lane, 10.7 KB at
+// C=1, D=32) would take nanoseconds; a one-block launch takes
+// microseconds, so its floor is the launch and the latency of a few
+// dependent rounds of loads, not bytes. The design keeps those rounds few:
+// every register load of all links is issued in phase 1 at once (no load
+// waits on a selection), the walk touches only shared memory, and phase 3
+// is one more round. The gather moves every log int once each way: bytes,
+// coalesced on both sides (consecutive threads take consecutive chunk
+// columns of one row).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -75,75 +94,173 @@ struct Rows {
     int low, high, ook_state, min_high, gen;
 };
 
+// Shared memory of a chain block of G channels (ops/timeshard.py
+// chain_plan sizes it with CHAIN_BYTES_PER_LINK): rowinfo [NROW], then
+// per (link d, predecessor candidate k, channel) the failed-key mask with
+// the predecessor's open flag in bit 31, the generation increment of the
+// candidate it selects, and that candidate; per (d, channel) the running
+// t_gen before link d and the selected candidate.
+struct ChainSmem {
+    int* info;            // [NROW]
+    unsigned* msk;        // [D][3][G]
+    int* inc;             // [D][3][G]
+    int* tg;              // [D][G]
+    uint8_t* nxt;         // [D][3][G]
+    uint8_t* sel;         // [D][G]
+};
+
+__device__ __forceinline__ ChainSmem chain_smem(unsigned char* base, int NROW,
+                                               int D, int G) {
+    ChainSmem m;
+    m.info = reinterpret_cast<int*>(base);
+    m.msk = reinterpret_cast<unsigned*>(m.info + NROW);
+    m.inc = reinterpret_cast<int*>(m.msk + 3 * D * G);
+    m.tg = m.inc + 3 * D * G;
+    m.nxt = reinterpret_cast<uint8_t*>(m.tg + D * G);
+    m.sel = m.nxt + 3 * D * G;
+    return m;
+}
+
+constexpr unsigned kOpenFlag = 1u << 31;   // no key index reaches bit 31
+constexpr int kRowChunk = 8;               // rows per phase-1b item
+
 __global__ void __launch_bounds__(kThreads)
 timeshard_chain_kernel(const int* __restrict__ start,
                        const int* __restrict__ fin,
                        const int* __restrict__ rowinfo, int NROW, int D,
-                       int C, int ratio, Rows rw, int* __restrict__ sel_out,
-                       int* __restrict__ delta_out, int* __restrict__ out,
-                       int* __restrict__ by_key, int* __restrict__ bad) {
-    const int c = blockIdx.x * blockDim.x + threadIdx.x;
-    const bool act = c < C;
+                       int C, int G, int ratio, Rows rw,
+                       int* __restrict__ sel_out, int* __restrict__ delta_out,
+                       int* __restrict__ out, int* __restrict__ by_key,
+                       int* __restrict__ bad) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    const ChainSmem sm = chain_smem(smem_raw, NROW, D, G);
+    const int c0 = blockIdx.x * G;
+    const int g = min(G, C - c0);                     // channels of this block
     const size_t L = static_cast<size_t>(D) * C;      // lanes of start
-    const size_t L3 = 3 * L;                           // lanes of fin
-    auto S = [&](int row, size_t lane) { return start[row * L + lane]; };
-    auto F = [&](int row, size_t lane) { return fin[row * L3 + lane]; };
+    const size_t L3 = 3 * L;                          // lanes of fin
+    // segment d's start, and candidate k's final of segment d, channel c0+c
+    auto S = [&](int row, int d, int c) {
+        return start[row * L + static_cast<size_t>(d) * C + c0 + c];
+    };
+    auto F = [&](int row, int k, int d, int c) {
+        return fin[row * L3 + (static_cast<size_t>(k) * D + d) * C + c0 + c];
+    };
+    const int tid = threadIdx.x, nth = blockDim.x;
 
-    size_t prev = L + c;                 // candidate 1 of segment 0
-    int tgen = 0;
-    if (act) {
-        const int gen0 = S(rw.gen, c);
-        tgen = wadd(gen0, wsub(F(rw.gen, prev), S(rw.gen, c)));
-        sel_out[c] = 1;
-        delta_out[c] = 0;
-    }
-    unsigned any_bad = 0u;
-    for (int d = 1; d < D; ++d) {
-        unsigned bk = 0u;
-        if (act) {
-            const size_t st = static_cast<size_t>(d) * C + c;
-            const int st_low = S(rw.low, st);
-            const int dlow = wsub(F(rw.low, prev), st_low);
-            const int s = min(max(wadd(dlow, 1), 0), 2);
-            const bool open = F(rw.ook_state, prev) != ST_IDLE;
-            int cand_high = S(rw.high, st);
-            if (S(rw.ook_state, st) == ST_IDLE) {
-                const int h = static_cast<int>(static_cast<unsigned>(ratio) *
-                                               static_cast<unsigned>(wadd(st_low, dlow)));
-                cand_high = max(h, S(rw.min_high, st));
-            }
-            if (wabs(dlow) > 1) bk |= 1u;
-            if (F(rw.high, prev) != cand_high) bk |= 2u;
-            for (int row = 0; row < NROW; ++row) {
-                const int info = rowinfo[row];
-                const int k = (info & 0xff) - 1;
-                if (k < 2) continue;
-                if ((info & kOpen) && !open) continue;
-                if (F(row, prev) != S(row, st)) bk |= 1u << k;
-            }
-            const int st_gen = S(rw.gen, st);
-            delta_out[st] = wsub(tgen, st_gen);
-            sel_out[st] = s;
-            prev = static_cast<size_t>(s) * L + st;
-            tgen = wadd(tgen, wsub(F(rw.gen, prev), st_gen));
+    // ---- phase 1a, over (d, k, c): the hedge compares of link d against
+    // predecessor candidate k, the candidate it selects and that one's
+    // generation increment; at d = 0 the running t_gen after segment 0
+    for (int i = tid; i < NROW; i += nth) sm.info[i] = rowinfo[i];
+    for (int i = tid; i < 3 * D * g; i += nth) {
+        const int c = i % g, j = i / g, k = j % 3, d = j / 3;
+        const int o = (d * 3 + k) * G + c;
+        if (d == 0) {
+            // t_gen = gen0 + (final gen - start gen) = the final's gen
+            if (k == 1) sm.tg[c] = F(rw.gen, 1, 0, c);
+            continue;
         }
-        const unsigned wk = __reduce_or_sync(0xffffffffu, bk);
-        if ((threadIdx.x & 31) == 0 && wk) atomicOr(&by_key[d - 1], static_cast<int>(wk));
-        any_bad |= wk;
+        const int st_low = S(rw.low, d, c);
+        const int dlow = wsub(F(rw.low, k, d - 1, c), st_low);
+        const int s = min(max(wadd(dlow, 1), 0), 2);
+        int cand_high = S(rw.high, d, c);
+        if (S(rw.ook_state, d, c) == ST_IDLE) {
+            const int h = static_cast<int>(static_cast<unsigned>(ratio) *
+                                           static_cast<unsigned>(wadd(st_low, dlow)));
+            cand_high = max(h, S(rw.min_high, d, c));
+        }
+        unsigned m = 0u;
+        if (wabs(dlow) > 1) m |= 1u;
+        if (F(rw.high, k, d - 1, c) != cand_high) m |= 2u;
+        if (F(rw.ook_state, k, d - 1, c) != ST_IDLE) m |= kOpenFlag;
+        sm.msk[o] = m;
+        sm.nxt[o] = static_cast<uint8_t>(s);
+        sm.inc[o] = wsub(F(rw.gen, s, d, c), S(rw.gen, d, c));
     }
-    if ((threadIdx.x & 31) == 0 && any_bad) atomicOr(bad, 1);
-    if (!act) return;
-    for (int row = 0; row < NROW; ++row) {
-        int v = F(row, prev);
-        if (rowinfo[row] & kCounter) {
-            v = S(row, c);                                  // the seed
-            for (int d = 0; d < D; ++d) {
-                const size_t st = static_cast<size_t>(d) * C + c;
-                const size_t sl = static_cast<size_t>(sel_out[st]) * L + st;
-                v = wadd(v, wsub(F(row, sl), S(row, st)));
+    __syncthreads();
+
+    // ---- phase 1b, over (d, k, row chunk, c): every other key's compare,
+    // OR-ed into the mask (open keys only where the predecessor is open)
+    const int nch = (NROW + kRowChunk - 1) / kRowChunk;
+    for (int i = tid; i < 3 * (D - 1) * nch * g; i += nth) {
+        const int c = i % g;
+        int j = i / g;
+        const int ch = j % nch;
+        j /= nch;
+        const int k = j % 3, d = 1 + j / 3;
+        const int o = (d * 3 + k) * G + c;
+        const bool open = (sm.msk[o] & kOpenFlag) != 0u;
+        unsigned m = 0u;
+#pragma unroll
+        for (int r = 0; r < kRowChunk; ++r) {
+            const int row = ch * kRowChunk + r;
+            if (row >= NROW) break;
+            const int info = sm.info[row];
+            const int key = (info & 0xff) - 1;
+            if (key < 2 || ((info & kOpen) && !open)) continue;
+            if (F(row, k, d - 1, c) != S(row, d, c)) m |= 1u << key;
+        }
+        if (m) atomicOr(&sm.msk[o], m);
+    }
+    __syncthreads();
+
+    // ---- phase 2, one lane per channel in warp 0: the walk. sel_0 = 1;
+    // link d takes the mask, the next candidate and its increment that
+    // phase 1 left for the predecessor's candidate: one shared load on the
+    // dependent path per link. The masks are OR-ed over the channels.
+    if (tid < 32) {
+        const unsigned am = g >= 32 ? 0xffffffffu : ((1u << g) - 1u);
+        const bool single = gridDim.x == 1;
+        if (tid < g) {
+            int s = 1;
+            int tgen = sm.tg[tid];
+            unsigned any = 0u;
+            sm.sel[tid] = 1;
+            for (int d = 1; d < D; ++d) {
+                const int o = (d * 3 + s) * G + tid;
+                const unsigned m = sm.msk[o] & ~kOpenFlag;
+                sm.tg[d * G + tid] = tgen;
+                tgen = wadd(tgen, sm.inc[o]);
+                s = sm.nxt[o];
+                sm.sel[d * G + tid] = static_cast<uint8_t>(s);
+                const unsigned wk = __reduce_or_sync(am, m);
+                if (tid == 0) {
+                    if (single) by_key[d - 1] = static_cast<int>(wk);
+                    else if (wk) atomicOr(&by_key[d - 1], static_cast<int>(wk));
+                }
+                any |= wk;
+            }
+            if (tid == 0) {
+                if (single) *bad = any ? 1 : 0;
+                else if (any) atomicOr(bad, 1);
             }
         }
-        out[static_cast<size_t>(row) * C + c] = v;
+    }
+    __syncthreads();
+
+    // ---- phase 3, over (row, c) and (d, c): the outgoing registers (the
+    // last segment's selected final; a counter is the seed plus each
+    // segment's selected increment), then sel and delta
+    const int nout = NROW * g;
+    for (int i = tid; i < nout + D * g; i += nth) {
+        if (i < nout) {
+            const int c = i % g, row = i / g;
+            int v;
+            if (sm.info[row] & kCounter) {
+                v = S(row, 0, c);                             // the seed
+#pragma unroll 4
+                for (int d = 0; d < D; ++d)
+                    v = wadd(v, wsub(F(row, sm.sel[d * G + c], d, c),
+                                     S(row, d, c)));
+            } else {
+                v = F(row, sm.sel[(D - 1) * G + c], D - 1, c);
+            }
+            out[static_cast<size_t>(row) * C + c0 + c] = v;
+        } else {
+            const int j = i - nout, c = j % g, d = j / g;
+            const size_t dc = static_cast<size_t>(d) * C + c0 + c;
+            sel_out[dc] = sm.sel[d * G + c];
+            delta_out[dc] = d == 0 ? 0 : wsub(sm.tg[d * G + c], S(rw.gen, d, c));
+        }
     }
 }
 
@@ -200,23 +317,36 @@ timeshard_gather_kernel(const int* __restrict__ key3,
 }  // namespace
 
 // start int32 [NROW, D*C]; fin int32 [NROW, 3*D*C]; rowinfo int32 [NROW]
-// (layouts above); ratio: the OOK high/low ratio; low..gen: the rows of
-// those registers. Writes sel, delta int32 [D, C]; out int32 [NROW, C];
-// by_key int32 [D-1] and bad int32 [1], both zeroed by the caller and
-// OR-ed into. Returns cudaGetLastError() after the launch.
+// (layouts above); G channels per block and smem bytes of shared memory
+// per block, from ops/timeshard.py chain_plan; ratio: the OOK high/low
+// ratio; low..gen: the rows of those registers. Writes sel, delta int32
+// [D, C]; out int32 [NROW, C]; by_key int32 [D-1] and bad int32 [1]: with
+// one block they are written, with more the caller zeroes them and the
+// blocks OR into them. Returns cudaGetLastError() after the launch.
 extern "C" int rtl433_timeshard_chain(const void* start, const void* fin,
                                       const void* rowinfo, int NROW, int D,
-                                      int C, int ratio, int low, int high,
-                                      int ook_state, int min_high, int gen,
-                                      void* sel, void* delta, void* out,
-                                      void* by_key, void* bad, void* stream) {
-    if (D < 1 || C < 1 || NROW < 1) return static_cast<int>(cudaErrorInvalidValue);
+                                      int C, int G, int smem, int ratio,
+                                      int low, int high, int ook_state,
+                                      int min_high, int gen, void* sel,
+                                      void* delta, void* out, void* by_key,
+                                      void* bad, void* stream) {
+    const size_t need = 4 * static_cast<size_t>(NROW) +
+                        static_cast<size_t>(D) * G * (7 * 4 + 4);
+    if (D < 1 || C < 1 || NROW < 1 || G < 1 || G > 32 ||
+        static_cast<size_t>(smem) < need)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (smem > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            timeshard_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            smem);
+        if (e != cudaSuccess) return static_cast<int>(e);
+    }
     const Rows rw{low, high, ook_state, min_high, gen};
-    const int blocks = (C + kThreads - 1) / kThreads;
-    timeshard_chain_kernel<<<blocks, kThreads, 0,
+    const int blocks = (C + G - 1) / G;
+    timeshard_chain_kernel<<<blocks, kThreads, smem,
                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(start), static_cast<const int*>(fin),
-        static_cast<const int*>(rowinfo), NROW, D, C, ratio, rw,
+        static_cast<const int*>(rowinfo), NROW, D, C, G, ratio, rw,
         static_cast<int*>(sel), static_cast<int*>(delta), static_cast<int*>(out),
         static_cast<int*>(by_key), static_cast<int*>(bad));
     return static_cast<int>(cudaGetLastError());

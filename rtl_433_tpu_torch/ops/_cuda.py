@@ -61,11 +61,12 @@ LAUNCHERS = {
     "compact": ("compact", "rtl433_compact",
                 [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                  _P]),
-    # family, pulse, gap, n_pulses, B, N, bounds, S, E, R, BY, bytes,
-    # bits_per_row, syncs, num_rows, n_events, ovf, stream
+    # family, pulse, gap, n_pulses, B, N, bounds, S, E, R, BY, lanes,
+    # every, SB, smem, bytes, bits_per_row, syncs, num_rows, n_events,
+    # ovf, stream
     "slice": ("slice", "rtl433_slice",
-              [_I, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P, _P,
-               _P, _P, _P]),
+              [_I, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+               _P, _P, _P, _P, _P, _P, _P]),
     # bytes, num_rows, bits_per_row, syncs, BJ, E, R, W, dup, stream
     "content_dup": ("dispatch", "rtl433_content_dup",
                     [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
@@ -74,11 +75,11 @@ LAUNCHERS = {
     "gather_records": ("dispatch", "rtl433_gather_records",
                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                         _P]),
-    # start, fin, rowinfo, NROW, D, C, ratio, low, high, ook_state,
-    # min_high, gen, sel, delta, out, by_key, bad, stream
+    # start, fin, rowinfo, NROW, D, C, G, smem, ratio, low, high,
+    # ook_state, min_high, gen, sel, delta, out, by_key, bad, stream
     "timeshard_chain": ("timeshard", "rtl433_timeshard_chain",
                         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                         _P, _P, _P, _P, _P, _P]),
+                         _I, _I, _P, _P, _P, _P, _P, _P]),
     # key3, p3, g3, eop3, sel, delta, D, C, R, G, EM, key, p, g, eop,
     # stream
     "timeshard_gather": ("timeshard", "rtl433_timeshard_gather",

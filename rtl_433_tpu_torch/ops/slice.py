@@ -20,7 +20,8 @@ row bytes) or a float32 rounding near a boundary (PCM) raises the lane's
 slicer. Writes outside the caps are dropped, as the JAX scatters drop them.
 
 For a CUDA tensor each wrapper launches ``csrc/slice.cu`` (one thread per
-lane, the train staged in shared memory); for a CPU tensor it runs the
+lane, the train and each lane's events staged in shared memory, the
+launch shaped by :func:`launch_plan`); for a CPU tensor it runs the
 plain version: the JAX ``step`` of the family as vectorized torch over the
 ``[B, S]`` lane grid in a Python loop over the pulses (stopping at the
 longest train: padded steps are inactive), and the JAX assembly by
@@ -1022,11 +1023,62 @@ def _check(pulse, gap, n_pulses, caps):
         raise ValueError(f"slice: caps must be positive, not {caps}")
 
 
+# the slicer kernel's shared memory: a block may use 227 KB of an SM's
+# 228 KB, and each resident block takes 1 KB more
+SMEM_MAX = 232448
+SMEM_SM = 233472
+
+
+def _r16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def stage_bytes(caps: SliceCaps, events: int) -> int:
+    """Shared bytes of one lane's stage in ``csrc/slice.cu`` holding
+    ``events`` events: their rows padded to 4-byte words, then their
+    bits_per_row, syncs and num_rows, each part rounded up to 16 bytes;
+    the stride between lanes is made an odd multiple of 16 so that the
+    16-byte accesses of eight neighbouring lanes fall in distinct banks."""
+    _E, R, BY = (int(c) for c in caps)
+    sb = _r16(events * R * -(-BY // 4) * 4) + _r16(8 * events * R) \
+        + _r16(4 * events)
+    return sb + 16 if sb % 32 == 0 else sb
+
+
+def launch_plan(B: int, S: int, N: int, caps: SliceCaps, sms: int = 132):
+    """The slicer kernel's launch for B trains of N pulses and S specs on
+    a card of ``sms`` SMs: (lanes per block, every event staged, stage
+    bytes per lane, shared bytes per block). A block takes one train's
+    pulses and gaps (``8 N`` bytes) and up to 64 of its specs (32 where
+    S <= 32), a multiple of 32, each lane with its stage. Every event of a
+    lane is staged (nothing leaves before the lane ends) where the whole
+    grid then fits on the card at once: such a call is bound by its
+    slowest lane, whose walk would otherwise stop at each event's
+    write-out. Otherwise a lane stages one event, for more lanes per SM.
+    Raises where not even 32 lanes with one event fit the 227 KB a block
+    may use."""
+    E = int(caps[0])
+    pulses = _r16(8 * N)
+    for every in (True, False):
+        sb = stage_bytes(caps, E if every else 1)
+        for lanes in ((64, 32) if S > 32 else (32,)):
+            smem = pulses + min(S, lanes) * sb
+            if smem > SMEM_MAX:
+                continue
+            if every and B * -(-S // lanes) > \
+                    sms * (SMEM_SM // (smem + 1024)):
+                continue
+            return lanes, every, sb, smem
+    raise ValueError(f"slice: caps {tuple(caps)} with N={N} pulses do not "
+                     f"fit one block's shared memory")
+
+
 def slice_cuda(fam: str, pulse, gap, n_pulses, bounds,
                caps: SliceCaps = SliceCaps()) -> dict:
     """Launch ``csrc/slice.cu`` for family ``fam``; same contract as the
     family's plain version (``bounds`` as its ``<fam>_bounds`` gives them,
-    or already packed by :func:`bound_table`)."""
+    or already packed by :func:`bound_table`). The kernel writes every
+    element of the outputs, so they are allocated uninitialized."""
     _check(pulse, gap, n_pulses, caps)
     dev = pulse.device
     if not all(t.is_cuda and t.device == dev for t in (gap, n_pulses)) \
@@ -1042,20 +1094,23 @@ def slice_cuda(fam: str, pulse, gap, n_pulses, bounds,
     B, N = pulse.shape
     S = tab.shape[0]
     E, R, BY = (int(c) for c in caps)
-    z = lambda *sh, dt=torch.int32: torch.zeros(sh, dtype=dt, device=dev)
-    out = {"bytes": z(B, S, E, R, BY, dt=torch.uint8),
-           "bits_per_row": z(B, S, E, R), "syncs": z(B, S, E, R),
-           "num_rows": z(B, S, E), "n_events": z(B, S),
-           "ovf": z(B, S, dt=torch.uint8)}
+    lanes, every, sb, smem = launch_plan(
+        B, S, N, caps, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+    e = lambda *sh, dt=torch.int32: torch.empty(sh, dtype=dt, device=dev)
+    out = {"bytes": e(B, S, E, R, BY, dt=torch.uint8),
+           "bits_per_row": e(B, S, E, R), "syncs": e(B, S, E, R),
+           "num_rows": e(B, S, E), "n_events": e(B, S),
+           "ovf": e(B, S, dt=torch.uint8)}
     if B and S:
         fn = _cuda.launcher("slice")
         _cuda.LAUNCHES["slice_" + fam] += 1
         err = fn(FAMILIES[fam][0], pulse.data_ptr(), gap.data_ptr(),
                  n_pulses.data_ptr(), B, N, tab.data_ptr(), S, E, R, BY,
-                 out["bytes"].data_ptr(), out["bits_per_row"].data_ptr(),
-                 out["syncs"].data_ptr(), out["num_rows"].data_ptr(),
-                 out["n_events"].data_ptr(), out["ovf"].data_ptr(),
-                 _cuda.stream_of(pulse))
+                 lanes, int(every), sb, smem, out["bytes"].data_ptr(),
+                 out["bits_per_row"].data_ptr(), out["syncs"].data_ptr(),
+                 out["num_rows"].data_ptr(), out["n_events"].data_ptr(),
+                 out["ovf"].data_ptr(), _cuda.stream_of(pulse))
         _cuda.check(err, "slice_" + fam)
     out["ovf"] = out["ovf"].view(torch.bool)
     return out

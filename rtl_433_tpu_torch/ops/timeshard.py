@@ -24,7 +24,11 @@ the same lane order. Rows are :data:`TS_KEYS`: the detector's packed
 registers, then the front end's carries.
 
 Each wrapper launches ``csrc/timeshard.cu`` for a CUDA tensor and runs the
-plain version (torch, written from the JAX lines) for a CPU tensor.
+plain version (torch, written from the JAX lines) for a CPU tensor. The
+chain's plain version steps in the kernel's three phases (every link's
+compares for all three predecessor candidates, the walk, the outgoing
+registers); the CPU tests hold it to the JAX package's chain and to a
+link-by-link walk of the JAX lines.
 """
 
 from __future__ import annotations
@@ -43,6 +47,12 @@ NROW = len(TS_KEYS)
 # bits 0-7, a package-scoped key, a write-only counter
 OPEN_BIT = 1 << 8
 COUNTER_BIT = 1 << 9
+# the chain kernel's shared memory per channel per link: the mask, the
+# generation increment and the next candidate for each of three
+# predecessor candidates, then t_gen and the selection (csrc/timeshard.cu
+# ChainSmem); a block may use 227 KB
+CHAIN_BYTES_PER_LINK = 3 * 4 + 3 * 4 + 4 + 3 + 1
+SMEM_MAX = 232448
 
 _ROWS = {k: TS_KEYS.index(k)
          for k in ("low_est", "high_est", "ook_state", "min_high", "gen")}
@@ -84,66 +94,94 @@ def _check(t, shape, name, dev):
     return t.contiguous()
 
 
-def _take3(x3, sel):
-    """x3 [3, ..., C] per candidate, sel [C] -> [..., C] (JAX's
-    ``_take_cand``, a select chain)."""
-    return torch.where(sel == 0, x3[0], torch.where(sel == 1, x3[1], x3[2]))
-
-
 def timeshard_chain_plain(start, fin, rowinfo, *, D, ratio):
     """Plain version of the chain kernel (JAX timeshard.py:189-243 and
-    :267-281). Returns (sel int32 [D, C], delta int32 [D, C], out int32
-    [NROW, C], by_key int32 [max(D-1, 0)] bit masks, bad int32 [1])."""
+    :267-281), in the kernel's three phases. Returns (sel int32 [D, C],
+    delta int32 [D, C], out int32 [NROW, C], by_key int32 [max(D-1, 0)]
+    bit masks, bad int32 [1]).
+
+    Every quantity a link compares depends only on the predecessor's
+    candidate ``k`` and the link ``d``, so phase 1 computes, for every
+    link and all three ``k`` at once, the mask of failed keys, the
+    candidate the link selects and that candidate's generation increment;
+    phase 2 walks the links from ``sel_0 = 1``, taking each link's entry
+    for the predecessor's selection; phase 3 gathers the outgoing
+    registers and the re-based counters along the selected path."""
     nrow, L = start.shape
     C = L // D
+    i32 = torch.int32
+    dev = start.device
     st = start.view(nrow, D, C)
-    f3 = fin.view(nrow, 3, D, C).transpose(0, 1)             # [3, NROW, D, C]
+    f3 = fin.view(nrow, 3, D, C)                             # [NROW, 3, D, C]
     info = rowinfo.tolist()
     low, high, ook = _ROWS["low_est"], _ROWS["high_est"], _ROWS["ook_state"]
     mh, gen = _ROWS["min_high"], _ROWS["gen"]
-    i32 = torch.int32
-    dev = start.device
-    prev = f3[1, :, 0]                                        # [NROW, C]
-    gen0 = st[gen, 0]
-    tgen = gen0 + (prev[gen] - st[gen, 0])
-    sels = [torch.ones(C, dtype=i32, device=dev)]
-    deltas = [torch.zeros(C, dtype=i32, device=dev)]
-    finals = [prev]
-    masks = []
+
+    # phase 1: link d (1..D-1) against the predecessor's candidate k,
+    # each [3, D-1, C]
+    prev = f3[:, :, :D - 1]
+    s = st[:, None, 1:]
+    dlow = prev[low] - s[low]
+    nxt = torch.clamp(dlow + 1, 0, 2).long()
+    open_m = prev[ook] != ST_IDLE
+    cand_high = torch.where(
+        s[ook] == ST_IDLE,
+        torch.maximum(ratio * (s[low] + dlow), s[mh]), s[high])
+    mask = (dlow.abs() > 1).to(i32) | ((prev[high] != cand_high).to(i32) << 1)
+    for r, v in enumerate(info):
+        k = (v & 0xff) - 1
+        if k < 2:
+            continue
+        b = prev[r] != s[r]
+        if v & OPEN_BIT:
+            b = b & open_m
+        mask = mask | (b.to(i32) << k)
+    inc = torch.gather(f3[gen, :, 1:], 0, nxt) - s[gen]
+
+    # phase 2: the walk, one step per link over all channels; t_gen after
+    # segment 0 is gen0 + (its final gen - its start gen), its final gen
+    cc = torch.arange(C, device=dev)
+    sel = torch.ones(C, dtype=torch.long, device=dev)
+    tgen = f3[gen, 1, 0]
+    sels, deltas, link_masks = [sel], [torch.zeros_like(tgen)], []
     for d in range(1, D):
-        s = st[:, d]
-        dlow = prev[low] - s[low]
-        sel = torch.clamp(dlow + 1, 0, 2)
-        open_m = prev[ook] != ST_IDLE
-        cand_high = torch.where(
-            s[ook] == ST_IDLE,
-            torch.maximum(ratio * (s[low] + dlow), s[mh]), s[high])
-        mask = int(bool((dlow.abs() > 1).any())) \
-            | int(bool((prev[high] != cand_high).any())) << 1
-        for r, v in enumerate(info):
-            k = (v & 0xff) - 1
-            if k < 2:
-                continue
-            b = prev[r] != s[r]
-            if v & OPEN_BIT:
-                b = b & open_m
-            mask |= int(bool(b.any())) << k
-        masks.append(mask)
-        deltas.append(tgen - s[gen])
-        prev = _take3(f3[:, :, d], sel)
-        tgen = tgen + (prev[gen] - s[gen])
+        link_masks.append(mask[sel, d - 1, cc])
+        deltas.append(tgen - st[gen, d])
+        tgen = tgen + inc[sel, d - 1, cc]
+        sel = nxt[sel, d - 1, cc]
         sels.append(sel)
-        finals.append(prev)
-    out = prev.clone()
+    bit = torch.arange(31, device=dev)
+    if link_masks:
+        m = torch.stack(link_masks).long()                    # [D-1, C]
+        by_key = (((m[:, :, None] >> bit) & 1).amax(1) << bit).sum(1)
+    else:
+        by_key = torch.zeros(0, dtype=torch.long, device=dev)
+    by_key = by_key.to(i32)
+    bad = (by_key != 0).any().to(i32).reshape(1)
+
+    # phase 3: the outgoing registers along the selected path (counters:
+    # the seed plus each segment's selected increment)
+    sels = torch.stack(sels)                                  # [D, C]
+    picked = torch.gather(f3, 1, sels[None, None].expand(nrow, 1, D, C))[:, 0]
+    out = picked[:, D - 1].clone()
     for r, v in enumerate(info):
         if v & COUNTER_BIT:
-            acc = st[r, 0]
-            for d in range(D):
-                acc = acc + (finals[d][r] - st[r, d])
-            out[r] = acc
-    by_key = torch.tensor(masks, dtype=i32, device=dev)
-    bad = torch.tensor([int(any(masks))], dtype=i32, device=dev)
-    return (torch.stack(sels), torch.stack(deltas), out, by_key, bad)
+            out[r] = (st[r, 0].long() + (picked[r].long() - st[r].long())
+                      .sum(0)).to(i32)
+    return sels.to(i32), torch.stack(deltas), out, by_key, bad
+
+
+def chain_plan(D, C, nrow=NROW):
+    """The chain kernel's launch: (channels per block, shared bytes per
+    block, blocks). A block takes up to 32 channels, fewer where D is so
+    large that their per-link tables would not fit the 227 KB of shared
+    memory a block may use; raises where not even one channel fits."""
+    per_channel = D * CHAIN_BYTES_PER_LINK
+    g = min(32, C, (SMEM_MAX - 4 * nrow) // per_channel)
+    if g < 1:
+        raise ValueError(f"timeshard_chain: D={D} segments do not fit one "
+                         f"block's shared memory")
+    return g, 4 * nrow + g * per_channel, -(-C // g)
 
 
 def timeshard_chain_cuda(start, fin, rowinfo, *, D, ratio):
@@ -158,14 +196,17 @@ def timeshard_chain_cuda(start, fin, rowinfo, *, D, ratio):
     start = _check(start, (nrow, L), "start", dev)
     fin = _check(fin, (nrow, 3 * L), "fin", dev)
     rowinfo = _check(rowinfo, (nrow,), "rowinfo", dev)
+    G, smem, blocks = chain_plan(D, C, nrow)
     sel = torch.empty((D, C), dtype=torch.int32, device=dev)
     delta = torch.empty((D, C), dtype=torch.int32, device=dev)
     out = torch.empty((nrow, C), dtype=torch.int32, device=dev)
-    flags = torch.zeros(D, dtype=torch.int32, device=dev)   # by_key, bad
+    # by_key, bad: one block writes them, several OR into zeros
+    flags = (torch.zeros if blocks > 1 else torch.empty)(
+        D, dtype=torch.int32, device=dev)
     fn = _cuda.launcher("timeshard_chain")
     _cuda.LAUNCHES["timeshard_chain"] += 1
     err = fn(start.data_ptr(), fin.data_ptr(), rowinfo.data_ptr(), nrow, D,
-             C, int(ratio), _ROWS["low_est"], _ROWS["high_est"],
+             C, G, smem, int(ratio), _ROWS["low_est"], _ROWS["high_est"],
              _ROWS["ook_state"], _ROWS["min_high"], _ROWS["gen"],
              sel.data_ptr(), delta.data_ptr(), out.data_ptr(),
              flags.data_ptr(), flags[D - 1:].data_ptr(),

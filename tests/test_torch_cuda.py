@@ -267,6 +267,96 @@ def test_slice_kernel_long_trains(fam):
     _same_planes(got, want)
 
 
+
+@pytest.mark.parametrize("fam", ["ppm", "pwm", "pcm", "mc", "dmc", "piwm_dc",
+                                 "nrzs", "rzi", "osv1"])
+def test_slice_kernel_at_the_drain_shape(fam):
+    """The 4096-channel drain's largest slicer call: 256 trains of 64
+    pulses x 125 specs at the bank's caps, so a train spans two blocks
+    of 64 lanes; every element of the uninitialized outputs written."""
+    from rtl_433_tpu_torch.ops import slice as sl
+    from torch_slice_cases import BANK_CAPS, RATE, drain_shaped
+    dev = _gpu()
+    arrs, devs = drain_shaped(fam, 3)
+    bounds = getattr(sl, f"{fam}_bounds")(devs, RATE)
+    args = [torch.from_numpy(a) for a in arrs]
+    assert sl.launch_plan(256, 125, 64, BANK_CAPS[fam])[:2] == (64, False)
+    # garbage where the outputs will be allocated: the kernel must write
+    # every element, not find zeros
+    torch.full((256 << 20,), 0x5A, dtype=torch.uint8, device=dev)
+    got = sl.slice_cuda(fam, *(a.to(dev) for a in args), bounds,
+                        BANK_CAPS[fam])
+    torch.cuda.synchronize()
+    _same_planes(got, sl.PLAIN[fam](*args, bounds, BANK_CAPS[fam]))
+
+
+
+@pytest.mark.parametrize("every", [True, False])
+@pytest.mark.parametrize("fam", ["ppm", "pwm", "pcm", "mc", "dmc", "piwm_dc",
+                                 "nrzs", "rzi", "osv1"])
+def test_slice_kernel_either_staging(fam, every, monkeypatch):
+    """The same lanes (64 drain-shaped trains x 125 specs) with every
+    event of a lane staged and with one, the plan forced either way:
+    both equal the plain version."""
+    from rtl_433_tpu_torch.ops import slice as sl
+    from torch_slice_cases import BANK_CAPS, RATE, drain_shaped
+    dev = _gpu()
+    caps = BANK_CAPS[fam]
+    arrs, devs = drain_shaped(fam, 4, B=64)
+    bounds = getattr(sl, f"{fam}_bounds")(devs, RATE)
+    args = [torch.from_numpy(a) for a in arrs]
+    sb = sl.stage_bytes(caps, caps.events if every else 1)
+    lanes = 32 if every else 64
+    plan = (lanes, every, sb, -(-8 * 64 // 16) * 16 + lanes * sb)
+    monkeypatch.setattr(sl, "launch_plan", lambda *a, **k: plan)
+    got = sl.slice_cuda(fam, *(a.to(dev) for a in args), bounds, caps)
+    torch.cuda.synchronize()
+    _same_planes(got, sl.PLAIN[fam](*args, bounds, caps))
+
+def test_slice_kernel_open_event_erased_at_the_end():
+    """RZ PCM lanes whose open event is cleared at the last pulse: its
+    rows, written and then erased in the stage, leave as zeros (alone,
+    and after a kept event); the same run ending on a reset is kept."""
+    from rtl_433_tpu_torch.ops import slice as sl
+    from torch_slice_cases import (BANK_CAPS, RATE, family_devices, pack,
+                                   pcm_open_erased)
+    dev = _gpu()
+    devs = [d for d in family_devices("pcm") if d.short_width != d.long_width]
+    bounds = sl.pcm_bounds(devs[:1], RATE)
+    args = [torch.from_numpy(a) for a in pack(pcm_open_erased(devs[0]))]
+    got = sl.slice_cuda("pcm", *(a.to(dev) for a in args), bounds,
+                        BANK_CAPS["pcm"])
+    torch.cuda.synchronize()
+    want = sl.PLAIN["pcm"](*args, bounds, BANK_CAPS["pcm"])
+    _same_planes(got, want)
+    assert want["n_events"][:, 0].tolist() == [0, 1, 1]
+    assert int(want["bits_per_row"][2, 0, 0, 0]) > 0
+
+
+@pytest.mark.parametrize("caps", ["bank", "small"])
+def test_slice_kernel_lane_past_every_cap(caps):
+    """PPM lanes that pass the events, rows and row-bytes caps in one
+    train: every write outside them dropped as the plain version drops
+    it, the counts kept."""
+    from rtl_433_tpu_torch.ops import slice as sl
+    from torch_slice_cases import (BANK_CAPS, RATE, SMALL_CAPS,
+                                   family_devices, pack, ppm_overflow)
+    dev = _gpu()
+    caps = BANK_CAPS["ppm"] if caps == "bank" else SMALL_CAPS
+    devs = family_devices("ppm")
+    bounds = sl.ppm_bounds(devs, RATE)
+    args = [torch.from_numpy(a) for a in pack([ppm_overflow(d, caps)
+                                               for d in devs])]
+    got = sl.slice_cuda("ppm", *(a.to(dev) for a in args), bounds, caps)
+    torch.cuda.synchronize()
+    want = sl.PLAIN["ppm"](*args, bounds, caps)
+    _same_planes(got, want)
+    E, R, BY = caps
+    own = torch.arange(len(devs))
+    assert (want["n_events"][own, own] > E).all()
+    assert (want["num_rows"][own, own].amax(-1) > R).all()
+    assert (want["bits_per_row"][own, own].amax((-1, -2)) > 8 * BY).all()
+
 def _dup_planes(seed, dev):
     from torch_slice_cases import dup_planes
     return {k: torch.from_numpy(v).to(dev) for k, v in
@@ -384,7 +474,8 @@ def test_lane_origin_kernels_match_per_segment_plain(D, C, nv_seg):
 
 
 @pytest.mark.parametrize("seed,D,C", [(1, 8, 5), (2, 32, 40), (3, 1, 3),
-                                      (4, 2, 300)])
+                                      (4, 2, 300), (5, 32, 1), (6, 8, 4096),
+                                      (7, 64, 33)])
 def test_timeshard_chain_kernel_matches_plain(seed, D, C):
     from rtl_433_tpu_torch.ops import timeshard as ots
     from rtl_433_tpu_torch.parallel import timeshard as pts

@@ -184,3 +184,63 @@ def test_table_columns_invert_bound_table(fam):
     for k in bounds:
         assert back[k].dtype == bounds[k].dtype, k
         assert np.array_equal(back[k], bounds[k]), k
+
+
+# ---- the kernel's launch plan (computed here, passed to csrc/slice.cu)
+
+_CAPS_IN_USE = sorted(set(BANK_CAPS.values()) | {
+    SMALL_CAPS, tslice.SliceCaps(16, 24, 40), tslice.SliceCaps(16, 64, 64)})
+
+
+@pytest.mark.parametrize("N", [64, 2048, 8192])
+@pytest.mark.parametrize("caps", _CAPS_IN_USE, ids=str)
+def test_launch_plan_fits_every_cap_set_in_use(caps, N):
+    """The bank's caps, the tests' caps, the drain's longest bucket (2048
+    pulses) and the long-train case (8192): blocks of 64 lanes, or 32
+    where S <= 32 or 64 would not fit, inside the 227 KB a block may use;
+    each lane's stage an odd multiple of 16 bytes that holds its staged
+    events' rows (padded to words) and counts."""
+    E, R, BY = caps
+    for B in (1, 64, 256, 4096):
+        for S in (1, 29, 32, 33, 125, 1000):
+            lanes, every, sb, smem = tslice.launch_plan(B, S, N, caps)
+            assert lanes in (32, 64) and lanes % 32 == 0
+            if S <= 32:
+                assert lanes == 32
+            es = E if every else 1
+            assert sb == tslice.stage_bytes(caps, es) and sb % 32 == 16
+            assert sb >= es * (R * (-(-BY // 4) * 4) + 8 * R + 4)
+            assert smem == -(-8 * N // 16) * 16 + min(S, lanes) * sb
+            assert smem <= tslice.SMEM_MAX
+
+
+@pytest.mark.parametrize("B,S,caps,every", [
+    (256, 125, (4, 16, 40), False),   # the drain's large PCM call
+    (64, 29, (4, 16, 40), True),      # its small one
+    (64, 26, (8, 24, 20), True),
+    (256, 12, (8, 24, 20), True),
+    (4096, 125, (4, 16, 20), False),
+    (24, 12, (16, 64, 64), False)])   # 16 events of 64 x 64: too large
+def test_launch_plan_stages_every_event_where_the_grid_fits_at_once(
+        B, S, caps, every):
+    """Every event staged exactly where the blocks (one train x up to 64
+    specs each) then fit on the card's 132 SMs at once, by shared memory;
+    else one event, the denser plan."""
+    caps = tslice.SliceCaps(*caps)
+    lanes, got, sb, smem = tslice.launch_plan(B, S, 64, caps)
+    assert got == every
+    blocks = B * -(-S // lanes)
+    if every:
+        assert blocks <= 132 * (tslice.SMEM_SM // (smem + 1024))
+    else:
+        for ln in (32, 64):
+            sm = -(-8 * 64 // 16) * 16 + min(S, ln) * tslice.stage_bytes(
+                caps, caps.events)
+            assert sm > tslice.SMEM_MAX or B * -(-S // ln) > \
+                132 * (tslice.SMEM_SM // (sm + 1024))
+
+
+@pytest.mark.parametrize("caps,N", [((4, 64, 1024), 64), ((4, 16, 40), 30000)])
+def test_launch_plan_raises_where_32_lanes_do_not_fit(caps, N):
+    with pytest.raises(ValueError, match="shared memory"):
+        tslice.launch_plan(8, 100, N, tslice.SliceCaps(*caps))

@@ -12,8 +12,10 @@ JAX package's sequential packages (every field, the pulse and gap lists)
 and its fallbacks. The plain chain and gather are held to the JAX
 package's own ``chain``/``chain_step``/``_take_cand`` (rebuilt from the
 code objects of ``timeshard_process_block``) on seeded random register sets
-with planted mismatches of every key class, and the per-lane-origin front
-end and detector to one plain call per segment.
+with planted mismatches of every key class; the plain chain, which steps in
+the kernel's three phases, also to a link-by-link numpy walk of the JAX
+lines (which proves the decomposition); and the per-lane-origin front end
+and detector to one plain call per segment.
 """
 
 import functools
@@ -388,6 +390,103 @@ def test_plain_chain_matches_the_jax_chain(seed, D, C):
             want = last[r]
         assert np.array_equal(out[r].numpy(), want), k
 
+
+def _straight_walk(start, fin, rowinfo, D, ratio):
+    """The chain as the JAX lines walk it (parallel/timeshard.py:194-243,
+    then :267-281), link by link in numpy int32: verify the predecessor's
+    selected final against the next start, select the hedge candidate,
+    advance t_gen; then the last segment's selected final and the
+    re-based counters."""
+    rows = {k: i for i, k in enumerate(ots.TS_KEYS)}
+    low, high, ook = rows["low_est"], rows["high_est"], rows["ook_state"]
+    mh, gen = rows["min_high"], rows["gen"]
+    nrow = start.shape[0]
+    C = start.shape[1] // D
+    st = start.reshape(nrow, D, C)
+    f3 = fin.reshape(nrow, 3, D, C)
+    info = rowinfo.tolist()
+    cc = np.arange(C)
+    with np.errstate(over="ignore"):
+        prev = f3[:, 1, 0]
+        tgen = st[gen, 0] + (prev[gen] - st[gen, 0])
+        sels, deltas = [np.ones(C, np.int32)], [np.zeros(C, np.int32)]
+        masks = []
+        for d in range(1, D):
+            s = st[:, d]
+            dlow = prev[low] - s[low]
+            sel = np.clip(dlow + 1, 0, 2)
+            open_m = prev[ook] != det.ST_IDLE
+            cand_high = np.where(s[ook] == det.ST_IDLE,
+                                 np.maximum(np.int32(ratio) * (s[low] + dlow),
+                                            s[mh]), s[high])
+            mask = int((np.abs(dlow) > 1).any()) | \
+                int((prev[high] != cand_high).any()) << 1
+            for r, v in enumerate(info):
+                k = (v & 0xff) - 1
+                if k < 2:
+                    continue
+                b = prev[r] != s[r]
+                if v & ots.OPEN_BIT:
+                    b = b & open_m
+                mask |= int(b.any()) << k
+            masks.append(mask)
+            deltas.append(tgen - s[gen])
+            prev = f3[:, sel, d, cc]
+            tgen = tgen + (prev[gen] - s[gen])
+            sels.append(sel.astype(np.int32))
+        out = prev.copy()
+        for r, v in enumerate(info):
+            if v & ots.COUNTER_BIT:
+                acc = st[r, 0].copy()
+                for d in range(D):
+                    acc = acc + (f3[r, sels[d], d, cc] - st[r, d])
+                out[r] = acc
+    return (np.stack(sels), np.stack(deltas), out,
+            np.asarray(masks, np.int32), np.asarray([int(any(masks))],
+                                                    np.int32))
+
+
+@pytest.mark.parametrize("seed,D,C", [(5, 1, 3), (6, 2, 300), (7, 8, 5),
+                                      (8, 32, 1), (9, 32, 40), (10, 64, 7)])
+def test_phase_order_chain_equals_the_straight_walk(seed, D, C):
+    """timeshard_chain_plain computes every link's compares for all three
+    predecessor candidates at once, then walks the selections, then
+    gathers the outgoing registers (the kernel's three phases); the
+    result must equal the JAX lines' walk link by link."""
+    start, fin = random_chain(seed, D, C)
+    names, rowinfo = ots.verify_layout(*pts._verify_keys(te.DetectorParams()),
+                                       pts._COUNTER_KEYS)
+    ratio = te.DetectorParams().ook_high_low_ratio
+    want = _straight_walk(start, fin, rowinfo, D, ratio)
+    got = ots.timeshard_chain_plain(torch.from_numpy(start),
+                                    torch.from_numpy(fin), rowinfo, D=D,
+                                    ratio=ratio)
+    for g, w, k in zip(got, want, ("sel", "delta", "out", "by_key", "bad")):
+        assert g.dtype == torch.int32, k
+        assert np.array_equal(g.numpy(), w), k
+    if D >= 32 and C > 1:
+        # a mismatch of every class was planted and caught: low_est,
+        # high_est, an always-compared key and an open-compared key
+        hit = {names[i] for i in range(len(names))
+               if (want[3] >> i & 1).any()}
+        assert {"low_est", "high_est"} <= hit
+        assert hit & set(pts._VERIFY_ALWAYS) - {"low_est", "high_est"}
+        assert hit & set(pts._VERIFY_OPEN)
+        assert want[4][0] == 1
+
+
+@pytest.mark.parametrize("D,C,want", [(1, 3, (3, 1)), (32, 1, (1, 1)),
+                                      (8, 4096, (32, 128)), (64, 33, (32, 2)),
+                                      (2000, 5, (3, 2))])
+def test_chain_plan(D, C, want):
+    """Up to 32 channels per block; fewer where D's per-link tables would
+    pass the 227 KB a block may use; the shared bytes within it."""
+    g, smem, blocks = ots.chain_plan(D, C)
+    assert (g, blocks) == want
+    assert smem == 4 * ots.NROW + g * D * ots.CHAIN_BYTES_PER_LINK
+    assert smem <= ots.SMEM_MAX
+    with pytest.raises(ValueError):
+        ots.chain_plan(8000, 1)
 
 @pytest.mark.parametrize("D,C,R,G,E", [(8, 3, 8, 4, 2), (2, 1, 2, 16, 1),
                                        (1, 2, 4, 2, 3)])

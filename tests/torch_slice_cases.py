@@ -263,3 +263,51 @@ def dup_planes(seed, B=3, J=4, E=6, R=5, W=7, plant=True):
         nb[:, :, :, 0, 0] = np.arange(E, dtype=np.uint8)
         nr[:] = np.maximum(nr, 1)
     return {"bytes": nb, "num_rows": nr, "bits_per_row": bpr, "syncs": sy}
+
+
+def drain_shaped(fam, seed, B=256, N=64, S=125):
+    """Lanes at the 4096-channel drain's largest slicer call: B trains of
+    the family's shape cut to at most N pulses (padded to N), and the
+    family's specs repeated to S, so that one train spans several blocks
+    of lanes. Returns (pulse, gap, n_pulses numpy), devices."""
+    devs = family_devices(fam)
+    trains = [(p[:N], g[:N]) for p, g in family_trains(fam, devs, seed, n=B)]
+    return pack(trains, n_min=N), (devs * S)[:S]
+
+
+def pcm_open_erased(dev):
+    """RZ PCM trains for ``dev`` (short != long): a valid run of short
+    pulses whose last pulse is long, so the lane's open event is cleared
+    at the last step and never flushed; the same after a first event that
+    flushes on a reset gap; and the first run ending on the reset gap
+    instead, whose event is kept."""
+    s, lg = _w(dev.short_width), _w(dev.long_width)
+    rst = max(2, int(dev.reset_limit * SPU))
+    run = ([s] * 24, [max(1, lg - s)] * 24)
+    kept = (run[0], run[1][:-1] + [rst * 2 + 10])
+    erased = (run[0] + [3 * s + 7 * max(1, s // 4)], run[1] + [rst * 2 + 10])
+    return [erased, (kept[0] + erased[0], kept[1] + erased[1]), kept]
+
+
+def ppm_overflow(dev, caps):
+    """A PPM train for ``dev`` that passes every cap of ``caps`` in its
+    first event already: events + 2 events, each of rows + 2 rows of
+    8 * row_bytes + 4 bits, rows split by a gap that is no bit and no
+    sync but below the reset limit, events by a gap past it."""
+    from rtl_433_tpu_torch.ops.slice import ppm_bounds
+    b = {k: int(v[0]) for k, v in ppm_bounds([dev], RATE).items()}
+    zero = (b["zero_l"] + b["zero_u"]) // 2
+    one = (b["one_l"] + b["one_u"]) // 2
+
+    def free(g):
+        return not any(b[f"{w}_l"] < g < b[f"{w}_u"]
+                       for w in ("zero", "one", "sync"))
+    brk = next(g for g in range(b["reset"] - 1, 0, -1) if free(g))
+    E, R, BY = caps
+    gaps = []
+    for _e in range(E + 2):
+        for r in range(R + 2):
+            gaps += [one if (i + r) % 3 else zero for i in range(8 * BY + 4)]
+            gaps.append(brk)
+        gaps[-1] = b["reset"] + 10
+    return [max(1, _w(dev.short_width) // 2)] * len(gaps), gaps
