@@ -159,7 +159,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
               at its fuzz call), and per path (fixtures, mixed_250k,
               mixed_1024k, the dense_4096 drain) their device ms summed
               over every recorded call of that path (ms_by_path beside
-              calls_by_path and launches_by_path); the time-shard chain
+              calls_by_path and launches_by_path), each beside the floor
+              of any launch (launch_floor_ms, the chain's); the time-shard
+              chain
               and gather with their launches on the timeshard phase and
               their times at its first lacrosse_tx35 call at the most
               segments that made one (a block that fails verification
@@ -172,19 +174,25 @@ Phases, each printing one JSON line (any failure exits non-zero):
               dense_4096 drain's batch and at the fuzz batch; each MIC
               digest with its launches and times at the mic phase.
 
-Every phase line carries its seconds. The line before the last is
-nvidia-smi's name and power limit; the last
-line is {"ok": true, "device": {...}}. Without a CUDA device, or outside a
-checkout, the script exits non-zero and prints no result.
+Every phase line carries its seconds. Before the kernels line, a
+"processes" line names the child processes still live after the phases
+(multiprocessing's resource tracker, which 6d's spawn starts, and nothing
+else is expected): the script is the subreaper of every process it starts,
+and stops and reaps each of them there and again when it exits, however it
+exits. The line before the last is nvidia-smi's name and power limit; the
+last line is {"ok": true, "device": {...}}. Without a CUDA device, or
+outside a checkout, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -261,6 +269,83 @@ def emit(obj):
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def become_subreaper():
+    """Make this process the reaper of every orphan among its descendants
+    (Linux prctl PR_SET_CHILD_SUBREAPER), so that stop_children finds a
+    process that a child left behind."""
+    import ctypes
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+    except (OSError, AttributeError):
+        pass
+
+
+def own_children():
+    """{pid: state} of this process's children, live or not yet reaped,
+    read from /proc."""
+    me, kids = os.getpid(), {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # state and ppid follow the command name's closing parenthesis
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        if int(ppid) == me:
+            kids[int(d)] = state
+    return kids
+
+
+def reap():
+    """Collect the exit status of every child that has ended."""
+    while True:
+        try:
+            pid, _ = os.waitpid(-1, os.WNOHANG)
+        except ChildProcessError:
+            return
+        if pid == 0:
+            return
+
+
+def stop_children(wait_s=5.0):
+    """Stop and reap every child of this process: multiprocessing's resource
+    tracker is closed (it ends when its pipe does; it ignores SIGTERM), any
+    other child gets SIGTERM, then SIGKILL after ``wait_s``; orphans that
+    reach this subreaper meanwhile are stopped the same way. Returns the
+    pids of the children that were live when it was called."""
+    live = sorted(p for p, st in own_children().items() if st != "Z")
+    from multiprocessing import resource_tracker
+    rt = getattr(resource_tracker, "_resource_tracker", None)
+    if rt is not None and getattr(rt, "_fd", None) is not None:
+        try:
+            os.close(rt._fd)
+        except OSError:
+            pass
+        rt._fd = rt._pid = None
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        end = time.monotonic() + wait_s
+        sent = set()
+        while True:
+            reap()
+            kids = own_children()
+            if not kids or time.monotonic() > end:
+                break
+            for pid in set(kids) - sent:
+                try:
+                    os.kill(pid, sig)
+                except ProcessLookupError:
+                    pass
+                sent.add(pid)
+            time.sleep(0.02)
+        if not kids:
+            break
+    reap()
+    return live
 
 
 def smi_line():
@@ -2028,6 +2113,8 @@ def main():
               "script measures the GPU and has nothing to run",
               file=sys.stderr)
         return 2
+    become_subreaper()
+    atexit.register(stop_children)
     sys.path.insert(0, HERE)
     sys.path.insert(0, os.path.join(HERE, "tests"))
     from rtl_433_tpu_torch.api import RtlTpu
@@ -2820,6 +2907,8 @@ def main():
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"], "calls": m["calls"],
             "shapes": m["shapes"],
+            "launch_floor_ms": ts_numbers["timeshard_chain"][
+                "launch_floor_ms"],
             "measured_at": m.get("measured_at", "dense_4096 drain")})
         if k == "decl_bank":
             rows[-1].update(
@@ -2857,6 +2946,7 @@ def main():
                 launch_floor_ms=m["launch_floor_ms"],
                 **{f"{x}_by_D": {D: v[x] for D, v in m["by_D"].items()}
                    for x in ("ms", "plain_ms", "bound_ms")})
+    emit({"processes": {"live_children_stopped": stop_children()}})
     emit({"kernel_launches": launches,
           "kernel_launches_multichannel": mc_launches,
           "kernel_launches_device_slice": ds_paths,

@@ -1,5 +1,6 @@
-// Device slicing: one thread per (train, spec) lane runs one reference
-// slicer's state machine over its train and writes the lane's bitbuffers.
+// Device slicing: each (train, spec) lane runs one reference slicer over its
+// train and writes the lane's bitbuffers; seven families walk the lane's
+// state machine on one thread, MC and PWM split it over a thread group.
 //
 // Replaces the nine lax.scan slicers of the JAX package's ops/slice.py
 // (slice_ppm, slice_pwm, slice_pcm with _pcm_rates, slice_mc, slice_dmc,
@@ -16,13 +17,14 @@
 // them uninitialized). A write outside the caps (event >= E, row >= R,
 // bit >= 8 * BY) is dropped, as the JAX scatters drop it.
 //
-// Design. A CTA covers one train (blockIdx.y) and `lanes` specs of one
-// family (blockIdx.x; 64, or 32 where S <= 32 or 64 would not fit); it
+// The walk (PPM, PCM, DMC, PIWM-DC, NRZS, RZI, OSV1). A CTA covers one
+// train (blockIdx.y) and `lanes` specs of one family (blockIdx.x; 64, or
+// 32 where S <= 32 or 64 would not fit); it
 // stages the train's n_pulses[b] pulse and gap values into shared memory
 // once, and every thread then walks only that many steps (2 * n_pulses[b]
 // symbols for DMC and PIWM-DC), reading the same shared word as all its
 // neighbours (a broadcast). The spec's bounds sit in registers. One
-// template takes a per-family step function (nine instantiations); the
+// template takes a per-family step function (seven instantiations); the
 // writer is shared (struct Lane, warp_put). Every family writes only its
 // current event, whose index only grows, so a lane stages its events in
 // shared memory: single bits are byte adds (the JAX scatter-add, equal to
@@ -42,6 +44,31 @@
 //     of a block meet (they walk the same train), the warp writes out the
 //     lanes whose family moved past their staged event (warp_moved).
 //
+// The groups (MC, PWM; slice_groups). A group of G threads (32, or 8 or
+// 16 where the train is short) runs one lane over tiles of G pulses, a
+// pulse per thread, and a CTA holds one train and up to four warps of
+// lanes. Most of the two step functions is not serial: what a pulse is
+// (PWM's five classes; MC's out, its resync 1, the flush) and whether its
+// gap may end an event or a row depends on no state, and the cursors only
+// count or reset since the last reset. So a tile is
+//   1. classified, a predicate per thread;
+//   2. MC only: walked for its time since the last bit (tsl), the one
+//      value that carries across pulses, one walk per piece between
+//      resets that need no state (out, flush, and where every width of
+//      the train is tame, a pulse or gap over 1.5 short widths), in
+//      registers; the walk emits a mid-bit 1 and 0 flag per pulse;
+//   3. given its cursors by ballots: popcounts of the emissions since the
+//      last reset give each emission its (event, row, bit), each flush its
+//      rows and the lane its overflow, judged on the pre-flush cursors as
+//      the step functions judge it; a tile hands its cursors to the next
+//      through its last thread;
+//   4. written to the group's stage (every event, struct Stage): a row's
+//      bit count by the thread of its last bit in the tile, its bytes by
+//      word ORs (the positions of a tile never decrease with the thread,
+//      so a segmented OR-scan gives each word one store), syncs by shared
+//      adds.
+// At the end the group writes its stage out with warp_put's writer.
+//
 // Float32 in PCM: the JAX scan and the plain version round each product
 // and sum separately, so every float operation here is an explicit
 // round-to-nearest intrinsic (__fmul_rn, __fadd_rn, __fdiv_rn,
@@ -54,10 +81,13 @@
 // the bytes bound it on paper; on the card a call of up to a few
 // thousand lanes is one wave, bound by the latency of its slowest lane's
 // serial walk (one thread, about a microsecond a pulse at PCM), and the
-// large call by that walk plus the planes' write-out. The design takes
-// the write-out off the walk (coalesced, by the warp, never per bit) and,
-// where it fits, out of the walk altogether; it does not shorten the walk
-// itself.
+// large call by that walk plus the planes' write-out. The walk's design
+// takes the write-out off the walk (coalesced, by the warp, never per bit)
+// and, where it fits, out of the walk altogether; it does not shorten the
+// walk itself. The groups shorten it for MC and PWM: a tile of G pulses
+// costs a fixed few hundred cycles of ballots, shuffles and stage stores,
+// and MC's remaining serial walk is as long as its longest piece (a pulse
+// or two on Manchester data).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -102,16 +132,13 @@ struct Planes {
 // event e is stage slot e and nothing leaves before the lane ends. With
 // one, the slot holds event sev; once the family has moved past it, the
 // warp writes it out at the top of the next step (warp_moved) and the
-// slot takes the next event. The one write past it inside a step, MC's
-// leading 0 of the next event at a flush, is kept in next0 until then.
-// Writes outside the caps are dropped.
+// slot takes the next event. Writes outside the caps are dropped.
 template <bool kAll>
 struct Lane {
   const Planes& pl;
   uint8_t* st;      // the stage
   int E, R, BY, BYP;
   int sev = 0;      // one event staged: that event (E: none left)
-  int next0 = 0;    // one event staged: bits counted on row 0 of sev + 1
 
   __device__ Lane(const Planes& p, uint8_t* stage)
       : pl(p), st(stage), E(p.E), R(p.R), BY(p.BY), BYP(p.BYP) {
@@ -136,13 +163,8 @@ struct Lane {
   __device__ bool in(int ev, int row) const {
     return ev >= 0 && ev < E && row >= 0 && row < R;
   }
-  // one event staged: the slot now holds event ev (< E), row 0 taking
-  // next0
-  __device__ void moved_to(int ev) {
-    sev = ev;
-    if (ev < E) nbits(ev, 0) += next0;
-    next0 = 0;
-  }
+  // one event staged: the slot now holds event ev (<= E)
+  __device__ void moved_to(int ev) { sev = ev; }
   // ev's slot can take a write; false where ev lies outside the caps. A
   // write past the one staged event inside a step breaks the contract
   // above (the lane's stage would be lost): the launch fails.
@@ -161,9 +183,7 @@ struct Lane {
       row(ev, r)[bir >> 3] += (uint8_t)(0x80u >> (bir & 7));
   }
   __device__ void count(int ev, int r, int n) {
-    if (!in(ev, r)) return;
-    if (!kAll && ev == sev + 1 && r == 0) next0 += n;
-    else if (at(ev)) nbits(ev, r) += n;
+    if (in(ev, r) && at(ev)) nbits(ev, r) += n;
   }
   __device__ void sync(int ev, int r) {
     if (in(ev, r) && at(ev)) nsync(ev, r) += 1;
@@ -205,17 +225,17 @@ struct Lane {
   }
 };
 
-// The warp writes one lane's events [ev, ev + nev) from its stage `st`
-// (its slots 0..nev-1; nothing where ev >= E) and zeros for the events
-// after them up to `to`; with `clear` it also clears the stage for the
-// lane's next event. Consecutive threads take consecutive 16-byte chunks
-// of the lane's contiguous event range (bytes where the caps do not allow
-// 16). Every thread of `alive` (lanes 0..nt-1) calls it with the same
-// values, after a __syncwarp that makes the lane's stage visible; with
-// `clear`, the lane reads its stage again only after another.
-__device__ void warp_put(const Planes& p, size_t lane, uint8_t* st, int ev,
-                         int nev, int to, bool clear, unsigned alive) {
-  const int t = threadIdx.x & 31, nt = __popc(alive);
+// Threads t = 0..nt-1 write one lane's events [ev, ev + nev) from its
+// stage `st` (its slots 0..nev-1; nothing where ev >= E) and zeros for the
+// events after them up to `to`; with `clear` they also clear the stage for
+// the lane's next event. Consecutive threads take consecutive 16-byte
+// chunks of the lane's contiguous event range (bytes where the caps do not
+// allow 16). Each calls it with the same values, after a __syncwarp that
+// makes the lane's stage visible; with `clear` (the lanes 0..nt-1 of a
+// warp, `alive`), the lane reads its stage again only after another.
+__device__ void put_events(const Planes& p, size_t lane, uint8_t* st, int ev,
+                           int nev, int to, bool clear, int t, int nt,
+                           unsigned alive) {
   const int E = p.E, R = p.R;
   const int EV = R * p.BY;                         // bytes of one event
   uint8_t* gb = p.bytes + lane * E * EV;
@@ -290,6 +310,13 @@ __device__ void warp_put(const Planes& p, size_t lane, uint8_t* st, int ev,
   }
 }
 
+// put_events by the lanes `alive` of a warp
+__device__ void warp_put(const Planes& p, size_t lane, uint8_t* st, int ev,
+                         int nev, int to, bool clear, unsigned alive) {
+  put_events(p, lane, st, ev, nev, to, clear, threadIdx.x & 31,
+             __popc(alive), alive);
+}
+
 // float helpers: explicit round-to-nearest, never contracted
 __device__ __forceinline__ float i2f(int v) { return __int2float_rn(v); }
 
@@ -309,7 +336,7 @@ __device__ __forceinline__ int trunc05(float v, bool& near) {
   return __float2int_rz(x);
 }
 
-// ---- the families: state, step, end ------------------------------------
+// ---- the walk's families: state, step, end -----------------------------
 //
 // Each step is the JAX step of its family for one lane: the same
 // comparisons in the same order, its emissions written where the JAX
@@ -351,49 +378,6 @@ struct Ppm {
     row = flush ? 0 : row2;
     bir = flush ? 0 : bir3;
     frb = flush ? 0 : frb2;
-  }
-  template <class L>
-  __device__ void end(L&) {}
-};
-
-struct Pwm {
-  static constexpr bool kSymbols = false;
-  static constexpr bool kEventZero = false;
-  int ol, ou, zl, zu, syl, syu, gp, rst;
-  int ev = 0, row = 0, bir = 0;
-  bool touched = false, ovf = false;
-  __device__ explicit Pwm(const int* c)
-      : ol(c[0]), ou(c[1]), zl(c[2]), zu(c[3]), syl(c[4]), syu(c[5]),
-        gp(c[6]), rst(c[7]) {}
-  __device__ void pre(const int*, const int*, int) {}
-  template <class L>
-  __device__ void begin(L&) {}
-  template <class L>
-  __device__ void step(int p, int g, bool last, L& o) {
-    bool is1 = ol < p && p < ou;
-    bool is0 = !is1 && zl < p && p < zu;
-    bool issy = !is1 && !is0 && syl < p && p < syu;
-    bool isspur = !is1 && !is0 && !issy && p <= ol;
-    bool isrb = !is1 && !is0 && !issy && !isspur;
-    bool isbit = is1 || is0;
-    int sy_row = bir > 0 ? row + 1 : row;
-    int row2 = issy ? sy_row : row;
-    int bir2 = (issy && bir > 0) ? 0 : bir;
-    if (isrb) { row2 += 1; bir2 = 0; }
-    if (isbit) o.bit(ev, row2, bir2, is1);
-    if (issy) o.sync(ev, sy_row);
-    int bir3 = isbit ? bir2 + 1 : bir2;
-    bool touched2 = touched || isbit || issy || isrb;
-    bool flush = (g > rst || last) && touched2;
-    if (flush) o.rows(ev, row2 + 1);
-    bool brk = !flush && gp > 0 && g > gp && touched2 && bir3 > 0;
-    int ev2 = flush ? ev + 1 : ev;
-    int row3 = flush ? 0 : (brk ? row2 + 1 : row2);
-    ovf = ovf || ev2 >= o.E || max(row2, row3) >= o.R || bir3 >= o.BY * 8;
-    ev = ev2;
-    row = row3;
-    bir = (flush || brk) ? 0 : bir3;
-    touched = flush ? false : touched2;
   }
   template <class L>
   __device__ void end(L&) {}
@@ -512,53 +496,6 @@ struct Pcm {
   // the event left open at the end never flushed: none of it is kept
   template <class L>
   __device__ void end(L& o) { o.erase(ev, dirty); }
-};
-
-struct Mc {
-  static constexpr bool kSymbols = false;
-  static constexpr bool kEventZero = false;
-  int sh, rst, tol;
-  bool has_tol;
-  int ev = 0, row = 0, bir = 1, tsl = 0;
-  bool ovf = false;
-  __device__ explicit Mc(const int* c)
-      : sh(c[0]), rst(c[1]), tol(c[2]), has_tol(c[3] != 0) {}
-  __device__ void pre(const int*, const int*, int) {}
-  // every buffer starts with a hardcoded 0 bit (event 0 here, the next
-  // event's at each flush)
-  template <class L>
-  __device__ void begin(L& o) { o.count(0, 0, 1); }
-  template <class L>
-  __device__ void step(int p, int g, bool last, L& o) {
-    bool out = has_tol && (p < sh - tol || p > 2 * sh + tol ||
-                           g < sh - tol || g > 2 * sh + tol);
-    bool c1_out = out && 2 * p > 3 * sh && p <= 2 * sh + tol;
-    bool c1_mid = !out && 2 * (p + tsl) > 3 * sh;
-    bool c1 = c1_out || c1_mid;
-    if (c1) o.bit(ev, row, bir, 1);
-    int bir2 = c1 ? bir + 1 : bir;
-    int row2 = out ? row + 1 : row;
-    if (out) o.count(ev, row2, 1);         // the new row's leading 0
-    int bir3 = out ? 1 : bir2;
-    int tsl2 = (out || c1_mid) ? 0 : tsl + p;
-    bool flush = g > rst || last;
-    bool c3 = !flush && 2 * (g + tsl2) > 3 * sh;
-    if (c3) o.count(ev, row2, 1);          // a mid-bit 0
-    int bir4 = c3 ? bir3 + 1 : bir3;
-    int ev2 = flush ? ev + 1 : ev;
-    if (flush) {
-      o.rows(ev, row2 + 1);
-      o.count(ev2, 0, 1);                  // the next event's leading 0
-    }
-    ovf = ovf || row2 >= o.R || bir4 > o.BY * 8 || max(bir2, 1) > o.BY * 8 ||
-          (flush && ev2 >= o.E);
-    tsl = (flush || c3) ? 0 : tsl2 + g;
-    ev = ev2;
-    row = flush ? 0 : row2;
-    bir = flush ? 1 : bir4;
-  }
-  template <class L>
-  __device__ void end(L&) {}
 };
 
 struct Dmc {
@@ -866,16 +803,374 @@ cudaError_t launch(const int* pulse, const int* gap, const int* n_pulses,
   return cudaGetLastError();
 }
 
+// ---- the groups: MC and PWM, a thread group per lane ---------------------
+
+constexpr unsigned kFull = 0xffffffffu;
+// MC's pieces also end at a pulse or gap over 1.5 short widths where every
+// width of the train is below kTame and the short width below kShortMax:
+// tsl then never goes negative and its sums stay far from int32 overflow
+constexpr unsigned kTame = 1u << 28;
+constexpr int kShortMax = 1 << 26;
+
+// the highest set bit of m != 0
+__device__ __forceinline__ int hibit(unsigned m) { return 31 - __clz(m); }
+// the bits above bit a, a in [-1, 31]
+__device__ __forceinline__ unsigned above(int a) {
+  return a >= 31 ? 0u : ~0u << (a + 1);
+}
+// bit `pos` of a staged row as a bit of its 32-bit word: bytes hold the
+// row's bits MSB first, a word holds four bytes little-endian
+__device__ __forceinline__ unsigned pos_bit(int pos) {
+  return 1u << (((pos >> 3) & 3) * 8 + 7 - (pos & 7));
+}
+
+// G threads of a warp that run one lane: thread t takes pulse base + t of
+// each tile. Every thread of the warp calls the collectives together (the
+// groups of a CTA walk the same train, so their tiles line up).
+template <int G>
+struct Group {
+  const int t;     // the thread in its group
+  const int off;   // the group's first thread in its warp
+  __device__ Group()
+      : t(threadIdx.x & (G - 1)), off((threadIdx.x & 31) & ~(G - 1)) {}
+  // the group's votes, bit k from thread k
+  __device__ unsigned ballot(bool x) const {
+    const unsigned v = __ballot_sync(kFull, x);
+    return G == 32 ? v : (v >> off) & ((1u << G) - 1);
+  }
+  __device__ int from(int v, int k) const {
+    return __shfl_sync(kFull, v, k, G);
+  }
+  __device__ unsigned from(unsigned v, int k) const {
+    return __shfl_sync(kFull, v, k, G);
+  }
+  __device__ unsigned lt() const { return (1u << t) - 1; }
+  __device__ unsigned le() const { return lt() | (1u << t); }
+  // thread t ORs m into stage word `key` (< 0: none). The keys of a tile
+  // never decrease with t, so equal keys are neighbours: a segmented
+  // OR-scan gathers each word's bits into its last thread, which stores
+  // them, one store per word
+  __device__ void or_words(uint32_t* w, int key, uint32_t m) const {
+    for (int d = 1; d < G; d <<= 1) {
+      const uint32_t om = __shfl_up_sync(kFull, m, d, G);
+      const int ok = __shfl_up_sync(kFull, key, d, G);
+      if (t >= d && ok == key) m |= om;
+    }
+    const int nk = __shfl_down_sync(kFull, key, 1, G);
+    if (key >= 0 && m && (t == G - 1 || nk != key)) w[key] |= m;
+  }
+};
+
+// A group's stage: every event of its lane, laid out as Planes says.
+struct Stage {
+  const Planes& pl;
+  uint8_t* st;
+  int E, R, BITS, WPR;
+  __device__ Stage(const Planes& p, uint8_t* s)
+      : pl(p), st(s), E(p.E), R(p.R), BITS(8 * p.BY), WPR(p.BYP / 4) {}
+  __device__ void clear(int t, int nt) {
+    uint4* s4 = reinterpret_cast<uint4*>(st);
+    for (int i = t; i < pl.stage_words() / 4; i += nt)
+      s4[i] = make_uint4(0, 0, 0, 0);
+  }
+  __device__ uint32_t* words() const {
+    return reinterpret_cast<uint32_t*>(st);
+  }
+  __device__ int& nbits(int ev, int r) const {
+    return reinterpret_cast<int*>(st + pl.ob)[ev * R + r];
+  }
+  __device__ int& nsync(int ev, int r) const {
+    return reinterpret_cast<int*>(st + pl.os)[ev * R + r];
+  }
+  __device__ int& nrow(int ev) const {
+    return reinterpret_cast<int*>(st + pl.on)[ev];
+  }
+  __device__ bool in(int ev, int r) const {
+    return ev >= 0 && ev < E && r >= 0 && r < R;
+  }
+  // the word of bit `pos` of row r of event ev; -1 outside the caps
+  __device__ int word(int ev, int r, int pos) const {
+    return in(ev, r) && pos >= 0 && pos < BITS
+               ? (ev * R + r) * WPR + (pos >> 5) : -1;
+  }
+};
+
+// MC (JAX slice_mc): per step a resync 1 (c1_out) or mid-bit 1 (c1_mid) at
+// the cursor, a row break with its leading 0 (out), a mid-bit 0 (c3), and
+// at a flush the next event's leading 0. Only c1_mid and c3 read state,
+// tsl; the cursors count emissions since a reset (bir restarts at 1 after
+// out and flush, row at 0 after a flush).
+struct McLanes {
+  int sh, rst, tol;
+  bool has_tol, vf;
+  int ev = 0, row = 0, bir = 1, tsl = 0;
+  bool gf = true;   // tsl was reset by the last gap (a piece starts)
+  bool ovf = false;
+  __device__ McLanes(const int* c, bool tame)
+      : sh(c[0]), rst(c[1]), tol(c[2]), has_tol(c[3] != 0),
+        vf(tame && c[0] >= 0 && c[0] < kShortMax) {}
+  // every buffer starts with a hardcoded 0 bit: event 0's here
+  template <int G>
+  __device__ void begin(const Group<G>& gr, Stage& s, bool ok) {
+    if (ok && gr.t == 0) s.nbits(0, 0) = 1;
+  }
+  template <int G>
+  __device__ void tile(const Group<G>& gr, Stage& s, const int* sp,
+                       const int* sg, int base, int nact, int n) {
+    const int t = gr.t;
+    const bool act = t < nact;
+    const int p = act ? sp[base + t] : 0, g = act ? sg[base + t] : 0;
+    const unsigned lt = gr.lt(), le = gr.le();
+    const unsigned ACT = nact >= 32 ? ~0u : (1u << nact) - 1;
+    // 1. what no state decides
+    const bool out = act && has_tol && (p < sh - tol || p > 2 * sh + tol ||
+                                        g < sh - tol || g > 2 * sh + tol);
+    const bool c1o = out && 2 * p > 3 * sh && p <= 2 * sh + tol;
+    const bool fl = act && (g > rst || base + t == n - 1);
+    const bool pf = out || (vf && 2 * p > 3 * sh);   // tsl 0 after the pulse
+    const bool gfo = fl || (vf && 2 * g > 3 * sh);   // and after the gap
+    const unsigned OUT = gr.ballot(out), FL = gr.ballot(fl);
+    const unsigned GF = gr.ballot(act && gfo);
+    const bool start = act && (pf || (t ? ((GF >> (t - 1)) & 1) != 0 : gf));
+    // thread 0 walks the piece the last tile left open, if no piece starts
+    const unsigned ST = gr.ballot(start) | 1u;
+    // 2. tsl, walked over each piece by the thread at its start
+    int ts = start ? 0 : tsl;
+    unsigned m1 = 0, m3 = 0;
+    if (act && ((ST >> t) & 1)) {
+      const unsigned nx = ST & ~le & ACT;
+      const int e = nx ? __ffs(nx) - 1 : nact;
+      for (int j = t; j < e; ++j) {
+        const bool oj = (OUT >> j) & 1, fj = (FL >> j) & 1;
+        const int a = ts + sp[base + j];
+        const bool x1 = !oj && 2 * a > 3 * sh;
+        const int b = ((oj || x1) ? 0 : a) + sg[base + j];
+        const bool x3 = !fj && 2 * b > 3 * sh;
+        ts = (fj || x3) ? 0 : b;
+        m1 |= (unsigned)x1 << j;
+        m3 |= (unsigned)x3 << j;
+      }
+    }
+    __syncwarp();
+    const int src = hibit(ST & le);
+    const unsigned M1 = gr.from(m1, src), M3 = gr.from(m3, src);
+    const int ts_end = gr.from(ts, hibit(ST & (ACT | 1u)));
+    const bool c3 = act && ((M3 >> t) & 1);
+    const bool c1 = c1o || (act && ((M1 >> t) & 1));
+    // 3. the cursors before this step: since the last flush (row), the
+    // last out or flush (bir; a c3 at an out counts after it)
+    const unsigned C1 = gr.ballot(c1), C3 = gr.ballot(c3);
+    const unsigned fb = FL & lt, rb = (OUT | FL) & lt;
+    const int e_ = ev + __popc(fb);
+    const int r_ = fb ? __popc(OUT & lt & above(hibit(fb)))
+                      : row + __popc(OUT & lt);
+    int b_;
+    if (rb) {
+      const int r0 = hibit(rb);
+      b_ = 1 + __popc(C1 & lt & above(r0)) +
+           __popc(C3 & lt & ~((1u << r0) - 1));
+    } else {
+      b_ = bir + __popc(C1 & lt) + __popc(C3 & lt);
+    }
+    const int row2 = r_ + out, bir2 = b_ + c1, bir3 = out ? 1 : bir2;
+    const int bir4 = bir3 + c3;
+    const unsigned o = gr.ballot(act && (row2 >= s.R || bir4 > s.BITS ||
+                                         bir2 > s.BITS ||
+                                         (fl && e_ + 1 >= s.E)));
+    ovf = ovf || o;
+    // 4. the stage: a row's count is its last position + 1, written by
+    // the step that closes it (an out, a flush) or ends the tile; the
+    // leading 0 of the next event first, as a later step may count on
+    if (fl && e_ + 1 < s.E) s.nbits(e_ + 1, 0) = 1;
+    __syncwarp();
+    if (out && s.in(e_, r_)) s.nbits(e_, r_) = bir2;
+    if (act && (fl || t == nact - 1) && s.in(e_, row2))
+      s.nbits(e_, row2) = bir4;
+    if (fl && e_ < s.E) s.nrow(e_) = row2 + 1;
+    gr.or_words(s.words(), act ? s.word(e_, r_, b_) : -1,
+                c1 ? pos_bit(b_) : 0u);
+    // the cursors after the tile's last step
+    const int k = max(nact - 1, 0);
+    const int ne = gr.from(e_ + fl, k), nr = gr.from(fl ? 0 : row2, k);
+    const int nb = gr.from(fl ? 1 : bir4, k);
+    if (nact) {
+      ev = ne; row = nr; bir = nb; tsl = ts_end;
+      gf = (GF >> k) & 1;
+    }
+  }
+};
+
+// PWM (JAX slice_pwm): a pulse is a 1, a 0, a sync, spurious or a row
+// break (isrb) by its width alone; a gap over the reset limit (or the last
+// pulse) is a flush candidate, one over the gap limit a break candidate.
+// A candidate flushes where the event was touched since the previous
+// candidate (a candidate leaves the event untouched either way); bir
+// restarts at 0 after every candidate, sync and isrb (where no flush or
+// break happens there, it is 0 already), row at 0 after a flush.
+struct PwmLanes {
+  int ol, ou, zl, zu, syl, syu, gp, rst;
+  int ev = 0, row = 0, bir = 0;
+  bool tch = false, ovf = false;
+  __device__ PwmLanes(const int* c, bool)
+      : ol(c[0]), ou(c[1]), zl(c[2]), zu(c[3]), syl(c[4]), syu(c[5]),
+        gp(c[6]), rst(c[7]) {}
+  template <int G>
+  __device__ void begin(const Group<G>&, Stage&, bool) {}
+  template <int G>
+  __device__ void tile(const Group<G>& gr, Stage& s, const int* sp,
+                       const int* sg, int base, int nact, int n) {
+    const int t = gr.t;
+    const bool act = t < nact;
+    const int p = act ? sp[base + t] : 0, g = act ? sg[base + t] : 0;
+    const unsigned lt = gr.lt(), le = gr.le();
+    // 1. what no state decides
+    const bool is1 = act && ol < p && p < ou;
+    const bool is0 = act && !is1 && zl < p && p < zu;
+    const bool issy = act && !is1 && !is0 && syl < p && p < syu;
+    const bool isrb = act && !is1 && !is0 && !issy && p > ol;
+    const bool isbit = is1 || is0;
+    const bool cf = act && (g > rst || base + t == n - 1);
+    const bool cb = act && gp > 0 && g > gp;
+    // 3. the cursors before this step
+    const unsigned TM = gr.ballot(isbit || issy || isrb), CF = gr.ballot(cf);
+    const unsigned pc = CF & lt;
+    const bool touched = pc ? (TM & le & above(hibit(pc))) != 0
+                            : tch || (TM & le) != 0;
+    const bool fl = cf && touched;
+    const unsigned FL = gr.ballot(fl), BIT = gr.ballot(isbit);
+    const unsigned RS = gr.ballot(issy || isrb || cf || cb);
+    const unsigned fb = FL & lt, rr = RS & lt;
+    const int e_ = ev + __popc(fb);
+    const int birb = rr ? __popc(BIT & lt & above(hibit(rr)))
+                        : bir + __popc(BIT & lt);
+    const int bir2 = (issy || isrb) ? 0 : birb;
+    const int bir3 = bir2 + isbit;
+    const bool up = (issy && birb > 0) || isrb;   // a new row before the bit
+    const bool brk = cb && !fl && bir3 > 0;       // and after it
+    const unsigned UP = gr.ballot(up), BRK = gr.ballot(brk);
+    const unsigned win = fb ? lt & above(hibit(fb)) : lt;
+    const int row2 = (fb ? 0 : row) + __popc(UP & win) + __popc(BRK & win) +
+                     up;
+    const unsigned o = gr.ballot(act && (e_ + fl >= s.E ||
+                                         row2 + brk >= s.R ||
+                                         bir3 >= s.BITS));
+    ovf = ovf || o;
+    // 4. the stage: a row's count written by its last bit in the tile (the
+    // next bit lies past a flush, break or new row, or there is none)
+    if (fl && e_ < s.E) s.nrow(e_) = row2 + 1;
+    if (issy && s.in(e_, row2)) atomicAdd(&s.nsync(e_, row2), 1);
+    if (isbit && s.in(e_, row2)) {
+      const unsigned nxt = BIT & ~le;
+      const unsigned ch = (((FL | BRK) << 1) | UP) & ~le;
+      if (!nxt || (ch & ((2u << (__ffs(nxt) - 1)) - 1)))
+        s.nbits(e_, row2) = bir3;
+    }
+    gr.or_words(s.words(), act ? s.word(e_, row2, bir2) : -1,
+                is1 ? pos_bit(bir2) : 0u);
+    // the cursors after the tile's last step
+    const int k = max(nact - 1, 0);
+    const int ne = gr.from(e_ + fl, k);
+    const int nr = gr.from(fl ? 0 : row2 + brk, k);
+    const int nb = gr.from((cf || cb) ? 0 : bir3, k);
+    const int nt = gr.from((int)(!cf && touched), k);
+    if (nact) {
+      ev = ne; row = nr; bir = nb;
+      tch = nt != 0;
+    }
+  }
+};
+
+template <class F, int G>
+__global__ void __launch_bounds__(128)
+slice_groups(const int* __restrict__ pulse, const int* __restrict__ gap,
+             const int* __restrict__ n_pulses, int N,
+             const int* __restrict__ bounds, int S, int E, int R, int BY,
+             int SB, uint8_t* bytes, int* bpr, int* syncs, int* nrows,
+             int* n_events, uint8_t* ovf) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* sp = reinterpret_cast<int*>(smem);
+  int* sg = sp + N;
+  const int b = blockIdx.y;
+  const int n = min(max(n_pulses[b], 0), N);
+  const int* pb = pulse + (size_t)b * N;
+  const int* gb = gap + (size_t)b * N;
+  bool tame = true;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int p = pb[i], g = gb[i];
+    sp[i] = p;
+    sg[i] = g;
+    tame = tame && (unsigned)p < kTame && (unsigned)g < kTame;
+  }
+  tame = __syncthreads_and(tame) != 0;
+  const Group<G> gr;
+  const int s = blockIdx.x * (blockDim.x / G) + threadIdx.x / G;
+  const bool live = s < S;
+  const Planes pl(bytes, bpr, syncs, nrows, E, R, BY, E);
+  Stage st(pl, smem + round16(8 * N) + (size_t)(threadIdx.x / G) * SB);
+  st.clear(gr.t, G);
+  const int* c = bounds + (size_t)(live ? s : 0) * NCOLS;
+  const bool ok = live && c[NCOLS - 1] != 0;
+  F f(c, tame);
+  __syncwarp();
+  f.begin(gr, st, ok);
+  __syncwarp();
+  // every group of the CTA runs the same tiles: the collectives line up
+  for (int base = 0; base < n; base += G) {
+    f.tile(gr, st, sp, sg, base, ok ? min(G, n - base) : 0, n);
+    __syncwarp();
+  }
+  if (!live) return;
+  const size_t lane = (size_t)b * S + s;
+  put_events(pl, lane, st.st, 0, E, E, false, gr.t, G, 0u);
+  if (gr.t == 0) {
+    n_events[lane] = f.ev;
+    ovf[lane] = f.ovf ? 1 : 0;
+  }
+}
+
+// the groups' launch from ops/slice.py launch_plan: `lanes` specs of one
+// train per block, G threads each (lanes * G a multiple of 32, at most
+// 128), a stage of SB bytes per lane (every event) after the train's
+// pulses and gaps, smem bytes in all
+template <class F>
+cudaError_t launch_groups(const int* pulse, const int* gap,
+                          const int* n_pulses, int B, int N,
+                          const int* bounds, int S, int E, int R, int BY,
+                          int lanes, int G, int SB, int smem, uint8_t* bytes,
+                          int* bpr, int* syncs, int* nrows, int* n_events,
+                          uint8_t* ovf, cudaStream_t st) {
+  const int byp = (BY + 3) & ~3, threads = lanes * G;
+  if ((G != 8 && G != 16 && G != 32) || lanes < 1 || threads % 32 ||
+      threads > 128 || SB % 16 ||
+      SB < round16(E * R * byp) + round16(8 * E * R) + round16(4 * E) ||
+      (long)smem < round16(8 * N) + (long)lanes * SB)
+    return cudaErrorInvalidValue;
+  auto kern = G == 8    ? slice_groups<F, 8>
+              : G == 16 ? slice_groups<F, 16>
+                        : slice_groups<F, 32>;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+  }
+  dim3 grid((S + lanes - 1) / lanes, B);
+  kern<<<grid, threads, smem, st>>>(pulse, gap, n_pulses, N, bounds, S, E, R,
+                                    BY, SB, bytes, bpr, syncs, nrows,
+                                    n_events, ovf);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // bounds is the family's int32 [S, NCOLS] table (ops/slice.py
 // bound_table): its columns from 0 in the family's order, ok in the last.
-// lanes, every, SB and smem: ops/slice.py launch_plan. Every element of
-// the six outputs is written.
+// lanes, mode, SB and smem: ops/slice.py launch_plan; mode is whether
+// every event is staged for the walk, the threads per lane (8, 16 or 32)
+// for the groups (MC, PWM). Every element of the six outputs is written.
 extern "C" int rtl433_slice(int family, const void* pulse, const void* gap,
                             const void* n_pulses, int B, int N,
                             const void* bounds, int S, int E, int R, int BY,
-                            int lanes, int every, int SB, int smem,
+                            int lanes, int mode, int SB, int smem,
                             void* bytes, void* bpr, void* syncs, void* nrows,
                             void* n_events, void* ovf, void* stream) {
   auto P = (const int*)pulse;
@@ -889,19 +1184,19 @@ extern "C" int rtl433_slice(int family, const void* pulse, const void* gap,
   auto NE = (int*)n_events;
   auto OV = (uint8_t*)ovf;
   auto st = (cudaStream_t)stream;
-#define RTL433_SLICE(F)                                                  \
-  return (int)launch<F>(P, G, NP, B, N, BD, S, E, R, BY, lanes, every, SB, \
-                        smem, BYT, BPR, SY, NR, NE, OV, st)
+#define RTL433_SLICE(L, F)                                                   \
+  return (int)L<F>(P, G, NP, B, N, BD, S, E, R, BY, lanes, mode, SB, smem, \
+                   BYT, BPR, SY, NR, NE, OV, st)
   switch (family) {
-    case 0: RTL433_SLICE(Ppm);
-    case 1: RTL433_SLICE(Pwm);
-    case 2: RTL433_SLICE(Pcm);
-    case 3: RTL433_SLICE(Mc);
-    case 4: RTL433_SLICE(Dmc);
-    case 5: RTL433_SLICE(PiwmDc);
-    case 6: RTL433_SLICE(Nrzs);
-    case 7: RTL433_SLICE(Rzi);
-    case 8: RTL433_SLICE(Osv1);
+    case 0: RTL433_SLICE(launch, Ppm);
+    case 1: RTL433_SLICE(launch_groups, PwmLanes);
+    case 2: RTL433_SLICE(launch, Pcm);
+    case 3: RTL433_SLICE(launch_groups, McLanes);
+    case 4: RTL433_SLICE(launch, Dmc);
+    case 5: RTL433_SLICE(launch, PiwmDc);
+    case 6: RTL433_SLICE(launch, Nrzs);
+    case 7: RTL433_SLICE(launch, Rzi);
+    case 8: RTL433_SLICE(launch, Osv1);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef RTL433_SLICE

@@ -20,11 +20,14 @@ row bytes) or a float32 rounding near a boundary (PCM) raises the lane's
 slicer. Writes outside the caps are dropped, as the JAX scatters drop them.
 
 For a CUDA tensor each wrapper launches ``csrc/slice.cu`` (one thread per
-lane, the train and each lane's events staged in shared memory, the
-launch shaped by :func:`launch_plan`); for a CPU tensor it runs the
-plain version: the JAX ``step`` of the family as vectorized torch over the
-``[B, S]`` lane grid in a Python loop over the pulses (stopping at the
-longest train: padded steps are inactive), and the JAX assembly by
+lane, or for MC and PWM a thread group per lane; the train and each
+lane's events staged in shared memory, the launch shaped by
+:func:`launch_plan`); for a CPU tensor it runs the plain version: for
+seven families the JAX ``step`` as vectorized torch over the ``[B, S]``
+lane grid in a Python loop over the pulses (stopping at the longest
+train: padded steps are inactive), for MC and PWM the kernel's phases
+vectorized over pulses and lanes (what no state decides, MC's walk per
+piece, the cursors from running sums); then the JAX assembly by
 scatter-adds (``_lane_scatter_add``, ``_assemble``, ``_assemble_runs``,
 PCM's delta-scatter and cumulative sum).
 """
@@ -377,14 +380,17 @@ def _flat(ys, i, B, S):
 def _assemble(ys, B, S, n_ev, ovf, caps: SliceCaps):
     """Per-step emissions -> packed bitbuffers + summaries via
     scatter-adds (each 1-bit's target is unique, so add == or)."""
+    return _assemble_cols([_flat(ys, i, B, S).to(n_ev.device)
+                           for i in range(11)], B, S, n_ev, ovf, caps)
+
+
+def _assemble_cols(cols, B, S, n_ev, ovf, caps: SliceCaps):
+    """:func:`_assemble` of the emissions as [L, steps] columns: is_bit,
+    bitval, b_ev, b_row, b_bir, is_sync, s_ev, s_row, is_flush, f_ev,
+    f_rows."""
     E, R, BY = caps
-    dev = n_ev.device
-
-    def flat(i):
-        return _flat(ys, i, B, S).to(dev)
-
     (is_bit, bitval, b_ev, b_row, b_bir, is_sync, s_ev, s_row,
-     is_flush, f_ev, f_rows) = (flat(i) for i in range(11))
+     is_flush, f_ev, f_rows) = cols
 
     def scat(shape, idx_cols, vals, mask):
         return _lane_scatter_add(B, S, shape, idx_cols, vals, mask)
@@ -469,50 +475,92 @@ def slice_ppm_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
     return _assemble(ys, B, S, ev, ovf, caps)
 
 
+# ---- the phase form of MC and PWM (csrc/slice.cu's groups): what no state
+# decides, per pulse; MC's tsl walked per piece; the cursors from running
+# sums; the JAX assembly
+
+# MC's pieces also end at a pulse or gap over 1.5 short widths where every
+# width of the train is below _TAME and the short width below _SHORT_MAX
+_TAME = 1 << 28
+_SHORT_MAX = 1 << 26
+
+
+def _lane_grid(pulse, gap, n_pulses, okm):
+    """The [B, S, N] form of a call: pulse and gap [B, 1, N], the active
+    steps (inside the train, on an ok spec; ``okm`` is [1, S, 1]) and the
+    last step."""
+    N = pulse.shape[1]
+    i = torch.arange(N, device=pulse.device)[None, :]
+    act = (i < n_pulses[:, None])[:, None, :] & okm
+    last = (i == n_pulses[:, None] - 1)[:, None, :]
+    return (pulse[:, None, :].to(torch.int32),
+            gap[:, None, :].to(torch.int32), act, last)
+
+
+def _csum(x):
+    """Inclusive running sum along the pulses, int32."""
+    return torch.cumsum(x.to(torch.int32), -1, dtype=torch.int32)
+
+
+def _before(v):
+    """The running max of ``v`` over the steps before each step (0 before
+    the first): for a running sum that never decreases, kept where a reset
+    happens and 0 elsewhere, its value at the last reset before the step."""
+    out = torch.zeros_like(v)
+    if v.shape[-1] > 1:
+        out[..., 1:] = torch.cummax(v[..., :-1], -1).values
+    return out
+
+
 def slice_pwm_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
-    """Plain version of the PWM scan (JAX ``slice_pwm``)."""
+    """Plain version of the PWM scan (JAX ``slice_pwm``) in the kernel's
+    phases, vectorized over pulses and lanes: each pulse's class and its
+    gap's flush and break candidacy; a candidate flushes where something
+    touched the event since the previous candidate; bir counts the bits
+    since the last sync, row break or candidate, row the new rows since the
+    last flush; the JAX assembly."""
     B, N = pulse.shape
-    dev = pulse.device
     E, R, BY = caps
-    b = _cols(bounds, dev)
+    b = {k: v[..., None] for k, v in _cols(bounds, pulse.device).items()}
     S = b["reset"].shape[1]
-    ol, ou, zl, zu = b["one_l"], b["one_u"], b["zero_l"], b["zero_u"]
-    syl, syu, gp, rst = b["sync_l"], b["sync_u"], b["gap"], b["reset"]
-    okm = b["ok"]
-    w = torch.where
-    ev = row = bir = _zeros(B, S, dev)
-    touched = ovf = _falses(B, S, dev)
-    ys = []
-    for n in range(_steps(n_pulses)):
-        p, g, valid, last = _step_inputs(pulse, gap, n_pulses, n)
-        act = valid & okm
-        is1 = act & (ol < p) & (p < ou)
-        is0 = act & ~is1 & (zl < p) & (p < zu)
-        issy = act & ~is1 & ~is0 & (syl < p) & (p < syu)
-        isspur = act & ~is1 & ~is0 & ~issy & (p <= ol)
-        isrb = act & ~is1 & ~is0 & ~issy & ~isspur
-        isbit = is1 | is0
-        sy_row = w(bir > 0, row + 1, row)
-        row2 = w(issy, sy_row, row)
-        bir2 = w(issy & (bir > 0), 0, bir)
-        row2 = w(isrb, row2 + 1, row2)
-        bir2 = w(isrb, 0, bir2)
-        b_ev, b_row, b_bir = ev, row2, bir2
-        bir3 = w(isbit, bir2 + 1, bir2)
-        touched2 = touched | isbit | issy | isrb
-        flush = act & ((g > rst) | last) & touched2
-        f_rows = row2 + 1
-        brk = act & ~flush & (gp > 0) & (g > gp) & touched2 & (bir3 > 0)
-        ev2 = w(flush, ev + 1, ev)
-        row3 = w(flush, 0, w(brk, row2 + 1, row2))
-        bir4 = w(flush | brk, 0, bir3)
-        touched3 = touched2 & ~flush
-        ovf = ovf | (ev2 >= E) | (torch.maximum(row2, row3) >= R) \
-            | (bir3 >= BY * 8)
-        ys.append((isbit, is1.to(torch.int32), b_ev, b_row, b_bir, issy, ev,
-                   sy_row, flush, ev, f_rows))
-        ev, row, bir, touched = ev2, row3, bir4, touched3
-    return _assemble(ys, B, S, ev, ovf, caps)
+    p, g, act, last = _lane_grid(pulse, gap, n_pulses, b["ok"])
+    # 1. what no state decides
+    is1 = act & (b["one_l"] < p) & (p < b["one_u"])
+    is0 = act & ~is1 & (b["zero_l"] < p) & (p < b["zero_u"])
+    issy = act & ~is1 & ~is0 & (b["sync_l"] < p) & (p < b["sync_u"])
+    isrb = act & ~is1 & ~is0 & ~issy & (p > b["one_l"])
+    isbit = is1 | is0
+    cf = act & ((g > b["reset"]) | last)
+    cb = act & (b["gap"] > 0) & (g > b["gap"])
+    # 2. nothing: no value carries across pulses
+    # 3. the cursors
+    touch = _csum(isbit | issy | isrb)
+    fl = cf & (touch > _before(torch.where(cf, touch, 0)))
+    ev = _csum(fl) - fl.to(torch.int32)
+    bits = _csum(isbit)
+    birb = bits - isbit.to(torch.int32) - _before(
+        torch.where(issy | isrb | cf | cb, bits, 0))
+    bir2 = torch.where(issy | isrb, 0, birb)
+    bir3 = bir2 + isbit.to(torch.int32)
+    up = (issy & (birb > 0)) | isrb
+    brk = cb & ~fl & (bir3 > 0)
+    inc = up.to(torch.int32) + brk.to(torch.int32)
+    rows = _csum(inc)
+    row2 = rows - inc - _before(torch.where(fl, rows, 0)) \
+        + up.to(torch.int32)
+    ovf = (act & ((ev + fl.to(torch.int32) >= E)
+                  | (row2 + brk.to(torch.int32) >= R)
+                  | (bir3 >= BY * 8))).any(-1)
+    # 4. the JAX assembly
+    L = B * S
+
+    def lanes(x):
+        return torch.broadcast_to(x, (B, S, N)).reshape(L, N)
+
+    return _assemble_cols(
+        [lanes(x) for x in (isbit, is1, ev, row2, bir2, issy, ev, row2, fl,
+                            ev, row2 + 1)],
+        B, S, fl.sum(-1, dtype=torch.int32), ovf, caps)
 
 
 _F32 = torch.float32
@@ -696,63 +744,104 @@ def slice_pcm_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
             "num_rows": num_rows, "n_events": ev, "ovf": ovf}
 
 
+def _mc_tsl(p, g, act, out, fl, sh, tame):
+    """MC phase 2: c1_mid and c3 per step from tsl, walked once per piece:
+    a piece starts where tsl is 0 (the train's first step, after a gap that
+    flushes or, where the train is tame, exceeds 1.5 short widths) or does
+    not matter (a pulse that is out or, tame, exceeds them); its k-th steps
+    are walked together."""
+    Bn, S, N = act.shape
+    vf = tame[:, None, None] & (sh >= 0) & (sh < _SHORT_MAX)
+    pf = out | (vf & (2 * p > 3 * sh))
+    gf = fl | (vf & (2 * g > 3 * sh))
+    prev = torch.ones_like(gf)
+    prev[..., 1:] = gf[..., :-1]
+    start = act & (pf | prev)
+    idx = torch.arange(N, device=act.device).expand(Bn, S, N)
+    pos = (idx - torch.cummax(torch.where(start, idx, -1), -1).values)
+    flat = lambda x: torch.broadcast_to(x, (Bn, S, N)).reshape(-1)
+    p_, g_, sh_, out_, fl_ = (flat(x) for x in (p, g, sh, out, fl))
+    c1m = torch.zeros(Bn * S * N, dtype=torch.bool, device=act.device)
+    c3 = torch.zeros_like(c1m)
+    ts = torch.zeros(Bn * S * N, dtype=torch.int32, device=act.device)
+    ix = flat(act).nonzero().squeeze(1)
+    k_of = flat(pos)[ix]
+    order = torch.argsort(k_of, stable=True)
+    counts = torch.bincount(k_of, minlength=1).tolist() if len(ix) else []
+    for k, at in enumerate(ix[order].split(counts)):
+        a = (ts[at - 1] if k else 0) + p_[at]
+        o = out_[at]
+        x1 = ~o & (2 * a > 3 * sh_[at])
+        bb = torch.where(o | x1, 0, a) + g_[at]
+        f = fl_[at]
+        x3 = ~f & (2 * bb > 3 * sh_[at])
+        ts[at] = torch.where(f | x3, 0, bb)
+        c1m[at], c3[at] = x1, x3
+    return c1m.reshape(Bn, S, N), c3.reshape(Bn, S, N)
+
+
 def slice_mc_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
-    """Plain version of the Manchester-zerobit scan (JAX ``slice_mc``):
-    every buffer starts with a hardcoded 0 bit; up to three bits per
-    pulse (sync-resync 1, post-row 0, mid-bit 1/0)."""
+    """Plain version of the Manchester-zerobit scan (JAX ``slice_mc``) in
+    the kernel's phases, vectorized over pulses and lanes: out, the resync
+    1 and the flush per pulse; the mid-bit 1 and 0 from tsl walked per
+    piece (:func:`_mc_tsl`); row counts the outs since the last flush, bir
+    the bits since the last out or flush; the JAX assembly: every buffer
+    starts with a hardcoded 0 bit, up to three bits per pulse (sync-resync
+    1, post-row 0, mid-bit 1/0)."""
     B, N = pulse.shape
     dev = pulse.device
     E, R, BY = caps
     BITS = BY * 8
-    b = _cols(bounds, dev)
+    b = {k: v[..., None] for k, v in _cols(bounds, dev).items()}
     S = b["short"].shape[1]
-    sh, rst, tol, has_tol, okm = (b[k] for k in ("short", "reset", "tol",
-                                                 "has_tol", "ok"))
-    w = torch.where
-    ev = row = tsl = _zeros(B, S, dev)
-    bir = _zeros(B, S, dev) + 1
-    ovf = _falses(B, S, dev)
-    ys = []
-    for n in range(_steps(n_pulses)):
-        p, g, valid, last = _step_inputs(pulse, gap, n_pulses, n)
-        act = valid & okm
-        out = act & has_tol & ((p < sh - tol) | (p > 2 * sh + tol)
-                               | (g < sh - tol) | (g > 2 * sh + tol))
-        c1_out = out & (2 * p > 3 * sh) & (p <= 2 * sh + tol)
-        c1_mid = act & ~out & (2 * (p + tsl) > 3 * sh)
-        c1 = c1_out | c1_mid
-        e1 = (ev, row, bir)
-        bir2 = w(c1, bir + 1, bir)
-        row2 = w(out, row + 1, row)
-        bir3 = w(out, 1, bir2)
-        tsl2 = w(out | c1_mid, 0, tsl + p)
-        flush = act & ((g > rst) | last)
-        f_rows = row2 + 1
-        c3 = act & ~flush & (2 * (g + tsl2) > 3 * sh)
-        e3 = (ev, row2, bir3)
-        bir4 = w(c3, bir3 + 1, bir3)
-        tsl3 = w(flush | c3, 0, tsl2 + g)
-        ev2 = w(flush, ev + 1, ev)
-        ovf = ovf | (row2 >= R) | (bir4 > BITS) \
-            | (bir2.clamp(min=1) > BITS) | (flush & (ev2 >= E))
-        ys.append((c1, *e1, out, ev, row2, c3, *e3, flush, ev, f_rows, ev2))
-        ev, row, bir, tsl = ev2, w(flush, 0, row2), w(flush, 1, bir4), tsl3
-    (c1, e1e, e1r, e1b, c2, e2e, e2r, c3, e3e, e3r, _e3b, flush, f_ev,
-     f_rows, ev_after) = (_flat(ys, i, B, S).to(dev) for i in range(15))
-    cat = lambda *xs: torch.cat(xs, dim=1)
-    m_all = cat(c1, c2, c3, flush).bool()      # flush: next ev's lead 0
+    sh, rst, tol = b["short"], b["reset"], b["tol"]
+    p, g, act, last = _lane_grid(pulse, gap, n_pulses, b["ok"])
+    # 1. what no state decides
+    out = act & b["has_tol"].bool() & ((p < sh - tol) | (p > 2 * sh + tol)
+                                | (g < sh - tol) | (g > 2 * sh + tol))
+    c1o = out & (2 * p > 3 * sh) & (p <= 2 * sh + tol)
+    fl = act & ((g > rst) | last)
+    # 2. tsl
+    inside = torch.arange(N, device=dev)[None, :] < n_pulses[:, None]
+    tame = (((pulse >= 0) & (pulse < _TAME) & (gap >= 0) & (gap < _TAME))
+            | ~inside).all(-1)
+    c1m, c3 = _mc_tsl(p, g, act, out, fl, sh, tame)
+    c1 = c1o | c1m
+    # 3. the cursors
+    i32 = lambda x: x.to(torch.int32)
+    ev = _csum(fl) - i32(fl)
+    outs = _csum(out)
+    row2 = outs - _before(torch.where(fl, outs, 0))
+    row = row2 - i32(out)
+    x, y = _csum(c1), _csum(c3)
+    z = x + y - i32(c3)
+    bir = 1 + z - i32(c1) - _before(torch.where(out | fl, z, 0))
+    bir2 = bir + i32(c1)
+    bir4 = torch.where(out, 1, bir2) + i32(c3)
+    ovf = (act & ((row2 >= R) | (bir4 > BITS) | (bir2 > BITS)
+                  | (fl & (ev + 1 >= E)))).any(-1)
+    # 4. the JAX assembly
+    L = B * S
+
+    def lanes(*xs):
+        return torch.cat([torch.broadcast_to(x, (B, S, N)).reshape(L, N)
+                          for x in xs], dim=1)
+
     bits_per_row = _lane_scatter_add(
-        B, S, (E, R), [cat(e1e, e2e, e3e, ev_after),
-                       cat(e1r, e2r, e3r, torch.zeros_like(e1r))], 1, m_all)
+        B, S, (E, R), [lanes(ev, ev, ev, ev + 1),
+                       lanes(row, row2, row2, torch.zeros_like(row))], 1,
+        lanes(c1, out, c3, fl))    # flush: the next event's leading 0
     # event 0's hardcoded leading 0
-    bits_per_row[:, :, 0, 0] += okm.to(torch.int32)
-    bytes_ = _lane_scatter_add(B, S, (E, R, BY), [e1e, e1r, e1b // 8],
-                               _bit(e1b), c1.bool())
-    num_rows = _lane_scatter_add(B, S, (E,), [f_ev], f_rows, flush.bool())
+    bits_per_row[:, :, 0, 0] += b["ok"][..., 0].to(torch.int32)
+    bytes_ = _lane_scatter_add(B, S, (E, R, BY), [lanes(ev), lanes(row),
+                                                  lanes(bir) // 8],
+                               _bit(lanes(bir)), lanes(c1))
+    num_rows = _lane_scatter_add(B, S, (E,), [lanes(ev)], lanes(row2 + 1),
+                                 lanes(fl))
     syncs = torch.zeros((B, S, E, R), dtype=torch.int32, device=dev)
     return {"bytes": bytes_.to(torch.uint8), "bits_per_row": bits_per_row,
-            "syncs": syncs, "num_rows": num_rows, "n_events": ev,
-            "ovf": ovf}
+            "syncs": syncs, "num_rows": num_rows,
+            "n_events": fl.sum(-1, dtype=torch.int32), "ovf": ovf}
 
 
 def slice_dmc_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
@@ -1027,6 +1116,8 @@ def _check(pulse, gap, n_pulses, caps):
 # 228 KB, and each resident block takes 1 KB more
 SMEM_MAX = 232448
 SMEM_SM = 233472
+# the families csrc/slice.cu runs as thread groups, a group per lane
+GROUP_FAMILIES = ("mc", "pwm")
 
 
 def _r16(v: int) -> int:
@@ -1045,20 +1136,42 @@ def stage_bytes(caps: SliceCaps, events: int) -> int:
     return sb + 16 if sb % 32 == 0 else sb
 
 
-def launch_plan(B: int, S: int, N: int, caps: SliceCaps, sms: int = 132):
+def launch_plan(B: int, S: int, N: int, caps: SliceCaps, sms: int = 132,
+                fam: str | None = None):
     """The slicer kernel's launch for B trains of N pulses and S specs on
-    a card of ``sms`` SMs: (lanes per block, every event staged, stage
-    bytes per lane, shared bytes per block). A block takes one train's
-    pulses and gaps (``8 N`` bytes) and up to 64 of its specs (32 where
-    S <= 32), a multiple of 32, each lane with its stage. Every event of a
-    lane is staged (nothing leaves before the lane ends) where the whole
-    grid then fits on the card at once: such a call is bound by its
-    slowest lane, whose walk would otherwise stop at each event's
-    write-out. Otherwise a lane stages one event, for more lanes per SM.
-    Raises where not even 32 lanes with one event fit the 227 KB a block
-    may use."""
+    a card of ``sms`` SMs: (lanes per block, mode, stage bytes per lane,
+    shared bytes per block); a block takes one train's pulses and gaps
+    (``8 N`` bytes) and its lanes' stages.
+
+    For MC and PWM (``fam`` in :data:`GROUP_FAMILIES`; the kernel's
+    groups) the mode is the threads per lane: 8 where N <= 8, 16 where
+    N <= 16, else a warp; up to four warps of lanes per block (fewer where
+    S is smaller), each lane staging every event, so that several blocks
+    share an SM; fewer warps, and then a warp per lane, where that does
+    not fit the 227 KB a block may use, raising where one lane of a warp
+    does not.
+
+    For the other families (the walk) the mode is whether every event of
+    a lane is staged: up to 64 specs per block (32 where S <= 32), a
+    multiple of 32, each lane with its stage. Every event is staged
+    (nothing leaves before the lane ends) where the whole grid then fits
+    on the card at once: such a call is bound by its slowest lane, whose
+    walk would otherwise stop at each event's write-out. Otherwise a lane
+    stages one event, for more lanes per SM. Raises where not even 32
+    lanes with one event fit."""
     E = int(caps[0])
     pulses = _r16(8 * N)
+    if fam in GROUP_FAMILIES:
+        sb = stage_bytes(caps, E)
+        g0 = 8 if N <= 8 else 16 if N <= 16 else 32
+        for g in dict.fromkeys((g0, 32)):
+            per_warp = 32 // g
+            for warps in range(min(4, max(1, -(-S // per_warp))), 0, -1):
+                smem = pulses + warps * per_warp * sb
+                if smem <= SMEM_MAX:
+                    return warps * per_warp, g, sb, smem
+        raise ValueError(f"slice: caps {tuple(caps)} with N={N} pulses do "
+                         f"not fit one block's shared memory")
     for every in (True, False):
         sb = stage_bytes(caps, E if every else 1)
         for lanes in ((64, 32) if S > 32 else (32,)):
@@ -1094,9 +1207,9 @@ def slice_cuda(fam: str, pulse, gap, n_pulses, bounds,
     B, N = pulse.shape
     S = tab.shape[0]
     E, R, BY = (int(c) for c in caps)
-    lanes, every, sb, smem = launch_plan(
+    lanes, mode, sb, smem = launch_plan(
         B, S, N, caps, torch.cuda.get_device_properties(
-            dev).multi_processor_count)
+            dev).multi_processor_count, fam)
     e = lambda *sh, dt=torch.int32: torch.empty(sh, dtype=dt, device=dev)
     out = {"bytes": e(B, S, E, R, BY, dt=torch.uint8),
            "bits_per_row": e(B, S, E, R), "syncs": e(B, S, E, R),
@@ -1107,7 +1220,7 @@ def slice_cuda(fam: str, pulse, gap, n_pulses, bounds,
         _cuda.LAUNCHES["slice_" + fam] += 1
         err = fn(FAMILIES[fam][0], pulse.data_ptr(), gap.data_ptr(),
                  n_pulses.data_ptr(), B, N, tab.data_ptr(), S, E, R, BY,
-                 lanes, int(every), sb, smem, out["bytes"].data_ptr(),
+                 lanes, int(mode), sb, smem, out["bytes"].data_ptr(),
                  out["bits_per_row"].data_ptr(), out["syncs"].data_ptr(),
                  out["num_rows"].data_ptr(), out["n_events"].data_ptr(),
                  out["ovf"].data_ptr(), _cuda.stream_of(pulse))

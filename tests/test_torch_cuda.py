@@ -280,7 +280,8 @@ def test_slice_kernel_at_the_drain_shape(fam):
     arrs, devs = drain_shaped(fam, 3)
     bounds = getattr(sl, f"{fam}_bounds")(devs, RATE)
     args = [torch.from_numpy(a) for a in arrs]
-    assert sl.launch_plan(256, 125, 64, BANK_CAPS[fam])[:2] == (64, False)
+    assert sl.launch_plan(256, 125, 64, BANK_CAPS[fam], fam=fam)[:2] == (
+        (4, 32) if fam in sl.GROUP_FAMILIES else (64, False))
     # garbage where the outputs will be allocated: the kernel must write
     # every element, not find zeros
     torch.full((256 << 20,), 0x5A, dtype=torch.uint8, device=dev)
@@ -297,7 +298,8 @@ def test_slice_kernel_at_the_drain_shape(fam):
 def test_slice_kernel_either_staging(fam, every, monkeypatch):
     """The same lanes (64 drain-shaped trains x 125 specs) with every
     event of a lane staged and with one, the plan forced either way:
-    both equal the plain version."""
+    both equal the plain version. MC and PWM (thread groups, every event
+    staged) take a block of one lane and one of four lanes instead."""
     from rtl_433_tpu_torch.ops import slice as sl
     from torch_slice_cases import BANK_CAPS, RATE, drain_shaped
     dev = _gpu()
@@ -305,9 +307,14 @@ def test_slice_kernel_either_staging(fam, every, monkeypatch):
     arrs, devs = drain_shaped(fam, 4, B=64)
     bounds = getattr(sl, f"{fam}_bounds")(devs, RATE)
     args = [torch.from_numpy(a) for a in arrs]
-    sb = sl.stage_bytes(caps, caps.events if every else 1)
-    lanes = 32 if every else 64
-    plan = (lanes, every, sb, -(-8 * 64 // 16) * 16 + lanes * sb)
+    if fam in sl.GROUP_FAMILIES:
+        sb = sl.stage_bytes(caps, caps.events)
+        lanes = 1 if every else 4
+        plan = (lanes, 32, sb, -(-8 * 64 // 16) * 16 + lanes * sb)
+    else:
+        sb = sl.stage_bytes(caps, caps.events if every else 1)
+        lanes = 32 if every else 64
+        plan = (lanes, every, sb, -(-8 * 64 // 16) * 16 + lanes * sb)
     monkeypatch.setattr(sl, "launch_plan", lambda *a, **k: plan)
     got = sl.slice_cuda(fam, *(a.to(dev) for a in args), bounds, caps)
     torch.cuda.synchronize()
@@ -356,6 +363,94 @@ def test_slice_kernel_lane_past_every_cap(caps):
     assert (want["n_events"][own, own] > E).all()
     assert (want["num_rows"][own, own].amax(-1) > R).all()
     assert (want["bits_per_row"][own, own].amax((-1, -2)) > 8 * BY).all()
+
+def _group_call(fam, arrs, bounds, caps, dev, g=None, monkeypatch=None):
+    """One launch of MC's or PWM's groups over outputs allocated where
+    garbage was (every element must be written), the plan's threads per
+    lane forced to ``g``; held to the plain version."""
+    from rtl_433_tpu_torch.ops import slice as sl
+    args = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrs]
+    B, N = args[0].shape
+    if g is not None:
+        S = len(bounds["ok"])
+        sb = sl.stage_bytes(caps, caps.events)
+        lanes = min(4 * 32 // g, -(-S // (32 // g)) * (32 // g))
+        plan = (lanes, g, sb, -(-8 * N // 16) * 16 + lanes * sb)
+        monkeypatch.setattr(sl, "launch_plan", lambda *a, **k: plan)
+    torch.full((256 << 20,), 0x5A, dtype=torch.uint8, device=dev)
+    key = f"slice_{fam}"
+    before = _cuda.LAUNCHES[key]
+    got = sl.slice_cuda(fam, *(a.to(dev) for a in args), bounds, caps)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[key] == before + 1
+    want = sl.PLAIN[fam](*args, bounds, caps)
+    _same_planes(got, want)
+    return want
+
+
+@pytest.mark.parametrize("g", [8, 16, 32])
+@pytest.mark.parametrize("fam", ["mc", "pwm"])
+def test_slice_kernel_each_group_size(fam, g, monkeypatch):
+    """Each threads-per-lane the plan can pick, forced on the drain's
+    shape (64 trains of up to 64 pulses x 125 specs) and on trains of 1,
+    31, 32, 33 and 1200 pulses: several tiles per lane at every size."""
+    from rtl_433_tpu_torch.ops import slice as sl
+    from torch_slice_cases import (BANK_CAPS, RATE, drain_shaped,
+                                   family_devices, length_trains, pack)
+    dev = _gpu()
+    arrs, devs = drain_shaped(fam, 6, B=64)
+    bounds = getattr(sl, f"{fam}_bounds")(devs, RATE)
+    _group_call(fam, arrs, bounds, BANK_CAPS[fam], dev, g, monkeypatch)
+    devs = family_devices(fam)
+    bounds = getattr(sl, f"{fam}_bounds")(devs, RATE)
+    want = _group_call(fam, pack(length_trains(fam, devs, 23)), bounds,
+                       BANK_CAPS[fam], dev, g, monkeypatch)
+    assert want["n_events"].sum() > 0
+
+
+@pytest.mark.parametrize("caps", ["bank", "small"])
+@pytest.mark.parametrize("fam", ["mc", "pwm"])
+def test_slice_kernel_planted_group_trains(fam, caps):
+    """The planted trains of tests/torch_slice_cases.py: each family's edge
+    cases, a train past each cap, and trains of 1 to 1200 pulses."""
+    from rtl_433_tpu_torch.ops import slice as sl
+    from torch_slice_cases import (BANK_CAPS, RATE, SMALL_CAPS, cap_trains,
+                                   family_devices, length_trains,
+                                   mc_edge_devs, mc_edges, pack,
+                                   pwm_edge_dev, pwm_edges)
+    dev = _gpu()
+    caps = BANK_CAPS[fam] if caps == "bank" else SMALL_CAPS
+    if fam == "pwm":
+        lead = [pwm_edge_dev()]
+        edges = pwm_edges(lead[0])
+    else:
+        lead = list(mc_edge_devs())
+        edges = mc_edges(*lead)
+    devs = lead + family_devices(fam)
+    bounds = getattr(sl, f"{fam}_bounds")(devs, RATE)
+    trains = edges + cap_trains(fam, lead[0], caps) + length_trains(
+        fam, devs, 29)
+    want = _group_call(fam, pack(trains), bounds, caps, dev)
+    assert want["ovf"].any() and (~want["ovf"]).any()
+
+
+@pytest.mark.parametrize("fam", ["mc", "pwm"])
+def test_slice_kernel_groups_at_the_mixed_shapes(fam):
+    """The mixed streams' calls: a few trains of tens to 1200 pulses in a
+    bucket of 2048, every spec of the family in the registry (MC 41, PWM
+    91), the plan's own choice."""
+    from rtl_433_tpu_torch.ops import slice as sl
+    from torch_slice_cases import (BANK_CAPS, RATE, family_devices,
+                                   length_trains, pack)
+    dev = _gpu()
+    devs = family_devices(fam, k=1000)
+    bounds = getattr(sl, f"{fam}_bounds")(devs, RATE)
+    trains = length_trains(fam, devs, 31, lengths=(12, 40, 75, 300, 1200,
+                                                    640, 90, 5))
+    want = _group_call(fam, pack(trains, n_min=2048), bounds,
+                       BANK_CAPS[fam], dev)
+    assert want["n_events"].sum() > 0
+
 
 def _dup_planes(seed, dev):
     from torch_slice_cases import dup_planes

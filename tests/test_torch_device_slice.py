@@ -25,8 +25,10 @@ from rtl_433_tpu_torch.ops import slice as tslice
 from rtl_433_tpu_torch.pulse import slicers
 from rtl_433_tpu_torch.pulse.data import PulseData
 
-from torch_slice_cases import (BANK_CAPS, RATE, SMALL_CAPS, family_devices,
-                               family_trains, pack)
+from torch_slice_cases import (BANK_CAPS, RATE, SMALL_CAPS, cap_trains,
+                               family_devices, family_trains, length_trains,
+                               mc_edge_devs, mc_edges, pack, pwm_edge_dev,
+                               pwm_edges)
 
 FAMS = list(tslice.FAMILIES)
 HOST = {"ppm": slicers.slicer_ppm, "pwm": slicers.slicer_pwm,
@@ -36,9 +38,9 @@ HOST = {"ppm": slicers.slicer_ppm, "pwm": slicers.slicer_pwm,
         "osv1": slicers.slicer_osv1}
 
 
-def _run_both(fam, caps, seed=5, n=24):
-    devs = family_devices(fam)
-    trains = family_trains(fam, devs, seed, n=n)
+def _run_both(fam, caps, seed=5, n=24, trains=None, devs=None):
+    devs = devs or family_devices(fam)
+    trains = trains or family_trains(fam, devs, seed, n=n)
     pulse, gap, npl = pack(trains)
     jb = getattr(jslice, f"{fam}_bounds")(devs, RATE)
     want = getattr(jslice, f"slice_{fam}")(pulse, gap, npl, jb,
@@ -80,6 +82,88 @@ def test_plain_matches_jax(fam, caps):
         assert flagged > want["ovf"].size // 3, flagged
     else:
         assert (want["n_events"][~want["ovf"]] > 0).sum() >= 5
+
+
+def _same(want, got, what):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].shape == want[k].shape, k
+        assert np.array_equal(got[k].astype(np.int64),
+                              want[k].astype(np.int64)), (what, k)
+
+
+# ---- the phase form of MC and PWM (csrc/slice.cu's groups) on planted
+# trains; the planted spec is lane 0 of every train
+
+@pytest.mark.parametrize("caps", ["bank", "small"])
+def test_pwm_edge_trains_match_jax(caps):
+    """A flush candidate with nothing touched since the previous one,
+    syncs at bir 0, break candidates at bir3 0, spurious pulses between
+    bits, and all of them in one train over two tiles."""
+    caps = BANK_CAPS["pwm"] if caps == "bank" else SMALL_CAPS
+    dev = pwm_edge_dev()
+    _d, _t, want, got = _run_both("pwm", caps, trains=pwm_edges(dev),
+                                  devs=[dev] + family_devices("pwm"))
+    _same(want, got, "pwm edges")
+    # the untouched candidate did not flush; the syncs at bir 0 stacked
+    assert want["n_events"][0, 0] == 2
+    assert want["syncs"][1, 0].max() == 2
+    assert want["n_events"][4, 0] == 6
+
+
+@pytest.mark.parametrize("caps", ["bank", "small"])
+def test_mc_edge_trains_match_jax(caps):
+    """Every pulse out, ending on a flush at the last pulse; a tsl chain
+    across a whole train with no reset that needs no state (with and
+    without a tolerance); one pulse; widths that are not tame."""
+    caps = BANK_CAPS["mc"] if caps == "bank" else SMALL_CAPS
+    dev, dev0 = mc_edge_devs()
+    b = tslice.mc_bounds([dev, dev0], RATE)
+    trains = mc_edges(dev, dev0)
+    for (p, g), s in ((trains[1], 0), (trains[2], 1)):
+        sh, tol = int(b["short"][s]), int(b["tol"][s])
+        assert all((sh - tol <= w or not b["has_tol"][s]) and 2 * w <= 3 * sh
+                   for w in p + g[:-1])
+    _d, _t, want, got = _run_both("mc", caps, trains=trains,
+                                  devs=[dev, dev0] + family_devices("mc"))
+    _same(want, got, "mc edges")
+    assert (want["n_events"][:, 0] >= 1).all()
+    # the chains emit mid-bit 1s and 0s along the whole train
+    assert want["bits_per_row"][1, 0, 0, 0] >= min(100, 8 * caps.row_bytes)
+    assert want["bits_per_row"][2, 1, 0, 0] >= min(40, 8 * caps.row_bytes)
+
+
+@pytest.mark.parametrize("caps", ["bank", "small"])
+@pytest.mark.parametrize("fam", ["mc", "pwm"])
+def test_cap_trains_match_jax(fam, caps):
+    """Trains past the events, rows and row-bits caps, one cap each: the
+    planted lane is flagged on every one (on the cursors before the
+    flush) and every plane still equals JAX's, the writes past the caps
+    dropped."""
+    caps = BANK_CAPS[fam] if caps == "bank" else SMALL_CAPS
+    dev = pwm_edge_dev() if fam == "pwm" else mc_edge_devs()[0]
+    _d, _t, want, got = _run_both(fam, caps,
+                                  trains=cap_trains(fam, dev, caps),
+                                  devs=[dev] + family_devices(fam))
+    _same(want, got, f"{fam} caps")
+    E, R, BY = caps
+    assert want["ovf"][:, 0].all()
+    assert want["n_events"][0, 0] > E
+    assert want["num_rows"][1, 0].max() > R
+    assert want["bits_per_row"][2, 0].max() > 8 * BY
+
+
+@pytest.mark.parametrize("fam", ["mc", "pwm"])
+def test_length_trains_match_jax(fam):
+    """Trains of 1, 31, 32, 33 and 1200 pulses: inside one tile of 32,
+    on its edge, across it, and over 38 tiles."""
+    devs = family_devices(fam)
+    trains = length_trains(fam, devs, 17)
+    assert [len(p) for p, _g in trains] == [1, 31, 32, 33, 1200]
+    _d, _t, want, got = _run_both(fam, BANK_CAPS[fam], trains=trains,
+                                  devs=devs)
+    _same(want, got, f"{fam} lengths")
+    assert want["n_events"][4].sum() > 20
 
 
 @pytest.mark.parametrize("fam", FAMS)
@@ -244,3 +328,62 @@ def test_launch_plan_stages_every_event_where_the_grid_fits_at_once(
 def test_launch_plan_raises_where_32_lanes_do_not_fit(caps, N):
     with pytest.raises(ValueError, match="shared memory"):
         tslice.launch_plan(8, 100, N, tslice.SliceCaps(*caps))
+
+
+# ---- the groups' launch plan (MC and PWM)
+
+@pytest.mark.parametrize("N", [1, 12, 64, 1200, 8192])
+@pytest.mark.parametrize("caps", _CAPS_IN_USE, ids=str)
+def test_launch_plan_groups_fit_every_cap_set_in_use(caps, N):
+    """A group of 8, 16 or 32 threads per lane (by N), whole warps of
+    lanes (up to four, fewer where S is smaller), each lane staging every
+    event, inside the 227 KB a block may use."""
+    E, R, BY = caps
+    for fam in tslice.GROUP_FAMILIES:
+        for B in (1, 256):
+            for S in (1, 3, 12, 26, 125):
+                lanes, g, sb, smem = tslice.launch_plan(B, S, N, caps,
+                                                        fam=fam)
+                assert g in (8, 16, 32) and lanes * g % 32 == 0
+                assert lanes * g <= 128
+                assert lanes <= -(-S // (32 // g)) * (32 // g)
+                assert sb == tslice.stage_bytes(caps, E)
+                assert smem == -(-8 * N // 16) * 16 + lanes * sb
+                assert smem <= tslice.SMEM_MAX
+                if g < 32:
+                    assert N <= g
+
+
+@pytest.mark.parametrize("N,g", [(1, 8), (8, 8), (9, 16), (16, 16),
+                                 (17, 32), (64, 32), (1200, 32)])
+def test_launch_plan_group_size_follows_n(N, g):
+    assert tslice.launch_plan(8, 26, N, BANK_CAPS["mc"], fam="mc")[1] == g
+
+
+@pytest.mark.parametrize("N", [64, 1200, 2048, 8192])
+def test_launch_plan_puts_several_group_blocks_on_an_sm_at_mc_caps(N):
+    """At MC's caps (8 x 24 x 20: 5.4 KB a lane) a block of four lanes
+    leaves room for several blocks per SM, where the walk's plan put one
+    block of 32 lanes (one warp) on an SM."""
+    lanes, g, sb, smem = tslice.launch_plan(256, 125, N, BANK_CAPS["mc"],
+                                            fam="mc")
+    assert (lanes, g) == (4, 32)
+    assert tslice.SMEM_SM // (smem + 1024) >= (4 if N <= 2048 else 2)
+
+
+def test_launch_plan_takes_a_warp_per_lane_where_a_group_would_not_fit():
+    """Four lanes of 8 threads (one warp) need four stages; where those do
+    not fit, a warp runs one lane."""
+    caps = tslice.SliceCaps(4, 32, 500)
+    sb = tslice.stage_bytes(caps, 4)
+    assert 16 + 4 * sb > tslice.SMEM_MAX >= 16 + 3 * sb
+    assert tslice.launch_plan(8, 26, 2, caps, fam="pwm")[:2] == (3, 32)
+
+
+@pytest.mark.parametrize("caps,N", [((4, 64, 1024), 64), ((4, 16, 40), 30000)])
+def test_launch_plan_raises_where_no_group_fits(caps, N):
+    """No fallback to the walk or to the plain version: a plan that does
+    not fit raises."""
+    for fam in tslice.GROUP_FAMILIES:
+        with pytest.raises(ValueError, match="shared memory"):
+            tslice.launch_plan(8, 100, N, tslice.SliceCaps(*caps), fam=fam)

@@ -311,3 +311,143 @@ def ppm_overflow(dev, caps):
             gaps.append(brk)
         gaps[-1] = b["reset"] + 10
     return [max(1, _w(dev.short_width) // 2)] * len(gaps), gaps
+
+
+# ---- planted trains for MC and PWM (the kernel's group design): each
+# family's edge cases, trains that cross every cap, and trains of set
+# lengths around a tile of 32 pulses
+
+def _bounds_of(fam, dev):
+    from rtl_433_tpu_torch.ops import slice as sl
+    return {k: int(v[0]) for k, v in
+            getattr(sl, f"{fam}_bounds")([dev], RATE).items()}
+
+
+def pwm_edge_dev():
+    """A PWM spec with a sync window and a gap limit below its reset
+    limit, so that every class and both gap candidacies can be planted."""
+    for dev in family_devices("pwm", k=1000):
+        b = _bounds_of("pwm", dev)
+        if 0 < b["sync_l"] < b["sync_u"] and 0 < b["gap"] < b["reset"] \
+                and b["one_l"] > 1:
+            return dev
+    raise LookupError("no PWM spec with a sync window and a gap limit")
+
+
+def pwm_widths(dev):
+    """A pulse width of each PWM class for ``dev`` (as the scan classifies
+    it) and the gaps: inside a row, a break candidate, a flush candidate."""
+    b = _bounds_of("pwm", dev)
+
+    def cls(p):
+        if b["one_l"] < p < b["one_u"]:
+            return "one"
+        if b["zero_l"] < p < b["zero_u"]:
+            return "zero"
+        if b["sync_l"] < p < b["sync_u"]:
+            return "sync"
+        return "spur" if p <= b["one_l"] else "rb"
+    top = max(v for k, v in b.items() if v < (1 << 29)) + 2
+    w = {}
+    for p in range(1, top):
+        w.setdefault(cls(p), p)
+    assert sorted(w) == ["one", "rb", "spur", "sync", "zero"], w
+    return w, {"in": 1, "brk": b["gap"] + 1, "flush": b["reset"] + 1}
+
+
+def pwm_edges(dev):
+    """PWM trains for ``dev`` (pwm_edge_dev): a flush candidate with
+    nothing touched since the previous one (a spurious pulse after a
+    flush); syncs at bir 0 (a train opening on two syncs, a sync after a
+    break); break candidates at bir3 0 (after a sync and after a row
+    break); spurious pulses between bits; then all of them in one train
+    of over two tiles."""
+    w, gp = pwm_widths(dev)
+    one, zero, sync, spur, rb = (w[k] for k in ("one", "zero", "sync",
+                                                "spur", "rb"))
+    g_in, g_brk, g_fl = gp["in"], gp["brk"], gp["flush"]
+    no_touch = ([one, zero, one, spur, spur, one, zero],
+                [g_in, g_in, g_fl, g_fl, g_brk, g_in, g_in])
+    sync0 = ([sync, sync, one, zero, sync, sync, one, one, zero, sync, one],
+             [g_in, g_in, g_in, g_brk, g_in, g_in, g_in, g_in, g_in, g_in,
+              g_fl])
+    brk0 = ([one, one, sync, rb, one, zero, spur, one],
+            [g_in, g_brk, g_brk, g_brk, g_brk, g_in, g_brk, g_in])
+    spurs = ([one, spur, zero, spur, spur, one, spur, zero, zero, spur],
+             [g_in] * 9 + [g_fl])
+    trains = [no_touch, sync0, brk0, spurs]
+    trains.append(tuple(sum((list(t[k]) * 2 for t in trains), [])
+                        for k in (0, 1)))
+    return trains
+
+
+def mc_edge_devs():
+    """An MC spec with a tolerance (its out can fire) and one without."""
+    devs = family_devices("mc", k=1000)
+    return ([d for d in devs if d.tolerance > 0][0],
+            [d for d in devs if d.tolerance == 0][0])
+
+
+def mc_edges(dev, dev_notol):
+    """MC trains: every pulse out (short pulses, long gaps, the resync 1 of
+    a pulse in the window before a long gap) ending on a flush at the last
+    pulse; a tsl chain across a whole train that no out, flush or width
+    over 1.5 short widths resets (for ``dev`` and for ``dev_notol``); a
+    train of one pulse; and trains whose widths are not tame (negative,
+    and past 2^28), where only out and the flush end a piece."""
+    b = _bounds_of("mc", dev)
+    sh, tol = b["short"], b["tol"]
+    long_g = 2 * sh + tol + 1
+    assert long_g <= b["reset"]
+    outs = ([max(1, sh - tol - 1), 2 * sh, 2 * sh, max(1, sh - tol - 1),
+             2 * sh + 1] * 8,
+            [long_g, long_g, sh, long_g, long_g] * 8)
+    outs[1][-1] = sh
+    chain = [max(sh - tol, (3 * sh) // 4)] * 150
+    sh0 = _bounds_of("mc", dev_notol)["short"]
+    chain0 = [max(1, sh0 // 3)] * 150
+    wild = ([sh, -5, sh, 2 * sh, sh, 1 << 29, sh, sh],
+            [sh, sh, -3, sh, sh, sh, 1 << 29, sh])
+    return [outs, (chain, list(chain)), (chain0, list(chain0)),
+            ([sh], [sh]), wild]
+
+
+def cap_trains(fam, dev, caps):
+    """Trains for ``dev`` that cross each cap of ``caps`` on its own: more
+    events than E, more rows in one event than R, more bits in one row
+    than 8 * BY; every lane that runs them is flagged on the cursors
+    before the flush."""
+    E, R, BY = caps
+    if fam == "pwm":
+        w, gp = pwm_widths(dev)
+        one, zero, rb = w["one"], w["zero"], w["rb"]
+        events = ([one, zero, one] * (E + 3),
+                  [gp["in"], gp["in"], gp["flush"]] * (E + 3))
+        rows = ([one, zero, rb] * (R + 3) + [one],
+                [gp["in"]] * (3 * R + 9) + [gp["flush"]])
+        bits = ([one, zero] * (4 * BY + 5), [gp["in"]] * (8 * BY + 10))
+        bits[1][-1] = gp["flush"]
+        return [events, rows, bits]
+    b = _bounds_of("mc", dev)
+    sh, tol, rst = b["short"], b["tol"], b["reset"]
+    long_g = 2 * sh + tol + 1
+    events = ([sh, 2 * sh, sh] * (E + 3), [sh, sh, rst + 1] * (E + 3))
+    rows = ([sh, 2 * sh] * (R + 3), [sh, long_g] * (R + 3))
+    bits = ([2 * sh, sh] * (4 * BY + 5), [sh] * (8 * BY + 10))
+    return [events, rows, bits]
+
+
+def length_trains(fam, devs, seed, lengths=(1, 31, 32, 33, 1200)):
+    """One train of each length in ``lengths``: the family's fuzz trains
+    end to end, cut to the length (over one, two and more tiles of 32)."""
+    out = []
+    for i, n in enumerate(lengths):
+        p, g = [], []
+        k = 0
+        while len(p) < n:
+            tp, tg = family_trains(fam, devs, seed + 1000 * i + k, n=1)[0]
+            p += tp
+            g += tg
+            k += 1
+        out.append((p[:n], g[:n]))
+    return out
