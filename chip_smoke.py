@@ -638,7 +638,6 @@ SLICE_OUTS = ("bytes", "bits_per_row", "syncs", "num_rows", "n_events", "ovf")
 # its rates pass, DMC's and PIWM-DC's are per symbol, two per pulse)
 SLICE_OPS = {"ppm": 30, "pwm": 36, "pcm": 90, "mc": 40, "dmc": 36,
              "piwm_dc": 26, "nrzs": 16, "rzi": 20, "osv1": 44}
-SYMBOL_FAMS = ("dmc", "piwm_dc")
 
 
 def ds_kernel_names():
@@ -754,13 +753,14 @@ def ds_cost(kind, args):
     every input read once and every output written once; the operations
     are those this call's trains need (lane steps x specs)."""
     if kind == "slice":
+        from rtl_433_tpu_torch.ops import slice as sl
         fam, pulse, _gap, npl, bounds, caps = args
         B, N = pulse.shape
         S = len(bounds["ok"]) if isinstance(bounds, dict) else bounds.shape[0]
         E, R, BY = caps
         nbytes = 8 * B * N + 4 * B + 4 * 12 * S \
             + B * S * (E * R * BY + 8 * E * R + 4 * E + 5)
-        steps = int(npl.sum()) * (2 if fam in SYMBOL_FAMS else 1)
+        steps = int(npl.sum()) * (2 if fam in sl.SYMBOL_FAMILIES else 1)
         return nbytes, SLICE_OPS[fam] * S * steps, [B, N, S, E, R, BY]
     if kind == "content_dup":
         planes, = args

@@ -1,6 +1,7 @@
 // Device slicing: each (train, spec) lane runs one reference slicer over its
-// train and writes the lane's bitbuffers; seven families walk the lane's
-// state machine on one thread, MC and PWM split it over a thread group.
+// train and writes the lane's bitbuffers; five families walk the lane's
+// state machine on one thread, MC, PWM, DMC and PIWM-DC split it over a
+// thread group.
 //
 // Replaces the nine lax.scan slicers of the JAX package's ops/slice.py
 // (slice_ppm, slice_pwm, slice_pcm with _pcm_rates, slice_mc, slice_dmc,
@@ -17,14 +18,14 @@
 // them uninitialized). A write outside the caps (event >= E, row >= R,
 // bit >= 8 * BY) is dropped, as the JAX scatters drop it.
 //
-// The walk (PPM, PCM, DMC, PIWM-DC, NRZS, RZI, OSV1). A CTA covers one
+// The walk (PPM, PCM, NRZS, RZI, OSV1). A CTA covers one
 // train (blockIdx.y) and `lanes` specs of one family (blockIdx.x; 64, or
 // 32 where S <= 32 or 64 would not fit); it
 // stages the train's n_pulses[b] pulse and gap values into shared memory
-// once, and every thread then walks only that many steps (2 * n_pulses[b]
-// symbols for DMC and PIWM-DC), reading the same shared word as all its
-// neighbours (a broadcast). The spec's bounds sit in registers. One
-// template takes a per-family step function (seven instantiations); the
+// once, and every thread then walks only that many steps, reading the
+// same shared word as all its neighbours (a broadcast). The spec's bounds
+// sit in registers. One
+// template takes a per-family step function (five instantiations); the
 // writer is shared (struct Lane, warp_put). Every family writes only its
 // current event, whose index only grows, so a lane stages its events in
 // shared memory: single bits are byte adds (the JAX scatter-add, equal to
@@ -44,19 +45,23 @@
 //     of a block meet (they walk the same train), the warp writes out the
 //     lanes whose family moved past their staged event (warp_moved).
 //
-// The groups (MC, PWM; slice_groups). A group of G threads (32, or 8 or
-// 16 where the train is short) runs one lane over tiles of G pulses, a
-// pulse per thread, and a CTA holds one train and up to four warps of
-// lanes. Most of the two step functions is not serial: what a pulse is
-// (PWM's five classes; MC's out, its resync 1, the flush) and whether its
-// gap may end an event or a row depends on no state, and the cursors only
-// count or reset since the last reset. So a tile is
+// The groups (MC, PWM, DMC, PIWM-DC; slice_groups). A group of G threads
+// (32, or 8 or 16 where the train is short) runs one lane over tiles of G
+// steps, a step per thread: pulses for MC and PWM, symbols of the
+// interleaved pulse/gap axis for DMC and PIWM-DC (kSymbols; 2n of them).
+// A CTA holds one train and up to four warps of lanes. Most of the four
+// step functions is not serial: what a pulse or symbol is (PWM's five
+// classes; MC's out, its resync 1, the flush; DMC's and PIWM-DC's classes
+// and reset test) and whether it may end an event or a row depends on no
+// state, and the cursors only count or reset since the last reset. So a
+// tile is
 //   1. classified, a predicate per thread;
-//   2. MC only: walked for its time since the last bit (tsl), the one
-//      value that carries across pulses, one walk per piece between
-//      resets that need no state (out, flush, and where every width of
-//      the train is tame, a pulse or gap over 1.5 short widths), in
-//      registers; the walk emits a mid-bit 1 and 0 flag per pulse;
+//   2. MC: walked for its time since the last bit (tsl), the one value
+//      that carries across pulses, one walk per piece between resets that
+//      need no state (out, flush, and where every width of the train is
+//      tame, a pulse or gap over 1.5 short widths), in registers; the walk
+//      emits a mid-bit 1 and 0 flag per pulse. DMC: its pending flag, the
+//      parity of the run of in_short symbols before each, from one ballot;
 //   3. given its cursors by ballots: popcounts of the emissions since the
 //      last reset give each emission its (event, row, bit), each flush its
 //      rows and the lane its overflow, judged on the pre-flush cursors as
@@ -76,7 +81,8 @@
 // round-half-even (rintf). Built without --use_fast_math.
 //
 // Bound: the bytes of the output planes (each written once) against
-// integer work over B * S * n steps (a few tens of int32 ops per step).
+// integer work over B * S * n steps (a few tens of int32 ops per step;
+// 2n symbols for DMC and PIWM-DC).
 // At a drain of the 4096-channel workload the planes are tens of MB, so
 // the bytes bound it on paper; on the card a call of up to a few
 // thousand lanes is one wave, bound by the latency of its slowest lane's
@@ -84,10 +90,10 @@
 // large call by that walk plus the planes' write-out. The walk's design
 // takes the write-out off the walk (coalesced, by the warp, never per bit)
 // and, where it fits, out of the walk altogether; it does not shorten the
-// walk itself. The groups shorten it for MC and PWM: a tile of G pulses
-// costs a fixed few hundred cycles of ballots, shuffles and stage stores,
-// and MC's remaining serial walk is as long as its longest piece (a pulse
-// or two on Manchester data).
+// walk itself. The groups shorten it for MC, PWM, DMC and PIWM-DC: a tile
+// of G steps costs a fixed few hundred cycles of ballots, shuffles and
+// stage stores, and MC's remaining serial walk is as long as its longest
+// piece (a pulse or two on Manchester data).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -344,7 +350,6 @@ __device__ __forceinline__ int trunc05(float v, bool& near) {
 // ovf.
 
 struct Ppm {
-  static constexpr bool kSymbols = false;
   static constexpr bool kEventZero = false;
   int zl, zu, ol, ou, syl, syu, rst;
   int ev = 0, row = 0, bir = 0, frb = 0;
@@ -384,7 +389,6 @@ struct Ppm {
 };
 
 struct Pcm {
-  static constexpr bool kSymbols = false;
   static constexpr bool kEventZero = false;
   int sh, lo, rst, gpl, tol, mz, mc0;
   bool is_rz;
@@ -498,89 +502,7 @@ struct Pcm {
   __device__ void end(L& o) { o.erase(ev, dirty); }
 };
 
-struct Dmc {
-  static constexpr bool kSymbols = true;
-  static constexpr bool kEventZero = false;
-  int sh, lo, rst, tol;
-  int ev = 0, row = 0, bir = 0;
-  bool pend = false, has = false, ovf = false;
-  __device__ explicit Dmc(const int* c)
-      : sh(c[0]), lo(c[1]), rst(c[2]), tol(c[3]) {}
-  __device__ void pre(const int*, const int*, int) {}
-  template <class L>
-  __device__ void begin(L&) {}
-  template <class L>
-  __device__ void step(int sym, int, bool, L& o) {
-    int d_short = abs(sym - sh);
-    bool in_short = d_short < tol;
-    bool in_long = abs(sym - lo) < tol;
-    bool is_rst = sym >= rst - tol;
-    bool row_has = bir > 0;
-    bool mist = d_short > tol;
-    bool p_consume = pend && !mist;
-    bool p_fall = pend && mist && is_rst;
-    bool p_break = pend && mist && !is_rst && row_has;
-    bool p_done = pend && mist && !is_rst && !row_has;
-    bool norm = !pend || p_fall;
-    bool n_one = norm && in_short;
-    bool n_zero = norm && !in_short && in_long;
-    bool n_flush = norm && !in_short && !in_long && is_rst && has;
-    bool isbit = n_one || n_zero;
-    if (isbit) o.bit(ev, row, bir, n_one);
-    int bir2 = isbit ? bir + 1 : bir;
-    bool has2 = has || isbit;
-    int row2 = p_break ? row + 1 : row;
-    int bir3 = p_break ? 0 : bir2;
-    if (n_flush) o.rows(ev, row2 + 1);
-    int ev2 = n_flush ? ev + 1 : ev;
-    ovf = ovf || row2 >= o.R || bir2 > o.BY * 8 || (n_flush && ev2 >= o.E);
-    pend = n_one && !(p_consume || p_break || p_done);
-    ev = ev2;
-    row = n_flush ? 0 : row2;
-    bir = n_flush ? 0 : bir3;
-    has = n_flush ? false : has2;
-  }
-  template <class L>
-  __device__ void end(L&) {}
-};
-
-struct PiwmDc {
-  static constexpr bool kSymbols = true;
-  static constexpr bool kEventZero = false;
-  int sh, lo, rst, tol;
-  int ev = 0, row = 0, bir = 0;
-  bool touched = false, ovf = false;
-  __device__ explicit PiwmDc(const int* c)
-      : sh(c[0]), lo(c[1]), rst(c[2]), tol(c[3]) {}
-  __device__ void pre(const int*, const int*, int) {}
-  template <class L>
-  __device__ void begin(L&) {}
-  template <class L>
-  __device__ void step(int sym, int, bool last, L& o) {
-    bool in1 = abs(sym - sh) < tol;
-    bool in0 = !in1 && abs(sym - lo) < tol;
-    bool isrb = !in1 && !in0 && sym < rst && touched && bir > 0;
-    bool isbit = in1 || in0;
-    if (isbit) o.bit(ev, row, bir, in1);
-    int bir2 = isbit ? bir + 1 : bir;
-    bool touched2 = touched || isbit;
-    int row2 = isrb ? row + 1 : row;
-    int bir3 = isrb ? 0 : bir2;
-    bool flush = (sym > rst || last) && touched2;
-    if (flush) o.rows(ev, row2 + 1);
-    int ev2 = flush ? ev + 1 : ev;
-    ovf = ovf || row2 >= o.R || bir2 > o.BY * 8 || (flush && ev2 >= o.E);
-    ev = ev2;
-    row = flush ? 0 : row2;
-    bir = flush ? 0 : bir3;
-    touched = flush ? false : touched2;
-  }
-  template <class L>
-  __device__ void end(L&) {}
-};
-
 struct Nrzs {
-  static constexpr bool kSymbols = false;
   static constexpr bool kEventZero = false;
   int sh, rst;
   int ev = 0, bir = 0;
@@ -608,7 +530,6 @@ struct Nrzs {
 };
 
 struct Rzi {
-  static constexpr bool kSymbols = false;
   static constexpr bool kEventZero = false;
   int lo, rst, base;
   int ev = 0, bir = 0;
@@ -640,7 +561,6 @@ struct Rzi {
 };
 
 struct Osv1 {
-  static constexpr bool kSymbols = false;
   static constexpr bool kEventZero = true;   // writes event 0 alone
   int rst, hmin, hmax, sync_min;
   int phase = 0, cnt = 0, manbit = 0, bir = 0, ev = 0, nbits = 0;
@@ -751,15 +671,10 @@ __global__ void slice_lanes(const int* __restrict__ pulse,
   // the top of each step
   const size_t lane0 = lane - t;
   uint8_t* stage0 = stage - (size_t)t * SB;
-  const int steps = F::kSymbols ? 2 * n : n;
-  for (int i = 0; i < steps; ++i) {
+  for (int i = 0; i < n; ++i) {
     if constexpr (!kAll)
       warp_moved(f, o, ok, alive, pl, lane0, stage0, SB);
-    if (!ok) continue;
-    if (F::kSymbols)
-      f.step((i & 1) ? sg[i >> 1] : sp[i >> 1], 0, i == steps - 1, o);
-    else
-      f.step(sp[i], sg[i], i == steps - 1, o);
+    if (ok) f.step(sp[i], sg[i], i == n - 1, o);
   }
   if (ok) f.end(o);
   if constexpr (!kAll) warp_moved(f, o, ok, alive, pl, lane0, stage0, SB);
@@ -803,7 +718,7 @@ cudaError_t launch(const int* pulse, const int* gap, const int* n_pulses,
   return cudaGetLastError();
 }
 
-// ---- the groups: MC and PWM, a thread group per lane ---------------------
+// ---- the groups: MC, PWM, DMC and PIWM-DC, a thread group per lane -------
 
 constexpr unsigned kFull = 0xffffffffu;
 // MC's pieces also end at a pulse or gap over 1.5 short widths where every
@@ -823,10 +738,25 @@ __device__ __forceinline__ unsigned above(int a) {
 __device__ __forceinline__ unsigned pos_bit(int pos) {
   return 1u << (((pos >> 3) & 3) * 8 + 7 - (pos & 7));
 }
+// a cursor from a tile's ballots: the count of x's bits after the highest
+// bit of r (the last reset), or `carry` plus all of x's bits where r is 0
+// (r and x are already cut to the steps before the thread, or up to it)
+__device__ __forceinline__ int since(unsigned r, unsigned x, int carry) {
+  return r ? __popc(x & above(hibit(r))) : carry + __popc(x);
+}
+// whether the bit at the thread (le: its steps up to it) is the last of
+// its row in the tile: no bit follows, or `starts` marks a step in
+// (thread, next bit] from which on bits fall in a new row
+__device__ __forceinline__ bool row_ends(unsigned bits, unsigned starts,
+                                         unsigned le) {
+  const unsigned nxt = bits & ~le;
+  return !nxt || (starts & ~le & ((2u << (__ffs(nxt) - 1)) - 1));
+}
 
-// G threads of a warp that run one lane: thread t takes pulse base + t of
-// each tile. Every thread of the warp calls the collectives together (the
-// groups of a CTA walk the same train, so their tiles line up).
+// G threads of a warp that run one lane: thread t takes step base + t of
+// each tile (a pulse, or for DMC and PIWM-DC a symbol). Every thread of
+// the warp calls the collectives together (the groups of a CTA walk the
+// same train, so their tiles line up).
 template <int G>
 struct Group {
   const int t;     // the thread in its group
@@ -901,6 +831,7 @@ struct Stage {
 // tsl; the cursors count emissions since a reset (bir restarts at 1 after
 // out and flush, row at 0 after a flush).
 struct McLanes {
+  static constexpr bool kSymbols = false;
   int sh, rst, tol;
   bool has_tol, vf;
   int ev = 0, row = 0, bir = 1, tsl = 0;
@@ -1008,6 +939,7 @@ struct McLanes {
 // restarts at 0 after every candidate, sync and isrb (where no flush or
 // break happens there, it is 0 already), row at 0 after a flush.
 struct PwmLanes {
+  static constexpr bool kSymbols = false;
   int ol, ou, zl, zu, syl, syu, gp, rst;
   int ev = 0, row = 0, bir = 0;
   bool tch = false, ovf = false;
@@ -1080,6 +1012,151 @@ struct PwmLanes {
   }
 };
 
+// a symbol of the interleaved pulse/gap axis: 2k is pulse k, 2k + 1 gap k
+__device__ __forceinline__ int symbol(const int* sp, const int* sg, int i) {
+  return (i & 1) ? sg[i >> 1] : sp[i >> 1];
+}
+
+// DMC (JAX slice_dmc) over the symbol axis, a symbol per thread. The
+// pending flag is the one value that carries across symbols, and it has a
+// closed form: a pending symbol that falls through (mistimed, at a reset)
+// is never in_short, so every resolution but a 1 clears the flag and
+// pend' = in_short & !pend; pend is the parity of the run of in_short
+// symbols that ends just before the symbol, XORed with the carried flag
+// where the run reaches the tile's start. What pend decides: a 1 (in_short
+// and not pending), a 0, a flush candidate (a normal symbol in neither
+// class, at a reset), a break candidate (a pending mistimed symbol below
+// the reset). Bits and candidates are distinct symbols. A flush candidate
+// flushes where a bit fell since the previous one (has); a break candidate
+// breaks where a bit fell since the previous candidate of either kind
+// (bir > 0). So bir restarts at 0 after every candidate (one that neither
+// flushes nor breaks finds it 0 already), row after a flush.
+struct DmcLanes {
+  static constexpr bool kSymbols = true;
+  int sh, lo, rst, tol;
+  int ev = 0, row = 0, bir = 0;
+  bool pend = false, has = false, ovf = false;
+  __device__ DmcLanes(const int* c, bool)
+      : sh(c[0]), lo(c[1]), rst(c[2]), tol(c[3]) {}
+  template <int G>
+  __device__ void begin(const Group<G>&, Stage&, bool) {}
+  template <int G>
+  __device__ void tile(const Group<G>& gr, Stage& s, const int* sp,
+                       const int* sg, int base, int nact, int) {
+    const int t = gr.t;
+    const bool act = t < nact;
+    const int y = act ? symbol(sp, sg, base + t) : 0;
+    const unsigned lt = gr.lt(), le = gr.le();
+    // 1. what no state decides
+    const int d_short = abs(y - sh);
+    const bool in_short = act && d_short < tol;
+    const bool in_long = act && abs(y - lo) < tol;
+    const bool is_rst = y >= rst - tol;
+    const bool mist = d_short > tol;
+    // 2. the pending flag, from the run of in_short symbols before t
+    const unsigned nis = ~gr.ballot(in_short) & lt;
+    const bool pd = nis ? ((t - 1 - hibit(nis)) & 1) != 0
+                        : ((t & 1) != 0) != pend;
+    // 3. what it decides, and the cursors before this symbol
+    const bool norm = act && (!pd || (mist && is_rst));
+    const bool one = in_short && !pd;
+    const bool isbit = one || (norm && !in_short && in_long);
+    const bool fc = norm && !in_short && !in_long && is_rst;
+    const bool bc = act && pd && mist && !is_rst;
+    const unsigned BIT = gr.ballot(isbit), FC = gr.ballot(fc);
+    const bool hs = since(FC & lt, BIT & lt, has) > 0;
+    const bool fl = fc && hs;
+    const int birb = since((FC | gr.ballot(bc)) & lt, BIT & lt, bir);
+    const bool brk = bc && birb > 0;
+    const unsigned FL = gr.ballot(fl), BRK = gr.ballot(brk);
+    const int e_ = ev + __popc(FL & lt);
+    const int r_ = since(FL & lt, BRK & lt, row);
+    const int bir2 = birb + isbit;
+    const unsigned o = gr.ballot(act && (r_ + brk >= s.R || bir2 > s.BITS ||
+                                         (fl && e_ + 1 >= s.E)));
+    ovf = ovf || o;
+    // 4. the stage: a row's count written by its last bit in the tile (the
+    // next bit lies past a flush or a break, or there is none)
+    if (fl && e_ < s.E) s.nrow(e_) = r_ + 1;
+    if (isbit && s.in(e_, r_) && row_ends(BIT, FL | BRK, le))
+      s.nbits(e_, r_) = bir2;
+    gr.or_words(s.words(), act ? s.word(e_, r_, birb) : -1,
+                one ? pos_bit(birb) : 0u);
+    // the cursors and the flags after the tile's last symbol
+    const int k = max(nact - 1, 0);
+    const int ne = gr.from(e_ + fl, k), nr = gr.from(fl ? 0 : r_ + brk, k);
+    const int nb = gr.from((fc || bc) ? 0 : bir2, k);
+    const int nh = gr.from((int)(!fc && (hs || isbit)), k);
+    const int np = gr.from((int)one, k);
+    if (nact) {
+      ev = ne; row = nr; bir = nb;
+      has = nh != 0;
+      pend = np != 0;
+    }
+  }
+};
+
+// PIWM-DC (JAX slice_piwm_dc) over the symbol axis, a symbol per thread: a
+// symbol in the short class is a 1, in the long class a 0; a flush
+// candidate (over the reset limit, or the last symbol) flushes where a bit
+// fell since the previous one, this symbol's included (touched); a non-bit
+// symbol below the reset limit is a break candidate and breaks where a bit
+// fell since the previous candidate of either kind (bir > 0; bir > 0
+// implies touched). Within one symbol JAX's order holds: the bit, the
+// break, then the flush, whose event keeps the row the break opened.
+struct PiwmDcLanes {
+  static constexpr bool kSymbols = true;
+  int sh, lo, rst, tol;
+  int ev = 0, row = 0, bir = 0;
+  bool tch = false, ovf = false;
+  __device__ PiwmDcLanes(const int* c, bool)
+      : sh(c[0]), lo(c[1]), rst(c[2]), tol(c[3]) {}
+  template <int G>
+  __device__ void begin(const Group<G>&, Stage&, bool) {}
+  template <int G>
+  __device__ void tile(const Group<G>& gr, Stage& s, const int* sp,
+                       const int* sg, int base, int nact, int n) {
+    const int t = gr.t;
+    const bool act = t < nact;
+    const int y = act ? symbol(sp, sg, base + t) : 0;
+    const unsigned lt = gr.lt(), le = gr.le();
+    // 1. what no state decides
+    const bool in1 = act && abs(y - sh) < tol;
+    const bool isbit = in1 || (act && abs(y - lo) < tol);
+    const bool rbc = act && !isbit && y < rst;
+    const bool cf = act && (y > rst || base + t == n - 1);
+    // 3. the cursors before this symbol (touched up to and with it)
+    const unsigned BIT = gr.ballot(isbit), CF = gr.ballot(cf);
+    const bool touched = since(CF & lt, BIT & le, tch) > 0;
+    const bool fl = cf && touched;
+    const int birb = since((CF | gr.ballot(rbc)) & lt, BIT & lt, bir);
+    const bool brk = rbc && birb > 0;
+    const unsigned FL = gr.ballot(fl), BRK = gr.ballot(brk);
+    const int e_ = ev + __popc(FL & lt);
+    const int r_ = since(FL & lt, BRK & lt, row);
+    const int row2 = r_ + brk, bir2 = birb + isbit;
+    const unsigned o = gr.ballot(act && (row2 >= s.R || bir2 > s.BITS ||
+                                         (fl && e_ + 1 >= s.E)));
+    ovf = ovf || o;
+    // 4. the stage: a row's count written by its last bit in the tile (the
+    // next bit lies past a flush, this symbol's included, or a break)
+    if (fl && e_ < s.E) s.nrow(e_) = row2 + 1;
+    if (isbit && s.in(e_, r_) && row_ends(BIT, (FL << 1) | BRK, le))
+      s.nbits(e_, r_) = bir2;
+    gr.or_words(s.words(), act ? s.word(e_, r_, birb) : -1,
+                in1 ? pos_bit(birb) : 0u);
+    // the cursors after the tile's last symbol
+    const int k = max(nact - 1, 0);
+    const int ne = gr.from(e_ + fl, k), nr = gr.from(fl ? 0 : row2, k);
+    const int nb = gr.from((cf || rbc) ? 0 : bir2, k);
+    const int nt = gr.from((int)(!cf && touched), k);
+    if (nact) {
+      ev = ne; row = nr; bir = nb;
+      tch = nt != 0;
+    }
+  }
+};
+
 template <class F, int G>
 __global__ void __launch_bounds__(128)
 slice_groups(const int* __restrict__ pulse, const int* __restrict__ gap,
@@ -1115,8 +1192,9 @@ slice_groups(const int* __restrict__ pulse, const int* __restrict__ gap,
   f.begin(gr, st, ok);
   __syncwarp();
   // every group of the CTA runs the same tiles: the collectives line up
-  for (int base = 0; base < n; base += G) {
-    f.tile(gr, st, sp, sg, base, ok ? min(G, n - base) : 0, n);
+  const int steps = F::kSymbols ? 2 * n : n;
+  for (int base = 0; base < steps; base += G) {
+    f.tile(gr, st, sp, sg, base, ok ? min(G, steps - base) : 0, steps);
     __syncwarp();
   }
   if (!live) return;
@@ -1166,7 +1244,8 @@ cudaError_t launch_groups(const int* pulse, const int* gap,
 // bound_table): its columns from 0 in the family's order, ok in the last.
 // lanes, mode, SB and smem: ops/slice.py launch_plan; mode is whether
 // every event is staged for the walk, the threads per lane (8, 16 or 32)
-// for the groups (MC, PWM). Every element of the six outputs is written.
+// for the groups (MC, PWM, DMC, PIWM-DC). Every element of the six outputs
+// is written.
 extern "C" int rtl433_slice(int family, const void* pulse, const void* gap,
                             const void* n_pulses, int B, int N,
                             const void* bounds, int S, int E, int R, int BY,
@@ -1192,8 +1271,8 @@ extern "C" int rtl433_slice(int family, const void* pulse, const void* gap,
     case 1: RTL433_SLICE(launch_groups, PwmLanes);
     case 2: RTL433_SLICE(launch, Pcm);
     case 3: RTL433_SLICE(launch_groups, McLanes);
-    case 4: RTL433_SLICE(launch, Dmc);
-    case 5: RTL433_SLICE(launch, PiwmDc);
+    case 4: RTL433_SLICE(launch_groups, DmcLanes);
+    case 5: RTL433_SLICE(launch_groups, PiwmDcLanes);
     case 6: RTL433_SLICE(launch, Nrzs);
     case 7: RTL433_SLICE(launch, Rzi);
     case 8: RTL433_SLICE(launch, Osv1);

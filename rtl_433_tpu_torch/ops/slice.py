@@ -20,15 +20,16 @@ row bytes) or a float32 rounding near a boundary (PCM) raises the lane's
 slicer. Writes outside the caps are dropped, as the JAX scatters drop them.
 
 For a CUDA tensor each wrapper launches ``csrc/slice.cu`` (one thread per
-lane, or for MC and PWM a thread group per lane; the train and each
-lane's events staged in shared memory, the launch shaped by
+lane, or for MC, PWM, DMC and PIWM-DC a thread group per lane; the train
+and each lane's events staged in shared memory, the launch shaped by
 :func:`launch_plan`); for a CPU tensor it runs the plain version: for
-seven families the JAX ``step`` as vectorized torch over the ``[B, S]``
+five families the JAX ``step`` as vectorized torch over the ``[B, S]``
 lane grid in a Python loop over the pulses (stopping at the longest
-train: padded steps are inactive), for MC and PWM the kernel's phases
-vectorized over pulses and lanes (what no state decides, MC's walk per
-piece, the cursors from running sums); then the JAX assembly by
-scatter-adds (``_lane_scatter_add``, ``_assemble``, ``_assemble_runs``,
+train: padded steps are inactive), for MC, PWM, DMC and PIWM-DC the
+kernel's phases vectorized over pulses (symbols for DMC and PIWM-DC) and
+lanes (what no state decides, MC's walk per piece, DMC's pending flag
+from run parities, the cursors from running sums); then the JAX assembly
+by scatter-adds (``_lane_scatter_add``, ``_assemble``, ``_assemble_runs``,
 PCM's delta-scatter and cumulative sum).
 """
 
@@ -338,8 +339,8 @@ def _cols(bounds, device):
     return out
 
 
-def _steps(n_pulses, per_pulse=1) -> int:
-    return per_pulse * int(n_pulses.max()) if n_pulses.numel() else 0
+def _steps(n_pulses) -> int:
+    return int(n_pulses.max()) if n_pulses.numel() else 0
 
 
 def _scatter_add(shape, idx_cols, vals, mask):
@@ -424,13 +425,6 @@ def _step_inputs(pulse, gap, n_pulses, n):
     [B, 1]."""
     return (pulse[:, n:n + 1].to(torch.int32), gap[:, n:n + 1].to(torch.int32),
             (n < n_pulses)[:, None], (n == n_pulses - 1)[:, None])
-
-
-def _symbol_inputs(pulse, gap, n_pulses, i):
-    """Symbol ``i`` of the interleaved pulse/gap axis, valid and last."""
-    src = gap if i % 2 else pulse
-    sym = src[:, i // 2:i // 2 + 1].to(torch.int32)
-    return sym, (i < 2 * n_pulses)[:, None], (i == 2 * n_pulses - 1)[:, None]
 
 
 def slice_ppm_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
@@ -844,92 +838,112 @@ def slice_mc_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
             "n_events": fl.sum(-1, dtype=torch.int32), "ovf": ovf}
 
 
+# ---- the phase form of DMC and PIWM-DC (csrc/slice.cu's groups over the
+# symbol axis)
+
+def _symbol_grid(pulse, gap, n_pulses, okm):
+    """The [B, S, 2N] form of a call over the interleaved pulse/gap symbol
+    axis (symbol 2k is pulse k, 2k + 1 gap k): the symbols [B, 1, 2N], the
+    active steps (inside the train, on an ok spec; ``okm`` is [1, S, 1])
+    and the last step."""
+    B, N = pulse.shape
+    sym = torch.stack([pulse, gap], -1).reshape(B, 2 * N).to(torch.int32)
+    i = torch.arange(2 * N, device=pulse.device)[None, :]
+    act = (i < 2 * n_pulses[:, None])[:, None, :] & okm
+    last = (i == 2 * n_pulses[:, None] - 1)[:, None, :]
+    return sym[:, None, :], act, last
+
+
+def _symbol_planes(isbit, one, ev, row, bir, fl, f_rows, n_ev, ovf, caps):
+    """The JAX assembly of a symbol family's [B, S, 2N] emissions (no
+    syncs)."""
+    B, S, M = isbit.shape
+    cols = [torch.broadcast_to(x, (B, S, M)).reshape(B * S, M)
+            for x in (isbit, one, ev, row, bir, torch.zeros_like(isbit), ev,
+                      row, fl, ev, f_rows)]
+    return _assemble_cols(cols, B, S, n_ev, ovf, caps)
+
+
 def slice_dmc_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
     """Plain version of the differential-Manchester scan (JAX
-    ``slice_dmc``) over the interleaved pulse/gap symbol axis; a carried
-    ``pending`` flag models the host slicer's data-dependent stride."""
-    B, N = pulse.shape
-    dev = pulse.device
+    ``slice_dmc``) in the kernel's phases, vectorized over symbols and
+    lanes. The carried ``pending`` flag has a closed form: a pending
+    symbol that falls through (mistimed, at a reset) is never in_short, so
+    every resolution but a 1 clears the flag and pend' = in_short & ~pend;
+    pend is the parity of the run of in_short symbols that ends just
+    before the symbol (from the index of the last one that is not). Then a
+    flush candidate (a normal symbol out of both classes at a reset)
+    flushes where a bit fell since the previous one; a break candidate (a
+    pending mistimed symbol below the reset) breaks where a bit fell since
+    the previous break or flush candidate; bir counts the bits since
+    either, row the breaks since the last flush; the JAX assembly."""
     E, R, BY = caps
-    b = _cols(bounds, dev)
-    S = b["short"].shape[1]
-    sh, lo, rst, tol, okm = (b[k] for k in ("short", "long", "reset", "tol",
-                                            "ok"))
-    w = torch.where
-    ev = row = bir = _zeros(B, S, dev)
-    pend = has = ovf = _falses(B, S, dev)
-    nope = _falses(B, S, dev)
-    ys = []
-    for i in range(_steps(n_pulses, 2)):
-        sym, valid, _last = _symbol_inputs(pulse, gap, n_pulses, i)
-        act = valid & okm
-        d_short = (sym - sh).abs()
-        in_short = d_short < tol
-        in_long = (sym - lo).abs() < tol
-        is_rst = sym >= rst - tol
-        row_has = bir > 0
-        mist = d_short > tol
-        p_consume = act & pend & ~mist
-        p_fall = act & pend & mist & is_rst
-        p_break = act & pend & mist & ~is_rst & row_has
-        p_done = act & pend & mist & ~is_rst & ~row_has
-        norm = act & (~pend | p_fall)
-        n_one = norm & in_short
-        n_zero = norm & ~in_short & in_long
-        n_flush = norm & ~in_short & ~in_long & is_rst & has
-        isbit = n_one | n_zero
-        b_ev, b_row, b_bir = ev, row, bir
-        bir2 = w(isbit, bir + 1, bir)
-        has2 = has | isbit
-        row2 = w(p_break, row + 1, row)
-        bir3 = w(p_break, 0, bir2)
-        f_rows = row2 + 1
-        ev2 = w(n_flush, ev + 1, ev)
-        pend2 = act & n_one & ~(p_consume | p_break | p_done)
-        ovf = ovf | (row2 >= R) | (bir2 > BY * 8) | (n_flush & (ev2 >= E))
-        ys.append((isbit, n_one.to(torch.int32), b_ev, b_row, b_bir, nope,
-                   ev, row, n_flush, ev, f_rows))
-        ev, row, bir = ev2, w(n_flush, 0, row2), w(n_flush, 0, bir3)
-        has, pend = has2 & ~n_flush, pend2
-    return _assemble(ys, B, S, ev, ovf, caps)
+    b = {k: v[..., None] for k, v in _cols(bounds, pulse.device).items()}
+    sym, act, _last = _symbol_grid(pulse, gap, n_pulses, b["ok"])
+    i32 = lambda x: x.to(torch.int32)
+    # 1. what no state decides
+    d_short = (sym - b["short"]).abs()
+    in_short = d_short < b["tol"]
+    in_long = (sym - b["long"]).abs() < b["tol"]
+    is_rst = sym >= b["reset"] - b["tol"]
+    mist = d_short > b["tol"]
+    # 2. the pending flag: the run of in_short symbols before each symbol
+    IS = act & in_short
+    idx = torch.arange(sym.shape[-1], device=sym.device, dtype=torch.int32)
+    pend = ((idx - _before(torch.where(IS, 0, idx + 1))) & 1).bool()
+    # 3. what it decides, and the cursors
+    norm = act & (~pend | (mist & is_rst))
+    one = act & ~pend & in_short
+    isbit = one | (norm & ~in_short & in_long)
+    fc = norm & ~in_short & ~in_long & is_rst
+    bc = act & pend & mist & ~is_rst
+    bits = _csum(isbit)
+    fl = fc & (bits > _before(torch.where(fc, bits, 0)))
+    bir = bits - i32(isbit) - _before(torch.where(fc | bc, bits, 0))
+    brk = bc & (bir > 0)
+    ev = _csum(fl) - i32(fl)
+    brks = _csum(brk)
+    row = brks - i32(brk) - _before(torch.where(fl, brks, 0))
+    ovf = (act & ((row + i32(brk) >= R) | (bir + i32(isbit) > BY * 8)
+                  | (fl & (ev + 1 >= E)))).any(-1)
+    # 4. the JAX assembly
+    return _symbol_planes(isbit, one, ev, row, bir, fl, row + 1,
+                          fl.sum(-1, dtype=torch.int32), ovf, caps)
 
 
 def slice_piwm_dc_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
-    """Plain version of the PIWM-DC scan (JAX ``slice_piwm_dc``) over the
-    interleaved pulse/gap symbol axis."""
-    B, N = pulse.shape
-    dev = pulse.device
+    """Plain version of the PIWM-DC scan (JAX ``slice_piwm_dc``) in the
+    kernel's phases, vectorized over symbols and lanes: a symbol in the
+    short class is a 1, in the long class a 0; a flush candidate (over the
+    reset limit, or the last symbol) flushes where a bit fell since the
+    previous one, this symbol's included; a non-bit symbol below the reset
+    limit is a break candidate and breaks where a bit fell since the
+    previous candidate of either kind; bir counts the bits since either,
+    row the breaks since the last flush (a break before a flush on the
+    same symbol is that event's last row); the JAX assembly."""
     E, R, BY = caps
-    b = _cols(bounds, dev)
-    S = b["short"].shape[1]
-    sh, lo, rst, tol, okm = (b[k] for k in ("short", "long", "reset", "tol",
-                                            "ok"))
-    w = torch.where
-    ev = row = bir = _zeros(B, S, dev)
-    touched = ovf = _falses(B, S, dev)
-    nope = _falses(B, S, dev)
-    ys = []
-    for i in range(_steps(n_pulses, 2)):
-        sym, valid, last = _symbol_inputs(pulse, gap, n_pulses, i)
-        act = valid & okm
-        in1 = act & ((sym - sh).abs() < tol)
-        in0 = act & ~in1 & ((sym - lo).abs() < tol)
-        isrb = act & ~in1 & ~in0 & (sym < rst) & touched & (bir > 0)
-        isbit = in1 | in0
-        b_ev, b_row, b_bir = ev, row, bir
-        bir2 = w(isbit, bir + 1, bir)
-        touched2 = touched | isbit
-        row2 = w(isrb, row + 1, row)
-        bir3 = w(isrb, 0, bir2)
-        flush = act & ((sym > rst) | last) & touched2
-        f_rows = row2 + 1
-        ev2 = w(flush, ev + 1, ev)
-        ovf = ovf | (row2 >= R) | (bir2 > BY * 8) | (flush & (ev2 >= E))
-        ys.append((isbit, in1.to(torch.int32), b_ev, b_row, b_bir, nope,
-                   ev, row, flush, ev, f_rows))
-        ev, row, bir = ev2, w(flush, 0, row2), w(flush, 0, bir3)
-        touched = touched2 & ~flush
-    return _assemble(ys, B, S, ev, ovf, caps)
+    b = {k: v[..., None] for k, v in _cols(bounds, pulse.device).items()}
+    sym, act, last = _symbol_grid(pulse, gap, n_pulses, b["ok"])
+    i32 = lambda x: x.to(torch.int32)
+    # 1. what no state decides
+    in1 = act & ((sym - b["short"]).abs() < b["tol"])
+    isbit = in1 | (act & ((sym - b["long"]).abs() < b["tol"]))
+    rbc = act & ~isbit & (sym < b["reset"])
+    cf = act & ((sym > b["reset"]) | last)
+    # 2. nothing: no value carries across symbols but the cursors
+    # 3. the cursors
+    bits = _csum(isbit)
+    fl = cf & (bits > _before(torch.where(cf, bits, 0)))
+    bir = bits - i32(isbit) - _before(torch.where(cf | rbc, bits, 0))
+    isrb = rbc & (bir > 0)
+    ev = _csum(fl) - i32(fl)
+    rbs = _csum(isrb)
+    row2 = rbs - _before(torch.where(fl, rbs, 0))
+    ovf = (act & ((row2 >= R) | (bir + i32(isbit) > BY * 8)
+                  | (fl & (ev + 1 >= E)))).any(-1)
+    # 4. the JAX assembly
+    return _symbol_planes(isbit, in1, ev, row2 - i32(isrb), bir, fl,
+                          row2 + 1, fl.sum(-1, dtype=torch.int32), ovf, caps)
 
 
 def _assemble_runs(B, S, caps: SliceCaps, ys, ev_f, ovf):
@@ -1116,8 +1130,10 @@ def _check(pulse, gap, n_pulses, caps):
 # 228 KB, and each resident block takes 1 KB more
 SMEM_MAX = 232448
 SMEM_SM = 233472
-# the families csrc/slice.cu runs as thread groups, a group per lane
-GROUP_FAMILIES = ("mc", "pwm")
+# the families csrc/slice.cu runs as thread groups, a group per lane; DMC
+# and PIWM-DC step over the 2N symbols of the interleaved pulse/gap axis
+GROUP_FAMILIES = ("mc", "pwm", "dmc", "piwm_dc")
+SYMBOL_FAMILIES = ("dmc", "piwm_dc")
 
 
 def _r16(v: int) -> int:
@@ -1143,13 +1159,14 @@ def launch_plan(B: int, S: int, N: int, caps: SliceCaps, sms: int = 132,
     shared bytes per block); a block takes one train's pulses and gaps
     (``8 N`` bytes) and its lanes' stages.
 
-    For MC and PWM (``fam`` in :data:`GROUP_FAMILIES`; the kernel's
-    groups) the mode is the threads per lane: 8 where N <= 8, 16 where
-    N <= 16, else a warp; up to four warps of lanes per block (fewer where
-    S is smaller), each lane staging every event, so that several blocks
-    share an SM; fewer warps, and then a warp per lane, where that does
-    not fit the 227 KB a block may use, raising where one lane of a warp
-    does not.
+    For MC, PWM, DMC and PIWM-DC (``fam`` in :data:`GROUP_FAMILIES`; the
+    kernel's groups) the mode is the threads per lane, by the lane's
+    steps (N pulses, or 2N symbols for DMC and PIWM-DC): 8 where they are
+    at most 8, 16 where at most 16, else a warp; up to four warps of lanes
+    per block (fewer where S is smaller), each lane staging every event,
+    so that several blocks share an SM; fewer warps, and then a warp per
+    lane, where that does not fit the 227 KB a block may use, raising
+    where one lane of a warp does not.
 
     For the other families (the walk) the mode is whether every event of
     a lane is staged: up to 64 specs per block (32 where S <= 32), a
@@ -1163,7 +1180,8 @@ def launch_plan(B: int, S: int, N: int, caps: SliceCaps, sms: int = 132,
     pulses = _r16(8 * N)
     if fam in GROUP_FAMILIES:
         sb = stage_bytes(caps, E)
-        g0 = 8 if N <= 8 else 16 if N <= 16 else 32
+        steps = 2 * N if fam in SYMBOL_FAMILIES else N
+        g0 = 8 if steps <= 8 else 16 if steps <= 16 else 32
         for g in dict.fromkeys((g0, 32)):
             per_warp = 32 // g
             for warps in range(min(4, max(1, -(-S // per_warp))), 0, -1):

@@ -245,7 +245,7 @@ def test_slice_kernel_matches_plain(fam, caps):
     assert want["n_events"].sum() > 0
 
 
-@pytest.mark.parametrize("fam", ["ppm", "pcm", "dmc"])
+@pytest.mark.parametrize("fam", ["ppm", "pcm", "dmc", "piwm_dc"])
 def test_slice_kernel_long_trains(fam):
     """Trains of hundreds of pulses (the symbol families walk twice as
     many), padded to N = 8192: 64 KB of staging, above the default
@@ -298,8 +298,9 @@ def test_slice_kernel_at_the_drain_shape(fam):
 def test_slice_kernel_either_staging(fam, every, monkeypatch):
     """The same lanes (64 drain-shaped trains x 125 specs) with every
     event of a lane staged and with one, the plan forced either way:
-    both equal the plain version. MC and PWM (thread groups, every event
-    staged) take a block of one lane and one of four lanes instead."""
+    both equal the plain version. MC, PWM, DMC and PIWM-DC (thread groups,
+    every event staged) take a block of one lane and one of four lanes
+    instead."""
     from rtl_433_tpu_torch.ops import slice as sl
     from torch_slice_cases import BANK_CAPS, RATE, drain_shaped
     dev = _gpu()
@@ -365,9 +366,10 @@ def test_slice_kernel_lane_past_every_cap(caps):
     assert (want["bits_per_row"][own, own].amax((-1, -2)) > 8 * BY).all()
 
 def _group_call(fam, arrs, bounds, caps, dev, g=None, monkeypatch=None):
-    """One launch of MC's or PWM's groups over outputs allocated where
-    garbage was (every element must be written), the plan's threads per
-    lane forced to ``g``; held to the plain version."""
+    """One launch of a group family's kernel (MC, PWM, DMC, PIWM-DC) over
+    outputs allocated where garbage was (every element must be written),
+    the plan's threads per lane forced to ``g``; held to the plain
+    version."""
     from rtl_433_tpu_torch.ops import slice as sl
     args = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrs]
     B, N = args[0].shape
@@ -389,11 +391,12 @@ def _group_call(fam, arrs, bounds, caps, dev, g=None, monkeypatch=None):
 
 
 @pytest.mark.parametrize("g", [8, 16, 32])
-@pytest.mark.parametrize("fam", ["mc", "pwm"])
+@pytest.mark.parametrize("fam", ["mc", "pwm", "dmc", "piwm_dc"])
 def test_slice_kernel_each_group_size(fam, g, monkeypatch):
     """Each threads-per-lane the plan can pick, forced on the drain's
     shape (64 trains of up to 64 pulses x 125 specs) and on trains of 1,
-    31, 32, 33 and 1200 pulses: several tiles per lane at every size."""
+    31, 32, 33 and 1200 pulses (twice as many symbols for DMC and
+    PIWM-DC): several tiles per lane at every size."""
     from rtl_433_tpu_torch.ops import slice as sl
     from torch_slice_cases import (BANK_CAPS, RATE, drain_shaped,
                                    family_devices, length_trains, pack)
@@ -409,17 +412,26 @@ def test_slice_kernel_each_group_size(fam, g, monkeypatch):
 
 
 @pytest.mark.parametrize("caps", ["bank", "small"])
-@pytest.mark.parametrize("fam", ["mc", "pwm"])
+@pytest.mark.parametrize("fam", ["mc", "pwm", "dmc", "piwm_dc"])
 def test_slice_kernel_planted_group_trains(fam, caps):
     """The planted trains of tests/torch_slice_cases.py: each family's edge
     cases, a train past each cap, and trains of 1 to 1200 pulses."""
     from rtl_433_tpu_torch.ops import slice as sl
     from torch_slice_cases import (BANK_CAPS, RATE, SMALL_CAPS, cap_trains,
-                                   family_devices, length_trains,
+                                   dmc_edges, family_devices, length_trains,
                                    mc_edge_devs, mc_edges, pack,
-                                   pwm_edge_dev, pwm_edges)
+                                   piwm_dc_edges, pwm_edge_dev, pwm_edges,
+                                   symbol_cap_trains, symbol_edge_bounds)
     dev = _gpu()
     caps = BANK_CAPS[fam] if caps == "bank" else SMALL_CAPS
+    if fam in sl.SYMBOL_FAMILIES:
+        edges = dmc_edges() if fam == "dmc" else piwm_dc_edges()
+        trains = edges + symbol_cap_trains(fam, caps) + length_trains(
+            fam, family_devices(fam), 29, (1, 4, 8, 15, 16, 17, 1200))
+        want = _group_call(fam, pack(trains), symbol_edge_bounds(fam), caps,
+                           dev)
+        assert want["ovf"].any() and (~want["ovf"]).any()
+        return
     if fam == "pwm":
         lead = [pwm_edge_dev()]
         edges = pwm_edges(lead[0])
@@ -434,11 +446,11 @@ def test_slice_kernel_planted_group_trains(fam, caps):
     assert want["ovf"].any() and (~want["ovf"]).any()
 
 
-@pytest.mark.parametrize("fam", ["mc", "pwm"])
+@pytest.mark.parametrize("fam", ["mc", "pwm", "dmc", "piwm_dc"])
 def test_slice_kernel_groups_at_the_mixed_shapes(fam):
     """The mixed streams' calls: a few trains of tens to 1200 pulses in a
     bucket of 2048, every spec of the family in the registry (MC 41, PWM
-    91), the plan's own choice."""
+    91, DMC 6, PIWM-DC 4), the plan's own choice."""
     from rtl_433_tpu_torch.ops import slice as sl
     from torch_slice_cases import (BANK_CAPS, RATE, family_devices,
                                    length_trains, pack)

@@ -25,10 +25,12 @@ from rtl_433_tpu_torch.ops import slice as tslice
 from rtl_433_tpu_torch.pulse import slicers
 from rtl_433_tpu_torch.pulse.data import PulseData
 
-from torch_slice_cases import (BANK_CAPS, RATE, SMALL_CAPS, cap_trains,
+from torch_slice_cases import (BANK_CAPS, DMC_SYMS, PIWM_DC_SYMS, RATE,
+                               SMALL_CAPS, cap_trains, dmc_edges,
                                family_devices, family_trains, length_trains,
-                               mc_edge_devs, mc_edges, pack, pwm_edge_dev,
-                               pwm_edges)
+                               mc_edge_devs, mc_edges, pack, piwm_dc_edges,
+                               pwm_edge_dev, pwm_edges, symbol_cap_trains,
+                               symbol_edge_bounds)
 
 FAMS = list(tslice.FAMILIES)
 HOST = {"ppm": slicers.slicer_ppm, "pwm": slicers.slicer_pwm,
@@ -38,15 +40,18 @@ HOST = {"ppm": slicers.slicer_ppm, "pwm": slicers.slicer_pwm,
         "osv1": slicers.slicer_osv1}
 
 
-def _run_both(fam, caps, seed=5, n=24, trains=None, devs=None):
+def _run_both(fam, caps, seed=5, n=24, trains=None, devs=None, bounds=None):
+    """JAX's scan and the port's wrapper on the same trains; the bound
+    columns from ``devs`` (each package's own ``<fam>_bounds``), or
+    ``bounds`` given to both."""
     devs = devs or family_devices(fam)
     trains = trains or family_trains(fam, devs, seed, n=n)
     pulse, gap, npl = pack(trains)
-    jb = getattr(jslice, f"{fam}_bounds")(devs, RATE)
+    jb = bounds or getattr(jslice, f"{fam}_bounds")(devs, RATE)
     want = getattr(jslice, f"slice_{fam}")(pulse, gap, npl, jb,
                                            jslice.SliceCaps(*caps))
     want = {k: np.asarray(v) for k, v in want.items()}
-    tb = getattr(tslice, f"{fam}_bounds")(devs, RATE)
+    tb = bounds or getattr(tslice, f"{fam}_bounds")(devs, RATE)
     got = getattr(tslice, f"slice_{fam}")(
         torch.from_numpy(pulse), torch.from_numpy(gap),
         torch.from_numpy(npl), tb, caps)
@@ -134,17 +139,74 @@ def test_mc_edge_trains_match_jax(caps):
 
 
 @pytest.mark.parametrize("caps", ["bank", "small"])
-@pytest.mark.parametrize("fam", ["mc", "pwm"])
+def test_dmc_edge_trains_match_jax(caps):
+    """In_short runs of 31, 32, 33 and 64 symbols across tile borders (the
+    pending parity carried in), a pending symbol at exactly d_short ==
+    tol, a pending mistimed reset falling through to a 0 and to a flush,
+    breaks after one bit and after many, flush candidates with nothing
+    since the previous one; on the planted spec (lane 0) and the
+    registry's."""
+    caps = BANK_CAPS["dmc"] if caps == "bank" else SMALL_CAPS
+    _d, _t, want, got = _run_both("dmc", caps, trains=dmc_edges(),
+                                  bounds=symbol_edge_bounds("dmc"))
+    _same(want, got, "dmc edges")
+    # a run of odd length leaves a 1 pending: the mistimed L after it
+    # breaks the row; an even run lets L be a 0 (one row either way, and
+    # a second from the M after the next 1)
+    for i, n in enumerate(n for n in (31, 32, 33, 64) for _o in range(3)):
+        assert want["num_rows"][i, 0, 0] == (3 if n % 2 else 2), (i, n)
+    if caps == BANK_CAPS["dmc"]:
+        # X consumed where pending, nothing where not: 1 1 0 1 0 0
+        assert want["bits_per_row"][12, 0, 0, 0] == 6
+        assert want["bytes"][12, 0, 0, 0, 0] == 0b11010000
+        # F0 pending falls through to a 0, RF pending to a flush
+        assert want["n_events"][13, 0] == 2
+        assert want["bytes"][13, 0, 0, 0, 0] == 0b10010000
+        # the untouched flush candidates do not flush
+        assert want["n_events"][15, 0] == 2
+
+
+@pytest.mark.parametrize("caps", ["bank", "small"])
+def test_piwm_dc_edge_trains_match_jax(caps):
+    """The last symbol a break that also flushes, a bit over the reset
+    limit, a non-bit at exactly the reset limit, breaks with and without
+    bits since the previous candidate, flush candidates with nothing
+    since the previous one; on the planted specs (lanes 0 and 1) and the
+    registry's."""
+    caps = BANK_CAPS["piwm_dc"] if caps == "bank" else SMALL_CAPS
+    _d, _t, want, got = _run_both("piwm_dc", caps, trains=piwm_dc_edges(),
+                                  bounds=symbol_edge_bounds("piwm_dc"))
+    _same(want, got, "piwm_dc edges")
+    # the last symbol breaks, then flushes the event with the row it opened
+    assert want["n_events"][0, 0] == 1 and want["num_rows"][0, 0, 0] == 2
+    assert want["bits_per_row"][0, 0, 0].tolist()[:2] == [3, 0]
+    # OVER is a flush candidate on spec 0, a 0 that flushes on spec 1
+    assert want["n_events"][1, 0] == 3 and want["n_events"][1, 1] == 4
+    assert want["bits_per_row"][1, 1, 0, 0] == 2
+    # EQ does nothing: four bits, a break, and the last symbol, a 0 here,
+    # emits and flushes
+    assert want["n_events"][2, 0] == 1
+    assert want["num_rows"][2, 0, 0] == 2
+    assert want["bits_per_row"][2, 0, 0, :2].tolist() == [4, 1]
+
+
+@pytest.mark.parametrize("caps", ["bank", "small"])
+@pytest.mark.parametrize("fam", ["mc", "pwm", "dmc", "piwm_dc"])
 def test_cap_trains_match_jax(fam, caps):
     """Trains past the events, rows and row-bits caps, one cap each: the
     planted lane is flagged on every one (on the cursors before the
     flush) and every plane still equals JAX's, the writes past the caps
     dropped."""
     caps = BANK_CAPS[fam] if caps == "bank" else SMALL_CAPS
-    dev = pwm_edge_dev() if fam == "pwm" else mc_edge_devs()[0]
-    _d, _t, want, got = _run_both(fam, caps,
-                                  trains=cap_trains(fam, dev, caps),
-                                  devs=[dev] + family_devices(fam))
+    if fam in ("dmc", "piwm_dc"):
+        _d, _t, want, got = _run_both(fam, caps,
+                                      trains=symbol_cap_trains(fam, caps),
+                                      bounds=symbol_edge_bounds(fam))
+    else:
+        dev = pwm_edge_dev() if fam == "pwm" else mc_edge_devs()[0]
+        _d, _t, want, got = _run_both(fam, caps,
+                                      trains=cap_trains(fam, dev, caps),
+                                      devs=[dev] + family_devices(fam))
     _same(want, got, f"{fam} caps")
     E, R, BY = caps
     assert want["ovf"][:, 0].all()
@@ -153,13 +215,16 @@ def test_cap_trains_match_jax(fam, caps):
     assert want["bits_per_row"][2, 0].max() > 8 * BY
 
 
-@pytest.mark.parametrize("fam", ["mc", "pwm"])
+@pytest.mark.parametrize("fam", ["mc", "pwm", "dmc", "piwm_dc"])
 def test_length_trains_match_jax(fam):
     """Trains of 1, 31, 32, 33 and 1200 pulses: inside one tile of 32,
-    on its edge, across it, and over 38 tiles."""
+    on its edge, across it, and over 38 tiles; for DMC and PIWM-DC, whose
+    tiles hold 32 symbols (16 pulses), of 1, 15, 16, 17 and 1200 pulses."""
     devs = family_devices(fam)
-    trains = length_trains(fam, devs, 17)
-    assert [len(p) for p, _g in trains] == [1, 31, 32, 33, 1200]
+    lengths = (1, 15, 16, 17, 1200) if fam in tslice.SYMBOL_FAMILIES \
+        else (1, 31, 32, 33, 1200)
+    trains = length_trains(fam, devs, 17, lengths)
+    assert [len(p) for p, _g in trains] == list(lengths)
     _d, _t, want, got = _run_both(fam, BANK_CAPS[fam], trains=trains,
                                   devs=devs)
     _same(want, got, f"{fam} lengths")
@@ -334,50 +399,60 @@ def test_launch_plan_raises_where_32_lanes_do_not_fit(caps, N):
 
 @pytest.mark.parametrize("N", [1, 12, 64, 1200, 8192])
 @pytest.mark.parametrize("caps", _CAPS_IN_USE, ids=str)
-def test_launch_plan_groups_fit_every_cap_set_in_use(caps, N):
-    """A group of 8, 16 or 32 threads per lane (by N), whole warps of
-    lanes (up to four, fewer where S is smaller), each lane staging every
-    event, inside the 227 KB a block may use."""
+@pytest.mark.parametrize("fam", tslice.GROUP_FAMILIES)
+def test_launch_plan_groups_fit_every_cap_set_in_use(fam, caps, N):
+    """A group of 8, 16 or 32 threads per lane (by the lane's steps: N
+    pulses, or 2N symbols for DMC and PIWM-DC), whole warps of lanes (up
+    to four, fewer where S is smaller), each lane staging every event,
+    inside the 227 KB a block may use."""
     E, R, BY = caps
-    for fam in tslice.GROUP_FAMILIES:
-        for B in (1, 256):
-            for S in (1, 3, 12, 26, 125):
-                lanes, g, sb, smem = tslice.launch_plan(B, S, N, caps,
-                                                        fam=fam)
-                assert g in (8, 16, 32) and lanes * g % 32 == 0
-                assert lanes * g <= 128
-                assert lanes <= -(-S // (32 // g)) * (32 // g)
-                assert sb == tslice.stage_bytes(caps, E)
-                assert smem == -(-8 * N // 16) * 16 + lanes * sb
-                assert smem <= tslice.SMEM_MAX
-                if g < 32:
-                    assert N <= g
+    steps = 2 * N if fam in tslice.SYMBOL_FAMILIES else N
+    for B in (1, 256):
+        for S in (1, 3, 12, 26, 125):
+            lanes, g, sb, smem = tslice.launch_plan(B, S, N, caps, fam=fam)
+            assert g in (8, 16, 32) and lanes * g % 32 == 0
+            assert lanes * g <= 128
+            assert lanes <= -(-S // (32 // g)) * (32 // g)
+            assert sb == tslice.stage_bytes(caps, E)
+            assert smem == -(-8 * N // 16) * 16 + lanes * sb
+            assert smem <= tslice.SMEM_MAX
+            if g < 32:
+                assert steps <= g
 
 
-@pytest.mark.parametrize("N,g", [(1, 8), (8, 8), (9, 16), (16, 16),
-                                 (17, 32), (64, 32), (1200, 32)])
-def test_launch_plan_group_size_follows_n(N, g):
-    assert tslice.launch_plan(8, 26, N, BANK_CAPS["mc"], fam="mc")[1] == g
+@pytest.mark.parametrize("fam,N,g", [
+    ("mc", 1, 8), ("mc", 8, 8), ("mc", 9, 16), ("mc", 16, 16),
+    ("mc", 17, 32), ("mc", 64, 32), ("mc", 1200, 32), ("pwm", 9, 16),
+    ("dmc", 1, 8), ("dmc", 4, 8), ("dmc", 5, 16), ("dmc", 8, 16),
+    ("dmc", 9, 32), ("dmc", 1200, 32), ("piwm_dc", 4, 8),
+    ("piwm_dc", 5, 16), ("piwm_dc", 9, 32)])
+def test_launch_plan_group_size_follows_n(fam, N, g):
+    """A group per lane of 8, 16 or 32 threads by the lane's steps: N
+    pulses, or for DMC and PIWM-DC 2N symbols."""
+    assert tslice.launch_plan(8, 26, N, BANK_CAPS[fam], fam=fam)[1] == g
 
 
 @pytest.mark.parametrize("N", [64, 1200, 2048, 8192])
-def test_launch_plan_puts_several_group_blocks_on_an_sm_at_mc_caps(N):
-    """At MC's caps (8 x 24 x 20: 5.4 KB a lane) a block of four lanes
-    leaves room for several blocks per SM, where the walk's plan put one
-    block of 32 lanes (one warp) on an SM."""
-    lanes, g, sb, smem = tslice.launch_plan(256, 125, N, BANK_CAPS["mc"],
-                                            fam="mc")
+@pytest.mark.parametrize("fam", ["mc", "dmc", "piwm_dc"])
+def test_launch_plan_puts_several_group_blocks_on_an_sm_at_mc_caps(fam, N):
+    """At MC's caps (8 x 24 x 20: 5.4 KB a lane; DMC's and PIWM-DC's too)
+    a block of four lanes leaves room for several blocks per SM, where the
+    walk's plan put one block of 32 lanes (one warp) on an SM."""
+    assert BANK_CAPS[fam] == BANK_CAPS["mc"]
+    lanes, g, sb, smem = tslice.launch_plan(256, 125, N, BANK_CAPS[fam],
+                                            fam=fam)
     assert (lanes, g) == (4, 32)
     assert tslice.SMEM_SM // (smem + 1024) >= (4 if N <= 2048 else 2)
 
 
-def test_launch_plan_takes_a_warp_per_lane_where_a_group_would_not_fit():
+@pytest.mark.parametrize("fam", tslice.GROUP_FAMILIES)
+def test_launch_plan_takes_a_warp_per_lane_where_a_group_would_not_fit(fam):
     """Four lanes of 8 threads (one warp) need four stages; where those do
     not fit, a warp runs one lane."""
     caps = tslice.SliceCaps(4, 32, 500)
     sb = tslice.stage_bytes(caps, 4)
     assert 16 + 4 * sb > tslice.SMEM_MAX >= 16 + 3 * sb
-    assert tslice.launch_plan(8, 26, 2, caps, fam="pwm")[:2] == (3, 32)
+    assert tslice.launch_plan(8, 26, 2, caps, fam=fam)[:2] == (3, 32)
 
 
 @pytest.mark.parametrize("caps,N", [((4, 64, 1024), 64), ((4, 16, 40), 30000)])

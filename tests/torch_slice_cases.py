@@ -451,3 +451,105 @@ def length_trains(fam, devs, seed, lengths=(1, 31, 32, 33, 1200)):
             k += 1
         out.append((p[:n], g[:n]))
     return out
+
+
+# ---- planted trains for DMC and PIWM-DC (thread groups over the symbol
+# axis): planted specs whose windows let every case be built, each family's
+# edge cases, trains past each cap
+
+# bound columns of the planted specs (samples). DMC's long window reaches
+# past its reset threshold (reset - tol = 220), so that a pending mistimed
+# symbol can fall through to a 0; PIWM-DC's second spec has a long window
+# over its reset limit, so that a bit can also flush
+DMC_SPECS = ({"short": 100, "long": 200, "reset": 250, "tol": 30},)
+PIWM_DC_SPECS = ({"short": 100, "long": 200, "reset": 250, "tol": 30},
+                 {"short": 100, "long": 240, "reset": 250, "tol": 30})
+# symbols for them: DMC S in_short, X at d_short == tol, L in_long, F0 in
+# long and at the reset threshold, M mistimed below it and in neither
+# class, RF a reset in neither class; PIWM-DC ONE, ZERO, RB a non-bit below
+# the reset limit, EQ a non-bit at it, OVER a non-bit over it (on the
+# second spec, OVER is a 0 over the reset limit)
+DMC_SYMS = {"S": 100, "X": 130, "L": 200, "F0": 225, "M": 160, "RF": 400}
+PIWM_DC_SYMS = {"ONE": 100, "ZERO": 200, "RB": 150, "EQ": 250, "OVER": 260}
+
+
+def symbol_edge_bounds(fam):
+    """The planted specs of DMC or PIWM-DC (lanes 0 and up), then the
+    family's specs in the registry, as ``<fam>_bounds`` gives them."""
+    from rtl_433_tpu_torch.ops import slice as sl
+    planted = DMC_SPECS if fam == "dmc" else PIWM_DC_SPECS
+    reg = getattr(sl, f"{fam}_bounds")(family_devices(fam), RATE)
+    out = {k: np.concatenate([np.asarray([p[k] for p in planted],
+                                         np.int32), reg[k]])
+           for k in ("short", "long", "reset", "tol")}
+    out["ok"] = np.concatenate([np.ones(len(planted), bool), reg["ok"]])
+    return out
+
+
+def from_symbols(syms):
+    """A train from its interleaved symbols (pulse, gap, pulse, ...)."""
+    assert len(syms) % 2 == 0, len(syms)
+    return list(syms[0::2]), list(syms[1::2])
+
+
+def dmc_edges():
+    """DMC trains (symbols of DMC_SYMS): in_short runs of 31, 32, 33 and
+    64 symbols from offsets 0, 1 and 7 of a tile, each followed by a
+    symbol that the run's parity decides (a break where it leaves a 1
+    pending, a 0 where not); a pending symbol at exactly d_short == tol
+    (consumed; not pending, nothing); a pending mistimed reset in the long
+    class (falls through to a 0) and in neither (to a flush); breaks after
+    one bit and after many, back to back; flush candidates with nothing
+    since the previous one, one opening the train; then all of them in
+    one train."""
+    S, X, L, F0, M, RF = (DMC_SYMS[k] for k in ("S", "X", "L", "F0", "M",
+                                                   "RF"))
+    runs = []
+    for n in (31, 32, 33, 64):
+        for off in (0, 1, 7):
+            sy = [L] * off + [S] * n + [L, S, M, RF]
+            runs.append(sy + [RF] * (len(sy) % 2))
+    exact = [S, X, S, S, X, L, S, X, X, L, L, RF]
+    fall = [S, F0, L, S, RF, L, S, F0, S, RF, S, S]
+    brk = [S, M, S, M, L, L, S, M, L, S, L, L, S, M, RF, L]
+    empty = [RF, RF, S, L, RF, RF, RF, M, RF, L, RF, RF]
+    trains = [from_symbols(s) for s in runs + [exact, fall, brk, empty]]
+    return trains + [from_symbols(sum(runs + [exact, fall, brk, empty],
+                                      []))]
+
+
+def piwm_dc_edges():
+    """PIWM-DC trains (symbols of PIWM_DC_SYMS): the last symbol a break
+    that also flushes (the event keeps the row it opened); a bit over the
+    reset limit (the second spec: it emits, then flushes); a non-bit at
+    exactly the reset limit (nothing where it is not the last symbol);
+    breaks with and without bits since the previous candidate; flush
+    candidates with nothing since the previous one; then all of them in
+    one train."""
+    ONE, ZERO, RB, EQ, OVER = (PIWM_DC_SYMS[k] for k in (
+        "ONE", "ZERO", "RB", "EQ", "OVER"))
+    last_brk = [ONE, ZERO, ONE, RB]
+    over = [ONE, OVER, ZERO, ONE, OVER, OVER, ONE, RB, ZERO, OVER]
+    at_rst = [ONE, EQ, ZERO, EQ, EQ, ONE, ONE, RB, EQ, ZERO]
+    brks = [RB, ONE, RB, RB, ZERO, ZERO, RB, EQ, RB, ONE, OVER, RB]
+    empty = [OVER, OVER, ONE, OVER, OVER, RB, OVER, ZERO, OVER, OVER]
+    parts = [last_brk, over, at_rst, brks, empty]
+    return [from_symbols(s) for s in parts] + [
+        from_symbols(sum(parts * 4, []))]
+
+
+def symbol_cap_trains(fam, caps):
+    """Trains past each cap of ``caps`` on their own, for the planted spec
+    of DMC or PIWM-DC (lane 0): more events than E, more rows in one event
+    than R, more bits in one row than 8 * BY."""
+    E, R, BY = caps
+    if fam == "dmc":
+        S, L, M, RF = (DMC_SYMS[k] for k in ("S", "L", "M", "RF"))
+        return [from_symbols([S, S, L, RF] * (E + 3)),
+                from_symbols([S, M] * (R + 3) + [L, RF]),
+                from_symbols([L, L] * (4 * BY + 5) + [RF, RF])]
+    ONE, ZERO, RB, OVER = (PIWM_DC_SYMS[k] for k in ("ONE", "ZERO", "RB",
+                                                    "OVER"))
+    return [from_symbols([ONE, ZERO, ONE, OVER] * (E + 3)),
+            from_symbols([ONE, RB] * (R + 3) + [ONE, OVER]),
+            from_symbols([ONE, ZERO] * (4 * BY + 5) + [ONE, OVER])]
