@@ -43,7 +43,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
               (tests/torch_slice_cases.py) at the bank's caps and at caps
               that flag most lanes, and csrc/dispatch.cu's content dedup
               and record gather on those outputs and on planes with
-              planted repeats;
+              planted repeats (also at odd shapes, rows of 13 bytes,
+              5 rows, counts of -1 and R + 1, near repeats);
 4d. decl_bank -- the declarative decode bank's kernel (csrc/decl_bank.cu)
               against its plain version, bit-exact on code and raws, on a
               fuzz batch of 8192 candidates over all 77 specs
@@ -764,18 +765,36 @@ def ds_cost(kind, args):
         return nbytes, SLICE_OPS[fam] * S * steps, [B, N, S, E, R, BY]
     if kind == "content_dup":
         planes, = args
-        vals = sum(planes[k].numel() for k in ("bytes", "bits_per_row",
-                                                "syncs"))
-        nbytes = planes["bytes"].numel() + 4 * (
-            planes["num_rows"].numel() * 2 + planes["bits_per_row"].numel()
-            + planes["syncs"].numel())
-        return nbytes, vals, list(planes["bytes"].shape)
+        nbytes = dup_live_bytes(planes)
+        return nbytes, nbytes, list(planes["bytes"].shape)
     if kind == "decl_bank":
         return decl_cost(*args)
     by, _sy, bs, _js, _es = args
     B, J, E, R, W = by.shape
     P = len(bs)
     return 2 * P * (R * W + 4 * R) + 12 * P, 0, [P, R, W]
+
+
+def dup_all_plane_bytes(planes):
+    """content_dup's bytes counted as every plane of every event read once
+    and dup written once (the bound of PRs 6-11: "all planes")."""
+    return planes["bytes"].numel() + 4 * (
+        planes["num_rows"].numel() * 2 + planes["bits_per_row"].numel()
+        + planes["syncs"].numel())
+
+
+def dup_live_bytes(planes):
+    """The bytes content_dup must move: every count read and every dup
+    written (4 bytes each), and the live prefix of each event that shares
+    its count with another event of its lane, read once: its rows below
+    the clamped count, W bytes and a bit count and a sync each. The
+    operations are one compare per byte read."""
+    import torch
+    nr = planes["num_rows"]
+    R, W = planes["bytes"].shape[-2:]
+    shared = (nr[..., :, None] == nr[..., None, :]).sum(-1) > 1
+    rows = nr.clamp(0, R).to(torch.int64)
+    return 8 * nr.numel() + int((rows * shared).sum()) * (W + 8)
 
 
 def ds_timed(kind, args):
@@ -835,6 +854,9 @@ def ds_measure(calls):
         nbytes, ops, shape = ds_cost(kind, args)
         r["calls"] += 1
         r["bytes"] += nbytes
+        if kind == "content_dup":
+            r["bytes_all_planes"] = r.get("bytes_all_planes", 0) + \
+                dup_all_plane_bytes(args[0])
         r["ops"] += ops
         if len(r["shapes"]) < 16:
             r["shapes"].append(shape)
@@ -851,6 +873,8 @@ def ds_measure(calls):
         o_ms = r["ops"] / INT32_OPS * 1e3
         r["bound_ms"] = max(b_ms, o_ms)
         r["bound_by"] = "bytes" if b_ms >= o_ms else "operations"
+        if "bytes_all_planes" in r:
+            r["bound_all_planes_ms"] = r["bytes_all_planes"] / HBM_BPS * 1e3
     return rows
 
 
@@ -2362,8 +2386,9 @@ def main():
     # slicer outputs and on planes with planted repeats
     from rtl_433_tpu_torch.decoders import device_dispatch as ddp
     from rtl_433_tpu_torch.ops import slice as sl
-    from torch_slice_cases import (BANK_CAPS, SMALL_CAPS, dup_planes,
-                                   family_devices, family_trains, pack)
+    from torch_slice_cases import (BANK_CAPS, SMALL_CAPS, dup_edge_planes,
+                                   dup_planes, family_devices, family_trains,
+                                   pack)
     fuzz, fuzz_calls = {}, {}
     for i, fam in enumerate(sl.FAMILIES):
         devs = family_devices(fam)
@@ -2387,13 +2412,20 @@ def main():
                 # keeps it
                 tab = torch.from_numpy(sl.bound_table(fam, bounds)).to(dev)
                 fuzz_calls[fam] = [("slice", (fam, *args, tab, caps))]
-    planted = {k: torch.from_numpy(v).to(dev) for k, v in
-               dup_planes(SEED, B=5, J=7, E=8, R=6, W=20).items()}
-    ds_check([("content_dup", (planted,))], compare, "planted repeats")
-    repeats = int((ddp._content_dup(planted).cpu()
-                   != torch.arange(8, dtype=torch.int32)).sum())
-    if not repeats:
-        fail("the planted repeats were not found")
+    repeats = {}
+    for what, planted in (
+            ("planted repeats", dup_planes(SEED, B=5, J=7, E=8, R=6, W=20)),
+            ("planted repeats, W=13, R=5",
+             dup_edge_planes(SEED, B=64, J=91, E=4, R=5, W=13)),
+            ("planted repeats, W=13, R=5, E=8",
+             dup_edge_planes(SEED + 1, B=64, J=91, E=8, R=5, W=13))):
+        planted = {k: torch.from_numpy(v).to(dev) for k, v in planted.items()}
+        ds_check([("content_dup", (planted,))], compare, what)
+        E = planted["num_rows"].shape[-1]
+        repeats[what] = int((ddp._content_dup(planted).cpu()
+                             != torch.arange(E, dtype=torch.int32)).sum())
+        if not repeats[what]:
+            fail(f"the {what} were not found")
     emit({"phase": "slice", "bit_exact": True, "families": fuzz,
           "planted_repeats_found": repeats,
           "max_abs_err": {k: errs[k] for k in ds_kernel_names()
@@ -2910,6 +2942,10 @@ def main():
             "launch_floor_ms": ts_numbers["timeshard_chain"][
                 "launch_floor_ms"],
             "measured_at": m.get("measured_at", "dense_4096 drain")})
+        if k == "content_dup":
+            # the bound: the bytes the compare must read (dup_live_bytes);
+            # beside it the earlier figure, every plane read once
+            rows[-1]["bound_all_planes_ms"] = m["bound_all_planes_ms"]
         if k == "decl_bank":
             rows[-1].update(
                 fuzz={x: decl_fuzz[x] for x in ("ms", "plain_ms",

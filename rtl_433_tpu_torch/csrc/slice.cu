@@ -1,7 +1,7 @@
 // Device slicing: each (train, spec) lane runs one reference slicer over its
-// train and writes the lane's bitbuffers; five families walk the lane's
-// state machine on one thread, MC, PWM, DMC and PIWM-DC split it over a
-// thread group.
+// train and writes the lane's bitbuffers; four families walk the lane's
+// state machine on one thread, PPM, MC, PWM, DMC and PIWM-DC split it over
+// a thread group.
 //
 // Replaces the nine lax.scan slicers of the JAX package's ops/slice.py
 // (slice_ppm, slice_pwm, slice_pcm with _pcm_rates, slice_mc, slice_dmc,
@@ -18,19 +18,19 @@
 // them uninitialized). A write outside the caps (event >= E, row >= R,
 // bit >= 8 * BY) is dropped, as the JAX scatters drop it.
 //
-// The walk (PPM, PCM, NRZS, RZI, OSV1). A CTA covers one
+// The walk (PCM, NRZS, RZI, OSV1). A CTA covers one
 // train (blockIdx.y) and `lanes` specs of one family (blockIdx.x; 64, or
 // 32 where S <= 32 or 64 would not fit); it
 // stages the train's n_pulses[b] pulse and gap values into shared memory
 // once, and every thread then walks only that many steps, reading the
 // same shared word as all its neighbours (a broadcast). The spec's bounds
 // sit in registers. One
-// template takes a per-family step function (five instantiations); the
+// template takes a per-family step function (four instantiations); the
 // writer is shared (struct Lane, warp_put). Every family writes only its
 // current event, whose index only grows, so a lane stages its events in
-// shared memory: single bits are byte adds (the JAX scatter-add, equal to
-// an or for distinct bits), runs of ones 32-bit word ors (the JAX
-// cumulative sum of +1/-1 deltas), PCM's erases word stores. The warp
+// shared memory: runs of ones are 32-bit word ors (the JAX cumulative sum
+// of +1/-1 deltas; OSV1's single ones byte adds, the JAX scatter-add),
+// PCM's erases word stores. The warp
 // writes a lane's events to device memory together, consecutive threads
 // on consecutive 16-byte chunks of that lane's contiguous range (bytes
 // where the caps do not allow 16), and writes zeros for the events the
@@ -45,16 +45,16 @@
 //     of a block meet (they walk the same train), the warp writes out the
 //     lanes whose family moved past their staged event (warp_moved).
 //
-// The groups (MC, PWM, DMC, PIWM-DC; slice_groups). A group of G threads
-// (32, or 8 or 16 where the train is short) runs one lane over tiles of G
-// steps, a step per thread: pulses for MC and PWM, symbols of the
-// interleaved pulse/gap axis for DMC and PIWM-DC (kSymbols; 2n of them).
-// A CTA holds one train and up to four warps of lanes. Most of the four
-// step functions is not serial: what a pulse or symbol is (PWM's five
-// classes; MC's out, its resync 1, the flush; DMC's and PIWM-DC's classes
-// and reset test) and whether it may end an event or a row depends on no
-// state, and the cursors only count or reset since the last reset. So a
-// tile is
+// The groups (PPM, MC, PWM, DMC, PIWM-DC; slice_groups). A group of G
+// threads (32, or 8 or 16 where the train is short) runs one lane over
+// tiles of G steps, a step per thread: a pulse and its gap for PPM, MC
+// and PWM, symbols of the interleaved pulse/gap axis for DMC and PIWM-DC
+// (kSymbols; 2n of them). A CTA holds one train and up to four warps of
+// lanes. Most of the five step functions is not serial: what a gap, pulse
+// or symbol is (PPM's four classes, PWM's five; MC's out, its resync 1,
+// the flush; DMC's and PIWM-DC's classes and reset test) and whether it
+// may end an event or a row depends on no state, and the cursors only
+// count or reset since the last reset. So a tile is
 //   1. classified, a predicate per thread;
 //   2. MC: walked for its time since the last bit (tsl), the one value
 //      that carries across pulses, one walk per piece between resets that
@@ -90,10 +90,10 @@
 // large call by that walk plus the planes' write-out. The walk's design
 // takes the write-out off the walk (coalesced, by the warp, never per bit)
 // and, where it fits, out of the walk altogether; it does not shorten the
-// walk itself. The groups shorten it for MC, PWM, DMC and PIWM-DC: a tile
-// of G steps costs a fixed few hundred cycles of ballots, shuffles and
-// stage stores, and MC's remaining serial walk is as long as its longest
-// piece (a pulse or two on Manchester data).
+// walk itself. The groups shorten it for PPM, MC, PWM, DMC and PIWM-DC: a
+// tile of G steps costs a fixed few hundred cycles of ballots, shuffles
+// and stage stores, and MC's remaining serial walk is as long as its
+// longest piece (a pulse or two on Manchester data).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -159,9 +159,6 @@ struct Lane {
   __device__ int& nbits(int ev, int r) const {
     return reinterpret_cast<int*>(st + pl.ob)[slot(ev) * R + r];
   }
-  __device__ int& nsync(int ev, int r) const {
-    return reinterpret_cast<int*>(st + pl.os)[slot(ev) * R + r];
-  }
   __device__ int& nrow(int ev) const {
     return reinterpret_cast<int*>(st + pl.on)[slot(ev)];
   }
@@ -181,18 +178,8 @@ struct Lane {
     return true;
   }
 
-  // one emitted bit: counted on its row, its value added to its byte
-  __device__ void bit(int ev, int r, int bir, int val) {
-    if (!in(ev, r) || !at(ev)) return;
-    nbits(ev, r) += 1;
-    if (val && bir >= 0 && bir < 8 * BY)
-      row(ev, r)[bir >> 3] += (uint8_t)(0x80u >> (bir & 7));
-  }
   __device__ void count(int ev, int r, int n) {
     if (in(ev, r) && at(ev)) nbits(ev, r) += n;
-  }
-  __device__ void sync(int ev, int r) {
-    if (in(ev, r) && at(ev)) nsync(ev, r) += 1;
   }
   __device__ void rows(int ev, int n) {
     if (at(ev)) nrow(ev) += n;
@@ -348,45 +335,6 @@ __device__ __forceinline__ int trunc05(float v, bool& near) {
 // comparisons in the same order, its emissions written where the JAX
 // assembly scatters them. Each family also carries ev (events so far) and
 // ovf.
-
-struct Ppm {
-  static constexpr bool kEventZero = false;
-  int zl, zu, ol, ou, syl, syu, rst;
-  int ev = 0, row = 0, bir = 0, frb = 0;
-  bool ovf = false;
-  __device__ explicit Ppm(const int* c)
-      : zl(c[0]), zu(c[1]), ol(c[2]), ou(c[3]), syl(c[4]), syu(c[5]),
-        rst(c[6]) {}
-  __device__ void pre(const int*, const int*, int) {}
-  template <class L>
-  __device__ void begin(L&) {}
-  template <class L>
-  __device__ void step(int, int g, bool last, L& o) {
-    bool is0 = zl < g && g < zu;
-    bool is1 = !is0 && ol < g && g < ou;
-    bool issy = !is0 && !is1 && syl < g && g < syu;
-    bool isrb = !is0 && !is1 && !issy && g < rst;
-    bool isbit = is0 || is1;
-    int sy_row = bir > 0 ? row + 1 : row;
-    int row2 = issy ? sy_row : row;
-    int bir2 = (issy && bir > 0) ? 0 : bir;
-    if (isrb) { row2 += 1; bir2 = 0; }
-    if (isbit) o.bit(ev, row2, bir2, is1);
-    if (issy) o.sync(ev, sy_row);
-    int bir3 = isbit ? bir2 + 1 : bir2;
-    int frb2 = (isbit && row2 == 0) ? frb + 1 : frb;
-    bool flush = (g >= rst || last) && (frb2 > 0 || row2 > 0);
-    if (flush) o.rows(ev, row2 + 1);
-    int ev2 = flush ? ev + 1 : ev;
-    ovf = ovf || ev2 >= o.E || row2 >= o.R || bir3 >= o.BY * 8;
-    ev = ev2;
-    row = flush ? 0 : row2;
-    bir = flush ? 0 : bir3;
-    frb = flush ? 0 : frb2;
-  }
-  template <class L>
-  __device__ void end(L&) {}
-};
 
 struct Pcm {
   static constexpr bool kEventZero = false;
@@ -718,7 +666,7 @@ cudaError_t launch(const int* pulse, const int* gap, const int* n_pulses,
   return cudaGetLastError();
 }
 
-// ---- the groups: MC, PWM, DMC and PIWM-DC, a thread group per lane -------
+// ---- the groups: PPM, MC, PWM, DMC, PIWM-DC, a thread group per lane -----
 
 constexpr unsigned kFull = 0xffffffffu;
 // MC's pieces also end at a pulse or gap over 1.5 short widths where every
@@ -1012,6 +960,73 @@ struct PwmLanes {
   }
 };
 
+// PPM (JAX slice_ppm), a gap per thread: a gap is a 0, a 1, a sync or a
+// row break (below the reset limit, in no window) by its width alone, and
+// a flush candidate at or over the reset limit or at the last pulse. A
+// candidate flushes where the event was touched (a bit or a row break)
+// since the previous candidate, this gap included; one that does not
+// flush finds every cursor at zero, as a flush leaves them, so row counts
+// the new rows since the last candidate (a row break; a sync after a bit)
+// and bir the bits since the last sync, row break or candidate. Within a
+// gap JAX's order holds: the sync or row break, then the bit, then the
+// flush; a sync at bir 0 counts on the current row.
+struct PpmLanes {
+  static constexpr bool kSymbols = false;
+  int zl, zu, ol, ou, syl, syu, rst;
+  int ev = 0, row = 0, bir = 0;
+  bool tch = false, ovf = false;
+  __device__ PpmLanes(const int* c, bool)
+      : zl(c[0]), zu(c[1]), ol(c[2]), ou(c[3]), syl(c[4]), syu(c[5]),
+        rst(c[6]) {}
+  template <int G>
+  __device__ void begin(const Group<G>&, Stage&, bool) {}
+  template <int G>
+  __device__ void tile(const Group<G>& gr, Stage& s, const int*,
+                       const int* sg, int base, int nact, int n) {
+    const int t = gr.t;
+    const bool act = t < nact;
+    const int g = act ? sg[base + t] : 0;
+    const unsigned lt = gr.lt(), le = gr.le();
+    // 1. what no state decides
+    const bool is0 = act && zl < g && g < zu;
+    const bool is1 = act && !is0 && ol < g && g < ou;
+    const bool issy = act && !is0 && !is1 && syl < g && g < syu;
+    const bool isrb = act && !is0 && !is1 && !issy && g < rst;
+    const bool isbit = is0 || is1;
+    const bool cf = act && (g >= rst || base + t == n - 1);
+    // 3. the cursors before this gap (touched up to and with it)
+    const unsigned BIT = gr.ballot(isbit), CF = gr.ballot(cf) & lt;
+    const bool touched = since(CF, gr.ballot(isbit || isrb) & le, tch) > 0;
+    const bool fl = cf && touched;
+    const int birb = since(gr.ballot(issy || isrb || cf) & lt, BIT & lt, bir);
+    const bool up = (issy && birb > 0) || isrb;   // a new row before the bit
+    const unsigned UP = gr.ballot(up), FL = gr.ballot(fl);
+    const int e_ = ev + __popc(FL & lt);
+    const int row2 = since(CF, UP & lt, row) + up;
+    const int bir2 = (issy || isrb) ? 0 : birb, bir3 = bir2 + isbit;
+    const unsigned o = gr.ballot(act && (e_ + fl >= s.E || row2 >= s.R ||
+                                         bir3 >= s.BITS));
+    ovf = ovf || o;
+    // 4. the stage: a row's count written by its last bit in the tile (the
+    // next bit lies past a flush or a new row, or there is none)
+    if (fl && e_ < s.E) s.nrow(e_) = row2 + 1;
+    if (issy && s.in(e_, row2)) atomicAdd(&s.nsync(e_, row2), 1);
+    if (isbit && s.in(e_, row2) && row_ends(BIT, (FL << 1) | UP, le))
+      s.nbits(e_, row2) = bir3;
+    gr.or_words(s.words(), act ? s.word(e_, row2, bir2) : -1,
+                is1 ? pos_bit(bir2) : 0u);
+    // the cursors after the tile's last gap
+    const int k = max(nact - 1, 0);
+    const int ne = gr.from(e_ + fl, k), nr = gr.from(cf ? 0 : row2, k);
+    const int nb = gr.from(cf ? 0 : bir3, k);
+    const int nt = gr.from((int)(!cf && touched), k);
+    if (nact) {
+      ev = ne; row = nr; bir = nb;
+      tch = nt != 0;
+    }
+  }
+};
+
 // a symbol of the interleaved pulse/gap axis: 2k is pulse k, 2k + 1 gap k
 __device__ __forceinline__ int symbol(const int* sp, const int* sg, int i) {
   return (i & 1) ? sg[i >> 1] : sp[i >> 1];
@@ -1244,8 +1259,8 @@ cudaError_t launch_groups(const int* pulse, const int* gap,
 // bound_table): its columns from 0 in the family's order, ok in the last.
 // lanes, mode, SB and smem: ops/slice.py launch_plan; mode is whether
 // every event is staged for the walk, the threads per lane (8, 16 or 32)
-// for the groups (MC, PWM, DMC, PIWM-DC). Every element of the six outputs
-// is written.
+// for the groups (PPM, MC, PWM, DMC, PIWM-DC). Every element of the six
+// outputs is written.
 extern "C" int rtl433_slice(int family, const void* pulse, const void* gap,
                             const void* n_pulses, int B, int N,
                             const void* bounds, int S, int E, int R, int BY,
@@ -1267,7 +1282,7 @@ extern "C" int rtl433_slice(int family, const void* pulse, const void* gap,
   return (int)L<F>(P, G, NP, B, N, BD, S, E, R, BY, lanes, mode, SB, smem, \
                    BYT, BPR, SY, NR, NE, OV, st)
   switch (family) {
-    case 0: RTL433_SLICE(launch, Ppm);
+    case 0: RTL433_SLICE(launch_groups, PpmLanes);
     case 1: RTL433_SLICE(launch_groups, PwmLanes);
     case 2: RTL433_SLICE(launch, Pcm);
     case 3: RTL433_SLICE(launch_groups, McLanes);

@@ -134,8 +134,9 @@ def _content_dup(out):
     syncs, row bytes) is identical to e's. Exact compares, no hashing, so
     grouping by the dup representative keeps the byte-level dedup
     semantics without moving any record bytes. ``csrc/dispatch.cu`` for
-    CUDA planes, :func:`_content_dup_plain` for CPU planes; returns int32
-    [B, J, E] on the planes' device."""
+    CUDA planes (a warp per lane: raises where E > 32),
+    :func:`_content_dup_plain` for CPU planes; returns int32 [B, J, E] on
+    the planes' device."""
     nb, nr, bpr, sy = _planes(out)
     if not nb.is_cuda:
         return _content_dup_plain(out)
@@ -144,6 +145,9 @@ def _content_dup(out):
                          "device")
     nb, nr, bpr, sy = (t.contiguous() for t in (nb, nr, bpr, sy))
     B, J, E, R, W = nb.shape
+    if E > 32:
+        raise ValueError(f"content_dup: {E} events per lane do not fit a "
+                         f"warp (at most 32)")
     dup = torch.empty((B, J, E), dtype=torch.int32, device=nb.device)
     if dup.numel():
         fn = _cuda.launcher("content_dup")

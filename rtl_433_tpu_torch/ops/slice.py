@@ -20,17 +20,17 @@ row bytes) or a float32 rounding near a boundary (PCM) raises the lane's
 slicer. Writes outside the caps are dropped, as the JAX scatters drop them.
 
 For a CUDA tensor each wrapper launches ``csrc/slice.cu`` (one thread per
-lane, or for MC, PWM, DMC and PIWM-DC a thread group per lane; the train
-and each lane's events staged in shared memory, the launch shaped by
-:func:`launch_plan`); for a CPU tensor it runs the plain version: for
-five families the JAX ``step`` as vectorized torch over the ``[B, S]``
+lane, or for PPM, MC, PWM, DMC and PIWM-DC a thread group per lane; the
+train and each lane's events staged in shared memory, the launch shaped
+by :func:`launch_plan`); for a CPU tensor it runs the plain version: for
+four families the JAX ``step`` as vectorized torch over the ``[B, S]``
 lane grid in a Python loop over the pulses (stopping at the longest
-train: padded steps are inactive), for MC, PWM, DMC and PIWM-DC the
+train: padded steps are inactive), for PPM, MC, PWM, DMC and PIWM-DC the
 kernel's phases vectorized over pulses (symbols for DMC and PIWM-DC) and
 lanes (what no state decides, MC's walk per piece, DMC's pending flag
 from run parities, the cursors from running sums); then the JAX assembly
-by scatter-adds (``_lane_scatter_add``, ``_assemble``, ``_assemble_runs``,
-PCM's delta-scatter and cumulative sum).
+by scatter-adds (``_lane_scatter_add``, ``_assemble_cols``,
+``_assemble_runs``, PCM's delta-scatter and cumulative sum).
 """
 
 from __future__ import annotations
@@ -378,17 +378,11 @@ def _flat(ys, i, B, S):
     return torch.stack([y[i] for y in ys], dim=-1).reshape(B * S, len(ys))
 
 
-def _assemble(ys, B, S, n_ev, ovf, caps: SliceCaps):
-    """Per-step emissions -> packed bitbuffers + summaries via
-    scatter-adds (each 1-bit's target is unique, so add == or)."""
-    return _assemble_cols([_flat(ys, i, B, S).to(n_ev.device)
-                           for i in range(11)], B, S, n_ev, ovf, caps)
-
-
 def _assemble_cols(cols, B, S, n_ev, ovf, caps: SliceCaps):
-    """:func:`_assemble` of the emissions as [L, steps] columns: is_bit,
-    bitval, b_ev, b_row, b_bir, is_sync, s_ev, s_row, is_flush, f_ev,
-    f_rows."""
+    """Per-step emissions -> packed bitbuffers + summaries via
+    scatter-adds (each 1-bit's target is unique, so add == or); the
+    emissions as [L, steps] columns: is_bit, bitval, b_ev, b_row, b_bir,
+    is_sync, s_ev, s_row, is_flush, f_ev, f_rows."""
     E, R, BY = caps
     (is_bit, bitval, b_ev, b_row, b_bir, is_sync, s_ev, s_row,
      is_flush, f_ev, f_rows) = cols
@@ -427,51 +421,9 @@ def _step_inputs(pulse, gap, n_pulses, n):
             (n < n_pulses)[:, None], (n == n_pulses - 1)[:, None])
 
 
-def slice_ppm_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
-    """Plain version of the PPM scan (JAX ``slice_ppm``)."""
-    B, N = pulse.shape
-    dev = pulse.device
-    E, R, BY = caps
-    b = _cols(bounds, dev)
-    S = b["reset"].shape[1]
-    zl, zu, ol, ou = b["zero_l"], b["zero_u"], b["one_l"], b["one_u"]
-    syl, syu, rst, okm = b["sync_l"], b["sync_u"], b["reset"], b["ok"]
-    w = torch.where
-    ev = row = bir = frb = _zeros(B, S, dev)
-    ovf = _falses(B, S, dev)
-    ys = []
-    for n in range(_steps(n_pulses)):
-        _p, g, valid, last = _step_inputs(pulse, gap, n_pulses, n)
-        act = valid & okm
-        is0 = act & (zl < g) & (g < zu)
-        is1 = act & ~is0 & (ol < g) & (g < ou)
-        issy = act & ~is0 & ~is1 & (syl < g) & (g < syu)
-        isrb = act & ~is0 & ~is1 & ~issy & (g < rst)
-        isbit = is0 | is1
-        sy_row = w(bir > 0, row + 1, row)
-        row2 = w(issy, sy_row, row)
-        bir2 = w(issy & (bir > 0), 0, bir)
-        row2 = w(isrb, row2 + 1, row2)
-        bir2 = w(isrb, 0, bir2)
-        b_ev, b_row, b_bir = ev, row2, bir2
-        bir3 = w(isbit, bir2 + 1, bir2)
-        frb2 = w(isbit & (row2 == 0), frb + isbit.to(torch.int32), frb)
-        flush = act & ((g >= rst) | last) & ((frb2 > 0) | (row2 > 0))
-        f_rows = row2 + 1
-        ev2 = w(flush, ev + 1, ev)
-        row3 = w(flush, 0, row2)
-        bir4 = w(flush, 0, bir3)
-        frb3 = w(flush, 0, frb2)
-        ovf = ovf | (ev2 >= E) | (row2 >= R) | (bir3 >= BY * 8)
-        ys.append((isbit, is1.to(torch.int32), b_ev, b_row, b_bir, issy, ev,
-                   sy_row, flush, ev, f_rows))
-        ev, row, bir, frb = ev2, row3, bir4, frb3
-    return _assemble(ys, B, S, ev, ovf, caps)
-
-
-# ---- the phase form of MC and PWM (csrc/slice.cu's groups): what no state
-# decides, per pulse; MC's tsl walked per piece; the cursors from running
-# sums; the JAX assembly
+# ---- the phase form of PPM, MC and PWM (csrc/slice.cu's groups): what no
+# state decides, per pulse; MC's tsl walked per piece; the cursors from
+# running sums; the JAX assembly
 
 # MC's pieces also end at a pulse or gap over 1.5 short widths where every
 # width of the train is below _TAME and the short width below _SHORT_MAX
@@ -544,6 +496,56 @@ def slice_pwm_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
         + up.to(torch.int32)
     ovf = (act & ((ev + fl.to(torch.int32) >= E)
                   | (row2 + brk.to(torch.int32) >= R)
+                  | (bir3 >= BY * 8))).any(-1)
+    # 4. the JAX assembly
+    L = B * S
+
+    def lanes(x):
+        return torch.broadcast_to(x, (B, S, N)).reshape(L, N)
+
+    return _assemble_cols(
+        [lanes(x) for x in (isbit, is1, ev, row2, bir2, issy, ev, row2, fl,
+                            ev, row2 + 1)],
+        B, S, fl.sum(-1, dtype=torch.int32), ovf, caps)
+
+
+def slice_ppm_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
+    """Plain version of the PPM scan (JAX ``slice_ppm``) in the kernel's
+    phases, vectorized over gaps and lanes: each gap's class (0, 1, sync,
+    row break) and its flush candidacy (at or over the reset limit, or the
+    last pulse); a candidate flushes where a bit or a row break touched
+    the event since the previous candidate, this gap included (one that
+    does not flush finds every cursor at zero); bir counts the bits since
+    the last sync, row break or candidate, row the new rows since the last
+    candidate (a row break, or a sync after a bit, before the gap's bit);
+    the JAX assembly."""
+    B, N = pulse.shape
+    E, R, BY = caps
+    b = {k: v[..., None] for k, v in _cols(bounds, pulse.device).items()}
+    S = b["reset"].shape[1]
+    _p, g, act, last = _lane_grid(pulse, gap, n_pulses, b["ok"])
+    i32 = lambda x: x.to(torch.int32)
+    # 1. what no state decides
+    is0 = act & (b["zero_l"] < g) & (g < b["zero_u"])
+    is1 = act & ~is0 & (b["one_l"] < g) & (g < b["one_u"])
+    issy = act & ~is0 & ~is1 & (b["sync_l"] < g) & (g < b["sync_u"])
+    isrb = act & ~is0 & ~is1 & ~issy & (g < b["reset"])
+    isbit = is0 | is1
+    cf = act & ((g >= b["reset"]) | last)
+    # 2. nothing: no value carries across gaps but the cursors
+    # 3. the cursors
+    touch = _csum(isbit | isrb)
+    fl = cf & (touch > _before(torch.where(cf, touch, 0)))
+    ev = _csum(fl) - i32(fl)
+    bits = _csum(isbit)
+    birb = bits - i32(isbit) - _before(
+        torch.where(issy | isrb | cf, bits, 0))
+    bir2 = torch.where(issy | isrb, 0, birb)
+    bir3 = bir2 + i32(isbit)
+    up = (issy & (birb > 0)) | isrb
+    ups = _csum(up)
+    row2 = ups - _before(torch.where(cf, ups, 0))
+    ovf = (act & ((ev + i32(fl) >= E) | (row2 >= R)
                   | (bir3 >= BY * 8))).any(-1)
     # 4. the JAX assembly
     L = B * S
@@ -1132,7 +1134,7 @@ SMEM_MAX = 232448
 SMEM_SM = 233472
 # the families csrc/slice.cu runs as thread groups, a group per lane; DMC
 # and PIWM-DC step over the 2N symbols of the interleaved pulse/gap axis
-GROUP_FAMILIES = ("mc", "pwm", "dmc", "piwm_dc")
+GROUP_FAMILIES = ("ppm", "mc", "pwm", "dmc", "piwm_dc")
 SYMBOL_FAMILIES = ("dmc", "piwm_dc")
 
 
@@ -1159,8 +1161,8 @@ def launch_plan(B: int, S: int, N: int, caps: SliceCaps, sms: int = 132,
     shared bytes per block); a block takes one train's pulses and gaps
     (``8 N`` bytes) and its lanes' stages.
 
-    For MC, PWM, DMC and PIWM-DC (``fam`` in :data:`GROUP_FAMILIES`; the
-    kernel's groups) the mode is the threads per lane, by the lane's
+    For PPM, MC, PWM, DMC and PIWM-DC (``fam`` in :data:`GROUP_FAMILIES`;
+    the kernel's groups) the mode is the threads per lane, by the lane's
     steps (N pulses, or 2N symbols for DMC and PIWM-DC): 8 where they are
     at most 8, 16 where at most 16, else a warp; up to four warps of lanes
     per block (fewer where S is smaller), each lane staging every event,

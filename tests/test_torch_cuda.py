@@ -366,7 +366,7 @@ def test_slice_kernel_lane_past_every_cap(caps):
     assert (want["bits_per_row"][own, own].amax((-1, -2)) > 8 * BY).all()
 
 def _group_call(fam, arrs, bounds, caps, dev, g=None, monkeypatch=None):
-    """One launch of a group family's kernel (MC, PWM, DMC, PIWM-DC) over
+    """One launch of a group family's kernel (PPM, MC, PWM, DMC, PIWM-DC) over
     outputs allocated where garbage was (every element must be written),
     the plan's threads per lane forced to ``g``; held to the plain
     version."""
@@ -391,7 +391,7 @@ def _group_call(fam, arrs, bounds, caps, dev, g=None, monkeypatch=None):
 
 
 @pytest.mark.parametrize("g", [8, 16, 32])
-@pytest.mark.parametrize("fam", ["mc", "pwm", "dmc", "piwm_dc"])
+@pytest.mark.parametrize("fam", ["ppm", "mc", "pwm", "dmc", "piwm_dc"])
 def test_slice_kernel_each_group_size(fam, g, monkeypatch):
     """Each threads-per-lane the plan can pick, forced on the drain's
     shape (64 trains of up to 64 pulses x 125 specs) and on trains of 1,
@@ -412,7 +412,7 @@ def test_slice_kernel_each_group_size(fam, g, monkeypatch):
 
 
 @pytest.mark.parametrize("caps", ["bank", "small"])
-@pytest.mark.parametrize("fam", ["mc", "pwm", "dmc", "piwm_dc"])
+@pytest.mark.parametrize("fam", ["ppm", "mc", "pwm", "dmc", "piwm_dc"])
 def test_slice_kernel_planted_group_trains(fam, caps):
     """The planted trains of tests/torch_slice_cases.py: each family's edge
     cases, a train past each cap, and trains of 1 to 1200 pulses."""
@@ -420,10 +420,18 @@ def test_slice_kernel_planted_group_trains(fam, caps):
     from torch_slice_cases import (BANK_CAPS, RATE, SMALL_CAPS, cap_trains,
                                    dmc_edges, family_devices, length_trains,
                                    mc_edge_devs, mc_edges, pack,
-                                   piwm_dc_edges, pwm_edge_dev, pwm_edges,
-                                   symbol_cap_trains, symbol_edge_bounds)
+                                   piwm_dc_edges, ppm_cap_trains,
+                                   ppm_edge_bounds, ppm_edges, pwm_edge_dev,
+                                   pwm_edges, symbol_cap_trains,
+                                   symbol_edge_bounds)
     dev = _gpu()
     caps = BANK_CAPS[fam] if caps == "bank" else SMALL_CAPS
+    if fam == "ppm":
+        trains = ppm_edges() + ppm_cap_trains(caps) + length_trains(
+            fam, family_devices(fam), 29)
+        want = _group_call(fam, pack(trains), ppm_edge_bounds(), caps, dev)
+        assert want["ovf"].any() and (~want["ovf"]).any()
+        return
     if fam in sl.SYMBOL_FAMILIES:
         edges = dmc_edges() if fam == "dmc" else piwm_dc_edges()
         trains = edges + symbol_cap_trains(fam, caps) + length_trains(
@@ -446,11 +454,11 @@ def test_slice_kernel_planted_group_trains(fam, caps):
     assert want["ovf"].any() and (~want["ovf"]).any()
 
 
-@pytest.mark.parametrize("fam", ["mc", "pwm", "dmc", "piwm_dc"])
+@pytest.mark.parametrize("fam", ["ppm", "mc", "pwm", "dmc", "piwm_dc"])
 def test_slice_kernel_groups_at_the_mixed_shapes(fam):
     """The mixed streams' calls: a few trains of tens to 1200 pulses in a
     bucket of 2048, every spec of the family in the registry (MC 41, PWM
-    91, DMC 6, PIWM-DC 4), the plan's own choice."""
+    91, DMC 6, PIWM-DC 4, PPM all of its), the plan's own choice."""
     from rtl_433_tpu_torch.ops import slice as sl
     from torch_slice_cases import (BANK_CAPS, RATE, family_devices,
                                    length_trains, pack)
@@ -483,6 +491,77 @@ def test_content_dup_kernel_matches_plain(seed):
     assert torch.equal(got.cpu(), want.cpu())
     E = want.shape[2]
     assert (want.cpu() != torch.arange(E, dtype=torch.int32)).any()
+
+
+def _dup_edge_call(planes, dev, offset=0):
+    """One launch of the content-dedup kernel on ``planes`` (NumPy), the
+    bytes plane placed ``offset`` bytes past an aligned base; held to the
+    plain version."""
+    from rtl_433_tpu_torch.decoders import device_dispatch as ddp
+    t = {k: torch.from_numpy(v).to(dev) for k, v in planes.items()}
+    if offset:
+        nb = t["bytes"]
+        buf = torch.empty(nb.numel() + offset, dtype=torch.uint8, device=dev)
+        t["bytes"] = buf[offset:].view(nb.shape)
+        t["bytes"].copy_(nb)
+        assert t["bytes"].data_ptr() % 16 == offset % 16
+    before = _cuda.LAUNCHES["content_dup"]
+    got = ddp._content_dup(t)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["content_dup"] == before + 1
+    want = ddp._content_dup_plain({k: v.cpu() for k, v in t.items()})
+    assert torch.equal(got.cpu(), want)
+    return want
+
+
+@pytest.mark.parametrize("offset", [0, 4, 1])
+@pytest.mark.parametrize("E,R,W", [(4, 16, 20), (8, 24, 20), (6, 5, 7),
+                                   (8, 5, 13), (8, 5, 20), (1, 3, 7),
+                                   (4, 2, 13)], ids=str)
+def test_content_dup_kernel_edges(E, R, W, offset):
+    """The CPU tests' dedup edges (tests/test_torch_device_dispatch.py
+    DUP_SHAPES: counts of -1 and R + 1, an all-zero lane, near repeats,
+    rows of 7, 13 and 20 bytes) with the bytes' base 16-byte aligned, at 4
+    and at 1 byte past it."""
+    from torch_slice_cases import dup_edge_planes
+    dev = _gpu()
+    for plant in (True, False):
+        planes = dup_edge_planes(E + R + W, B=9, J=13, E=E, R=R, W=W,
+                                 plant=plant)
+        want = _dup_edge_call(planes, dev, offset)
+        if plant and E > 1:
+            assert (want != torch.arange(E, dtype=torch.int32)).any()
+
+
+@pytest.mark.parametrize("E", [16, 17, 32])
+def test_content_dup_kernel_many_open_pairs(E):
+    """Lanes whose events all share one count but differ (every pair open,
+    up to 31 candidates an event: more than 16 open events take two
+    rounds a candidate), beside lanes of equal events, and E = 32, a
+    whole warp of events."""
+    from torch_slice_cases import dup_edge_planes
+    dev = _gpu()
+    rng = np.random.default_rng(E)
+    B, J, R, W = 3, 5, 2, 3
+    planes = {"bytes": rng.integers(0, 2, (B, J, E, R, W)).astype(np.uint8),
+              "num_rows": np.ones((B, J, E), np.int32),
+              "bits_per_row": np.zeros((B, J, E, R), np.int32),
+              "syncs": np.zeros((B, J, E, R), np.int32)}
+    planes["bytes"][0] = 1
+    want = _dup_edge_call(planes, dev)
+    assert (want[0] == 0).all() and (want[1:] != 0).any()
+    _dup_edge_call(dup_edge_planes(E, B=4, J=9, E=E, R=5, W=13), dev, 1)
+
+
+def test_content_dup_kernel_raises_past_32_events():
+    """A lane's events share one warp: more than 32 raise, no fallback."""
+    from rtl_433_tpu_torch.decoders import device_dispatch as ddp
+    from torch_slice_cases import dup_edge_planes
+    dev = _gpu()
+    planes = {k: torch.from_numpy(v).to(dev) for k, v in
+              dup_edge_planes(3, B=1, J=2, E=33, R=2, W=3).items()}
+    with pytest.raises(ValueError, match="warp"):
+        ddp._content_dup(planes)
 
 
 def test_gather_records_kernel_matches_plain():

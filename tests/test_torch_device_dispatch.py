@@ -46,7 +46,7 @@ from rtl_433_tpu_torch.ops import _cuda
 from rtl_433_tpu_torch.output.data_model import event_to_json
 from rtl_433_tpu_torch.pulse.data import PulseData
 
-from torch_slice_cases import dup_planes, mixed_trains
+from torch_slice_cases import dup_edge_planes, dup_planes, mixed_trains
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RATE = 250_000
@@ -180,6 +180,51 @@ def test_content_dup_equals_jax_where_no_event_repeats():
     p = dup_planes(4, plant=False)
     got = tdd._content_dup(_torch(p)).numpy()
     assert np.array_equal(got, np.asarray(jdd._content_dup(p)))
+
+
+# the shapes the kernel's compares must handle: the bank's caps (rows of
+# 20 bytes, events of 320 and 480, 16-byte aligned), rows of 7 and 13
+# bytes (R * W = 35, 65: byte tails, unaligned bases), 20-byte rows with
+# R * W = 100 (4-byte aligned bases), one event per lane, and 8 lanes of 4
+# events filling a warp
+DUP_SHAPES = [(4, 16, 20), (8, 24, 20), (6, 5, 7), (8, 5, 13), (8, 5, 20),
+              (1, 3, 7), (4, 2, 13)]
+
+
+@pytest.mark.parametrize("E,R,W", DUP_SHAPES, ids=str)
+def test_content_dup_edges_follow_the_contract(E, R, W):
+    """Counts of -1 and R + 1 (compared raw, rows clamped), an all-zero
+    lane, repeats whose scratch rows differ, near repeats that differ in
+    one value of the live prefix: the plain version against the NumPy
+    statement of the contract."""
+    p = dup_edge_planes(E + R + W, E=E, R=R, W=W)
+    want = _dup_contract(p)
+    got = tdd._content_dup(_torch(p)).numpy()
+    assert np.array_equal(got, want)
+    assert (want[0, 0] == 0).all()
+    if E > 1:
+        assert (want != np.arange(E)).sum() >= 3
+    # the near repeats and the negative counts are there
+    assert (p["num_rows"] == -1).any() and (p["num_rows"] == R + 1).any()
+
+
+@pytest.mark.parametrize("E,R,W", DUP_SHAPES, ids=str)
+def test_content_dup_edges_equal_jax_where_no_event_repeats(E, R, W):
+    p = dup_edge_planes(E * R * W, E=E, R=R, W=W, plant=False)
+    got = tdd._content_dup(_torch(p)).numpy()
+    assert np.array_equal(got, _dup_contract(p))
+    assert np.array_equal(got, np.asarray(jdd._content_dup(p)))
+
+
+@pytest.mark.parametrize("E", [32, 33, 64])
+def test_content_dup_plain_takes_any_events_per_lane(E):
+    """The kernel holds a lane's events in one warp, so on the card more
+    than 32 raise (tests/test_torch_cuda.py); the plain version, for CPU
+    planes, takes any E."""
+    p = dup_edge_planes(E, B=2, J=3, E=E, R=2, W=3)
+    want = _dup_contract(p)
+    assert np.array_equal(tdd._content_dup(_torch(p)).numpy(), want)
+    assert (want != np.arange(E)).any()
 
 
 def test_gather_records_matches_jax():

@@ -29,6 +29,7 @@ from torch_slice_cases import (BANK_CAPS, DMC_SYMS, PIWM_DC_SYMS, RATE,
                                SMALL_CAPS, cap_trains, dmc_edges,
                                family_devices, family_trains, length_trains,
                                mc_edge_devs, mc_edges, pack, piwm_dc_edges,
+                               ppm_cap_trains, ppm_edge_bounds, ppm_edges,
                                pwm_edge_dev, pwm_edges, symbol_cap_trains,
                                symbol_edge_bounds)
 
@@ -97,8 +98,64 @@ def _same(want, got, what):
                               want[k].astype(np.int64)), (what, k)
 
 
-# ---- the phase form of MC and PWM (csrc/slice.cu's groups) on planted
-# trains; the planted spec is lane 0 of every train
+# ---- the phase form of PPM, MC and PWM (csrc/slice.cu's groups) on
+# planted trains; the planted spec is lane 0 of every train
+
+@pytest.mark.parametrize("caps", ["bank", "small"])
+def test_ppm_edge_trains_match_jax(caps):
+    """Syncs before any bit and at bir 0 after a new row, a row break at
+    row 0 with no bits (it touches the event), flush candidates on an
+    untouched event, a flush on the last pulse, gaps on every window edge
+    and at the reset limit, gaps that are a bit or a sync and a flush
+    candidate at once (zero_u, sync_u > reset), every cap passed, and all
+    of them in one train; on the planted specs (lanes 0-2) and the
+    registry's."""
+    caps = BANK_CAPS["ppm"] if caps == "bank" else SMALL_CAPS
+    trains = ppm_edges() + ppm_cap_trains(caps)
+    _d, _t, want, got = _run_both("ppm", caps, trains=trains,
+                                  bounds=ppm_edge_bounds())
+    _same(want, got, "ppm edges")
+    E, R, BY = caps
+    # two syncs on row 0 before any bit, two on row 1 after the bits
+    assert want["syncs"][0, 0, 0, :2].tolist() == [2, 2]
+    assert want["num_rows"][0, 0, 0] == 2
+    # a row break alone touches: event 0 flushes two empty rows
+    assert want["num_rows"][1, 0, 0] == 2
+    assert want["bits_per_row"][1, 0, 0, :2].tolist() == [0, 0]
+    # the untouched candidates do not flush; the sync between two of them
+    # stays on event 0, and the one before the last, untouched, candidate
+    # lands on event 1, which never flushes
+    assert want["n_events"][2, 0] == 1
+    assert want["syncs"][2, 0, :2, 0].tolist() == [1, 1]
+    # the last pulse flushes after a bit, a row break and a sync after bits
+    assert want["n_events"][3:6, 0].tolist() == [1, 1, 1]
+    assert want["num_rows"][4:6, 0, 0].tolist() == [2, 2]
+    assert want["n_events"][6, 0] == 0
+    # a 0 at or over the reset limit emits, then flushes (spec 1)
+    assert want["n_events"][8, 1] == 6
+    assert want["ovf"][-3:, 0].all()
+    assert want["n_events"][-3, 0] > E
+    assert want["num_rows"][-2, 0].max() > R
+    assert want["bits_per_row"][-1, 0].max() > 8 * BY
+
+
+@pytest.mark.parametrize("caps", ["bank", "small"])
+def test_ppm_edge_trains_match_jax_over_tile_borders(caps):
+    """The edge trains from every offset of a tile of 32 gaps (each train
+    behind 0 to 31 gaps of a flushed event), so that each case also falls
+    on a tile's first and last thread."""
+    caps = BANK_CAPS["ppm"] if caps == "bank" else SMALL_CAPS
+    z, over = (50, 100), (50, 500)
+    trains = []
+    for k, (p, g) in enumerate(ppm_edges()[:-1] * 4):
+        lead = k % 32
+        trains.append(([z[0]] * lead + [over[0]] + p,
+                       [z[1]] * lead + [over[1]] + g))
+    _d, _t, want, got = _run_both("ppm", caps, trains=trains,
+                                  bounds=ppm_edge_bounds())
+    _same(want, got, "ppm edges over tile borders")
+    assert (want["n_events"][:, 0] >= 1).all()
+
 
 @pytest.mark.parametrize("caps", ["bank", "small"])
 def test_pwm_edge_trains_match_jax(caps):
@@ -191,14 +248,17 @@ def test_piwm_dc_edge_trains_match_jax(caps):
 
 
 @pytest.mark.parametrize("caps", ["bank", "small"])
-@pytest.mark.parametrize("fam", ["mc", "pwm", "dmc", "piwm_dc"])
+@pytest.mark.parametrize("fam", ["ppm", "mc", "pwm", "dmc", "piwm_dc"])
 def test_cap_trains_match_jax(fam, caps):
     """Trains past the events, rows and row-bits caps, one cap each: the
     planted lane is flagged on every one (on the cursors before the
     flush) and every plane still equals JAX's, the writes past the caps
     dropped."""
     caps = BANK_CAPS[fam] if caps == "bank" else SMALL_CAPS
-    if fam in ("dmc", "piwm_dc"):
+    if fam == "ppm":
+        _d, _t, want, got = _run_both(fam, caps, trains=ppm_cap_trains(caps),
+                                      bounds=ppm_edge_bounds())
+    elif fam in ("dmc", "piwm_dc"):
         _d, _t, want, got = _run_both(fam, caps,
                                       trains=symbol_cap_trains(fam, caps),
                                       bounds=symbol_edge_bounds(fam))
@@ -215,7 +275,7 @@ def test_cap_trains_match_jax(fam, caps):
     assert want["bits_per_row"][2, 0].max() > 8 * BY
 
 
-@pytest.mark.parametrize("fam", ["mc", "pwm", "dmc", "piwm_dc"])
+@pytest.mark.parametrize("fam", ["ppm", "mc", "pwm", "dmc", "piwm_dc"])
 def test_length_trains_match_jax(fam):
     """Trains of 1, 31, 32, 33 and 1200 pulses: inside one tile of 32,
     on its edge, across it, and over 38 tiles; for DMC and PIWM-DC, whose
@@ -395,7 +455,7 @@ def test_launch_plan_raises_where_32_lanes_do_not_fit(caps, N):
         tslice.launch_plan(8, 100, N, tslice.SliceCaps(*caps))
 
 
-# ---- the groups' launch plan (MC and PWM)
+# ---- the groups' launch plan (PPM, MC, PWM, DMC, PIWM-DC)
 
 @pytest.mark.parametrize("N", [1, 12, 64, 1200, 8192])
 @pytest.mark.parametrize("caps", _CAPS_IN_USE, ids=str)
@@ -423,6 +483,8 @@ def test_launch_plan_groups_fit_every_cap_set_in_use(fam, caps, N):
 @pytest.mark.parametrize("fam,N,g", [
     ("mc", 1, 8), ("mc", 8, 8), ("mc", 9, 16), ("mc", 16, 16),
     ("mc", 17, 32), ("mc", 64, 32), ("mc", 1200, 32), ("pwm", 9, 16),
+    ("ppm", 1, 8), ("ppm", 8, 8), ("ppm", 9, 16), ("ppm", 16, 16),
+    ("ppm", 17, 32), ("ppm", 1200, 32),
     ("dmc", 1, 8), ("dmc", 4, 8), ("dmc", 5, 16), ("dmc", 8, 16),
     ("dmc", 9, 32), ("dmc", 1200, 32), ("piwm_dc", 4, 8),
     ("piwm_dc", 5, 16), ("piwm_dc", 9, 32)])

@@ -265,6 +265,48 @@ def dup_planes(seed, B=3, J=4, E=6, R=5, W=7, plant=True):
     return {"bytes": nb, "num_rows": nr, "bits_per_row": bpr, "syncs": sy}
 
 
+
+def dup_edge_planes(seed, B=4, J=5, E=6, R=5, W=13, plant=True):
+    """Slicer-output planes for the content dedup's edges: counts of -1, 0,
+    1, R and R + 1 (a count is compared raw; its rows clamp to [0, R]);
+    the first lane all zeros; with ``plant``, repeats of earlier events
+    (their scratch rows, at or past the clamped count, differ) and near
+    repeats that differ in one value of their live prefix only: the last
+    byte of the last live row, a bit count or a sync of the last live
+    row. Without ``plant`` no two events of a lane are equal."""
+    rng = np.random.default_rng(seed)
+    counts = np.array([-1, 0, 1, R, R + 1], np.int32)
+    nb = rng.integers(0, 4, (B, J, E, R, W)).astype(np.uint8)
+    nr = counts[rng.integers(0, len(counts), (B, J, E))]
+    bpr = rng.integers(0, 3, (B, J, E, R)).astype(np.int32)
+    sy = rng.integers(0, 2, (B, J, E, R)).astype(np.int32)
+    if plant:
+        for _ in range(3 * B * J):
+            b, j = rng.integers(B), rng.integers(J)
+            if E < 2:
+                break
+            e2, e = sorted(rng.choice(E, 2, replace=False))
+            nr[b, j, e] = nr[b, j, e2]
+            rows = min(max(int(nr[b, j, e2]), 0), R)
+            for a in (nb, bpr, sy):
+                a[b, j, e, :rows] = a[b, j, e2, :rows]
+            nb[b, j, e, rows:] = rng.integers(0, 255, (R - rows, W))
+            kind = int(rng.integers(4))
+            if rows and kind == 1:
+                nb[b, j, e, rows - 1, W - 1] ^= 0x80
+            elif rows and kind == 2:
+                bpr[b, j, e, rows - 1] += 1
+            elif rows and kind == 3:
+                sy[b, j, e, rows - 1] += 1
+    else:
+        nr = np.where(np.arange(E) % 2 == 0, 1, R + 1).astype(np.int32)\
+            * np.ones((B, J, 1), np.int32)
+        nb[:, :, :, 0, 0] = np.arange(E, dtype=np.uint8)
+    nb[0, 0], bpr[0, 0], sy[0, 0], nr[0, 0] = 0, 0, 0, 0
+    if not plant:
+        nr[0, 0] = np.arange(E)
+    return {"bytes": nb, "num_rows": nr, "bits_per_row": bpr, "syncs": sy}
+
 def drain_shaped(fam, seed, B=256, N=64, S=125):
     """Lanes at the 4096-channel drain's largest slicer call: B trains of
     the family's shape cut to at most N pulses (padded to N), and the
@@ -553,3 +595,75 @@ def symbol_cap_trains(fam, caps):
     return [from_symbols([ONE, ZERO, ONE, OVER] * (E + 3)),
             from_symbols([ONE, RB] * (R + 3) + [ONE, OVER]),
             from_symbols([ONE, ZERO] * (4 * BY + 5) + [ONE, OVER])]
+
+
+# ---- planted trains for PPM (thread groups over the gaps): planted specs
+# whose windows let every case be built, the edge cases, trains past each
+# cap
+
+# bound columns of the planted specs (samples): spec 0 has every window
+# below its reset limit; spec 1 a zero window over it, so that a gap is a
+# 0 and a flush candidate at once (zero_u > reset); spec 2 a sync window
+# over it
+PPM_SPECS = ({"zero_l": 90, "zero_u": 110, "one_l": 190, "one_u": 210,
+              "sync_l": 290, "sync_u": 310, "reset": 400},
+             {"zero_l": 390, "zero_u": 450, "one_l": 190, "one_u": 210,
+              "sync_l": 290, "sync_u": 310, "reset": 400},
+             {"zero_l": 90, "zero_u": 110, "one_l": 190, "one_u": 210,
+              "sync_l": 390, "sync_u": 450, "reset": 400})
+# gaps for them (spec 0): Z a 0, O a 1, SY a sync, RB a row break, RST at
+# the reset limit (a flush candidate: the compare is >=), OVER past it, ZB
+# over it and in spec 1's zero window (spec 2's sync window); the window
+# edges themselves are row breaks (the compares are strict)
+PPM_GAPS = {"Z": 100, "O": 200, "SY": 300, "RB": 150, "RST": 400,
+            "OVER": 500, "ZB": 420}
+PPM_EDGE_GAPS = (90, 110, 190, 210, 290, 310, 399)
+
+
+def ppm_edge_bounds():
+    """The planted PPM specs (lanes 0-2), then the registry's, as
+    ``ppm_bounds`` gives them."""
+    from rtl_433_tpu_torch.ops import slice as sl
+    reg = sl.ppm_bounds(family_devices("ppm"), RATE)
+    out = {k: np.concatenate([np.asarray([p[k] for p in PPM_SPECS],
+                                         np.int32), reg[k]])
+           for k in PPM_SPECS[0]}
+    out["ok"] = np.concatenate([np.ones(len(PPM_SPECS), bool), reg["ok"]])
+    return out
+
+
+def _gaps(gaps):
+    """A PPM train from its gaps (PPM reads no pulse width)."""
+    return [50] * len(gaps), list(gaps)
+
+
+def ppm_edges():
+    """PPM trains (gaps of PPM_GAPS): syncs before any bit, and after bits
+    (a new row) at bir 0 again; a row break at row 0 with no bits, which
+    touches the event (it flushes two empty rows); flush candidates on an
+    untouched event, a sync between them (counted, never flushed on its
+    own); a flush on the last pulse after a bit, a row break and a sync;
+    gaps on every window edge and at the reset limit; gaps that are a bit
+    (spec 1) or a sync (spec 2) and a flush candidate at once; then all of
+    them in one train over several tiles."""
+    Z, O, SY, RB, RST, OVER, ZB = (PPM_GAPS[k] for k in (
+        "Z", "O", "SY", "RB", "RST", "OVER", "ZB"))
+    sync0 = [SY, SY, Z, O, SY, SY, Z, O, OVER]
+    rb0 = [RB, OVER, RB, RB, Z, OVER, Z, O]
+    untouched = [OVER, OVER, SY, OVER, Z, OVER, OVER, SY, RST]
+    last = [[Z, O, Z], [Z, O, RB], [Z, O, SY], [SY]]
+    edges = [Z, *PPM_EDGE_GAPS, O, RST, Z, O, RST, RST, O]
+    both = [O, ZB, O, O, RST, ZB, ZB, SY, O, ZB, O]
+    parts = [sync0, rb0, untouched, *last, edges, both]
+    return [_gaps(g) for g in parts] + [_gaps(sum(parts * 3, []))]
+
+
+def ppm_cap_trains(caps):
+    """Trains past each cap of ``caps`` on their own, for the planted spec
+    0 of PPM (lane 0): more events than E, more rows in one event than R,
+    more bits in one row than 8 * BY."""
+    E, R, BY = caps
+    Z, O, RB, OVER = (PPM_GAPS[k] for k in ("Z", "O", "RB", "OVER"))
+    return [_gaps([Z, O, OVER] * (E + 3)),
+            _gaps([Z, RB] * (R + 3) + [Z, OVER]),
+            _gaps([Z, O] * (4 * BY + 5) + [OVER])]
