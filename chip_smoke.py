@@ -636,9 +636,41 @@ def prewarm_ms(acc, spans, blocks):
 SLICE_OUTS = ("bytes", "bits_per_row", "syncs", "num_rows", "n_events", "ovf")
 # int32 operations per lane step of csrc/slice.cu, counted from the
 # sources (compares, selects, adds and the cursor updates; PCM's includes
-# its rates pass, DMC's and PIWM-DC's are per symbol, two per pulse)
+# its rates pass, DMC's and PIWM-DC's are per symbol, two per pulse; RZI's
+# its segmented scan's adds and selects, OSV1's its OR-scan's)
 SLICE_OPS = {"ppm": 30, "pwm": 36, "pcm": 90, "mc": 40, "dmc": 36,
-             "piwm_dc": 26, "nrzs": 16, "rzi": 20, "osv1": 44}
+             "piwm_dc": 26, "nrzs": 16, "rzi": 56, "osv1": 54}
+
+
+def osv1_steps(pulse, gap, npl, bounds):
+    """The pulses OSV1's lanes of a call need, summed over its lanes: a
+    lane's steps end at the first pulse that leaves phases 0-2 (a failed
+    preamble pulse, pulse 11 without its break, a failed sync at 12, the
+    flush), where the kernel's CTA may stop; 0 for a spec that is not
+    ok."""
+    from rtl_433_tpu_torch.ops import slice as sl
+    cols = bounds if isinstance(bounds, dict) \
+        else sl.table_columns("osv1", bounds)
+    K = 12
+    n = npl.cpu().numpy().astype(np.int64)
+    M = max(pulse.shape[1], K + 1)
+    p = np.zeros((len(n), 1, M), np.int64)
+    g = np.zeros_like(p)
+    p[:, 0, :pulse.shape[1]] = pulse.cpu().numpy()
+    g[:, 0, :pulse.shape[1]] = gap.cpu().numpy()
+    sh = np.asarray(cols["short"], np.int64)[None, :, None]
+    rst = np.asarray(cols["reset"], np.int64)[None, :, None]
+    hmin, hmax = sh >> 1, (3 * sh) >> 1
+    i = np.arange(M)
+    pass0 = (p > hmin) & (g > hmin)
+    done = np.broadcast_to((g > rst) | (i == n[:, None, None] - 1),
+                           pass0.shape).copy()
+    done[..., :K - 1] = ~(pass0 & (g <= hmax))[..., :K - 1]
+    done[..., K - 1] = ~(pass0 & (g > hmax))[..., K - 1]
+    done[..., K] = ~((p >= 2 * hmax) & (g >= 2 * hmax))[..., K]
+    first = np.where(done.any(-1), done.argmax(-1) + 1, M)
+    steps = np.minimum(first, n[:, None])
+    return int((steps * np.asarray(cols["ok"], bool)[None, :]).sum())
 
 
 def ds_kernel_names():
@@ -752,7 +784,8 @@ def ds_check(calls, compare, what, flagged=None):
 def ds_cost(kind, args):
     """(bytes, int32 operations, shape) that one call must move and do:
     every input read once and every output written once; the operations
-    are those this call's trains need (lane steps x specs)."""
+    are those this call's trains need (lane steps x specs; OSV1's lanes
+    end early)."""
     if kind == "slice":
         from rtl_433_tpu_torch.ops import slice as sl
         fam, pulse, _gap, npl, bounds, caps = args
@@ -761,8 +794,12 @@ def ds_cost(kind, args):
         E, R, BY = caps
         nbytes = 8 * B * N + 4 * B + 4 * 12 * S \
             + B * S * (E * R * BY + 8 * E * R + 4 * E + 5)
-        steps = int(npl.sum()) * (2 if fam in sl.SYMBOL_FAMILIES else 1)
-        return nbytes, SLICE_OPS[fam] * S * steps, [B, N, S, E, R, BY]
+        if fam == "osv1":
+            steps = osv1_steps(pulse, _gap, npl, bounds)
+        else:
+            steps = S * int(npl.sum()) * (
+                2 if fam in sl.SYMBOL_FAMILIES else 1)
+        return nbytes, SLICE_OPS[fam] * steps, [B, N, S, E, R, BY]
     if kind == "content_dup":
         planes, = args
         nbytes = dup_live_bytes(planes)

@@ -1,7 +1,7 @@
 // Device slicing: each (train, spec) lane runs one reference slicer over its
-// train and writes the lane's bitbuffers; four families walk the lane's
-// state machine on one thread, PPM, MC, PWM, DMC and PIWM-DC split it over
-// a thread group.
+// train and writes the lane's bitbuffers; two families (PCM, NRZS) walk
+// the lane's state machine on one thread, the other seven (PPM, MC, PWM,
+// DMC, PIWM-DC, RZI, OSV1) split it over a thread group.
 //
 // Replaces the nine lax.scan slicers of the JAX package's ops/slice.py
 // (slice_ppm, slice_pwm, slice_pcm with _pcm_rates, slice_mc, slice_dmc,
@@ -18,19 +18,18 @@
 // them uninitialized). A write outside the caps (event >= E, row >= R,
 // bit >= 8 * BY) is dropped, as the JAX scatters drop it.
 //
-// The walk (PCM, NRZS, RZI, OSV1). A CTA covers one
+// The walk (PCM, NRZS). A CTA covers one
 // train (blockIdx.y) and `lanes` specs of one family (blockIdx.x; 64, or
 // 32 where S <= 32 or 64 would not fit); it
 // stages the train's n_pulses[b] pulse and gap values into shared memory
 // once, and every thread then walks only that many steps, reading the
 // same shared word as all its neighbours (a broadcast). The spec's bounds
 // sit in registers. One
-// template takes a per-family step function (four instantiations); the
+// template takes a per-family step function (two instantiations); the
 // writer is shared (struct Lane, warp_put). Every family writes only its
 // current event, whose index only grows, so a lane stages its events in
 // shared memory: runs of ones are 32-bit word ors (the JAX cumulative sum
-// of +1/-1 deltas; OSV1's single ones byte adds, the JAX scatter-add),
-// PCM's erases word stores. The warp
+// of +1/-1 deltas), PCM's erases word stores. The warp
 // writes a lane's events to device memory together, consecutive threads
 // on consecutive 16-byte chunks of that lane's contiguous range (bytes
 // where the caps do not allow 16), and writes zeros for the events the
@@ -45,34 +44,45 @@
 //     of a block meet (they walk the same train), the warp writes out the
 //     lanes whose family moved past their staged event (warp_moved).
 //
-// The groups (PPM, MC, PWM, DMC, PIWM-DC; slice_groups). A group of G
-// threads (32, or 8 or 16 where the train is short) runs one lane over
-// tiles of G steps, a step per thread: a pulse and its gap for PPM, MC
-// and PWM, symbols of the interleaved pulse/gap axis for DMC and PIWM-DC
-// (kSymbols; 2n of them). A CTA holds one train and up to four warps of
-// lanes. Most of the five step functions is not serial: what a gap, pulse
-// or symbol is (PPM's four classes, PWM's five; MC's out, its resync 1,
-// the flush; DMC's and PIWM-DC's classes and reset test) and whether it
+// The groups (PPM, MC, PWM, DMC, PIWM-DC, RZI, OSV1; slice_groups). A
+// group of G threads (32, or 8 or 16 where the train is short) runs one
+// lane over tiles of G steps, a step per thread: a pulse and its gap for
+// PPM, MC, PWM, RZI and OSV1, symbols of the interleaved pulse/gap axis
+// for DMC and PIWM-DC (kSymbols; 2n of them). A CTA holds one train and
+// up to four warps of lanes. Most of the seven step functions is not
+// serial: what a gap, pulse or symbol is (PPM's four classes, PWM's five;
+// MC's out, its resync 1, the flush; DMC's and PIWM-DC's classes and
+// reset test; RZI's ones, whether a pulse opens a message) and whether it
 // may end an event or a row depends on no state, and the cursors only
-// count or reset since the last reset. So a tile is
-//   1. classified, a predicate per thread;
+// count or reset since the last reset. OSV1's phase machine has a closed
+// form (its phases are fixed pulses until the flush). So a tile is
+//   1. classified, a predicate per thread; OSV1: its preamble and sync
+//      resolved from ballots, a phase carried across tiles;
 //   2. MC: walked for its time since the last bit (tsl), the one value
 //      that carries across pulses, one walk per piece between resets that
 //      need no state (out, flush, and where every width of the train is
 //      tame, a pulse or gap over 1.5 short widths), in registers; the walk
 //      emits a mid-bit 1 and 0 flag per pulse. DMC: its pending flag, the
-//      parity of the run of in_short symbols before each, from one ballot;
+//      parity of the run of in_short symbols before each, from one
+//      ballot; OSV1: its Manchester bit, a parity from one ballot;
 //   3. given its cursors by ballots: popcounts of the emissions since the
 //      last reset give each emission its (event, row, bit), each flush its
 //      rows and the lane its overflow, judged on the pre-flush cursors as
-//      the step functions judge it; a tile hands its cursors to the next
-//      through its last thread;
+//      the step functions judge it; RZI, whose step adds a run of bits,
+//      by a segmented add-scan since the last flush candidate
+//      (Group::seg_scan); a tile hands its cursors to the next through
+//      its last thread;
 //   4. written to the group's stage (every event, struct Stage): a row's
 //      bit count by the thread of its last bit in the tile, its bytes by
 //      word ORs (the positions of a tile never decrease with the thread,
-//      so a segmented OR-scan gives each word one store), syncs by shared
-//      adds.
-// At the end the group writes its stage out with warp_put's writer.
+//      so a segmented OR-scan gives each word one store; RZI's runs, which
+//      span words and share their edge words, by atomic ORs), syncs by
+//      shared adds; OSV1 ORs the ones below the row's last bit, counts
+//      those the JAX scatter-add clips to it and adds the count to the
+//      row's last byte once at the end (GroupFamily::end).
+// OSV1 stops a CTA's tiles once none of its lanes can write (kStops: a
+// CTA-wide vote a tile). At the end the group writes its stage out with
+// warp_put's writer.
 //
 // Float32 in PCM: the JAX scan and the plain version round each product
 // and sum separately, so every float operation here is an explicit
@@ -90,10 +100,10 @@
 // large call by that walk plus the planes' write-out. The walk's design
 // takes the write-out off the walk (coalesced, by the warp, never per bit)
 // and, where it fits, out of the walk altogether; it does not shorten the
-// walk itself. The groups shorten it for PPM, MC, PWM, DMC and PIWM-DC: a
-// tile of G steps costs a fixed few hundred cycles of ballots, shuffles
-// and stage stores, and MC's remaining serial walk is as long as its
-// longest piece (a pulse or two on Manchester data).
+// walk itself. The groups shorten it for all but PCM and NRZS: a tile of
+// G steps costs a fixed few hundred cycles of ballots, shuffles and stage
+// stores, and MC's remaining serial walk is as long as its longest piece
+// (a pulse or two on Manchester data).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -132,6 +142,18 @@ struct Planes {
         v16(BY_ % 4 == 0 && (R_ * BY_) % 16 == 0), r4(R_ % 4 == 0) {}
   __device__ int stage_words() const { return (on + round16(4 * ES)) / 4; }
 };
+
+// bits [lo, hi) of word k of a staged row (clipped to the word: lo and hi
+// count from its first bit): a row is BYP / 4 words whose bytes hold the
+// row's bits MSB first, so a word takes the big-endian mask of its 32
+// bits, byte-swapped
+__device__ __forceinline__ uint32_t run_word(int lo, int hi) {
+  lo = max(lo, 0);
+  hi = min(hi, 32);
+  const uint32_t m = (0xffffffffu >> lo) &
+                     (hi >= 32 ? 0xffffffffu : ~(0xffffffffu >> hi));
+  return __byte_perm(m, 0, 0x0123);
+}
 
 // One lane's stage in shared memory. Every family writes only its
 // current event, whose index only grows. With every event staged (kAll),
@@ -184,19 +206,13 @@ struct Lane {
   __device__ void rows(int ev, int n) {
     if (at(ev)) nrow(ev) += n;
   }
-  // bits [start, start + len) of a row set to one, clipped at 8 * BY: a
-  // row is BYP / 4 words whose bytes hold the row's bits MSB first, so a
-  // word takes the big-endian mask of its 32 bits, byte-swapped
+  // bits [start, start + len) of a row set to one, clipped at 8 * BY
   __device__ void run(int ev, int r, int start, int len) {
     if (len <= 0 || !in(ev, r) || !at(ev)) return;
     const int a = max(start, 0), b = min(start + len, 8 * BY);
     uint32_t* w = reinterpret_cast<uint32_t*>(row(ev, r));
-    for (int k = a >> 5; a < b && k <= (b - 1) >> 5; ++k) {
-      const int lo = max(a - 32 * k, 0), hi = min(b - 32 * k, 32);
-      const uint32_t m = (0xffffffffu >> lo) &
-                         (hi >= 32 ? 0xffffffffu : ~(0xffffffffu >> hi));
-      w[k] |= __byte_perm(m, 0, 0x0123);
-    }
+    for (int k = a >> 5; a < b && k <= (b - 1) >> 5; ++k)
+      w[k] |= run_word(a - 32 * k, b - 32 * k);
   }
   // rows [0, last] of an event back to zero (bytes and bit counts)
   __device__ void erase(int ev, int last) {
@@ -205,16 +221,6 @@ struct Lane {
     uint32_t* w = reinterpret_cast<uint32_t*>(row(ev, 0));
     for (int i = 0; i < n * BYP / 4; ++i) w[i] = 0u;
     for (int r = 0; r < n; ++r) nbits(ev, r) = 0;
-  }
-  // OSV1: a one added at bit bp of event 0's row 0; its bit count and
-  // num_rows set at the end
-  __device__ void add0(int bp) {
-    if (at(0)) row(0, 0)[bp >> 3] += (uint8_t)(0x80u >> (bp & 7));
-  }
-  __device__ void set0(int nb, int nr) {
-    if (!at(0)) return;
-    nbits(0, 0) = nb;
-    nrow(0) = nr;
   }
 };
 
@@ -337,7 +343,6 @@ __device__ __forceinline__ int trunc05(float v, bool& near) {
 // ovf.
 
 struct Pcm {
-  static constexpr bool kEventZero = false;
   int sh, lo, rst, gpl, tol, mz, mc0;
   bool is_rz;
   float fs, fl;
@@ -348,9 +353,6 @@ struct Pcm {
       : sh(c[0]), lo(c[1]), rst(c[2]), gpl(c[3]), tol(c[4]), mz(c[5]),
         mc0(c[6]), is_rz(c[7] != 0), fs(bits_to_float(c[8])),
         fl(bits_to_float(c[9])) {}
-
-  template <class L>
-  __device__ void begin(L&) {}
 
   // JAX _pcm_rates: the preamble run estimator (its condition reads the
   // running estimate), then the order-free fallback sums
@@ -451,14 +453,11 @@ struct Pcm {
 };
 
 struct Nrzs {
-  static constexpr bool kEventZero = false;
   int sh, rst;
   int ev = 0, bir = 0;
   bool ovf = false;
   __device__ explicit Nrzs(const int* c) : sh(c[0]), rst(c[1]) {}
   __device__ void pre(const int*, const int*, int) {}
-  template <class L>
-  __device__ void begin(L&) {}
   template <class L>
   __device__ void step(int p, int g, bool last, L& o) {
     int h = p > sh ? p / max(sh, 1) : 0;
@@ -477,87 +476,6 @@ struct Nrzs {
   __device__ void end(L&) {}
 };
 
-struct Rzi {
-  static constexpr bool kEventZero = false;
-  int lo, rst, base;
-  int ev = 0, bir = 0;
-  bool at_start = true, ovf = false;
-  __device__ explicit Rzi(const int* c) : lo(c[0]), rst(c[1]), base(c[2]) {}
-  __device__ void pre(const int*, const int*, int) {}
-  template <class L>
-  __device__ void begin(L&) {}
-  template <class L>
-  __device__ void step(int p, int g, bool last, L& o) {
-    int num = at_start ? p + lo / 2 : p - base + lo / 2;
-    // floor and truncation agree once the result is clamped at 0
-    int ones = max(num / max(lo, 1), 0);
-    o.run(ev, 0, bir, ones);
-    int bir2 = bir + ones;
-    bool flush = g > rst || last;
-    bool emitted = flush && bir2 > 0;
-    int zz = flush ? 0 : 1;
-    if (ones + zz > 0) o.count(ev, 0, ones + zz);
-    if (emitted) o.rows(ev, 1);
-    int ev2 = emitted ? ev + 1 : ev;
-    ovf = ovf || bir2 + zz > o.BY * 8 || (emitted && ev2 >= o.E);
-    ev = ev2;
-    bir = flush ? 0 : bir2 + zz;
-    at_start = flush;
-  }
-  template <class L>
-  __device__ void end(L&) {}
-};
-
-struct Osv1 {
-  static constexpr bool kEventZero = true;   // writes event 0 alone
-  int rst, hmin, hmax, sync_min;
-  int phase = 0, cnt = 0, manbit = 0, bir = 0, ev = 0, nbits = 0;
-  bool touched = false, ovf = false;
-  __device__ explicit Osv1(const int* c)
-      : rst(c[1]), hmin(c[0] / 2), hmax(c[0] * 3 / 2),
-        sync_min(2 * (c[0] * 3 / 2)) {}
-  __device__ void pre(const int*, const int*, int) {}
-  template <class L>
-  __device__ void begin(L&) {}
-  template <class L>
-  __device__ void step(int p, int g, bool last, L& o) {
-    bool ph0 = phase == 0, ph1 = phase == 1, ph2 = phase == 2;
-    bool pass0 = p > hmin && g > hmin;
-    int cnt2 = (ph0 && pass0) ? cnt + 1 : cnt;
-    bool brk = ph0 && pass0 && g > hmax;
-    int ph_a = (ph0 && !pass0) ? 3 : phase;
-    if (brk) ph_a = cnt2 == 12 ? 1 : 3;
-    bool pass1 = p >= sync_min && g >= sync_min;
-    int ph_b = ph1 ? (pass1 ? 2 : 3) : ph_a;
-    bool sync0 = ph1 && pass1 && g > p;
-    int m = sync0 ? 1 : manbit;
-    bool phit = p > hmax;
-    bool c1 = ph2 && (phit || m == 0);
-    int mp = phit ? m : 1 - m;
-    if (c1) {
-      // every 1 lands in event 0, row 0; a position past the row is
-      // clipped to its last bit and added, as the JAX scatter-add does
-      o.add0(min(max(bir, 0), 8 * o.BY - 1));
-    }
-    int bir2 = bir + (c1 ? 1 : 0);
-    bool touched2 = touched || c1 || sync0;
-    bool flush = ph2 && (last || g > rst) && touched2;
-    bool ghit = g > hmax;
-    bool c0 = (ph2 && !flush && (ghit || mp == 0)) || sync0;
-    int bir3 = bir2 + (c0 ? 1 : 0);
-    nbits += (c1 ? 1 : 0) + (c0 ? 1 : 0);
-    manbit = (ph2 && !flush) ? (ghit ? mp : 1 - mp) : (flush ? mp : m);
-    touched = touched2 || c0;
-    phase = flush ? 3 : ph_b;
-    ev += flush ? 1 : 0;
-    ovf = ovf || bir3 > 8 * o.BY;
-    cnt = cnt2;
-    bir = bir3;
-  }
-  template <class L>
-  __device__ void end(L& o) { o.set0(nbits, ev > 0 ? 1 : 0); }
-};
-
 // One event staged: lanes whose family moved past their staged event (a
 // flush in the step before) are written out by the warp, then each stages
 // its new event. Every thread of `alive` calls it at the same step.
@@ -566,7 +484,6 @@ __device__ __forceinline__ void warp_moved(const F& f, Lane<false>& o,
                                            bool ok, unsigned alive,
                                            const Planes& pl, size_t lane0,
                                            uint8_t* stage0, int SB) {
-  if (F::kEventZero) return;
   const bool moved = ok && f.ev > o.sev && o.sev < o.E;
   unsigned m = __ballot_sync(alive, moved);
   if (!m) return;
@@ -614,7 +531,6 @@ __global__ void slice_lanes(const int* __restrict__ pulse,
   Lane<kAll> o(pl, stage);
   F f(c);
   f.pre(sp, sg, n);      // PCM's rates run on every lane, as in JAX
-  if (ok) f.begin(o);
   // every lane of the block walks the same train, so the warp meets at
   // the top of each step
   const size_t lane0 = lane - t;
@@ -666,7 +582,7 @@ cudaError_t launch(const int* pulse, const int* gap, const int* n_pulses,
   return cudaGetLastError();
 }
 
-// ---- the groups: PPM, MC, PWM, DMC, PIWM-DC, a thread group per lane -----
+// ---- the groups: a thread group per lane -------------------------------
 
 constexpr unsigned kFull = 0xffffffffu;
 // MC's pieces also end at a pulse or gap over 1.5 short widths where every
@@ -737,6 +653,20 @@ struct Group {
     const int nk = __shfl_down_sync(kFull, key, 1, G);
     if (key >= 0 && m && (t == G - 1 || nk != key)) w[key] |= m;
   }
+  // the inclusive sum of v over threads [h, t], h the last thread up to t
+  // whose `head` is set (0 where none is): shuffle-up rounds that stop
+  // adding at a head
+  __device__ int seg_scan(int v, bool head) const {
+    for (int d = 1; d < G; d <<= 1) {
+      const int ov = __shfl_up_sync(kFull, v, d, G);
+      const bool oh = __shfl_up_sync(kFull, (int)head, d, G) != 0;
+      if (t >= d) {
+        if (!head) v += ov;
+        head = head || oh;
+      }
+    }
+    return v;
+  }
 };
 
 // A group's stage: every event of its lane, laid out as Planes says.
@@ -771,6 +701,29 @@ struct Stage {
     return in(ev, r) && pos >= 0 && pos < BITS
                ? (ev * R + r) * WPR + (pos >> 5) : -1;
   }
+  // bits [start, start + len) of row r of event ev set, clipped at BITS
+  // (ev, r inside the caps): an atomic OR per word, as the runs of the
+  // neighbouring threads may share a run's first and last word
+  __device__ void or_run(int ev, int r, int start, int len) {
+    const int a = max(start, 0), b = min(start + len, BITS);
+    uint32_t* w = words() + (ev * R + r) * WPR;
+    for (int k = a >> 5; a < b && k <= (b - 1) >> 5; ++k)
+      atomicOr(&w[k], run_word(a - 32 * k, b - 32 * k));
+  }
+};
+
+// What a group family leaves out unless it says otherwise: it steps over
+// pulses, does nothing at a lane's start and end, and runs every tile.
+// A family with kStops runs a tile only while running() holds for a lane
+// of its CTA.
+struct GroupFamily {
+  static constexpr bool kSymbols = false;
+  static constexpr bool kStops = false;
+  template <int G>
+  __device__ void begin(const Group<G>&, Stage&, bool) {}
+  template <int G>
+  __device__ void end(const Group<G>&, Stage&) {}
+  __device__ bool running() const { return true; }
 };
 
 // MC (JAX slice_mc): per step a resync 1 (c1_out) or mid-bit 1 (c1_mid) at
@@ -778,8 +731,7 @@ struct Stage {
 // at a flush the next event's leading 0. Only c1_mid and c3 read state,
 // tsl; the cursors count emissions since a reset (bir restarts at 1 after
 // out and flush, row at 0 after a flush).
-struct McLanes {
-  static constexpr bool kSymbols = false;
+struct McLanes : GroupFamily {
   int sh, rst, tol;
   bool has_tol, vf;
   int ev = 0, row = 0, bir = 1, tsl = 0;
@@ -886,16 +838,13 @@ struct McLanes {
 // candidate (a candidate leaves the event untouched either way); bir
 // restarts at 0 after every candidate, sync and isrb (where no flush or
 // break happens there, it is 0 already), row at 0 after a flush.
-struct PwmLanes {
-  static constexpr bool kSymbols = false;
+struct PwmLanes : GroupFamily {
   int ol, ou, zl, zu, syl, syu, gp, rst;
   int ev = 0, row = 0, bir = 0;
   bool tch = false, ovf = false;
   __device__ PwmLanes(const int* c, bool)
       : ol(c[0]), ou(c[1]), zl(c[2]), zu(c[3]), syl(c[4]), syu(c[5]),
         gp(c[6]), rst(c[7]) {}
-  template <int G>
-  __device__ void begin(const Group<G>&, Stage&, bool) {}
   template <int G>
   __device__ void tile(const Group<G>& gr, Stage& s, const int* sp,
                        const int* sg, int base, int nact, int n) {
@@ -970,16 +919,13 @@ struct PwmLanes {
 // and bir the bits since the last sync, row break or candidate. Within a
 // gap JAX's order holds: the sync or row break, then the bit, then the
 // flush; a sync at bir 0 counts on the current row.
-struct PpmLanes {
-  static constexpr bool kSymbols = false;
+struct PpmLanes : GroupFamily {
   int zl, zu, ol, ou, syl, syu, rst;
   int ev = 0, row = 0, bir = 0;
   bool tch = false, ovf = false;
   __device__ PpmLanes(const int* c, bool)
       : zl(c[0]), zu(c[1]), ol(c[2]), ou(c[3]), syl(c[4]), syu(c[5]),
         rst(c[6]) {}
-  template <int G>
-  __device__ void begin(const Group<G>&, Stage&, bool) {}
   template <int G>
   __device__ void tile(const Group<G>& gr, Stage& s, const int*,
                        const int* sg, int base, int nact, int n) {
@@ -1046,15 +992,13 @@ __device__ __forceinline__ int symbol(const int* sp, const int* sg, int i) {
 // breaks where a bit fell since the previous candidate of either kind
 // (bir > 0). So bir restarts at 0 after every candidate (one that neither
 // flushes nor breaks finds it 0 already), row after a flush.
-struct DmcLanes {
+struct DmcLanes : GroupFamily {
   static constexpr bool kSymbols = true;
   int sh, lo, rst, tol;
   int ev = 0, row = 0, bir = 0;
   bool pend = false, has = false, ovf = false;
   __device__ DmcLanes(const int* c, bool)
       : sh(c[0]), lo(c[1]), rst(c[2]), tol(c[3]) {}
-  template <int G>
-  __device__ void begin(const Group<G>&, Stage&, bool) {}
   template <int G>
   __device__ void tile(const Group<G>& gr, Stage& s, const int* sp,
                        const int* sg, int base, int nact, int) {
@@ -1119,15 +1063,13 @@ struct DmcLanes {
 // fell since the previous candidate of either kind (bir > 0; bir > 0
 // implies touched). Within one symbol JAX's order holds: the bit, the
 // break, then the flush, whose event keeps the row the break opened.
-struct PiwmDcLanes {
+struct PiwmDcLanes : GroupFamily {
   static constexpr bool kSymbols = true;
   int sh, lo, rst, tol;
   int ev = 0, row = 0, bir = 0;
   bool tch = false, ovf = false;
   __device__ PiwmDcLanes(const int* c, bool)
       : sh(c[0]), lo(c[1]), rst(c[2]), tol(c[3]) {}
-  template <int G>
-  __device__ void begin(const Group<G>&, Stage&, bool) {}
   template <int G>
   __device__ void tile(const Group<G>& gr, Stage& s, const int* sp,
                        const int* sg, int base, int nact, int n) {
@@ -1172,6 +1114,168 @@ struct PiwmDcLanes {
   }
 };
 
+// RZI (JAX slice_rzi), a pulse per thread: each pulse emits its ones (a
+// division of its width by the long width, with the base offset where the
+// pulse does not open a message: where the pulse before was no flush
+// candidate), then a 0 unless its gap is a flush candidate (over the reset
+// limit, or the last pulse). A candidate flushes where the event holds a
+// bit; one that does not finds the cursor at 0, as a flush leaves it. So
+// nothing but the cursor carries, and a step adds ones + 0 bits to it:
+// the cursor before a pulse is a segmented scan of those counts since the
+// last candidate (the carried cursor where none falls before it in the
+// tile). Each event has one row.
+struct RziLanes : GroupFamily {
+  int lo, rst, off;   // off: the base offset
+  int ev = 0, bir = 0;
+  bool at_start = true, ovf = false;
+  __device__ RziLanes(const int* c, bool) : lo(c[0]), rst(c[1]), off(c[2]) {}
+  template <int G>
+  __device__ void tile(const Group<G>& gr, Stage& s, const int* sp,
+                       const int* sg, int base, int nact, int n) {
+    const int t = gr.t;
+    const bool act = t < nact;
+    const int p = act ? sp[base + t] : 0, g = act ? sg[base + t] : 0;
+    const unsigned lt = gr.lt();
+    // 1. what no state decides
+    const bool fc = act && (g > rst || base + t == n - 1);
+    const unsigned FC = gr.ballot(fc);
+    const bool opens = t ? ((FC >> (t - 1)) & 1) != 0 : at_start;
+    const int num = opens ? p + lo / 2 : p - off + lo / 2;
+    // floor and truncation agree once the result is clamped at 0
+    const int ones = act ? max(num / max(lo, 1), 0) : 0;
+    const int d = ones + (act && !fc);
+    // 3. the cursor before this pulse, and the flush
+    const int b_ = gr.seg_scan(d, t && opens) - d + ((FC & lt) ? 0 : bir);
+    const bool emitted = fc && b_ + ones > 0;
+    const int e_ = ev + __popc(gr.ballot(emitted) & lt);
+    const int bir2 = b_ + d;
+    const unsigned o = gr.ballot(act && (bir2 > s.BITS ||
+                                         (emitted && e_ + 1 >= s.E)));
+    ovf = ovf || o;
+    // 4. the stage: the run of ones, the event's bit count by its last
+    // pulse in the tile (0 at a candidate that does not flush, as is
+    // everything it counted), its row at the flush
+    if (ones > 0 && e_ < s.E) s.or_run(e_, 0, b_, ones);
+    if (act && e_ < s.E && (emitted || t == nact - 1)) s.nbits(e_, 0) = bir2;
+    if (emitted && e_ < s.E) s.nrow(e_) = 1;
+    // the cursors after the tile's last pulse
+    const int k = max(nact - 1, 0);
+    const int ne = gr.from(e_ + emitted, k), nb = gr.from(fc ? 0 : bir2, k);
+    if (nact) {
+      ev = ne; bir = nb;
+      at_start = (FC >> k) & 1;
+    }
+  }
+};
+
+// OSV1's preamble: pulses 0 to kPreamble - 1, the sync the next
+constexpr int kPreamble = 12;
+
+// OSV1 (JAX slice_osv1), a pulse per thread. Its phase machine has a
+// closed form: phase 0 leads to phase 1 only where pulses 0-10 pass with
+// a gap of at most hmax and pulse 11 passes with a longer one, so phase 1
+// is pulse 12, the sync, which passes into phase 2 (with a 0 and the
+// Manchester bit 1 where its gap is the longer) or ends the lane. Phase 2
+// runs from pulse 13 up to and with the first flush candidate (the event
+// is always touched there). The Manchester bit before a phase-2 pulse is
+// its start value XOR the parity of the earlier phase-2 pulses whose pulse
+// and gap disagree on being over hmax, from one ballot. The cursor only
+// grows; every 1 lands in row 0 of event 0, the JAX scatter-add clipping
+// its position to the row's last bit: the ones below that bit are ORed,
+// the rest counted and added to the row's last byte once, modulo 256. A
+// CTA stops once every lane of it has left phases 0-2.
+struct Osv1Lanes : GroupFamily {
+  static constexpr bool kStops = true;
+  int rst, hmin, hmax, sync_min;
+  // the phase before the tile: 0, 2 or 3 (done); phase 1 is pulse 12
+  // alone, in the tile of pulse 11 (12 is no multiple of G), or past the
+  // train's end
+  int ph = 0;
+  int m = 0, bir = 0, clip = 0, ev = 0;
+  bool ovf = false;
+  // the JAX floor divisions: sh // 2, sh * 3 // 2
+  __device__ Osv1Lanes(const int* c, bool)
+      : rst(c[1]), hmin(c[0] >> 1), hmax((3 * c[0]) >> 1),
+        sync_min(2 * hmax) {}
+  template <int G>
+  __device__ void begin(const Group<G>&, Stage&, bool ok) {
+    if (!ok) ph = 3;
+  }
+  __device__ bool running() const { return ph < 3; }
+  template <int G>
+  __device__ void tile(const Group<G>& gr, Stage& s, const int* sp,
+                       const int* sg, int base, int nact, int n) {
+    const int t = gr.t;
+    const bool act = t < nact;
+    const int p = act ? sp[base + t] : 0, g = act ? sg[base + t] : 0;
+    const unsigned lt = gr.lt();
+    const unsigned ACT = nact >= 32 ? ~0u : (1u << nact) - 1;
+    // 1. the preamble (phase 0 lasts at most to pulse 11, so base <= 11)
+    const bool pass0 = act && p > hmin && g > hmin;
+    const unsigned ON = gr.ballot(pass0 && g <= hmax);
+    const unsigned BRK = gr.ballot(pass0 && g > hmax);
+    int sy = -1;   // the sync's thread in this tile
+    if (ph == 0) {
+      const int k = kPreamble - 1 - base;   // pulse 11's thread
+      if (k < nact) {
+        const unsigned need = (1u << k) - 1;
+        ph = (ON & need) == need && ((BRK >> k) & 1) ? 1 : 3;
+        if (ph == 1 && k + 1 < nact) sy = k + 1;
+      } else if ((ON & ACT) != ACT) {
+        ph = 3;
+      }
+    }
+    // 2. the sync
+    const int ps = gr.from(p, max(sy, 0)), gs = gr.from(g, max(sy, 0));
+    int s2 = ph == 2 ? 0 : G;   // phase 2's first thread in this tile
+    if (sy >= 0) {
+      if (ps >= sync_min && gs >= sync_min) {
+        ph = 2;
+        m = bir = gs > ps;
+        s2 = sy + 1;
+      } else {
+        ph = 3;
+      }
+    }
+    // 3. phase 2 up to and with its first flush candidate: the Manchester
+    // bit, the bits and the cursor before this pulse
+    const unsigned P2a = ph == 2 && s2 < G ? ACT & ~((1u << s2) - 1) : 0u;
+    const bool fc = act && (g > rst || base + t == n - 1);
+    const unsigned FC = gr.ballot(fc) & P2a;
+    const unsigned P2 = FC ? P2a & ((2u << (__ffs(FC) - 1)) - 1) : P2a;
+    const bool in2 = (P2 >> t) & 1;
+    const bool fl = in2 && fc;
+    const bool phit = p > hmax, ghit = g > hmax;
+    const unsigned X = gr.ballot(in2 && phit != ghit);
+    const int mt = m ^ (__popc(X & lt) & 1);
+    const bool c1 = in2 && (phit || mt == 0);
+    const int mp = phit ? mt : 1 - mt;
+    const bool c0 = in2 && !fl && (ghit || mp == 0);
+    const unsigned C1 = gr.ballot(c1), C0 = gr.ballot(c0);
+    const int pos = bir + __popc(C1 & lt) + __popc(C0 & lt);
+    // 4. the stage: a 1 below the row's last bit ORed, the others counted
+    gr.or_words(s.words(), in2 && pos < s.BITS - 1 ? pos >> 5 : -1,
+                c1 ? pos_bit(pos) : 0u);
+    clip += __popc(gr.ballot(c1 && pos >= s.BITS - 1));
+    bir += __popc(C1) + __popc(C0);
+    m ^= __popc(X) & 1;
+    if (FC) {
+      ph = 3;
+      ev = 1;
+    }
+    ovf = bir > s.BITS;
+  }
+  // after the group's last tile (the stage's ORs visible): row 0 of event
+  // 0, its bit count, num_rows, and the clipped ones added to its last byte
+  template <int G>
+  __device__ void end(const Group<G>& gr, Stage& s) {
+    if (gr.t) return;
+    s.nbits(0, 0) = bir;
+    s.nrow(0) = ev;
+    s.st[s.pl.BY - 1] += (uint8_t)clip;
+  }
+};
+
 template <class F, int G>
 __global__ void __launch_bounds__(128)
 slice_groups(const int* __restrict__ pulse, const int* __restrict__ gap,
@@ -1206,12 +1310,19 @@ slice_groups(const int* __restrict__ pulse, const int* __restrict__ gap,
   __syncwarp();
   f.begin(gr, st, ok);
   __syncwarp();
-  // every group of the CTA runs the same tiles: the collectives line up
+  // every group of the CTA runs the same tiles: the collectives line up;
+  // a family that stops leaves once no lane of the CTA runs (one vote a
+  // tile)
   const int steps = F::kSymbols ? 2 * n : n;
   for (int base = 0; base < steps; base += G) {
+    if constexpr (F::kStops) {
+      if (!__syncthreads_or(f.running())) break;
+    }
     f.tile(gr, st, sp, sg, base, ok ? min(G, steps - base) : 0, steps);
     __syncwarp();
   }
+  f.end(gr, st);
+  __syncwarp();
   if (!live) return;
   const size_t lane = (size_t)b * S + s;
   put_events(pl, lane, st.st, 0, E, E, false, gr.t, G, 0u);
@@ -1258,8 +1369,8 @@ cudaError_t launch_groups(const int* pulse, const int* gap,
 // bounds is the family's int32 [S, NCOLS] table (ops/slice.py
 // bound_table): its columns from 0 in the family's order, ok in the last.
 // lanes, mode, SB and smem: ops/slice.py launch_plan; mode is whether
-// every event is staged for the walk, the threads per lane (8, 16 or 32)
-// for the groups (PPM, MC, PWM, DMC, PIWM-DC). Every element of the six
+// every event is staged for the walk (PCM, NRZS), the threads per lane (8,
+// 16 or 32) for the groups (the other seven). Every element of the six
 // outputs is written.
 extern "C" int rtl433_slice(int family, const void* pulse, const void* gap,
                             const void* n_pulses, int B, int N,
@@ -1289,8 +1400,8 @@ extern "C" int rtl433_slice(int family, const void* pulse, const void* gap,
     case 4: RTL433_SLICE(launch_groups, DmcLanes);
     case 5: RTL433_SLICE(launch_groups, PiwmDcLanes);
     case 6: RTL433_SLICE(launch, Nrzs);
-    case 7: RTL433_SLICE(launch, Rzi);
-    case 8: RTL433_SLICE(launch, Osv1);
+    case 7: RTL433_SLICE(launch_groups, RziLanes);
+    case 8: RTL433_SLICE(launch_groups, Osv1Lanes);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef RTL433_SLICE

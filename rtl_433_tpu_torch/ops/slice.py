@@ -20,16 +20,17 @@ row bytes) or a float32 rounding near a boundary (PCM) raises the lane's
 slicer. Writes outside the caps are dropped, as the JAX scatters drop them.
 
 For a CUDA tensor each wrapper launches ``csrc/slice.cu`` (one thread per
-lane, or for PPM, MC, PWM, DMC and PIWM-DC a thread group per lane; the
-train and each lane's events staged in shared memory, the launch shaped
-by :func:`launch_plan`); for a CPU tensor it runs the plain version: for
-four families the JAX ``step`` as vectorized torch over the ``[B, S]``
-lane grid in a Python loop over the pulses (stopping at the longest
-train: padded steps are inactive), for PPM, MC, PWM, DMC and PIWM-DC the
-kernel's phases vectorized over pulses (symbols for DMC and PIWM-DC) and
-lanes (what no state decides, MC's walk per piece, DMC's pending flag
-from run parities, the cursors from running sums); then the JAX assembly
-by scatter-adds (``_lane_scatter_add``, ``_assemble_cols``,
+lane for PCM and NRZS, a thread group per lane for the seven families of
+:data:`GROUP_FAMILIES`; the train and each lane's events staged in shared
+memory, the launch shaped by :func:`launch_plan`); for a CPU tensor it
+runs the plain version: for PCM and NRZS the JAX ``step`` as vectorized
+torch over the ``[B, S]`` lane grid in a Python loop over the pulses
+(stopping at the longest train: padded steps are inactive), for the
+group families the kernel's phases vectorized over pulses (symbols for
+DMC and PIWM-DC) and lanes (what no state decides, MC's walk per piece,
+DMC's pending flag and OSV1's Manchester bit from parities, OSV1's phases
+in closed form, the cursors from running sums); then the JAX assembly by
+scatter-adds (``_lane_scatter_add``, ``_assemble_cols``,
 ``_assemble_runs``, PCM's delta-scatter and cumulative sum).
 """
 
@@ -948,17 +949,17 @@ def slice_piwm_dc_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
                           row2 + 1, fl.sum(-1, dtype=torch.int32), ovf, caps)
 
 
-def _assemble_runs(B, S, caps: SliceCaps, ys, ev_f, ovf):
+def _assemble_runs(B, S, caps: SliceCaps, cols, ev_f, ovf):
     """Shared assembly for slicers that only ever write row 0: per-step
     runs of ``ones`` 1-bits at ``start`` followed by ``zeros`` 0-bits,
-    packed by the same delta-scatter and cumulative sum as PCM. ``ys``
-    holds (ones, zeros, b_ev, start, flush, f_ev, f_rows) per step."""
+    packed by the same delta-scatter and cumulative sum as PCM. ``cols``
+    holds (ones, zeros, b_ev, start, flush, f_ev, f_rows) as [L, steps]
+    columns."""
     E, R, BY = caps
     BITS = BY * 8
     L = B * S
     dev = ev_f.device
-    hl, zl, ev_l, sl, flush, f_ev, f_rows = \
-        (_flat(ys, i, B, S).to(dev) for i in range(7))
+    hl, zl, ev_l, sl, flush, f_ev, f_rows = (c.to(dev) for c in cols)
     lane = torch.arange(L, device=dev)[:, None].expand(hl.shape)
     row0 = _runs_to_bits([lane, ev_l], sl, hl, hl > 0, (L, E), BITS)
     bytes_ = torch.zeros((B, S, E, R, BY), dtype=torch.uint8, device=dev)
@@ -1001,109 +1002,137 @@ def slice_nrzs_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
         ovf = ovf | (bir2 > BITS) | (flush & (ev2 >= E))
         ys.append((h, z, ev, bir, flush, ev, f_rows))
         ev, bir = ev2, w(flush, 0, bir2)
-    return _assemble_runs(B, S, caps, ys, ev, ovf)
+    return _assemble_runs(B, S, caps, [_flat(ys, i, B, S) for i in range(7)],
+                          ev, ovf)
 
+
+# ---- the phase form of RZI and OSV1 (csrc/slice.cu's groups, a pulse per
+# thread)
 
 def slice_rzi_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
-    """Plain version of the RZI scan (JAX ``slice_rzi``): each pulse emits
-    ``round(high / long)`` ones (the first pulse of a message without the
-    base offset), each sub-reset gap a zero; a reset gap or the final
-    pulse flushes non-empty events."""
+    """Plain version of the RZI scan (JAX ``slice_rzi``) in the kernel's
+    phases, vectorized over pulses and lanes: each pulse emits
+    ``round(high / long)`` ones (the first pulse of a message, after a
+    flush candidate or at the train's start, without the base offset),
+    each sub-reset gap a zero; a reset gap or the final pulse is a flush
+    candidate, which flushes where the event holds a bit. The cursor is
+    the running sum of the bits minus its value at the last candidate (a
+    candidate that does not flush finds it at zero); the JAX assembly."""
     B, N = pulse.shape
-    dev = pulse.device
     E, R, BY = caps
-    BITS = BY * 8
-    b = _cols(bounds, dev)
+    b = {k: v[..., None] for k, v in _cols(bounds, pulse.device).items()}
     S = b["long"].shape[1]
-    lo, rst, base, okm = b["long"], b["reset"], b["base"], b["ok"]
-    w = torch.where
+    p, g, act, last = _lane_grid(pulse, gap, n_pulses, b["ok"])
+    i32 = lambda x: x.to(torch.int32)
+    lo = b["long"]
     half = torch.div(lo, 2, rounding_mode="floor")
-    ev = bir = _zeros(B, S, dev)
-    at_start = ~_falses(B, S, dev)
-    ovf = _falses(B, S, dev)
-    ys = []
-    for n in range(_steps(n_pulses)):
-        p, g, valid, last = _step_inputs(pulse, gap, n_pulses, n)
-        act = valid & okm
-        num = w(at_start, p + half, p - base + half)
-        ones = w(act, torch.div(num, lo.clamp(min=1),
-                                rounding_mode="floor").clamp(min=0), 0)
-        bir2 = bir + ones
-        flush = act & ((g > rst) | last)
-        emitted = flush & (bir2 > 0)
-        zz = w(act & ~flush, 1, 0)
-        ev2 = w(emitted, ev + 1, ev)
-        ovf = ovf | (bir2 + zz > BITS) | (emitted & (ev2 >= E))
-        ys.append((ones, zz, ev, bir, emitted, ev, torch.ones_like(ev)))
-        ev, bir = ev2, w(flush, 0, bir2 + zz)
-        at_start = w(act, flush, at_start)
-    return _assemble_runs(B, S, caps, ys, ev, ovf)
+    # 1. what no state decides
+    fc = act & ((g > b["reset"]) | last)
+    at_start = torch.ones_like(fc)
+    at_start[..., 1:] = fc[..., :-1]
+    num = torch.where(at_start, p + half, p - b["base"] + half)
+    ones = torch.where(act, torch.div(num, lo.clamp(min=1),
+                                      rounding_mode="floor").clamp(min=0), 0)
+    zz = i32(act & ~fc)
+    # 2. the cursor before each pulse: the bits since the last candidate
+    # (summed in int64, then wrapped as the scan's int32 cursor wraps)
+    d = ones + zz
+    run = torch.cumsum(d.to(torch.int64), -1)
+    bir = (run - d - _before(torch.where(fc, run, 0))).to(torch.int32)
+    emitted = fc & (bir + ones > 0)
+    ev = _csum(emitted) - i32(emitted)
+    ovf = (act & ((bir + ones + zz > BY * 8)
+                  | (emitted & (ev + 1 >= E)))).any(-1)
+    # 3. the JAX assembly
+    L = B * S
+
+    def lanes(x):
+        return torch.broadcast_to(x, (B, S, N)).reshape(L, N)
+
+    return _assemble_runs(
+        B, S, caps, [lanes(x) for x in (ones, zz, ev, bir, emitted, ev,
+                                        torch.ones_like(ev))],
+        emitted.sum(-1, dtype=torch.int32), ovf)
+
+
+# OSV1's preamble: pulses 0 to _OSV1_PREAMBLE - 1, the sync the next
+# (csrc/slice.cu kPreamble)
+_OSV1_PREAMBLE = 12
 
 
 def slice_osv1_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
-    """Plain version of the OSv1 scan (JAX ``slice_osv1``): a phase
-    machine (preamble count, sync pulse and polarity bit, half-bit
-    Manchester transitions, done); at most one event, all bits in row 0."""
+    """Plain version of the OSv1 scan (JAX ``slice_osv1``) in the kernel's
+    phases, vectorized over pulses and lanes. The phase machine has a
+    closed form: phase 0 leads to phase 1 only where pulses 0-10 pass
+    with their gap at most 1.5 short widths and pulse 11 passes with a
+    longer gap, so phase 1 is pulse 12; it passes into phase 2 (with a 0
+    and the Manchester bit set where its gap is the longer) or ends the
+    lane. Phase 2 runs from pulse 13 to the first flush candidate (the
+    event is always touched there). The Manchester bit before a phase-2
+    pulse is its start value XOR the parity of the earlier phase-2 pulses
+    whose pulse and gap disagree on being long; the cursor counts the 0 of
+    the sync and every bit since. At most one event, all bits in row 0;
+    the JAX assembly scatter-adds each 1 at its position clipped to the
+    row's last bit (the clipped ones add up in the last byte)."""
     B, N = pulse.shape
-    dev = pulse.device
     E, R, BY = caps
     BITS = BY * 8
-    b = _cols(bounds, dev)
+    dev = pulse.device
+    K = _OSV1_PREAMBLE
+    if N <= K:      # steps past the train are inactive
+        pad = torch.zeros((B, K + 1 - N), dtype=pulse.dtype, device=dev)
+        pulse, gap = torch.cat([pulse, pad], 1), torch.cat([gap, pad], 1)
+    b = {k: v[..., None] for k, v in _cols(bounds, dev).items()}
     S = b["short"].shape[1]
-    sh, rst, okm = b["short"], b["reset"], b["ok"]
-    w = torch.where
+    sh = b["short"]
     hmin = torch.div(sh, 2, rounding_mode="floor")
     hmax = torch.div(sh * 3, 2, rounding_mode="floor")
     sync_min = 2 * hmax
-    phase = cnt = manbit = bir = nev = _zeros(B, S, dev)
-    touched = ovf = _falses(B, S, dev)
-    ys = []
-    for n in range(_steps(n_pulses)):
-        p, g, valid, last = _step_inputs(pulse, gap, n_pulses, n)
-        act = valid & okm
-        ph0 = act & (phase == 0)
-        ph1 = act & (phase == 1)
-        ph2 = act & (phase == 2)
-        pass0 = (p > hmin) & (g > hmin)
-        cnt2 = w(ph0 & pass0, cnt + 1, cnt)
-        brk = ph0 & pass0 & (g > hmax)
-        phase2_ = w(ph0 & ~pass0, 3, phase)
-        phase2_ = w(brk, w(cnt2 == 12, 1, 3), phase2_)
-        pass1 = (p >= sync_min) & (g >= sync_min)
-        phase3_ = w(ph1, w(pass1, 2, 3), phase2_)
-        sync0 = ph1 & pass1 & (g > p)
-        m = w(sync0, 1, manbit)
-        phit = p > hmax
-        c1 = ph2 & (phit | (m == 0))
-        mp = w(phit, m, 1 - m)
-        b1 = bir
-        bir2 = bir + c1.to(torch.int32)
-        touched2 = touched | c1 | sync0
-        flush = ph2 & (last | (g > rst)) & touched2
-        ghit = g > hmax
-        c0 = (ph2 & ~flush & (ghit | (mp == 0))) | sync0
-        bir3 = bir2 + c0.to(torch.int32)
-        manbit = w(ph2 & ~flush, w(ghit, mp, 1 - mp), w(flush, mp, m))
-        touched = touched2 | c0
-        phase = w(flush, 3, phase3_)
-        nev = nev + flush.to(torch.int32)
-        ovf = ovf | (bir3 > BITS)
-        ys.append((c1, b1, c0))
-        cnt, bir = cnt2, bir3
-    c1, b1, c0 = (_flat(ys, i, B, S).to(dev) for i in range(3))
-    m1 = c1.bool()
-    bp1 = b1.clamp(0, BITS - 1)
-    row0 = _lane_scatter_add(B, S, (BY,), [bp1 // 8], _bit(bp1), m1)
+    p, g, act, last = _lane_grid(pulse, gap, n_pulses, b["ok"])
+    i32 = lambda x: x.to(torch.int32)
+    # 1. the preamble and the sync: what no state decides
+    pass0 = act & (p > hmin) & (g > hmin)
+    pre = (pass0 & (g <= hmax))[..., :K - 1].all(-1) \
+        & (pass0 & (g > hmax))[..., K - 1]
+    ps, gs = p[..., K], g[..., K]
+    sync = pre & act[..., K] & (ps >= sync_min[..., 0]) \
+        & (gs >= sync_min[..., 0])
+    sync0 = i32(sync & (gs > ps))[..., None]
+    # 2. phase 2, from pulse 13 up to and with the first flush candidate
+    idx = torch.arange(p.shape[-1], device=dev)
+    cand = act & (idx > K) & sync[..., None]
+    fc = cand & (last | (g > b["reset"]))
+    ph2 = cand & (_csum(fc) - i32(fc) == 0)
+    flush = fc & ph2
+    phit, ghit = p > hmax, g > hmax
+    x = i32(ph2 & (phit ^ ghit))
+    m = sync0 ^ ((_csum(x) - x) & 1)
+    c1 = ph2 & (phit | (m == 0))
+    mp = torch.where(phit, m, 1 - m)
+    c0 = ph2 & ~flush & (ghit | (mp == 0))
+    # 3. the cursor before each pulse's 1
+    bits = i32(c1) + i32(c0)
+    pos = sync0 + _csum(bits) - bits
+    nbits = sync0[..., 0] + bits.sum(-1, dtype=torch.int32)
+    # 4. the JAX assembly
+    L = B * S
+    M = p.shape[-1]
+
+    def lanes(x):
+        return torch.broadcast_to(x, (B, S, M)).reshape(L, M)
+
+    bp = lanes(pos).clamp(0, BITS - 1)
+    row0 = _lane_scatter_add(B, S, (BY,), [bp // 8], _bit(bp), lanes(c1))
     bytes_ = torch.zeros((B, S, E, R, BY), dtype=torch.uint8, device=dev)
     bytes_[:, :, 0, 0, :] = row0.to(torch.uint8)
     bits_per_row = torch.zeros((B, S, E, R), dtype=torch.int32, device=dev)
-    bits_per_row[:, :, 0, 0] = (c1.sum(1, dtype=torch.int32)
-                                + c0.sum(1, dtype=torch.int32)).reshape(B, S)
+    bits_per_row[:, :, 0, 0] = nbits
+    n_ev = i32(flush.any(-1))
     num_rows = torch.zeros((B, S, E), dtype=torch.int32, device=dev)
-    num_rows[:, :, 0] = (nev > 0).to(torch.int32)
+    num_rows[:, :, 0] = n_ev
     syncs = torch.zeros((B, S, E, R), dtype=torch.int32, device=dev)
     return {"bytes": bytes_, "bits_per_row": bits_per_row, "syncs": syncs,
-            "num_rows": num_rows, "n_events": nev, "ovf": ovf}
+            "num_rows": num_rows, "n_events": n_ev, "ovf": nbits > BITS}
 
 
 PLAIN = {"ppm": slice_ppm_plain, "pwm": slice_pwm_plain,
@@ -1132,9 +1161,10 @@ def _check(pulse, gap, n_pulses, caps):
 # 228 KB, and each resident block takes 1 KB more
 SMEM_MAX = 232448
 SMEM_SM = 233472
-# the families csrc/slice.cu runs as thread groups, a group per lane; DMC
-# and PIWM-DC step over the 2N symbols of the interleaved pulse/gap axis
-GROUP_FAMILIES = ("ppm", "mc", "pwm", "dmc", "piwm_dc")
+# the families csrc/slice.cu runs as thread groups, a group per lane (the
+# others, PCM and NRZS, walk a lane on one thread); DMC and PIWM-DC step
+# over the 2N symbols of the interleaved pulse/gap axis
+GROUP_FAMILIES = ("ppm", "mc", "pwm", "dmc", "piwm_dc", "rzi", "osv1")
 SYMBOL_FAMILIES = ("dmc", "piwm_dc")
 
 
@@ -1161,16 +1191,17 @@ def launch_plan(B: int, S: int, N: int, caps: SliceCaps, sms: int = 132,
     shared bytes per block); a block takes one train's pulses and gaps
     (``8 N`` bytes) and its lanes' stages.
 
-    For PPM, MC, PWM, DMC and PIWM-DC (``fam`` in :data:`GROUP_FAMILIES`;
-    the kernel's groups) the mode is the threads per lane, by the lane's
-    steps (N pulses, or 2N symbols for DMC and PIWM-DC): 8 where they are
+    For PPM, MC, PWM, DMC, PIWM-DC, RZI and OSV1 (``fam`` in
+    :data:`GROUP_FAMILIES`; the kernel's groups) the mode is the threads
+    per lane, by the lane's steps (N pulses, or 2N symbols for DMC and
+    PIWM-DC): 8 where they are
     at most 8, 16 where at most 16, else a warp; up to four warps of lanes
     per block (fewer where S is smaller), each lane staging every event,
     so that several blocks share an SM; fewer warps, and then a warp per
     lane, where that does not fit the 227 KB a block may use, raising
     where one lane of a warp does not.
 
-    For the other families (the walk) the mode is whether every event of
+    For PCM and NRZS (the walk) the mode is whether every event of
     a lane is staged: up to 64 specs per block (32 where S <= 32), a
     multiple of 32, each lane with its stage. Every event is staged
     (nothing leaves before the lane ends) where the whole grid then fits

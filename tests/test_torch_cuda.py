@@ -366,7 +366,8 @@ def test_slice_kernel_lane_past_every_cap(caps):
     assert (want["bits_per_row"][own, own].amax((-1, -2)) > 8 * BY).all()
 
 def _group_call(fam, arrs, bounds, caps, dev, g=None, monkeypatch=None):
-    """One launch of a group family's kernel (PPM, MC, PWM, DMC, PIWM-DC) over
+    """One launch of a group family's kernel (PPM, MC, PWM, DMC, PIWM-DC,
+    RZI, OSV1) over
     outputs allocated where garbage was (every element must be written),
     the plan's threads per lane forced to ``g``; held to the plain
     version."""
@@ -391,7 +392,8 @@ def _group_call(fam, arrs, bounds, caps, dev, g=None, monkeypatch=None):
 
 
 @pytest.mark.parametrize("g", [8, 16, 32])
-@pytest.mark.parametrize("fam", ["ppm", "mc", "pwm", "dmc", "piwm_dc"])
+@pytest.mark.parametrize("fam", ["ppm", "mc", "pwm", "dmc", "piwm_dc", "rzi",
+                                 "osv1"])
 def test_slice_kernel_each_group_size(fam, g, monkeypatch):
     """Each threads-per-lane the plan can pick, forced on the drain's
     shape (64 trains of up to 64 pulses x 125 specs) and on trains of 1,
@@ -411,8 +413,40 @@ def test_slice_kernel_each_group_size(fam, g, monkeypatch):
     assert want["n_events"].sum() > 0
 
 
+def _pulse_group_trains(fam, caps):
+    """RZI's or OSV1's planted trains (edge cases, a train past each cap
+    it can pass, trains of 1 to 1200 pulses around tiles of 8) with the
+    planted specs' bound columns."""
+    from torch_slice_cases import (family_devices, length_trains,
+                                   osv1_edges, pulse_cap_trains,
+                                   pulse_edge_bounds, rzi_edges)
+    edges = rzi_edges() if fam == "rzi" else osv1_edges()
+    trains = edges + pulse_cap_trains(fam, caps) + length_trains(
+        fam, family_devices(fam), 29, (1, 7, 8, 9, 12, 13, 31, 32, 33, 1200))
+    return trains, pulse_edge_bounds(fam)
+
+
 @pytest.mark.parametrize("caps", ["bank", "small"])
-@pytest.mark.parametrize("fam", ["ppm", "mc", "pwm", "dmc", "piwm_dc"])
+@pytest.mark.parametrize("g", [8, 16, 32])
+@pytest.mark.parametrize("fam", ["rzi", "osv1"])
+def test_slice_kernel_pulse_group_edges_each_group_size(fam, g, caps,
+                                                         monkeypatch):
+    """RZI's and OSV1's planted trains on the group kernel with 8, 16 and
+    32 threads per lane: runs over several words and past the row, empty
+    flushes, OSV1's preambles, syncs and clipped ones, phase 0 across a
+    tile of 8."""
+    from torch_slice_cases import BANK_CAPS, SMALL_CAPS, pack
+    dev = _gpu()
+    caps = BANK_CAPS[fam] if caps == "bank" else SMALL_CAPS
+    trains, bounds = _pulse_group_trains(fam, caps)
+    want = _group_call(fam, pack(trains), bounds, caps, dev, g, monkeypatch)
+    assert want["ovf"].any() and (~want["ovf"]).any()
+    assert want["n_events"].sum() > 0
+
+
+@pytest.mark.parametrize("caps", ["bank", "small"])
+@pytest.mark.parametrize("fam", ["ppm", "mc", "pwm", "dmc", "piwm_dc", "rzi",
+                                 "osv1"])
 def test_slice_kernel_planted_group_trains(fam, caps):
     """The planted trains of tests/torch_slice_cases.py: each family's edge
     cases, a train past each cap, and trains of 1 to 1200 pulses."""
@@ -426,6 +460,11 @@ def test_slice_kernel_planted_group_trains(fam, caps):
                                    symbol_edge_bounds)
     dev = _gpu()
     caps = BANK_CAPS[fam] if caps == "bank" else SMALL_CAPS
+    if fam in ("rzi", "osv1"):
+        trains, bounds = _pulse_group_trains(fam, caps)
+        want = _group_call(fam, pack(trains), bounds, caps, dev)
+        assert want["ovf"].any() and (~want["ovf"]).any()
+        return
     if fam == "ppm":
         trains = ppm_edges() + ppm_cap_trains(caps) + length_trains(
             fam, family_devices(fam), 29)
@@ -454,11 +493,13 @@ def test_slice_kernel_planted_group_trains(fam, caps):
     assert want["ovf"].any() and (~want["ovf"]).any()
 
 
-@pytest.mark.parametrize("fam", ["ppm", "mc", "pwm", "dmc", "piwm_dc"])
+@pytest.mark.parametrize("fam", ["ppm", "mc", "pwm", "dmc", "piwm_dc", "rzi",
+                                 "osv1"])
 def test_slice_kernel_groups_at_the_mixed_shapes(fam):
     """The mixed streams' calls: a few trains of tens to 1200 pulses in a
     bucket of 2048, every spec of the family in the registry (MC 41, PWM
-    91, DMC 6, PIWM-DC 4, PPM all of its), the plan's own choice."""
+    91, DMC 6, PIWM-DC 4, RZI and OSV1 one each, PPM all of its), the
+    plan's own choice."""
     from rtl_433_tpu_torch.ops import slice as sl
     from torch_slice_cases import (BANK_CAPS, RATE, family_devices,
                                    length_trains, pack)

@@ -15,6 +15,8 @@ package's tests/test_device_slice.py. PCM trains with widths on a bit
 period's half raise the float-boundary flag on the same lanes in both.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -28,9 +30,11 @@ from rtl_433_tpu_torch.pulse.data import PulseData
 from torch_slice_cases import (BANK_CAPS, DMC_SYMS, PIWM_DC_SYMS, RATE,
                                SMALL_CAPS, cap_trains, dmc_edges,
                                family_devices, family_trains, length_trains,
-                               mc_edge_devs, mc_edges, pack, piwm_dc_edges,
-                               ppm_cap_trains, ppm_edge_bounds, ppm_edges,
-                               pwm_edge_dev, pwm_edges, symbol_cap_trains,
+                               mc_edge_devs, mc_edges, osv1_edges, pack,
+                               piwm_dc_edges, ppm_cap_trains,
+                               ppm_edge_bounds, ppm_edges, pulse_cap_trains,
+                               pulse_edge_bounds, pwm_edge_dev, pwm_edges,
+                               rzi_edges, symbol_cap_trains,
                                symbol_edge_bounds)
 
 FAMS = list(tslice.FAMILIES)
@@ -248,14 +252,94 @@ def test_piwm_dc_edge_trains_match_jax(caps):
 
 
 @pytest.mark.parametrize("caps", ["bank", "small"])
-@pytest.mark.parametrize("fam", ["ppm", "mc", "pwm", "dmc", "piwm_dc"])
+def test_rzi_edge_trains_match_jax(caps):
+    """Runs that span several words, share their edge words and pass the
+    row's bits; a flush that emits nothing (a reset gap before any 1); a
+    pulse that opens a message (no base offset) beside one that does not;
+    a negative num (spec 1); an event of zeros; events past E; and each
+    of them behind 1 to 31 pulses of a flushed event, so that every case
+    also falls on a tile's first and last thread."""
+    caps = BANK_CAPS["rzi"] if caps == "bank" else SMALL_CAPS
+    edges = rzi_edges()
+    trains = edges + pulse_cap_trains("rzi", caps)
+    for k, (p, g) in enumerate(edges[:-1] * 7):
+        lead = 1 + k % 31
+        trains.append(([150] * lead + p, [200] * (lead - 1) + [1500] + g))
+    _d, _t, want, got = _run_both("rzi", caps, trains=trains,
+                                  bounds=pulse_edge_bounds("rzi"))
+    _same(want, got, "rzi edges")
+    E, R, BY = caps
+    # the wide runs pass the row's bits in one event
+    assert want["n_events"][0, 0] == 1 and want["ovf"][0, 0]
+    assert want["bits_per_row"][0, 0, 0, 0] == 376
+    # two empty candidates emit nothing; 2 ones and a 0, then an empty
+    # candidate at the last pulse
+    assert want["n_events"][1, 0] == 1
+    assert want["bits_per_row"][1, 0, :2, 0].tolist() == [3, 0]
+    # a 60-wide pulse is a 1 where it opens a message, else nothing
+    assert want["n_events"][2, 0] == 3
+    assert want["bits_per_row"][2, 0, :, 0].tolist() == [2, 2, 3, 0][:E]
+    # spec 1's base offset makes num negative: no ones
+    assert want["bits_per_row"][3, :2, 0, 0].tolist() == [17, 9]
+    # zeros alone make an event
+    assert want["n_events"][4, 0] == 1
+    assert want["bits_per_row"][4, 0, 0, 0] == 3
+    if caps == BANK_CAPS["rzi"]:
+        # 33 ones, a 0, then the next run from bit 34
+        assert want["bytes"][0, 0, 0, 0, :5].tolist() == [255] * 4 + [191]
+        assert want["bytes"][2, 0, :3, 0, 0].tolist() == [128, 128, 192]
+        assert not want["bytes"][4, 0].any()
+    # the lead's event, then the case's own, on every offset
+    assert (want["n_events"][len(edges) + 3:, 0] >= 2).all()
+
+
+@pytest.mark.parametrize("caps", ["bank", "small"])
+def test_osv1_edge_trains_match_jax(caps):
+    """Preambles of 11, 12 and 13 pulses; pulse 11 with its gap at hmax
+    (no break there); a corrupt preamble; a sync whose gap is not the
+    longer; a failed sync; a flush at the last pulse and at a reset gap; a
+    train that ends on its sync; more than 8 * BY bits, with two and with
+    over a hundred ones clipped into the row's last byte (phase 0 crosses
+    the tile of 8 pulses on every train)."""
+    caps = BANK_CAPS["osv1"] if caps == "bank" else SMALL_CAPS
+    trains = osv1_edges() + pulse_cap_trains("osv1", caps)
+    _d, _t, want, got = _run_both("osv1", caps, trains=trains,
+                                  bounds=pulse_edge_bounds("osv1"))
+    _same(want, got, "osv1 edges")
+    E, R, BY = caps
+    # only the 12-pulse preamble leads to a sync that passes
+    assert want["n_events"][:10, 0].tolist() == [0, 1, 0, 0, 0, 1, 0, 1, 1,
+                                                  0]
+    assert want["bits_per_row"][6, 0, 0, 0] == 0
+    # the sync alone: its 0
+    assert want["bits_per_row"][9, 0, 0, 0] == 1
+    # no 0 from the sync: the first data pulse is a 1 at bit 0
+    assert want["bytes"][5, 0, 0, 0, 0] >= 128
+    # bit 2k a 1 up to bit 2n - 2: 323 and 449 bits
+    assert want["bits_per_row"][10:12, 0, 0, 0].tolist() == [323, 449]
+    assert want["ovf"][10:, 0].all() if caps == BANK_CAPS["osv1"] \
+        else want["ovf"][[1, 5, 7, 10, 11, 12], 0].all()
+    assert (want["n_events"][10:, 0] == 1).all()
+    if caps == BANK_CAPS["osv1"]:
+        # 0b10101010 and the clipped ones: 2, then 65
+        assert want["bytes"][10:12, 0, 0, 0, BY - 1].tolist() == [172, 235]
+
+
+@pytest.mark.parametrize("caps", ["bank", "small"])
+@pytest.mark.parametrize("fam", ["ppm", "mc", "pwm", "dmc", "piwm_dc", "rzi",
+                                 "osv1"])
 def test_cap_trains_match_jax(fam, caps):
-    """Trains past the events, rows and row-bits caps, one cap each: the
-    planted lane is flagged on every one (on the cursors before the
-    flush) and every plane still equals JAX's, the writes past the caps
-    dropped."""
+    """Trains past the events, rows and row-bits caps, one cap each (RZI
+    and OSV1 write row 0 alone, OSV1 one event: a run past the row's bits
+    and more bits instead): the planted lane is flagged on every one (on
+    the cursors before the flush) and every plane still equals JAX's, the
+    writes past the caps dropped."""
     caps = BANK_CAPS[fam] if caps == "bank" else SMALL_CAPS
-    if fam == "ppm":
+    if fam in ("rzi", "osv1"):
+        _d, _t, want, got = _run_both(fam, caps,
+                                      trains=pulse_cap_trains(fam, caps),
+                                      bounds=pulse_edge_bounds(fam))
+    elif fam == "ppm":
         _d, _t, want, got = _run_both(fam, caps, trains=ppm_cap_trains(caps),
                                       bounds=ppm_edge_bounds())
     elif fam in ("dmc", "piwm_dc"):
@@ -270,25 +354,42 @@ def test_cap_trains_match_jax(fam, caps):
     _same(want, got, f"{fam} caps")
     E, R, BY = caps
     assert want["ovf"][:, 0].all()
-    assert want["n_events"][0, 0] > E
-    assert want["num_rows"][1, 0].max() > R
+    if fam == "osv1":
+        assert (want["n_events"][:, 0] == 1).all()
+    else:
+        assert want["n_events"][0, 0] > E
+    if fam in ("rzi", "osv1"):
+        assert want["bits_per_row"][1, 0].max() > 8 * BY
+    else:
+        assert want["num_rows"][1, 0].max() > R
     assert want["bits_per_row"][2, 0].max() > 8 * BY
 
 
-@pytest.mark.parametrize("fam", ["ppm", "mc", "pwm", "dmc", "piwm_dc"])
+@pytest.mark.parametrize("fam", ["ppm", "mc", "pwm", "dmc", "piwm_dc", "rzi",
+                                 "osv1"])
 def test_length_trains_match_jax(fam):
     """Trains of 1, 31, 32, 33 and 1200 pulses: inside one tile of 32,
     on its edge, across it, and over 38 tiles; for DMC and PIWM-DC, whose
-    tiles hold 32 symbols (16 pulses), of 1, 15, 16, 17 and 1200 pulses."""
+    tiles hold 32 symbols (16 pulses), of 1, 15, 16, 17 and 1200 pulses;
+    for RZI and OSV1 also of 7, 8, 9, 12 and 13 (around a tile of 8, and
+    OSV1's preamble and sync)."""
     devs = family_devices(fam)
     lengths = (1, 15, 16, 17, 1200) if fam in tslice.SYMBOL_FAMILIES \
-        else (1, 31, 32, 33, 1200)
+        else (1, 7, 8, 9, 12, 13, 31, 32, 33, 1200) \
+        if fam in ("rzi", "osv1") else (1, 31, 32, 33, 1200)
     trains = length_trains(fam, devs, 17, lengths)
     assert [len(p) for p, _g in trains] == list(lengths)
     _d, _t, want, got = _run_both(fam, BANK_CAPS[fam], trains=trains,
                                   devs=devs)
     _same(want, got, f"{fam} lengths")
-    assert want["n_events"][4].sum() > 20
+    if fam == "osv1":
+        # one frame a train; every train past its sync and first data
+        # pulses flushes it
+        long_ = np.asarray(lengths) > 13
+        assert (want["n_events"][long_] == 1).all()
+        assert not want["n_events"][~long_].any()
+    else:
+        assert want["n_events"][-1].sum() > 20
 
 
 @pytest.mark.parametrize("fam", FAMS)
@@ -399,28 +500,37 @@ def test_table_columns_invert_bound_table(fam):
 
 _CAPS_IN_USE = sorted(set(BANK_CAPS.values()) | {
     SMALL_CAPS, tslice.SliceCaps(16, 24, 40), tslice.SliceCaps(16, 64, 64)})
+# the families the walk runs (one thread per lane)
+WALK_FAMILIES = [f for f in FAMS if f not in tslice.GROUP_FAMILIES]
+
+
+def test_the_walk_runs_pcm_and_nrzs_alone():
+    assert WALK_FAMILIES == ["pcm", "nrzs"]
+    assert sorted(tslice.GROUP_FAMILIES) == sorted(
+        ["ppm", "mc", "pwm", "dmc", "piwm_dc", "rzi", "osv1"])
 
 
 @pytest.mark.parametrize("N", [64, 2048, 8192])
 @pytest.mark.parametrize("caps", _CAPS_IN_USE, ids=str)
 def test_launch_plan_fits_every_cap_set_in_use(caps, N):
     """The bank's caps, the tests' caps, the drain's longest bucket (2048
-    pulses) and the long-train case (8192): blocks of 64 lanes, or 32
-    where S <= 32 or 64 would not fit, inside the 227 KB a block may use;
-    each lane's stage an odd multiple of 16 bytes that holds its staged
-    events' rows (padded to words) and counts."""
+    pulses) and the long-train case (8192), for PCM and NRZS: blocks of
+    64 lanes, or 32 where S <= 32 or 64 would not fit, inside the 227 KB
+    a block may use; each lane's stage an odd multiple of 16 bytes that
+    holds its staged events' rows (padded to words) and counts."""
     E, R, BY = caps
-    for B in (1, 64, 256, 4096):
-        for S in (1, 29, 32, 33, 125, 1000):
-            lanes, every, sb, smem = tslice.launch_plan(B, S, N, caps)
-            assert lanes in (32, 64) and lanes % 32 == 0
-            if S <= 32:
-                assert lanes == 32
-            es = E if every else 1
-            assert sb == tslice.stage_bytes(caps, es) and sb % 32 == 16
-            assert sb >= es * (R * (-(-BY // 4) * 4) + 8 * R + 4)
-            assert smem == -(-8 * N // 16) * 16 + min(S, lanes) * sb
-            assert smem <= tslice.SMEM_MAX
+    for B, S, fam in itertools.product((1, 64, 256, 4096),
+                                       (1, 29, 32, 33, 125, 1000),
+                                       WALK_FAMILIES):
+        lanes, every, sb, smem = tslice.launch_plan(B, S, N, caps, fam=fam)
+        assert lanes in (32, 64) and lanes % 32 == 0
+        if S <= 32:
+            assert lanes == 32
+        es = E if every else 1
+        assert sb == tslice.stage_bytes(caps, es) and sb % 32 == 16
+        assert sb >= es * (R * (-(-BY // 4) * 4) + 8 * R + 4)
+        assert smem == -(-8 * N // 16) * 16 + min(S, lanes) * sb
+        assert smem <= tslice.SMEM_MAX
 
 
 @pytest.mark.parametrize("B,S,caps,every", [
@@ -436,7 +546,7 @@ def test_launch_plan_stages_every_event_where_the_grid_fits_at_once(
     specs each) then fit on the card's 132 SMs at once, by shared memory;
     else one event, the denser plan."""
     caps = tslice.SliceCaps(*caps)
-    lanes, got, sb, smem = tslice.launch_plan(B, S, 64, caps)
+    lanes, got, sb, smem = tslice.launch_plan(B, S, 64, caps, fam="pcm")
     assert got == every
     blocks = B * -(-S // lanes)
     if every:
@@ -451,11 +561,12 @@ def test_launch_plan_stages_every_event_where_the_grid_fits_at_once(
 
 @pytest.mark.parametrize("caps,N", [((4, 64, 1024), 64), ((4, 16, 40), 30000)])
 def test_launch_plan_raises_where_32_lanes_do_not_fit(caps, N):
-    with pytest.raises(ValueError, match="shared memory"):
-        tslice.launch_plan(8, 100, N, tslice.SliceCaps(*caps))
+    for fam in WALK_FAMILIES:
+        with pytest.raises(ValueError, match="shared memory"):
+            tslice.launch_plan(8, 100, N, tslice.SliceCaps(*caps), fam=fam)
 
 
-# ---- the groups' launch plan (PPM, MC, PWM, DMC, PIWM-DC)
+# ---- the groups' launch plan (PPM, MC, PWM, DMC, PIWM-DC, RZI, OSV1)
 
 @pytest.mark.parametrize("N", [1, 12, 64, 1200, 8192])
 @pytest.mark.parametrize("caps", _CAPS_IN_USE, ids=str)
@@ -487,7 +598,10 @@ def test_launch_plan_groups_fit_every_cap_set_in_use(fam, caps, N):
     ("ppm", 17, 32), ("ppm", 1200, 32),
     ("dmc", 1, 8), ("dmc", 4, 8), ("dmc", 5, 16), ("dmc", 8, 16),
     ("dmc", 9, 32), ("dmc", 1200, 32), ("piwm_dc", 4, 8),
-    ("piwm_dc", 5, 16), ("piwm_dc", 9, 32)])
+    ("piwm_dc", 5, 16), ("piwm_dc", 9, 32), ("rzi", 1, 8), ("rzi", 8, 8),
+    ("rzi", 9, 16), ("rzi", 16, 16), ("rzi", 17, 32), ("rzi", 1200, 32),
+    ("osv1", 8, 8), ("osv1", 12, 16), ("osv1", 13, 16), ("osv1", 17, 32),
+    ("osv1", 2048, 32)])
 def test_launch_plan_group_size_follows_n(fam, N, g):
     """A group per lane of 8, 16 or 32 threads by the lane's steps: N
     pulses, or for DMC and PIWM-DC 2N symbols."""

@@ -481,13 +481,18 @@ def cap_trains(fam, dev, caps):
 
 def length_trains(fam, devs, seed, lengths=(1, 31, 32, 33, 1200)):
     """One train of each length in ``lengths``: the family's fuzz trains
-    end to end, cut to the length (over one, two and more tiles of 32)."""
+    end to end, cut to the length (over one, two and more tiles of 32).
+    For OSV1 each fuzz train is a frame whose preamble and sync pass (the
+    second of family_trains), so that a train of 14 pulses or more holds
+    one event."""
     out = []
+    pick = 1 if fam == "osv1" else 0
     for i, n in enumerate(lengths):
         p, g = [], []
         k = 0
         while len(p) < n:
-            tp, tg = family_trains(fam, devs, seed + 1000 * i + k, n=1)[0]
+            tp, tg = family_trains(fam, devs, seed + 1000 * i + k,
+                                   n=pick + 1)[pick]
             p += tp
             g += tg
             k += 1
@@ -667,3 +672,129 @@ def ppm_cap_trains(caps):
     return [_gaps([Z, O, OVER] * (E + 3)),
             _gaps([Z, RB] * (R + 3) + [Z, OVER]),
             _gaps([Z, O] * (4 * BY + 5) + [OVER])]
+
+
+# ---- planted trains for RZI and OSV1 (thread groups over the pulses):
+# planted specs, each family's edge cases, trains past each cap
+
+# bound columns of the planted specs (samples). RZI's spec 0 takes a pulse
+# of k long widths (+- half) as k ones, the base offset 50 where a pulse
+# does not open a message; spec 1's base of 300 makes num negative for
+# short pulses that do not open one. OSV1's spec: hmin 50, hmax 150, a
+# sync at 300 or more
+RZI_SPECS = ({"short": 50, "long": 100, "reset": 1000, "base": 50},
+             {"short": -200, "long": 100, "reset": 1000, "base": 300})
+OSV1_SPECS = ({"short": 100, "reset": 1000},)
+# OSV1 (pulse, gap) pairs for it: PRE a preamble pulse (phase 0 goes on),
+# BRK the preamble's last (its gap over hmax), EDGE a preamble pulse with
+# its gap at hmax (no break), BAD below hmin; SY a sync whose gap is the
+# longer (a 0, the Manchester bit 1), SYN one whose gap is not, SYF one
+# that fails; L/S long and short halves; RST a gap past the reset limit
+OSV1_PAIRS = {"PRE": (100, 100), "BRK": (100, 200), "EDGE": (100, 150),
+              "BAD": (50, 100), "SY": (350, 400), "SYN": (400, 350),
+              "SYF": (250, 400)}
+OSV1_RST = 1500
+
+
+def pulse_edge_bounds(fam):
+    """The planted specs of RZI or OSV1 (lanes 0 and up), then the
+    family's specs in the registry, as ``<fam>_bounds`` gives them."""
+    from rtl_433_tpu_torch.ops import slice as sl
+    planted = RZI_SPECS if fam == "rzi" else OSV1_SPECS
+    reg = getattr(sl, f"{fam}_bounds")(family_devices(fam), RATE)
+    out = {k: np.concatenate([np.asarray([p[k] for p in planted],
+                                         np.int32), reg[k]])
+           for k in planted[0]}
+    out["ok"] = np.concatenate([np.ones(len(planted), bool), reg["ok"]])
+    return out
+
+
+def rzi_edges():
+    """RZI trains for the planted specs: runs of 29 to 99 ones that span
+    several 32-bit words, share their edge words and pass 320 bits; a
+    flush that emits nothing (a reset gap before any 1, twice, and at the
+    last pulse); pulses that open a message (after a flush candidate, 1
+    one) beside pulses that do not (0 ones); short pulses whose num is
+    negative on spec 1; an event of zeros alone; then all of them in one
+    train."""
+    wide = ([3250, 4000, 2990, 7000, 9999, 6400, 120, 3300],
+            [200] * 7 + [1500])
+    empty = ([10, 10, 150, 60, 20], [1500, 1500, 200, 1500, 1500])
+    start = ([60, 60, 60, 60, 160, 60], [200, 1500, 200, 1500, 200, 1500])
+    neg = ([150, 20, 100, 250, 400, 30, 299], [200] * 6 + [1500])
+    zeros = ([10, 10, 10, 10], [200, 200, 200, 1500])
+    parts = [wide, empty, start, neg, zeros]
+    return parts + [tuple(sum((list(t[k]) for t in parts * 3), [])
+                          for k in (0, 1))]
+
+
+def _osv1_frame(pre, sync, data, end_gap):
+    """An OSV1 train: the preamble pairs, the sync pair, then the data
+    pulses and gaps (widths), the last gap replaced by ``end_gap``."""
+    pairs = [OSV1_PAIRS[k] for k in pre] + [OSV1_PAIRS[sync]]
+    p = [a for a, _b in pairs] + list(data[0])
+    g = [b for _a, b in pairs] + list(data[1])
+    if end_gap is not None:
+        g[-1] = end_gap
+    return p, g
+
+
+def _osv1_data(rng, n):
+    """``n`` Manchester half-bit pulses and gaps, short (100) or long."""
+    return ([int(x) for x in rng.choice([100, 200], n)],
+            [int(x) for x in rng.choice([100, 200], n)])
+
+
+def osv1_edges(seed=3):
+    """OSV1 trains for the planted spec: preambles of 11, 12 and 13 pulses
+    (the break on pulse 10, 11 or 12; only 12 leads to the sync); pulse 11
+    passing with its gap at hmax (no break there: phase 0 goes on past
+    it); a corrupt preamble (a pulse at hmin); a sync whose gap is not the
+    longer (no 0, the first data pulse a 1); a failed sync; a flush at the
+    last pulse and at a reset gap (a second frame after it is not read);
+    a train that ends on its sync; and frames of more than 320 bits whose
+    ones past the row's last bit are added into its last byte (two, and
+    over a hundred)."""
+    rng = np.random.default_rng(seed)
+    pre = ["PRE"] * 11 + ["BRK"]
+    d = lambda n: _osv1_data(rng, n)
+    trains = [_osv1_frame(["PRE"] * 10 + ["BRK"], "SY", d(20), OSV1_RST),
+              _osv1_frame(pre, "SY", d(20), OSV1_RST),
+              _osv1_frame(["PRE"] * 12 + ["BRK"], "SY", d(20), OSV1_RST),
+              _osv1_frame(["PRE"] * 11 + ["EDGE", "BRK"], "SY", d(20),
+                          OSV1_RST),
+              _osv1_frame(["PRE"] * 4 + ["BAD"] + ["PRE"] * 6 + ["BRK"],
+                          "SY", d(20), OSV1_RST),
+              _osv1_frame(pre, "SYN", d(30), OSV1_RST),
+              _osv1_frame(pre, "SYF", d(30), OSV1_RST),
+              _osv1_frame(pre, "SY", d(40), None),
+              _osv1_frame(pre, "SY", (d(9)[0] + [200] + d(30)[0],
+                                      d(9)[1] + [OSV1_RST] + d(30)[1]),
+                          None),
+              _osv1_frame(pre, "SY", ([], []), None)]
+    # every pulse a 1 and every gap a 0 (no 0 from the sync): bit 2k is a
+    # 1, so 162 pulses put two ones past bit 319, 225 over a hundred
+    trains += [_osv1_frame(pre, "SYN", ([200] * n, [200] * n), OSV1_RST)
+               for n in (162, 225)]
+    trains += [_osv1_frame(pre, "SY", d(260), None)]
+    return trains
+
+
+def pulse_cap_trains(fam, caps):
+    """Trains past each cap of ``caps`` that the family can pass, for the
+    planted spec 0 of RZI or OSV1 (lane 0); both write row 0 alone, and
+    OSV1 at most one event. RZI: more events than E, one pulse whose run
+    passes 8 * BY bits, more bits in one row than 8 * BY. OSV1: more than
+    8 * BY bits ending on a reset gap, at the last pulse, and with ones
+    clipped into the last byte."""
+    E, R, BY = caps
+    if fam == "rzi":
+        return [([150] * (E + 3), [1500] * (E + 3)),
+                ([100 * (8 * BY + 20)], [1500]),
+                ([150, 60] * (4 * BY + 5), [200] * (8 * BY + 9) + [1500])]
+    n = 4 * BY + 8
+    pre = ["PRE"] * 11 + ["BRK"]
+    return [_osv1_frame(pre, "SY", ([100, 200] * n, [200, 100] * n),
+                        OSV1_RST),
+            _osv1_frame(pre, "SY", ([100] * 2 * n, [100] * 2 * n), None),
+            _osv1_frame(pre, "SYN", ([200] * n, [200] * n), OSV1_RST)]
