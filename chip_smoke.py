@@ -44,14 +44,17 @@ Phases, each printing one JSON line (any failure exits non-zero):
               that flag most lanes, and csrc/dispatch.cu's content dedup
               and record gather on those outputs and on planes with
               planted repeats (also at odd shapes, rows of 13 bytes,
-              5 rows, counts of -1 and R + 1, near repeats);
+              5 rows, counts of -1 and R + 1, near repeats), and the
+              gather once more over every family's output in one call;
 4d. decl_bank -- the declarative decode bank's kernel (csrc/decl_bank.cu)
               against its plain version, bit-exact on code and raws, on a
               fuzz batch of 8192 candidates over all 77 specs
               (tests/torch_decl_cases.py: the oracle vectors' candidates,
               flipped, inverted and with stale stored bits; planted
-              preambles, Manchester rows, n from 0 to 512); its device
-              time, the plain version's and the bound;
+              preambles, Manchester rows, n from 0 to 512), also
+              against the sparse evaluation's plain emulation; the sparse
+              tables' size; its device time, the plain version's and the
+              bound;
 4e. mic   -- each of the twelve MIC digests (csrc/mic.cu) at 65536 rows,
               with the nbytes/poly/key cases of tests/test_mic_kernels.py,
               uint8 and int32 rows, bit-exact against the plain version and
@@ -160,8 +163,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
               at its fuzz call), and per path (fixtures, mixed_250k,
               mixed_1024k, the dense_4096 drain) their device ms summed
               over every recorded call of that path (ms_by_path beside
-              calls_by_path and launches_by_path), each beside the floor
-              of any launch (launch_floor_ms, the chain's); the time-shard
+              calls_by_path, launches_by_path and us_per_call_by_path),
+              each beside the floor of any launch (launch_floor_ms, the
+              chain's); the gather also with its launches per dense_4096
+              drain and per prewarm on every path (a prewarm that makes
+              more than three fails the run); the time-shard
               chain
               and gather with their launches on the timeshard phase and
               their times at its first lacrosse_tx35 call at the most
@@ -567,6 +573,39 @@ def kernel_timers(spans):
         _cuda._fns.update(old)
 
 
+@contextlib.contextmanager
+def prewarm_gathers(counts):
+    """Append to ``counts`` the gather launches that each
+    Registry.prewarm_trains call makes (its passes: the MIC gates'
+    representatives of each side and the drain-wide freeze); a prewarm
+    that makes more than three fails the run."""
+    from rtl_433_tpu_torch.decoders import base as dbase
+    from rtl_433_tpu_torch.ops import _cuda
+    real = dbase.Registry.prewarm_trains
+
+    def run(self, *a, **k):
+        before = _cuda.LAUNCHES["gather_records"]
+        try:
+            return real(self, *a, **k)
+        finally:
+            counts.append(_cuda.LAUNCHES["gather_records"] - before)
+            if counts[-1] > 3:
+                fail(f"a prewarm made {counts[-1]} gather launches")
+    with patched((dbase.Registry, "prewarm_trains", run)):
+        yield
+
+
+def gathers_per_prewarm(counts):
+    """The gather launches per prewarm of one path: prewarms, those that
+    launched, launches, their mean over the prewarms that launched, the
+    most."""
+    hit = [c for c in counts if c]
+    return {"prewarms": len(counts), "prewarms_that_gathered": len(hit),
+            "launches": sum(counts),
+            "mean": sum(hit) / len(hit) if hit else 0.0,
+            "max": max(counts, default=0)}
+
+
 def span_ms(spans):
     import torch
     torch.cuda.synchronize()
@@ -693,7 +732,7 @@ def ds_recorder(calls, dcalls=None, host_calls=None):
     from rtl_433_tpu_torch.ops import decode_bank as dbk
     from rtl_433_tpu_torch.ops import slice as sl
     slice_cuda, dup, gather = (sl.slice_cuda, ddp._content_dup,
-                               ddp._gather_records)
+                               ddp._gather_many)
     run_torch, decode_many = dbk.run_torch, declarative.DeclRunner.decode_many
 
     def rec_bank(bank, bits, n_bits, sid, n_store=None):
@@ -715,13 +754,14 @@ def ds_recorder(calls, dcalls=None, host_calls=None):
             "bytes", "num_rows", "bits_per_row", "syncs")},)))
         return dup(out)
 
-    def rec_gather(by, sy, bs, js, es):
-        calls.append(("gather_records", (by, sy, np.array(bs), np.array(js),
-                                         np.array(es))))
-        return gather(by, sy, bs, js, es)
+    def rec_gather(groups):
+        groups = [(by, sy, *(np.array(a) for a in idx))
+                  for by, sy, *idx in groups]
+        calls.append(("gather_records", (groups,)))
+        return gather(groups)
 
     with patched((sl, "slice_cuda", rec_slice), (ddp, "_content_dup", rec_dup),
-                 (ddp, "_gather_records", rec_gather),
+                 (ddp, "_gather_many", rec_gather),
                  (dbk, "run_torch", rec_bank),
                  (declarative.DeclRunner, "decode_many", rec_many)):
         yield
@@ -750,14 +790,14 @@ def ds_fns(kind, args):
         from rtl_433_tpu_torch.ops import decode_bank as dbk
         return ("decl_bank", lambda: dbk.run_torch(*args),
                 lambda: dbk.run_torch_plain(*args), list, ("code", "raws"))
-    by, sy, bs, js, es = args
-    idx = [torch.from_numpy(a.astype(np.int64)).to(by.device)
-           for a in (bs, js, es)]
-    return ("gather_records",
-            lambda: ddp._gather_records(by, sy, bs, js, es),
-            lambda: ddp._gather_records_plain(by, sy, *idx),
-            lambda o: [torch.as_tensor(x).to(by.device) for x in o],
-            ("bytes", "syncs"))
+    groups, = args
+    dev = groups[0][0].device
+    return ("gather_records", lambda: ddp._gather_many(groups),
+            lambda: ddp._gather_many_plain(groups),
+            lambda o: [torch.as_tensor(x).to(dev) for pair in o
+                       for x in pair],
+            tuple(f"{k}[{f}]" for f in range(len(groups))
+                  for k in ("bytes", "syncs")))
 
 
 def ds_check(calls, compare, what, flagged=None):
@@ -806,10 +846,14 @@ def ds_cost(kind, args):
         return nbytes, nbytes, list(planes["bytes"].shape)
     if kind == "decl_bank":
         return decl_cost(*args)
-    by, _sy, bs, _js, _es = args
-    B, J, E, R, W = by.shape
-    P = len(bs)
-    return 2 * P * (R * W + 4 * R) + 12 * P, 0, [P, R, W]
+    # the batched gather: each record's bytes and syncs read and written
+    # once, its (family, b, j, e) and each family's table row read once
+    groups, = args
+    nbytes = 80 * len(groups)
+    for by, _sy, bs, _js, _es in groups:
+        R, W = by.shape[3:]
+        nbytes += len(bs) * (2 * (R * W + 4 * R) + 16)
+    return nbytes, 0, [len(groups), sum(len(g[2]) for g in groups)]
 
 
 def dup_all_plane_bytes(planes):
@@ -837,31 +881,32 @@ def dup_live_bytes(planes):
 def ds_timed(kind, args):
     """A recorded call as it is timed: (kernel name, the kernel call, the
     library call or None). The gather is timed at its launcher alone (the
-    wrapper's index upload and the copy of the result to the host would
-    end each call with a sync); the library call is index_select of the
-    kept records' bytes and syncs."""
+    wrapper's table upload and the copy of the result to the host would
+    end each call with a sync), every family of the call in its one
+    launch; the library call is index_select of each family's kept
+    records' bytes and syncs."""
     import torch
+    from rtl_433_tpu_torch.decoders import device_dispatch as ddp
     from rtl_433_tpu_torch.ops import _cuda
     name, kern, _plain, _outs, _names = ds_fns(kind, args)
     if kind != "gather_records":
         return name, kern, None
-    by, sy, bs, js, es = args
-    B, J, E, R, W = by.shape
-    P = len(bs)
-    ix = torch.from_numpy(np.stack([bs, js, es]).astype(np.int32))\
-        .to(by.device)
-    ob = torch.empty((P, R, W), dtype=torch.uint8, device=by.device)
-    osy = torch.empty((P, R), dtype=torch.int32, device=by.device)
-    a = (by.data_ptr(), sy.data_ptr(), ix[0].data_ptr(),
-         ix[1].data_ptr(), ix[2].data_ptr(), P, J, E, R, W,
-         ob.data_ptr(), osy.data_ptr(), _cuda.stream_of(by))
-    # the default arguments keep the buffers the launch writes
+    groups = ddp._gather_groups(args[0])
+    meta, out, P, _parts, keep = ddp._gather_plan(groups)
+    a = (meta.data_ptr(), len(groups), P, out.data_ptr(),
+         _cuda.stream_of(out))
+    # the default arguments keep the buffers the launch reads and writes
     kern = (lambda fn=_cuda.launcher("gather_records"), a=a,
-            keep=(ix, ob, osy): fn(*a))
-    flat = ((ix[0].long() * J + ix[1].long()) * E + ix[2].long())
-    fb, fs = by.reshape(B * J * E, R * W), sy.reshape(B * J * E, R)
-    return name, kern, lambda: (fb.index_select(0, flat),
-                                fs.index_select(0, flat))
+            keep=(meta, out, keep): fn(*a))
+    lib = []
+    for by, sy, bs, js, es in groups:
+        B, J, E, R, W = by.shape
+        flat = torch.from_numpy((bs * J + js) * E + es).to(by.device)
+        lib.append((by.reshape(B * J * E, R * W), sy.reshape(B * J * E, R),
+                    flat))
+    return name, kern, lambda: [(fb.index_select(0, f),
+                                 fs.index_select(0, f))
+                                for fb, fs, f in lib]
 
 
 def ds_path_ms(calls):
@@ -918,39 +963,37 @@ def ds_measure(calls):
 def decl_cost(bank, bits, n_bits, sid, n_store=None):
     """(bytes, int32 operations, shape) of one decode-bank call: the
     candidates' bits, lengths and spec ids read once, code and raws
-    written once; per spec present its spec row and the weight tables it
-    reads, each once: the table of each live check slot (GF(2) or
-    additive, by its kind) and of each of its field rows. Per candidate
-    the preamble offsets its search tries up to its first match (one
-    compare, xor and mask per pattern word), the frame (an extraction and
-    a select per bit, two more for Manchester) and each live check slot
-    and field row (a select and a sum per bit)."""
+    written once; per spec present its spec row and the non-zero entries
+    of its live check slots and field rows (a frame bit and a weight, 8
+    bytes each: the sparse tables without their padding), each once. Per
+    candidate the preamble offsets its search tries up to its first match
+    (one compare, xor and mask per pattern word), the frame as words
+    (six word operations per frame word: the shift, four masks, the
+    invert; twelve more for Manchester) and three operations per
+    non-zero entry of its spec (the bit, the select, the XOR or add)."""
     import torch
     from rtl_433_tpu_torch.ops import decode_bank as dbk
     tabs = dbk.bank_tables(bank, bits.device)
     B, IN = bits.shape
     FB, C, R = bank.frame_bits, bank.n_checks, bank.n_raws
     PW = (bank.pat_len + 31) // 32
-
-    def live_slots(sp):
-        return sum((sp[:, dbk.SP_CHECKS + dbk.CK_FIELDS * c]
-                    != dbk.CK_OFF).long() for c in range(C))
-
-    present = tabs["spec"][torch.unique(sid).long()]
-    tables = int((live_slots(present) + present[:, dbk.SP_NRAW]).sum())
-    nbytes = B * (IN + 12 + 4 + 4 * R) + 4 * present.numel() \
-        + 4 * FB * tables
+    NF = -(-FB // 32)
+    start = tabs["chunk_start"].long()
+    live = (tabs["entries"][:, 1] != 0).long()
+    nz = torch.cat([live.new_zeros(1), live.cumsum(0)])[dbk.CHUNK * start]
+    nz_spec = nz[1:] - nz[:-1]                               # [S]
+    present = torch.unique(sid).long()
+    nbytes = B * (IN + 12 + 4 + 4 * R) \
+        + 4 * tabs["spec"][present].numel() + 8 * int(nz_spec[present].sum())
     s = sid.long()
     n = n_bits.long()
     found, pos = dbk.preamble_plain(bank, tabs, bits, n, s)
     plen = tabs["plen"][s].long()
-    start = tabs["pre_start"][s].long().clamp(min=0)
+    start_t = tabs["pre_start"][s].long().clamp(min=0)
     end = torch.where(found, pos + 1, (n - plen + 1).clamp(max=IN))
-    tried = torch.where(plen > 0, (end - start).clamp(min=0), 0)
-    sp = tabs["spec"][s]
-    live = live_slots(sp)
-    per = FB * (2 + 2 * live + 2 * sp[:, dbk.SP_NRAW].long()
-                + 2 * (tabs["transform"][s] == dbk.TF_MANCHESTER).long())
+    tried = torch.where(plen > 0, (end - start_t).clamp(min=0), 0)
+    mc = (tabs["transform"][s] == dbk.TF_MANCHESTER).long()
+    per = NF * (6 + 12 * mc) + 3 * nz_spec[s]
     ops = int((tried * 3 * PW).sum() + per.sum())
     return nbytes, ops, [B, IN, FB, C, R]
 
@@ -1244,7 +1287,7 @@ def compact_measure(ins, cap):
         "cap": cap, "count": int(valid.sum())}
 
 
-def multichannel(dev, mesh, compare, ds_kernels, mh_dir,
+def multichannel(dev, mesh, compare, ds_kernels, mh_dir, gathers,
                  channels=MC_CHANNELS, n=N_BLOCK, n_blocks=MC_BLOCKS,
                  n_sample=MC_SAMPLE, cap=MC_CAP):
     """Phase 6b: bench.py's signal-dense workload through ShardedEngine on
@@ -1255,7 +1298,8 @@ def multichannel(dev, mesh, compare, ds_kernels, mh_dir,
     noise floor per block). ``ds_kernels``: the device-slicing kernels the
     default registration must launch. Each of the MH_PROCS processes' rows
     of every rotation block is saved to ``mh_dir`` for the multihost
-    phase."""
+    phase. ``gathers`` collects the gather launches of each prewarm of
+    the device-slicing pass's timed drains (prewarm_gathers)."""
     from collections import Counter
 
     import torch
@@ -1598,7 +1642,8 @@ def multichannel(dev, mesh, compare, ds_kernels, mh_dir,
             d_acc = {}
             count_memo_builds(eng, d_acc)
             _cuda.reset_launches()
-            ds_ev, ds_wall = timed_blocks(eng, d_acc)
+            with prewarm_gathers(gathers):
+                ds_ev, ds_wall = timed_blocks(eng, d_acc)
             ds_launches = {k: _cuda.LAUNCHES[k] for k in ds_kernel_names()}
             ds_pre = prewarm_ms(ds_acc, spans, n_blocks)
         if as_json(ds_ev) != inline_json:
@@ -2426,7 +2471,7 @@ def main():
     from torch_slice_cases import (BANK_CAPS, SMALL_CAPS, dup_edge_planes,
                                    dup_planes, family_devices, family_trains,
                                    pack)
-    fuzz, fuzz_calls = {}, {}
+    fuzz, fuzz_calls, every_family = {}, {}, []
     for i, fam in enumerate(sl.FAMILIES):
         devs = family_devices(fam)
         bounds = getattr(sl, f"{fam}_bounds")(devs, 250_000)
@@ -2436,10 +2481,12 @@ def main():
             calls = [("slice", (fam, *args, bounds, caps))]
             ds_check(calls, compare, f"fuzz, {cname} caps")
             got = sl.slice_cuda(fam, *args, bounds, caps)
+            group = (got["bytes"], got["syncs"], *(
+                rng.integers(0, n, 64 + 3 * i).astype(np.int32)
+                for n in got["num_rows"].shape))
+            every_family.append(group)
             calls = [("content_dup", ({k: got[k] for k in SLICE_OUTS[:4]},)),
-                     ("gather_records", (got["bytes"], got["syncs"], *(
-                         rng.integers(0, n, 64).astype(np.int32)
-                         for n in got["num_rows"].shape)))]
+                     ("gather_records", ([group],))]
             ds_check(calls, compare, f"{fam} fuzz output, {cname} caps")
             fuzz[f"{fam}/{cname}"] = {
                 "lanes": got["ovf"].numel(), "flagged": int(got["ovf"].sum()),
@@ -2449,6 +2496,11 @@ def main():
                 # keeps it
                 tab = torch.from_numpy(sl.bound_table(fam, bounds)).to(dev)
                 fuzz_calls[fam] = [("slice", (fam, *args, tab, caps))]
+    # the batched gather: every family's fuzz output at both caps (18
+    # families of four shapes) in one launch
+    ds_check([("gather_records", (every_family,))], compare,
+             "every family's fuzz output, one call")
+    del every_family
     repeats = {}
     for what, planted in (
             ("planted repeats", dup_planes(SEED, B=5, J=7, E=8, R=6, W=20)),
@@ -2482,8 +2534,13 @@ def main():
                            < fz_args[1][:, None])
     ds_check([("decl_bank", (bank, zeroed, *fz_args[1:], None))], compare,
              "fuzz batch, rows zeroed at n")
-    code = dbk.run_torch(bank, *fz_args, fz_ns)[0].cpu().numpy()
+    got = dbk.run_torch(bank, *fz_args, fz_ns)
+    compare("decl_bank", list(got),
+            list(dbk.run_torch_sparse_plain(bank, *fz_args, fz_ns)),
+            ("code", "raws"), "fuzz batch, against the sparse emulation")
+    code = got[0].cpu().numpy()
     decl_fuzz = ds_measure(decl_fuzz_call)["decl_bank"]
+    tabs = dbk.bank_tables(bank, dev)
     emit({"phase": "decl_bank", "candidates": DECL_FUZZ,
           "specs": int(np.unique(fz[2]).size),
           "widths": {"in_bits": bank.in_bits, "frame_bits": bank.frame_bits,
@@ -2492,10 +2549,17 @@ def main():
           "codes": {str(c): int((code == c).sum())
                     for c in np.unique(code)},
           "stale_rows": int((fz[3] > fz[1]).sum()),
+          "sparse_tables": {"chunks": int(tabs["chunk_dir"].numel()),
+                            "entries": int(tabs["entries"].shape[0]),
+                            "nonzero": int((tabs["entries"][:, 1] != 0)
+                                           .sum()),
+                            "bytes": 4 * (tabs["entries"].numel()
+                                          + tabs["chunk_dir"].numel()
+                                          + tabs["chunk_start"].numel())},
           "bit_exact": True, "max_abs_err": errs["decl_bank"],
           **{k: decl_fuzz[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by")}})
-    del fz, fz_args, fz_ns, zeroed, decl_fuzz_call
+    del fz, fz_args, fz_ns, zeroed, decl_fuzz_call, got, tabs
 
     # ---- 4e. mic: the twelve digests through their entry points
     mic_line, mic_rows = mic_phase(dev, compare, rng)
@@ -2594,12 +2658,15 @@ def main():
     # dense_4096 drain's)
     ds_ms_by_path = {}
     decl_paths = {}
+    # per path, the gather launches of each prewarm (prewarm_gathers)
+    ds_gathers = {"fixtures": []}
     fx_calls, fx_dcalls = [], []
     _cuda.reset_launches()
     t = time.perf_counter()
     for d, nums, cu8, want in fx:
         calls = []
-        with ds_recorder(calls, fx_dcalls):
+        with ds_recorder(calls, fx_dcalls), \
+                prewarm_gathers(ds_gathers["fixtures"]):
             got = decode(nums, cu8, device_slice=True)
         if got != want:
             fail(f"fixture {d} with device slicing: {got} != {want}")
@@ -2752,9 +2819,10 @@ def main():
         # prewarm's split: the kernels' device ms, the host part of
         # batch_slice, the memo plans, the record freeze
         acc, spans = {}, []
+        ds_gathers[name] = []
         _cuda.reset_launches()
         with dispatch_timers(acc), split_timers(acc), prewarm_timers(acc), \
-                kernel_timers(spans):
+                kernel_timers(spans), prewarm_gathers(ds_gathers[name]):
             torch.cuda.synchronize()
             t = time.perf_counter()
             got = decode(None, path, device_slice=True)
@@ -2871,9 +2939,11 @@ def main():
              f"{mesh.size}")
     mh_dir = tempfile.mkdtemp(prefix="chip_smoke_mh_")
     try:
+        ds_gathers["dense_4096"] = []
         (row, mc_launches, kinds["compact"], ds_paths["dense_4096"],
          ds_numbers, decl_paths["dense_4096"], warm_blocks) = multichannel(
-             dev, mesh, compare, default_ds_kernels, mh_dir)
+             dev, mesh, compare, default_ds_kernels, mh_dir,
+             ds_gathers["dense_4096"])
         ds_ms_by_path["dense_4096"] = {
             k: {"ms": v["ms"], "calls": v["calls"]}
             for k, v in ds_numbers.items()}
@@ -2983,11 +3053,23 @@ def main():
             # the bound: the bytes the compare must read (dup_live_bytes);
             # beside it the earlier figure, every plane read once
             rows[-1]["bound_all_planes_ms"] = m["bound_all_planes_ms"]
+        # the mean device us a call, per path
+        rows[-1]["us_per_call_by_path"] = {
+            p: 1e3 * v[k]["ms"] / v[k]["calls"]
+            for p, v in ds_ms_by_path.items() if k in v and v[k]["calls"]}
         if k == "decl_bank":
             rows[-1].update(
                 fuzz={x: decl_fuzz[x] for x in ("ms", "plain_ms",
                                                 "bound_ms", "bound_by")},
                 fuzz_candidates=DECL_FUZZ, by_path=decl_paths)
+        if k == "gather_records":
+            # launches per dense_4096 drain (a prewarm each) and per
+            # prewarm on every path
+            per = {p: gathers_per_prewarm(c) for p, c in ds_gathers.items()}
+            rows[-1].update(
+                launches_per_drain=ds_paths["dense_4096"][k]
+                / max(per["dense_4096"]["prewarms"], 1),
+                launches_per_prewarm=per)
     # the MIC digests: launches and times at the mic phase
     for k, m in mic_rows.items():
         rows.append({

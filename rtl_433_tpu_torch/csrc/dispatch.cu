@@ -34,8 +34,19 @@
 // their lane, each once) and dup written; a call is a few rounds of load
 // latency.
 //
-// gather_records: one CTA per kept record copies its R x W bytes and R
-// syncs into dense [P, R, W] and [P, R] outputs. Bound: the bytes moved.
+// gather_records: the kept records of any number of families' slicer
+// outputs in one launch. A small table gives each family its planes'
+// base pointers (bytes [B, J, E, R, W], syncs [B, J, E, R]), J, E, R, W,
+// its first record and the offsets of its [P_f, R, W] bytes and [P_f, R]
+// syncs in one flat output buffer, which the host copies back once; a
+// record is (family, b, j, e). One warp per record copies its R x W
+// bytes with 16-byte loads and stores where both ends are 16-byte
+// aligned (words where they are 4-byte aligned, else bytes; the tail in
+// bytes) and its R syncs, a word per lane. Bound: the bytes moved (each
+// record's bytes and syncs read and written once, the table and records
+// read once); a drain's few thousand records are a few microseconds of
+// the card, so the launch count, one per materialization pass instead of
+// one per family and per train, is what the redesign buys.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -139,20 +150,49 @@ content_dup_kernel(const uint8_t* __restrict__ bytes,
   if (live) dup[ev0 + t] = found;
 }
 
-__global__ void gather_records_kernel(const uint8_t* __restrict__ bytes,
-                                      const int* __restrict__ syncs,
-                                      const int* __restrict__ bs,
-                                      const int* __restrict__ js,
-                                      const int* __restrict__ es, int J,
-                                      int E, int R, int W, uint8_t* out_b,
-                                      int* out_s) {
-  const int i = blockIdx.x;
-  const size_t src = ((size_t)bs[i] * J + js[i]) * E + es[i];
-  const uint8_t* sb = bytes + src * R * W;
-  uint8_t* db = out_b + (size_t)i * R * W;
-  for (int k = threadIdx.x; k < R * W; k += blockDim.x) db[k] = sb[k];
-  for (int k = threadIdx.x; k < R; k += blockDim.x)
-    out_s[(size_t)i * R + k] = syncs[src * R + k];
+// one family of the batched gather: its row of the int64 table
+enum { GF_BYTES = 0, GF_SYNCS, GF_J, GF_E, GF_R, GF_W, GF_OUT_BYTES,
+       GF_OUT_SYNCS, GF_FIRST, GF_COLS = 10 };
+
+// n bytes from src to dst by the lanes of a warp
+__device__ __forceinline__ void warp_copy(const uint8_t* __restrict__ src,
+                                          uint8_t* __restrict__ dst, int n,
+                                          int lane) {
+  const uintptr_t al = (uintptr_t)src | (uintptr_t)dst;
+  int done = 0;
+  if ((al & 15) == 0) {
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    uint4* d4 = reinterpret_cast<uint4*>(dst);
+    for (int i = lane; i < n >> 4; i += 32) d4[i] = __ldg(s4 + i);
+    done = n & ~15;
+  } else if ((al & 3) == 0) {
+    const unsigned* s1 = reinterpret_cast<const unsigned*>(src);
+    unsigned* d1 = reinterpret_cast<unsigned*>(dst);
+    for (int i = lane; i < n >> 2; i += 32) d1[i] = __ldg(s1 + i);
+    done = n & ~3;
+  }
+  for (int i = done + lane; i < n; i += 32) dst[i] = __ldg(src + i);
+}
+
+__global__ void __launch_bounds__(128)
+gather_records_kernel(const long long* __restrict__ fams,
+                      const int4* __restrict__ recs, int P,
+                      uint8_t* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int i = blockIdx.x * 4 + (threadIdx.x >> 5);
+  if (i >= P) return;  // the whole warp
+  const int4 r = __ldg(recs + i);  // (family, b, j, e)
+  const long long* f = fams + (size_t)GF_COLS * r.x;
+  const int J = (int)f[GF_J], E = (int)f[GF_E];
+  const int R = (int)f[GF_R], W = (int)f[GF_W];
+  const size_t src = ((size_t)r.y * J + r.z) * E + r.w;
+  const size_t k = (size_t)(i - (int)f[GF_FIRST]);
+  const size_t n = (size_t)R * W;
+  warp_copy(reinterpret_cast<const uint8_t*>(f[GF_BYTES]) + src * n,
+            out + f[GF_OUT_BYTES] + k * n, (int)n, lane);
+  const int* sy = reinterpret_cast<const int*>(f[GF_SYNCS]) + src * R;
+  int* ds = reinterpret_cast<int*>(out + f[GF_OUT_SYNCS]) + k * R;
+  for (int q = lane; q < R; q += 32) ds[q] = __ldg(sy + q);
 }
 
 }  // namespace
@@ -170,14 +210,15 @@ extern "C" int rtl433_content_dup(const void* bytes, const void* nrows,
   return (int)cudaGetLastError();
 }
 
-extern "C" int rtl433_gather_records(const void* bytes, const void* syncs,
-                                     const void* bs, const void* js,
-                                     const void* es, int P, int J, int E,
-                                     int R, int W, void* out_b, void* out_s,
-                                     void* stream) {
-  gather_records_kernel<<<P, 128, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)bytes, (const int*)syncs, (const int*)bs,
-      (const int*)js, (const int*)es, J, E, R, W, (uint8_t*)out_b,
-      (int*)out_s);
+// meta: the int64 family table [F, GF_COLS], then the records as int32
+// [P, 4] (16-byte aligned: GF_COLS * 8 is a multiple of 16); a warp per
+// record, four warps a block
+extern "C" int rtl433_gather_records(const void* meta, int F, int P,
+                                     void* out, void* stream) {
+  if (F < 1 || P < 1) return (int)cudaErrorInvalidValue;
+  const long long* fams = (const long long*)meta;
+  gather_records_kernel<<<(P + 3) / 4, 128, 0, (cudaStream_t)stream>>>(
+      fams, reinterpret_cast<const int4*>(fams + (size_t)GF_COLS * F), P,
+      (uint8_t*)out);
   return (int)cudaGetLastError();
 }

@@ -127,6 +127,28 @@ def _decl_symbols():
     return _decl_syms_cache
 
 
+def _mic_representatives(devs, meta, summary, group_of):
+    """The record offsets of a device-sliced train whose bytes
+    ``Registry._memo_plans`` reads for its MIC gates: of each content
+    group of the live (gate-passing), non-stateful rows, the first row's
+    offset, where its spec has a MIC gate. A group holds one spec, so one
+    priority: grouping the rows of all priorities at once gives the
+    representatives the per-priority grouping of ``_memo_plans`` picks."""
+    import numpy as np
+    from .mic_gates import MIC_GATES
+
+    spec_col = summary[:, 0]
+    gated = ((summary[:, 2] < meta["min_rows"][spec_col])
+             | (summary[:, 3] < meta["min_bits"][spec_col])
+             | (summary[:, 2] > meta["max_rows"][spec_col]))
+    has_mic = np.array([MIC_GATES.get(d.symbol) is not None for d in devs],
+                       bool)
+    rows = np.flatnonzero(~gated & ~meta["stateful"][spec_col]
+                          & has_mic[spec_col])
+    _keys, first = np.unique(group_of[rows], return_index=True)
+    return summary[rows[first], 1].tolist()
+
+
 class Registry:
     """Protocol registry with rtl_433 -R semantics."""
 
@@ -286,10 +308,11 @@ class Registry:
         not in the memo cache is sliced on ``slice_device`` in one batched
         kernel call per (side, spec family) and its dispatch memo is
         pre-filled, so the per-package _run_fast path does no host slicing.
-        The records the plans keep, the declarative candidates' cache keys
-        among them, are read in one gather per family for the whole drain,
-        and the declarative candidates decode in one batch on
-        ``slice_device`` (the decode bank's kernel on the card).
+        The records the plans' MIC gates read are gathered in one launch
+        per side before the plans are built; the records the plans keep,
+        the declarative candidates' cache keys among them, in one launch
+        for the whole drain; and the declarative candidates decode in one
+        batch on ``slice_device`` (the decode bank's kernel on the card).
         Returns the number of memos built.
         """
         import numpy as np
@@ -316,6 +339,13 @@ class Registry:
             bank = self._get_device_bank(want_fsk, sample_rate)
             meta = self._bank_meta(bank)
             results = bank.batch_slice(list(items.values()))
+            # the records the plans' MIC gates read, of every train of this
+            # side, in one gather before the per-train plans gate them
+            from .device_dispatch import LazyRecords
+            LazyRecords.prefetch_many(
+                [(records, _mic_representatives(bank.devices, meta, summary,
+                                                group_of))
+                 for summary, records, group_of in results if len(summary)])
             for tkey, (summary, records, group_of) in zip(items.keys(),
                                                           results):
                 if len(summary) == 0:

@@ -20,8 +20,11 @@ and runs its plain version for CPU tensors.
 
 The module is the JAX package's ``decoders/device_dispatch.py`` with these
 differences: the bank runs on an explicit ``torch.device``; the kernel
-outputs it reads on the host are copied there with ``.cpu()``; a lazy
-record's bytes come through :func:`_gather_records`; and
+outputs it reads on the host are copied there with ``.cpu()``; lazy
+records' bytes come through :func:`_gather_many`, every family of a
+materialization pass in one launch (``LazyRecords._materialize``, and
+``LazyRecords.prefetch_many`` for the MIC gates' representatives of a
+drain); and
 :func:`_content_dup` returns the first equal event ``e' <= e``, as its
 docstring there says, where the JAX mask selects ``e' >= e`` and so always
 returns ``e`` (the events are the same either way: the grouping only saves
@@ -164,38 +167,109 @@ def _gather_records_plain(bytes_dev, syncs_dev, bs, js, es):
     return bytes_dev[bs, js, es], syncs_dev[bs, js, es]
 
 
+# the family table of the batched gather (csrc/dispatch.cu GF_*): per
+# family its planes' pointers, J, E, R, W, the offsets of its bytes and
+# syncs in the output buffer, its first record
+_GF_COLS = 10
+
+
+def _gather_groups(groups):
+    """Check the batched gather's ``groups`` [(bytes [B, J, E, R, W],
+    syncs [B, J, E, R], bs, js, es)], the index arrays host ints [P_f];
+    returns them with int64 index arrays."""
+    out = []
+    for bytes_dev, syncs_dev, *idx in groups:
+        if bytes_dev.dim() != 5 or bytes_dev.dtype != torch.uint8 \
+                or syncs_dev.dtype != torch.int32:
+            raise ValueError("gather_records: bytes must be uint8 "
+                             "[B, J, E, R, W], syncs int32")
+        B, J, E, R, W = bytes_dev.shape
+        idx = [np.asarray(a, np.int64) for a in idx]
+        for a, n in zip(idx, (B, J, E)):
+            if a.size and (a.min() < 0 or a.max() >= n):
+                raise ValueError("gather_records: an index is out of range")
+        if syncs_dev.shape != (B, J, E, R) or syncs_dev.device \
+                != bytes_dev.device:
+            raise ValueError("gather_records: syncs must be [B, J, E, R] on "
+                             "the bytes' device")
+        out.append((bytes_dev, syncs_dev, *idx))
+    if len({str(g[0].device) for g in out}) > 1:
+        raise ValueError("gather_records: the planes must lie on one device")
+    return out
+
+
+def _gather_plan(groups):
+    """The batched gather's device inputs for checked ``groups``: the
+    ``meta`` tensor (the int64 family table [F, _GF_COLS], then the
+    records (family, b, j, e) as int32 [P, 4]), the flat uint8 output
+    buffer, P, and per family (P_f, R, W, bytes offset, syncs offset),
+    each region 16-byte aligned."""
+    dev = groups[0][0].device
+    F = len(groups)
+    P = sum(len(g[2]) for g in groups)
+    meta = np.zeros(_GF_COLS * F + 2 * P, np.int64)
+    table = meta[:_GF_COLS * F].reshape(F, _GF_COLS)
+    recs = meta[_GF_COLS * F:].view(np.int32).reshape(P, 4)
+    parts, keep, size, first = [], [], 0, 0
+    for f, (by, sy, bs, js, es) in enumerate(groups):
+        by, sy = by.contiguous(), sy.contiguous()
+        keep += [by, sy]
+        _B, J, E, R, W = by.shape
+        n = len(bs)
+        ob = size
+        osy = (ob + n * R * W + 15) & ~15
+        size = (osy + 4 * n * R + 15) & ~15
+        table[f] = (by.data_ptr(), sy.data_ptr(), J, E, R, W, ob, osy,
+                    first, 0)
+        recs[first:first + n] = np.stack([np.full(n, f), bs, js, es], 1)
+        parts.append((n, R, W, ob, osy))
+        first += n
+    meta_dev = torch.from_numpy(meta).to(dev)
+    out = torch.empty(max(size, 16), dtype=torch.uint8, device=dev)
+    return meta_dev, out, P, parts, keep
+
+
+def _gather_many_plain(groups):
+    """Plain version of the batched gather: each family by
+    :func:`_gather_records_plain`."""
+    return [_gather_records_plain(by, sy, *(torch.from_numpy(a).to(by.device)
+                                            for a in idx))
+            for by, sy, *idx in _gather_groups(groups)]
+
+
+def _gather_many(groups):
+    """The records of several families' slicer outputs: for each of
+    ``groups`` [(bytes [B, J, E, R, W], syncs [B, J, E, R], bs, js, es)]
+    (host int index arrays [P_f]) its records' bytes [P_f, R, W] and
+    syncs [P_f, R] as host NumPy arrays. For CUDA planes one launch of
+    ``csrc/dispatch.cu`` gathers every family into one buffer, which one
+    copy brings to the host; CPU planes take :func:`_gather_many_plain`."""
+    groups = _gather_groups(groups)
+    if not groups:
+        return []
+    if not groups[0][0].is_cuda:
+        return [(b.numpy(), s.numpy()) for b, s in _gather_many_plain(groups)]
+    meta, out, P, parts, keep = _gather_plan(groups)
+    if P:
+        fn = _cuda.launcher("gather_records")
+        _cuda.LAUNCHES["gather_records"] += 1
+        err = fn(meta.data_ptr(), len(groups), P, out.data_ptr(),
+                 _cuda.stream_of(out))
+        _cuda.check(err, "gather_records")
+    host = out.cpu().numpy()
+    del keep
+    return [(host[ob:ob + n * R * W].reshape(n, R, W),
+             host[osy:osy + 4 * n * R].view(np.int32).reshape(n, R))
+            for n, R, W, ob, osy in parts]
+
+
 def _gather_records(bytes_dev, syncs_dev, bs, js, es):
     """The records ``(bs[i], js[i], es[i])`` of the slicer output: their
     bytes [P, R, W] and syncs [P, R], as host NumPy arrays. The index
-    arrays are host int32 [P]. ``csrc/dispatch.cu`` for CUDA planes,
-    :func:`_gather_records_plain` for CPU planes."""
-    B, J, E, R, W = bytes_dev.shape
-    idx = [np.asarray(a, np.int64) for a in (bs, js, es)]
-    for a, n in zip(idx, (B, J, E)):
-        if a.size and (a.min() < 0 or a.max() >= n):
-            raise ValueError("gather_records: an index is out of range")
-    if not bytes_dev.is_cuda:
-        got = _gather_records_plain(bytes_dev, syncs_dev,
-                                    *(torch.from_numpy(a) for a in idx))
-        return got[0].numpy(), got[1].numpy()
-    dev = bytes_dev.device
-    if not syncs_dev.is_cuda or syncs_dev.device != dev \
-            or syncs_dev.shape != (B, J, E, R):
-        raise ValueError("gather_records: syncs must be [B, J, E, R] on the "
-                         "bytes' device")
-    P = idx[0].size
-    ix = torch.from_numpy(np.stack(idx).astype(np.int32)).to(dev)
-    out_b = torch.empty((P, R, W), dtype=torch.uint8, device=dev)
-    out_s = torch.empty((P, R), dtype=torch.int32, device=dev)
-    if P:
-        by, sy = bytes_dev.contiguous(), syncs_dev.contiguous()
-        fn = _cuda.launcher("gather_records")
-        _cuda.LAUNCHES["gather_records"] += 1
-        err = fn(by.data_ptr(), sy.data_ptr(), ix[0].data_ptr(),
-                 ix[1].data_ptr(), ix[2].data_ptr(), P, J, E, R, W,
-                 out_b.data_ptr(), out_s.data_ptr(), _cuda.stream_of(by))
-        _cuda.check(err, "gather_records")
-    return out_b.cpu().numpy(), out_s.cpu().numpy()
+    arrays are host int32 [P]. A one-family call of :func:`_gather_many`
+    (``csrc/dispatch.cu`` for CUDA planes, the plain version for CPU
+    planes)."""
+    return _gather_many([(bytes_dev, syncs_dev, bs, js, es)])[0]
 
 
 # LazyRecords source kinds (columns in src_kind)
@@ -257,56 +331,58 @@ class LazyRecords:
     @staticmethod
     def freeze_many(items):
         """Batch-freeze across a whole drain: ONE device gather + ONE
-        transfer per kernel family for every surviving record of every
-        train, instead of per-record (or even per-train) device
-        round-trips. ``items`` is [(LazyRecords, needed_offs)]."""
+        transfer for every surviving record of every train and family,
+        instead of per-record (or even per-train) device round-trips.
+        ``items`` is [(LazyRecords, needed_offs)]."""
         LazyRecords._materialize(items)
         for rec, _needed in items:
             rec._kind = rec._a = rec._b = None
             rec._fams = rec._snaps = rec._eager = None
 
     @staticmethod
+    def prefetch_many(items):
+        """Batch-materialize across a drain without dropping the sources:
+        ONE gather launch and ONE transfer for every record of every
+        family that ``items`` [(LazyRecords, offs)] touch (the MIC gates'
+        representatives of a drain, read before their per-train gates)."""
+        LazyRecords._materialize(items)
+
+    @staticmethod
     def _materialize(items):
-        by_fam = {}    # fams identity -> fam idx -> [(rec, off, b, j, e)]
+        by_fam = {}    # (fams identity, fam idx) -> [(rec, off, b, j, e)]
+        fam_of = {}    # the same keys -> (out, caps)
         for rec, needed in items:
             for off in needed:
                 if off in rec._ready:
                     continue
                 k = int(rec._kind[off])
                 if k >= 0:
-                    fams_groups = by_fam.setdefault(id(rec._fams), {})
-                    fams_groups.setdefault(k, []).append(
+                    key = (id(rec._fams), k)
+                    fam_of[key] = rec._fams[k]
+                    by_fam.setdefault(key, []).append(
                         (rec, off, rec._train, int(rec._a[off]),
                          int(rec._b[off])))
                 else:
                     rec[off]     # snap/eager: host-side, already cheap
-        for rec, _needed in items:
-            if rec._fams is None:
-                continue
-            groups = by_fam.pop(id(rec._fams), None)
-            if not groups:
-                continue
-            fams = rec._fams
-            for k, entries in groups.items():
-                out, caps = fams[k][0], fams[k][1]
-                n = len(entries)
-                P = _bucket(n, lo=8)
-                bs = np.zeros(P, np.int32)
-                js = np.zeros(P, np.int32)
-                es = np.zeros(P, np.int32)
-                for i, (_r, _o, b, j, e) in enumerate(entries):
-                    bs[i], js[i], es[i] = b, j, e
-                bytes_np, syncs_np = _gather_records(
-                    out["bytes"], out["syncs"], bs, js, es)
-                bytes_np = np.asarray(bytes_np)
-                syncs_np = np.asarray(syncs_np)
-                for i, (r, off, b, j, e) in enumerate(entries):
-                    nr = int(out["num_rows"][b, j, e])
-                    rows = np.zeros((nr, 128), np.uint8)
-                    rows[:, :caps.row_bytes] = bytes_np[i, :nr]
-                    r._ready[off] = _serialize(
-                        nr, nr, out["bits_per_row"][b, j, e],
-                        syncs_np[i], rows)
+        if not by_fam:
+            return
+        # every family of every fams list in one gather launch
+        groups = []
+        for key, entries in by_fam.items():
+            out = fam_of[key][0]
+            bs, js, es = (np.array([e[c] for e in entries], np.int32)
+                          for c in (2, 3, 4))
+            groups.append((out["bytes"], out["syncs"], bs, js, es))
+        got = _gather_many(groups)
+        for (key, entries), (bytes_np, syncs_np) in zip(by_fam.items(), got):
+            out, caps = fam_of[key]
+            for i, (r, off, b, j, e) in enumerate(entries):
+                nr = int(out["num_rows"][b, j, e])
+                rows = np.zeros((nr, 128), np.uint8)
+                rows[:, :caps.row_bytes] = bytes_np[i, :nr]
+                r._ready[off] = _serialize(
+                    nr, nr, out["bits_per_row"][b, j, e],
+                    syncs_np[i], rows)
 
 
 class DeviceBank:

@@ -70,11 +70,9 @@ LAUNCHERS = {
     # bytes, num_rows, bits_per_row, syncs, BJ, E, R, W, dup, stream
     "content_dup": ("dispatch", "rtl433_content_dup",
                     [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P]),
-    # bytes, syncs, bs, js, es, P, J, E, R, W, out_bytes, out_syncs,
-    # stream
+    # meta (family table, then records), F, P, out, stream
     "gather_records": ("dispatch", "rtl433_gather_records",
-                       [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
-                        _P]),
+                       [_P, _I, _I, _P, _P]),
     # start, fin, rowinfo, NROW, D, C, G, smem, ratio, low, high,
     # ook_state, min_high, gen, sel, delta, out, by_key, bad, stream
     "timeshard_chain": ("timeshard", "rtl433_timeshard_chain",
@@ -85,8 +83,8 @@ LAUNCHERS = {
     "timeshard_gather": ("timeshard", "rtl433_timeshard_gather",
                          [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
                           _P, _P, _P, _P]),
-    # bits, n_bits, n_store, sid, B, IN, spec, K, S, gf2, add, raw, FB, C,
-    # R, PW, code, raws, stream
+    # bits, n_bits, n_store, sid, B, IN, spec, K, S, entries, chunk_dir,
+    # chunk_start, FB, C, R, PW, code, raws, stream
     "decl_bank": ("decl_bank", "rtl433_decl_bank",
                   [_P, _P, _P, _P, _I, _I, _P, _I, _I, _P, _P, _P, _I, _I,
                    _I, _I, _P, _P, _P]),

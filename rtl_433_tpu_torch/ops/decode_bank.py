@@ -29,10 +29,13 @@ NumPy, for the per-train host dispatch (a single batched call replaces
 dozens of Python decode calls; tests/test_torch_fast_dispatch.py holds it
 to the JAX package's). ``run_torch`` is the JAX ``xp=jnp`` path, for
 drain-scale batches on a device: on a CUDA tensor it launches
-``csrc/decl_bank.cu`` (one warp per candidate), on a CPU tensor it runs
-its plain version, :func:`run_torch_plain` (tests/test_torch_decode_bank.py
-holds it to JAX's ``run(xp=jnp)``). Both read the bank's tables as tensors
-on their device (:func:`bank_tables`, built once per bank and device).
+``csrc/decl_bank.cu`` (one warp per candidate over sparse per-spec entry
+lists, :func:`sparse_tables`), on a CPU tensor it runs its plain version,
+:func:`run_torch_plain`; :func:`run_torch_sparse_plain` emulates the
+kernel's sparse evaluation in plain torch (tests/test_torch_decode_bank.py
+holds both to JAX's ``run(xp=jnp)``). All read the bank's tables as
+tensors on their device (:func:`bank_tables`, built once per bank and
+device).
 
 Stage codes (ref include/r_device.h:45-53): candidates fail with the
 DECODE_* code of the first failing stage so the per-decoder fail counters
@@ -561,11 +564,52 @@ def spec_rows(bank: CompiledBank) -> np.ndarray:
     return _i32(sp)
 
 
+# the sparse entry tables of csrc/decl_bank.cu: chunks of CHUNK (frame
+# bit, weight) entries, each chunk of one kind and one target (a check
+# slot, or a field row)
+CHUNK = 32
+CH_GF2, CH_ADD, CH_RAW = 0, 1, 2
+
+
+def sparse_tables(bank: CompiledBank):
+    """The bank's weights as sparse per-spec entry lists: for each spec,
+    each live check slot (its GF(2) or additive weights, by its kind) and
+    each field row below its ``SP_NRAW``, the non-zero (frame bit, weight)
+    pairs, padded with (0, 0) to whole chunks of ``CHUNK``. XOR and
+    wrapping sums do not depend on order, so dropping the zeros is exact.
+    Returns int32 arrays: ``entries`` [NC * CHUNK, 2] (frame bit, weight
+    as int32 storage), ``chunk_dir`` [NC] (kind | target << 8, kinds
+    ``CH_*``) and ``chunk_start`` [S + 1] (spec s owns chunks
+    ``chunk_start[s]:chunk_start[s + 1]``)."""
+    nraw = spec_rows(bank)[:, SP_NRAW]
+    entries, chunk_dir, chunk_start = [], [], [0]
+    for s in range(bank.n_specs):
+        lists = [(CH_GF2, c, bank.ck_gf2[s, c]) if bank.ck_kind[s, c]
+                 == CK_GF2 else (CH_ADD, c, bank.ck_add[s, c])
+                 for c in range(bank.n_checks)
+                 if bank.ck_kind[s, c] != CK_OFF]
+        lists += [(CH_RAW, r, bank.raw_w[s, r]) for r in range(nraw[s])]
+        for kind, target, w in lists:
+            j = np.flatnonzero(w)
+            k = -(-j.size // CHUNK)
+            e = np.zeros((k * CHUNK, 2), np.int64)
+            e[:j.size, 0] = j
+            e[:j.size, 1] = w[j]
+            entries.append(e)
+            chunk_dir += [kind | target << 8] * k
+        chunk_start.append(len(chunk_dir))
+    entries = np.concatenate(entries) if entries else np.zeros((0, 2))
+    return (_i32(entries), np.asarray(chunk_dir, np.int32),
+            np.asarray(chunk_start, np.int32))
+
+
 def bank_tables(bank: CompiledBank, device) -> dict:
     """The bank's tables as tensors on ``device``, built once per bank and
     device: the arrays of :class:`CompiledBank` under their names (uint32
     ones as int32 storage, ``ck_mod`` and ``ck_tca`` as the int32 the JAX
-    path casts them to) and ``spec``, the kernel's spec rows."""
+    path casts them to), ``spec``, the kernel's spec rows, and the sparse
+    entry tables of :func:`sparse_tables` (``entries``, ``chunk_dir``,
+    ``chunk_start``)."""
     device = torch.device(device)
     per = _TABLES.setdefault(bank, {})
     tabs = per.get(device)
@@ -577,6 +621,8 @@ def bank_tables(bank: CompiledBank, device) -> dict:
         for k in ("ck_gf2", "ck_tc", "ck_mod", "ck_tca", "raw_w"):
             arrays[k] = _i32(getattr(bank, k))
         arrays["spec"] = spec_rows(bank)
+        (arrays["entries"], arrays["chunk_dir"],
+         arrays["chunk_start"]) = sparse_tables(bank)
         tabs = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
                 for k, v in arrays.items()}
         per[device] = tabs
@@ -617,6 +663,50 @@ def preamble_plain(bank: CompiledBank, tabs: dict, bits, n, sid):
     return m.any(1), m.to(torch.uint8).argmax(1)
 
 
+def _stages(bank: CompiledBank, tabs: dict, bits, n, s):
+    """The stages before the frame, per candidate (int64 ``n`` and spec
+    ids ``s``): the length gate, the preamble (first match wins, ref
+    bitbuffer.c:232-253) and the frame offset with its per-length
+    alignment. Returns (ok_len, ok_pre, ok_need, frame_off)."""
+    ok_len = (n >= tabs["min_bits"][s]) & (n <= tabs["max_bits"][s])
+    el = tabs["exact_lens"][s]                               # [B, 4]
+    ok_len = ok_len & (~(el > 0).any(1) | (el == n[:, None]).any(1))
+    found, pos = preamble_plain(bank, tabs, bits, n, s)
+    plen = tabs["plen"][s].long()
+    has_pat = plen > 0
+    ok_pre = ~has_pat | found
+    frame_off = torch.where(has_pat, pos + plen, 0) + tabs["align_off"][s]
+    la_len = tabs["la_len"][s]
+    frame_off = frame_off + torch.where(
+        (la_len > 0) & (la_len == n[:, None]), tabs["la_off"][s], 0).sum(1)
+    ok_need = frame_off + tabs["need_bits"][s] <= n
+    return ok_len, ok_pre, ok_need, frame_off
+
+
+def _mic_ok(bank: CompiledBank, tabs: dict, s, xor_of, sum_of):
+    """Whether every live check slot holds, from each slot's XOR
+    (``xor_of(c)``, uint32 values as int64) and its sum (``sum_of(c)``,
+    wrapped to int32 here)."""
+    ok_mic = torch.ones(s.shape, dtype=torch.bool, device=s.device)
+    for c in range(bank.n_checks):
+        kind = tabs["ck_kind"][s, c]
+        gf2_ok = xor_of(c) == _u32(tabs["ck_tc"][s, c])
+        w = (sum_of(c) + (1 << 31)) % (1 << 32) - (1 << 31)   # int32 wrap
+        mod = tabs["ck_mod"][s, c].long()
+        add_ok = (w % mod + mod) % mod == tabs["ck_tca"][s, c]
+        ck = torch.where(kind == CK_GF2, gf2_ok, add_ok) ^ tabs["ck_neq"][s, c]
+        ok_mic = ok_mic & ((kind == CK_OFF) | ck)
+    return ok_mic
+
+
+def _code(ok_len, stage, ok_mic):
+    code = torch.full(ok_len.shape, DECODE_ABORT_LENGTH, dtype=torch.int32,
+                      device=ok_len.device)
+    code = torch.where(ok_len, DECODE_ABORT_EARLY, code)
+    code = torch.where(stage, DECODE_FAIL_MIC, code)
+    return torch.where(stage & ok_mic, 0, code)
+
+
 def run_torch_plain(bank: CompiledBank, bits, n_bits, sid, n_store=None):
     """Plain version of the bank on any device: the JAX ``xp=jnp`` path of
     :func:`run` (every stage, shape-static) in torch. Returns (code int32
@@ -627,21 +717,7 @@ def run_torch_plain(bank: CompiledBank, bits, n_bits, sid, n_store=None):
     n = n_bits.long()
     ns = n if n_store is None else n_store.long()
     s = sid.long()
-
-    ok_len = (n >= tabs["min_bits"][s]) & (n <= tabs["max_bits"][s])
-    el = tabs["exact_lens"][s]                               # [B, 4]
-    ok_len = ok_len & (~(el > 0).any(1) | (el == n[:, None]).any(1))
-
-    # preamble: first match wins (ref bitbuffer.c:232-253)
-    found, pos = preamble_plain(bank, tabs, bits, n, s)
-    plen = tabs["plen"][s].long()
-    has_pat = plen > 0
-    ok_pre = ~has_pat | found
-    frame_off = torch.where(has_pat, pos + plen, 0) + tabs["align_off"][s]
-    la_len = tabs["la_len"][s]
-    frame_off = frame_off + torch.where(
-        (la_len > 0) & (la_len == n[:, None]), tabs["la_off"][s], 0).sum(1)
-    ok_need = frame_off + tabs["need_bits"][s] <= n
+    ok_len, ok_pre, ok_need, frame_off = _stages(bank, tabs, bits, n, s)
 
     # frame extraction: stale stored bits below n_store are read, zero
     # outside [0, n_store)
@@ -672,18 +748,12 @@ def run_torch_plain(bank: CompiledBank, bits, n_bits, sid, n_store=None):
         ok_tf = ~is_mc | (n_out >= tabs["mc_min"][s])
 
     # checks: one XOR-reduce and one wrapping int32 sum per slot
-    ok_mic = torch.ones(B, dtype=torch.bool, device=dev)
     fbit = fb != 0
-    for c in range(bank.n_checks):
-        kind = tabs["ck_kind"][s, c]
-        x = torch.where(fbit, _u32(tabs["ck_gf2"][s, c]), 0)
-        gf2_ok = xor_reduce(x) == _u32(tabs["ck_tc"][s, c])
-        w = torch.where(fbit, tabs["ck_add"][s, c].long(), 0).sum(1)
-        w = (w + (1 << 31)) % (1 << 32) - (1 << 31)          # int32 wrap
-        mod = tabs["ck_mod"][s, c].long()
-        add_ok = (w % mod + mod) % mod == tabs["ck_tca"][s, c]
-        ck = torch.where(kind == CK_GF2, gf2_ok, add_ok) ^ tabs["ck_neq"][s, c]
-        ok_mic = ok_mic & ((kind == CK_OFF) | ck)
+    ok_mic = _mic_ok(
+        bank, tabs, s,
+        lambda c: xor_reduce(torch.where(fbit, _u32(tabs["ck_gf2"][s, c]),
+                                         0)),
+        lambda c: torch.where(fbit, tabs["ck_add"][s, c].long(), 0).sum(1))
 
     # fields: wrapping uint32 dot products
     if bank.n_raws:
@@ -694,13 +764,135 @@ def run_torch_plain(bank: CompiledBank, bits, n_bits, sid, n_store=None):
     else:
         raws = torch.zeros((B, 1), dtype=torch.int64, device=dev)
 
-    stage = ok_len & ok_pre & ok_need & ok_tf
-    code = torch.full((B,), DECODE_ABORT_LENGTH, dtype=torch.int32,
-                      device=dev)
-    code = torch.where(ok_len, DECODE_ABORT_EARLY, code)
-    code = torch.where(stage, DECODE_FAIL_MIC, code)
-    code = torch.where(stage & ok_mic, 0, code)
-    return code, raws.to(torch.int32)
+    return _code(ok_len, ok_len & ok_pre & ok_need & ok_tf, ok_mic), \
+        raws.to(torch.int32)
+
+
+def _range_mask(a, b):
+    """Per element, the 32-bit mask of bit positions ``[a, b)`` (LSB
+    first; ``a`` and ``b`` are clamped to [0, 32])."""
+    a, b = a.clamp(0, 32), b.clamp(0, 32)
+    m = ((1 << b) - 1) & ~((1 << a) - 1)
+    return torch.where(a < b, m, 0)
+
+
+def _compress_odd(x):
+    """The 16 odd bits of 32-bit words, packed into their low half."""
+    x = (x >> 1) & 0x55555555
+    x = (x | (x >> 1)) & 0x33333333
+    x = (x | (x >> 2)) & 0x0F0F0F0F
+    x = (x | (x >> 4)) & 0x00FF00FF
+    return (x | (x >> 8)) & 0x0000FFFF
+
+
+def frame_words(bank: CompiledBank, tabs: dict, bits, n, ns, s, frame_off):
+    """The frame as 32-bit words, LSB first (frame bit j is bit j % 32 of
+    word j // 32), as the kernel's lanes hold it: the stored bits packed
+    into words, each frame word a funnel shift of two of them from
+    ``frame_off`` on, with the [0, n_store) mask, the clamp of reads past
+    IN to bit IN - 1, invert below n and, for Manchester, the stop pair
+    and the second bits compacted, all as word masks. Returns (words
+    int64 [B, ceil(FB / 32)], ok_tf)."""
+    B, IN = bits.shape
+    FB, dev = bank.frame_bits, bits.device
+    NW, NF = -(-IN // 32), -(-FB // 32)
+    padded = torch.cat([(bits != 0).long(),
+                        bits.new_zeros((B, 32 * NW - IN)).long()], 1)
+    weight = 1 << torch.arange(32, device=dev)
+    words = (padded.view(B, NW, 32) * weight).sum(2)          # [B, NW]
+    last = (bits[:, IN - 1] != 0)[:, None]
+    lane = 32 * torch.arange(NF, device=dev)[None, :]
+    t = frame_off[:, None] + lane                             # [B, NF]
+    k = torch.div(t, 32, rounding_mode="floor")
+    zero, full = torch.zeros_like(t), torch.full_like(t, 32)
+
+    def word(i):
+        inside = (i >= 0) & (i < NW)
+        return torch.where(inside, words.gather(1, i.clamp(0, NW - 1)), 0)
+    fw = ((word(k + 1) << 32 | word(k)) >> (t - 32 * k)) & 0xFFFFFFFF
+    past = _range_mask(IN - t, full)
+    fw = (fw & ~past) | torch.where(last, past, 0)
+    fw = fw & _range_mask(-t, ns[:, None] - t)
+    tf = tabs["transform"][s][:, None]
+    fw = fw ^ torch.where(tf == TF_INVERT, _range_mask(zero, n[:, None] - t),
+                          0)
+    fw = fw & _range_mask(zero, FB - lane)
+    ok_tf = torch.ones(B, dtype=torch.bool, device=dev)
+    if int(np.any(bank.transform == TF_MANCHESTER)):
+        H = FB // 2
+        pairs = 0x55555555
+        eq = ~(fw ^ (fw >> 1)) & pairs
+        gone = _range_mask(n[:, None] - frame_off[:, None] - lane,
+                           full) & pairs
+        stop = (eq | gone) & _range_mask(zero, 2 * H - lane)
+        # the index of the lowest set bit, without float rounding
+        low = ((stop & -stop)[..., None]
+               > (1 << torch.arange(32, device=dev))).sum(-1)
+        at = torch.where(stop != 0, lane // 2 + low // 2, H)
+        n_out = at.min(1).values                                # [B]
+        odd = _compress_odd(fw)
+        odd = torch.cat([odd, torch.zeros_like(odd)], 1)       # [B, 2 NF]
+        mc = odd[:, 0::2] | odd[:, 1::2] << 16
+        mc = mc & _range_mask(zero, n_out[:, None] - lane)
+        is_mc = tf[:, 0] == TF_MANCHESTER
+        fw = torch.where(is_mc[:, None], mc, fw)
+        ok_tf = ~is_mc | (n_out >= tabs["mc_min"][s])
+    return fw, ok_tf
+
+
+def run_torch_sparse_plain(bank: CompiledBank, bits, n_bits, sid,
+                           n_store=None):
+    """The kernel's evaluation, emulated in plain torch: the stages of
+    :func:`_stages`, the frame as words (:func:`frame_words`), then per
+    spec its chunks of :func:`sparse_tables` entries, each entry's frame
+    bit taken from its word (the kernel's shuffle), each chunk one XOR or
+    wrapping sum (the kernel's warp reduction) into its check slot's or
+    field row's accumulator. A spec id out of range gives ABORT_LENGTH
+    and zero raws. Returns what :func:`run_torch_plain` returns."""
+    tabs = bank_tables(bank, bits.device)
+    B, IN = bits.shape
+    S, C, R, dev = bank.n_specs, bank.n_checks, bank.n_raws, bits.device
+    if R + C > 32:
+        raise ValueError("decl_bank: field rows and check slots must fit "
+                         "a warp's lanes (R + C <= 32)")
+    n = n_bits.long()
+    ns = n if n_store is None else n_store.long()
+    known = (sid >= 0) & (sid < S)
+    s = torch.where(known, sid, 0).long()
+    ok_len, ok_pre, ok_need, frame_off = _stages(bank, tabs, bits, n, s)
+    fw, ok_tf = frame_words(bank, tabs, bits, n, ns, s, frame_off)
+
+    # per target lane (field row r: lane r; check slot c: lane R + c) its
+    # accumulator; chunk m of each candidate's spec in step m
+    start = tabs["chunk_start"].long()
+    first, count = start[s], start[s + 1] - start[s]
+    ent, cdir = tabs["entries"].long(), tabs["chunk_dir"].long()
+    acc = torch.zeros((B, 32), dtype=torch.long, device=dev)
+    lanes = torch.arange(CHUNK, device=dev)
+    for m in range(int((start[1:] - start[:-1]).max()) if S else 0):
+        live = m < count
+        ch = torch.where(live, first + m, 0)
+        e = ent[(CHUNK * ch)[:, None] + lanes]                # [B, 32, 2]
+        j, w = e[..., 0], e[..., 1] & 0xFFFFFFFF
+        bit = (fw.gather(1, j >> 5) >> (j & 31)) & 1
+        v = bit * w
+        d = cdir[ch]
+        kind, target = d & 0xFF, d >> 8
+        red = torch.where(kind == CH_GF2, xor_reduce(v),
+                          v.sum(1) & 0xFFFFFFFF)
+        lane = torch.where(kind == CH_RAW, target, R + target)[:, None]
+        cur = acc.gather(1, lane)[:, 0]
+        new = torch.where(kind == CH_GF2, cur ^ red,
+                          (cur + red) & 0xFFFFFFFF)
+        acc.scatter_(1, lane, torch.where(live, new, cur)[:, None])
+
+    slot = lambda c: acc[:, R + c]
+    ok_mic = _mic_ok(bank, tabs, s, slot, slot)
+    raws = acc[:, :R] if R else torch.zeros_like(acc[:, :1])
+    raws = ((raws + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32)
+    code = _code(ok_len, ok_len & ok_pre & ok_need & ok_tf, ok_mic)
+    code = torch.where(known, code, DECODE_ABORT_LENGTH)
+    return code, torch.where(known[:, None], raws, 0)
 
 
 def run_torch(bank: CompiledBank, bits, n_bits, sid, n_store=None):
@@ -709,15 +901,20 @@ def run_torch(bank: CompiledBank, bits, n_bits, sid, n_store=None):
     ``sid`` with values in ``[0, n_specs)`` and ``n_store`` int32 ``[B]``)
     as the JAX ``xp=jnp`` path computes it. Returns (code int32 [B], raws
     [B, R] uint32 as int32 storage) on that device. A CUDA tensor launches
-    ``csrc/decl_bank.cu``, a CPU tensor runs :func:`run_torch_plain`."""
+    ``csrc/decl_bank.cu`` (which walks the sparse entry tables; a bank
+    with more than 1024 frame bits, or more than 32 field rows and check
+    slots together, raises), a CPU tensor runs :func:`run_torch_plain`."""
     _check(bank, bits, n_bits, sid, n_store)
     if not bits.is_cuda:
         return run_torch_plain(bank, bits, n_bits, sid, n_store)
+    FB, C, R = bank.frame_bits, bank.n_checks, bank.n_raws
+    if FB > 1024 or R + C > 32:
+        raise ValueError("decl_bank: the kernel holds a frame word and an "
+                         "accumulator per lane (FB <= 1024, R + C <= 32)")
     tabs = bank_tables(bank, bits.device)
     B, IN = bits.shape
     bits, n_bits, sid = (t.contiguous() for t in (bits, n_bits, sid))
     ns = n_bits if n_store is None else n_store.contiguous()
-    R = bank.n_raws
     code = torch.empty(B, dtype=torch.int32, device=bits.device)
     raws = (torch.empty if R else torch.zeros)(
         (B, max(R, 1)), dtype=torch.int32, device=bits.device)
@@ -727,9 +924,9 @@ def run_torch(bank: CompiledBank, bits, n_bits, sid, n_store=None):
         _cuda.LAUNCHES["decl_bank"] += 1
         err = fn(bits.data_ptr(), n_bits.data_ptr(), ns.data_ptr(),
                  sid.data_ptr(), B, IN, spec.data_ptr(), spec.shape[1],
-                 bank.n_specs, tabs["ck_gf2"].data_ptr(),
-                 tabs["ck_add"].data_ptr(), tabs["raw_w"].data_ptr(),
-                 bank.frame_bits, bank.n_checks, R,
+                 bank.n_specs, tabs["entries"].data_ptr(),
+                 tabs["chunk_dir"].data_ptr(),
+                 tabs["chunk_start"].data_ptr(), FB, C, R,
                  (bank.pat_len + 31) // 32, code.data_ptr(),
                  raws.data_ptr(), _cuda.stream_of(bits))
         _cuda.check(err, "decl_bank")

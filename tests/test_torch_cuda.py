@@ -622,6 +622,56 @@ def test_gather_records_kernel_matches_plain():
         assert np.array_equal(g, w.cpu().numpy())
 
 
+def _gather_family(seed, dev, B, J, E, R, W, shift=0):
+    """Slicer planes on the card, their bytes ``shift`` bytes past an
+    aligned base (shift 1: no 16- or 4-byte path), and records that
+    include every plane's last index."""
+    from torch_slice_cases import dup_planes
+    p = dup_planes(seed, B=B, J=J, E=E, R=R, W=W, plant=E > 1)
+    flat = torch.zeros(p["bytes"].size + 16, dtype=torch.uint8, device=dev)
+    by = flat[shift:shift + p["bytes"].size].view(B, J, E, R, W)
+    by.copy_(torch.from_numpy(p["bytes"]))
+    sy = torch.from_numpy(p["syncs"]).to(dev)
+    return by, sy
+
+
+@pytest.mark.parametrize("families", [1, 9])
+def test_gather_records_batched_kernel_matches_plain(families):
+    """One launch for every family: shapes that differ by family, W of 13
+    and 7 (no aligned vector path) beside 20 and 40, a base one byte off,
+    P per family not a multiple of 8 (one family with none), records at
+    each plane's last index."""
+    from rtl_433_tpu_torch.decoders import device_dispatch as ddp
+    dev = _gpu()
+    shapes = [(3, 4, 6, 16, 20), (2, 5, 4, 16, 40), (4, 3, 8, 24, 20),
+              (3, 2, 5, 5, 13), (1, 1, 1, 1, 1), (2, 3, 4, 7, 7),
+              (5, 4, 3, 16, 20), (2, 2, 2, 3, 13), (3, 3, 3, 16, 40)]
+    counts = [37, 13, 1, 29, 3, 0, 61, 5, 11]
+    rng = np.random.default_rng(families)
+    groups = []
+    for f in range(families):
+        B, J, E, R, W = shapes[f]
+        by, sy = _gather_family(f, dev, B, J, E, R, W, shift=f % 2)
+        P = counts[f] if families > 1 else 37
+        idx = [rng.integers(0, n, P).astype(np.int32) for n in (B, J, E)]
+        if P:
+            for a, n in zip(idx, (B, J, E)):
+                a[-1] = n - 1
+        groups.append((by, sy, *idx))
+    before = _cuda.LAUNCHES["gather_records"]
+    got = ddp._gather_many(groups)
+    assert _cuda.LAUNCHES["gather_records"] == before + 1
+    want = ddp._gather_many_plain(groups)
+    assert len(got) == len(want) == families
+    for (gb, gs), (wb, ws) in zip(got, want):
+        assert np.array_equal(gb, wb.cpu().numpy())
+        assert np.array_equal(gs, ws.cpu().numpy())
+    one = ddp._gather_records(*groups[0])
+    assert _cuda.LAUNCHES["gather_records"] == before + 2
+    assert np.array_equal(one[0], got[0][0]) \
+        and np.array_equal(one[1], got[0][1])
+
+
 def test_device_slicing_on_the_card_matches_cpu():
     """RtlTpu(device_slice=True) on the card: a fixture's events equal the
     CPU run's, through the slicer, dedup and gather kernels."""
@@ -825,6 +875,59 @@ def test_decl_bank_kernel_matches_plain(B, stale):
     want = dbk.run_torch_plain(bank, *args, nst)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype == torch.int32 and torch.equal(g, w)
+
+
+def _planted_decl_batch(B, seed):
+    """The fuzz batch with every third row replaced by a planted row of a
+    Manchester, an invert or the widest-entry spec, and every seventh by
+    a row whose alignment moves the frame before bit 0."""
+    from rtl_433_tpu_torch.decoders.declarative import get_runner
+    from rtl_433_tpu_torch.ops import decode_bank as dbk
+    from torch_decl_cases import _planted, fuzz_batch
+    bank = get_runner().bank
+    bits, n, sid, ns = fuzz_batch(seed, max(B, 16))
+    bits, n, sid, ns = bits[:B], n[:B].copy(), sid[:B].copy(), ns[:B].copy()
+    start = dbk.sparse_tables(bank)[2]
+    widest = int(np.argmax(np.diff(start)))
+    picks = [s for s in range(bank.n_specs)
+             if bank.transform[s] in (dbk.TF_MANCHESTER, dbk.TF_INVERT)]
+    picks.append(widest)
+    neg = [(s, int(ln)) for s in range(bank.n_specs)
+           for ln, o in zip(bank.la_len[s], bank.la_off[s])
+           if ln > 0 and o + bank.align_off[s] < 0 and bank.plen[s] == 0]
+    rng = np.random.default_rng(seed)
+    for i in range(0, B, 3):
+        s = picks[(i // 3) % len(picks)]
+        bits[i], n[i], ns[i] = _planted(bank, s, rng)
+        sid[i] = s
+    for i in range(1, B, 7):
+        sid[i], n[i] = neg[(i // 7) % len(neg)]
+        ns[i] = max(ns[i], n[i])
+    return bank, bits, n, sid, ns
+
+
+@pytest.mark.parametrize("B", [1, 33, 2460, 8192])
+def test_decl_bank_sparse_kernel_matches_plain(B):
+    """The kernel over the sparse entry lists at a lone candidate, a CTA
+    and a bit, a dense_4096 drain's batch and the fuzz batch's size, with
+    planted Manchester, invert, widest-entry and negative-offset rows:
+    equal to the dense plain version and to the sparse emulation, one
+    launch."""
+    from rtl_433_tpu_torch.ops import decode_bank as dbk
+    dev = _gpu()
+    bank, bits, n, sid, ns = _planted_decl_batch(B, 8)
+    args = [torch.from_numpy(a).to(dev) for a in (bits, n, sid, ns)]
+    before = _cuda.LAUNCHES["decl_bank"]
+    got = dbk.run_torch(bank, *args)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["decl_bank"] == before + 1
+    want = dbk.run_torch_plain(bank, *args)
+    emu = dbk.run_torch_sparse_plain(bank, *args)
+    assert _cuda.LAUNCHES["decl_bank"] == before + 1
+    for g, w, e in zip(got, want, emu):
+        assert torch.equal(g, w) and torch.equal(g, e)
+    if B > 1:
+        assert (got[0] == 0).any()
 
 
 def test_decl_bank_kernel_odd_rows():

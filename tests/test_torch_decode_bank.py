@@ -7,7 +7,13 @@ CPU tensor its plain version (torch), on a CUDA tensor the kernel
 tests/test_torch_cuda.py and chip_smoke.py). Here:
 
 - the tables the bank carries to a device (``bank_tables``) are the JAX
-  bank's arrays, and the kernel's spec rows encode them;
+  bank's arrays, and the kernel's spec rows encode them; its sparse
+  entry lists (``sparse_tables``) rebuild the dense weights exactly;
+- the kernel's sparse evaluation, emulated in plain torch
+  (``run_torch_sparse_plain``: frame words, a frame bit per entry, a
+  XOR or sum per chunk), equals JAX's ``run(xp=jnp)`` on the fuzz batch
+  (with rows whose frame starts before bit 0), the oracle candidates,
+  the empty batch and rows of 500 bits;
 - the plain bank equals JAX's ``run(xp=jnp)`` bit for bit, code and raws,
   on seeded batches (tests/torch_decl_cases.py) over every spec that reach
   every stage: a matched preamble, invert, Manchester with its stop pair,
@@ -119,6 +125,149 @@ def test_bank_tables_carry_the_jax_weights(banks):
     for s in range(77):
         assert not live[s, sp[s, tdbk.SP_NRAW]:].any()
         assert sp[s, tdbk.SP_NRAW] == 0 or live[s, sp[s, tdbk.SP_NRAW] - 1]
+
+
+def test_sparse_tables_rebuild_the_dense_weights(banks):
+    """The kernel's sparse entry lists (``sparse_tables``) rebuild the JAX
+    bank's dense ``ck_gf2``, ``ck_add`` and ``raw_w`` exactly: every
+    non-zero weight once, in the chunk of its slot or row, kinds as the
+    slot's; every chunk whole, a field row one chunk, the widest check
+    four."""
+    tb, jb = banks
+    tabs = tdbk.bank_tables(tb, "cpu")
+    ent, cdir, start = (tabs[k].numpy() for k in ("entries", "chunk_dir",
+                                                  "chunk_start"))
+    assert np.array_equal(ent, tdbk.sparse_tables(tb)[0])
+    S, C, R, FB = jb.n_specs, jb.n_checks, jb.n_raws, jb.frame_bits
+    assert ent.shape == (tdbk.CHUNK * len(cdir), 2)
+    assert start[0] == 0 and start[-1] == len(cdir) and len(start) == S + 1
+    gf2 = np.zeros((S, C, FB), np.uint32)
+    add = np.zeros((S, C, FB), np.int32)
+    raw = np.zeros((S, R, FB), np.uint32)
+    chunks = {}
+    for s in range(S):
+        for ch in range(start[s], start[s + 1]):
+            kind, target = cdir[ch] & 0xFF, cdir[ch] >> 8
+            chunks[s, kind, target] = chunks.get((s, kind, target), 0) + 1
+            e = ent[tdbk.CHUNK * ch:tdbk.CHUNK * (ch + 1)]
+            j, w = e[:, 0], e[:, 1]
+            assert ((j >= 0) & (j < FB)).all()
+            assert (j[w == 0] == 0).all()               # (0, 0) padding
+            j, w = j[w != 0], w[w != 0]
+            assert len(np.unique(j)) == len(j)
+            if kind == tdbk.CH_GF2:
+                assert jb.ck_kind[s, target] == tdbk.CK_GF2
+                assert not gf2[s, target, j].any()
+                gf2[s, target, j] = w.view(np.uint32)
+            elif kind == tdbk.CH_ADD:
+                assert jb.ck_kind[s, target] == tdbk.CK_ADD
+                assert not add[s, target, j].any()
+                add[s, target, j] = w
+            else:
+                assert kind == tdbk.CH_RAW and target < R
+                assert not raw[s, target, j].any()
+                raw[s, target, j] = w.view(np.uint32)
+    live = jb.ck_kind != tdbk.CK_OFF
+    want_gf2 = np.where((jb.ck_kind == tdbk.CK_GF2)[..., None], jb.ck_gf2, 0)
+    want_add = np.where((jb.ck_kind == tdbk.CK_ADD)[..., None], jb.ck_add, 0)
+    assert np.array_equal(gf2, want_gf2) and np.array_equal(add, want_add)
+    assert np.array_equal(raw, jb.raw_w)
+    assert not jb.ck_gf2[~live].any() and not jb.ck_add[~live].any()
+    per_row = max(n for (s, k, t), n in chunks.items() if k == tdbk.CH_RAW)
+    per_check = max(n for (s, k, t), n in chunks.items()
+                    if k != tdbk.CH_RAW)
+    assert per_row == 1 and per_check == 4
+    nz = [int((ent[tdbk.CHUNK * start[s]:tdbk.CHUNK * start[s + 1], 1]
+               != 0).sum()) for s in range(S)]
+    assert max(nz) == 216 and sum(nz) == int(
+        (want_gf2 != 0).sum() + (want_add != 0).sum() + (raw != 0).sum())
+
+
+def _sparse_run(bank, bits, n, sid, ns):
+    c, r = tdbk.run_torch_sparse_plain(
+        bank, *(torch.from_numpy(a) for a in (bits, n, sid)),
+        None if ns is None else torch.from_numpy(ns))
+    assert c.dtype == r.dtype == torch.int32
+    return c.numpy(), r.numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("stale", [True, False])
+def test_sparse_emulation_matches_jax_jnp_on_the_fuzz_batch(banks, oracle,
+                                                             stale):
+    """The kernel's evaluation emulated in plain torch (frame words, a
+    frame bit per entry from its word, one XOR or sum per chunk) equals
+    JAX's ``run(xp=jnp)`` on the fuzz batch: stale stored bits, invert,
+    Manchester, negative frame offsets, the 216-entry spec, every spec."""
+    tb, jb = banks
+    bits, n, sid, ns = fuzz_batch(6, 2048, oracle)
+    # rows at a length whose alignment moves the frame before bit 0
+    neg = [(s, int(ln)) for s in range(tb.n_specs)
+           for ln, o in zip(tb.la_len[s], tb.la_off[s])
+           if ln > 0 and o + tb.align_off[s] < 0 and tb.plen[s] == 0]
+    assert neg
+    rng = np.random.default_rng(6)
+    k = 64
+    s_neg, n_neg = (np.resize(np.asarray(c, np.int32), k)
+                    for c in zip(*neg))
+    b_neg = rng.integers(0, 2, (k, tb.in_bits)).astype(np.uint8)
+    ns_neg = rng.integers(n_neg, tb.in_bits + 1).astype(np.int32)
+    bits, n, sid, ns = (np.concatenate(a) for a in (
+        (bits, b_neg), (n, n_neg), (sid, s_neg), (ns, ns_neg)))
+    if not stale:
+        bits = (bits * (np.arange(tb.in_bits)[None, :] < n[:, None])) \
+            .astype(np.uint8)
+        ns = None
+    jc, jr = _jax_run(jb, bits, n, sid, ns)
+    tc, tr = _sparse_run(tb, bits, n, sid, ns)
+    assert np.array_equal(tc, jc) and np.array_equal(tr, jr)
+    # the cases the kernel's word masks must get right are present
+    tabs = tdbk.bank_tables(tb, "cpu")
+    off = tdbk._stages(tb, tabs, torch.from_numpy(bits),
+                       torch.from_numpy(n).long(),
+                       torch.from_numpy(sid).long())[3].numpy()
+    widest = np.argmax(np.diff(tabs["chunk_start"].numpy()))
+    assert (off < 0).sum() >= k
+    for m in (tb.transform[sid] == tdbk.TF_INVERT,
+              tb.transform[sid] == tdbk.TF_MANCHESTER, sid == widest):
+        assert m.any() and (tc[m] == 0).any()
+    assert len(np.unique(sid)) == 77
+
+
+def test_sparse_emulation_matches_jax_jnp_on_the_oracle(banks, oracle):
+    """The oracle vectors' candidates, as the runner builds them, and the
+    empty batch."""
+    tb, jb = banks
+    bits, n, sid, ns = oracle
+    jc, jr = _jax_run(jb, bits, n, sid, ns)
+    tc, tr = _sparse_run(tb, bits, n, sid, ns)
+    assert np.array_equal(tc, jc) and np.array_equal(tr, jr)
+    assert (tc == 0).sum() > 50
+    e = np.zeros(0, np.int32)
+    c, r = _sparse_run(tb, np.zeros((0, tb.in_bits), np.uint8), e, e, e)
+    assert c.shape == (0,) and r.shape == (0, tb.n_raws)
+
+
+def test_sparse_emulation_reads_rows_of_any_width(banks, oracle):
+    """Rows of 500 stored bits (not a multiple of 32) with n and n_store
+    past them (reads clamp to the last stored bit, as the JAX path's
+    gather does), and spec ids out of range (ABORT_LENGTH, zero raws)."""
+    tb, _jb = banks
+    bits, n, sid, ns = fuzz_batch(4, 512, oracle)
+    rng = np.random.default_rng(4)
+    n = np.where(rng.random(512) < 0.2, rng.integers(500, 560, 512),
+                 np.minimum(n, 500)).astype(np.int32)
+    ns = np.maximum(ns, n).astype(np.int32)
+    args = [torch.from_numpy(np.ascontiguousarray(a))
+            for a in (bits[:, :500], n, sid, ns)]
+    want = tdbk.run_torch_plain(tb, *args[:3], args[3])
+    got = tdbk.run_torch_sparse_plain(tb, *args[:3], args[3])
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert (n > 500).sum() > 50
+    bad = torch.tensor([-1, 77, 3], dtype=torch.int32)
+    c, r = tdbk.run_torch_sparse_plain(tb, args[0][:3], args[1][:3], bad,
+                                       args[3][:3])
+    assert c[:2].tolist() == [tdbk.DECODE_ABORT_LENGTH] * 2
+    assert not r[:2].any()
 
 
 @pytest.fixture(scope="module")

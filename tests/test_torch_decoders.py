@@ -111,8 +111,9 @@ DISPATCH_MODULES = ["pulse/native_slicers.py", "decoders/gates.py",
 # or ``Class.method``): the port builds its slicer library from its own
 # csrc/slicers.cpp (ops/_native.py) and raises when that fails, where the
 # JAX package runs make in native/ and reports a failure as "unavailable";
-# the decode bank's torch backend (``run_torch``: the CUDA kernel and its
-# plain version, the JAX ``xp=jnp`` path, tests/test_torch_decode_bank.py)
+# the decode bank's torch backend (``run_torch``: the CUDA kernel with its
+# sparse entry tables, its plain version and the plain emulation of its
+# sparse evaluation, the JAX ``xp=jnp`` path, tests/test_torch_decode_bank.py)
 # is the port's own, and ``DeclRunner.decode_many`` selects it with
 # ``device=`` where JAX takes ``xp=`` (test_decode_many_differs_only_in_
 # its_backend holds the rest of the method to its twin)
@@ -125,7 +126,9 @@ DISPATCH_DIFFERENCES = {
                               "NRAW", "CHECKS")),
         "CK_FIELDS", "_TABLES", "_i32", "_u32", "spec_rows", "bank_tables",
         "_check", "preamble_plain", "run_torch_plain", "run_torch",
-        "run_on"},
+        "run_on", "CHUNK", "CH_GF2", "CH_ADD", "CH_RAW", "sparse_tables",
+        "_stages", "_mic_ok", "_code", "_range_mask", "_compress_odd",
+        "frame_words", "run_torch_sparse_plain"},
     "decoders/declarative.py": {"DeclRunner.decode_many"},
 }
 # imports beyond numpy, ctypes and threading: the torch backend's

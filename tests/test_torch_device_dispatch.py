@@ -4,7 +4,8 @@ CPU.
 ``decoders/device_dispatch.py`` is the JAX module with its declared
 differences (an AST comparison holds the rest to its twin): the bank runs
 on an explicit ``torch.device``, host reads of kernel outputs go through
-``.cpu()``, a lazy record's bytes come through the gather, and
+``.cpu()``, lazy records' bytes come through the batched gather (one
+launch for every family of a materialization pass), and
 ``_content_dup`` returns the first equal event e' <= e, where the JAX
 code's reversed mask always returns e itself (a JAX-side fault: its
 dedup never merges; the events do not change, the grouping only saves
@@ -16,9 +17,13 @@ decode calls). Then, on the same inputs:
 - ``DeviceBank.batch_slice``: summaries and every record's bytes equal
   JAX's; ``group_of`` merges JAX's groups only where records are equal;
 - ``Registry.prewarm_trains``: the memo is filled, the decode cache
-  holds JAX's keys and decodes (the port reads the records in one gather
-  per family for the whole drain, the decode-cache keys included, where
-  JAX reads each key's record alone), and the fuzz dispatch's events and
+  holds JAX's keys and decodes (the port reads the records in at most
+  three gather calls a prewarm: each side's MIC-gated representatives
+  before the per-train plans, then every kept record of the drain, the
+  decode-cache keys included, where JAX reads each key's record alone;
+  two trains whose MIC representatives share their content are read in
+  one call, with the memos of a prewarm without that pass), and the
+  fuzz dispatch's events and
   stats equal the JAX device path's and the port's own host path's
   (Security+ on a frozen clock);
 - the CLI's ``-Y deviceslice`` and ``TPU433_DEVICE_SLICE=1``
@@ -38,6 +43,7 @@ import rtl_433_tpu.decoders.device_dispatch as jdd
 import rtl_433_tpu.decoders.garage as jgarage
 from rtl_433_tpu.decoders import Registry as JaxRegistry
 from rtl_433_tpu.output.data_model import event_to_json as jax_event_to_json
+import rtl_433_tpu_torch.decoders.base as tbase
 import rtl_433_tpu_torch.decoders.device_dispatch as tdd
 import rtl_433_tpu_torch.decoders.garage as tgarage
 from rtl_433_tpu_torch.api import RtlTpu
@@ -70,15 +76,20 @@ def frozen_clock(monkeypatch):
 # the module against its twin
 # ---------------------------------------------------------------------------
 
-# top-level names the port defines differently (the two kernels and their
-# plain versions), and class members that differ: the port's bank always
+# top-level names the port defines differently (the two kernels, their
+# plain versions and the batched gather's helpers), and class members that
+# differ: ``_materialize`` gathers every family of a pass in one launch,
+# ``prefetch_many`` reads a drain's MIC representatives; the port's bank always
 # has the host slicer library (a failed build raises), so it has no
 # Python slicing path (``_python_rows``) and no branch for a missing
 # library in ``_get_ovf_bank``, ``_rest_cols`` and ``batch_slice``
 MODULE_DIFFERENCES = {"_gather_jit", "_gather_records", "_content_dup",
                       "_planes", "_content_dup_plain",
-                      "_gather_records_plain"}
+                      "_gather_records_plain", "_GF_COLS", "_gather_groups",
+                      "_gather_plan", "_gather_many_plain", "_gather_many"}
 MEMBER_DIFFERENCES = {("LazyRecords", "__getitem__"),
+                      ("LazyRecords", "_materialize"),
+                      ("LazyRecords", "prefetch_many"),
                       ("DeviceBank", "__init__"),
                       ("DeviceBank", "batch_slice"),
                       ("DeviceBank", "_get_ovf_bank"),
@@ -379,40 +390,104 @@ def test_prewarm_decodes_the_same_candidates_as_jax():
     assert t._dec_cache and _cache_view(t) == _cache_view(j)
 
 
-def test_prewarm_reads_records_in_batched_gathers(monkeypatch):
-    """No record of a drain is read alone: every gather of a prewarm comes
-    from the drain-wide freeze (one call per family) or from a MIC gate's
-    batch, none from a single lazy record read."""
-    trains = _fuzz_trains(24, seed=5)
-    depth, gathers = [0], {"batched": 0, "single": 0}
-    real_gather = tdd._gather_records
-    real_many = tdd.LazyRecords.materialize_many
-    real_freeze = tdd.LazyRecords.freeze_many
+def _gather_passes(monkeypatch):
+    """Record every batched gather call as (pass, groups): the pass is
+    ``mic`` (LazyRecords.prefetch_many), ``gate`` (a MIC gate's
+    materialize_many), ``freeze`` (freeze_many) or ``single`` (one lazy
+    record read alone)."""
+    ctx, calls = [], []
+    real_gather = tdd._gather_many
+    L = tdd.LazyRecords
 
-    def gather(*a):
-        gathers["batched" if depth[0] else "single"] += 1
-        return real_gather(*a)
+    def gather(groups):
+        calls.append((ctx[-1] if ctx else "single", list(groups)))
+        return real_gather(groups)
 
-    def batched(fn):
+    def within(name, fn):
         def run(*a, **k):
-            depth[0] += 1
+            ctx.append(name)
             try:
                 return fn(*a, **k)
             finally:
-                depth[0] -= 1
+                ctx.pop()
         return run
 
-    freezes = []
-    monkeypatch.setattr(tdd, "_gather_records", gather)
-    monkeypatch.setattr(tdd.LazyRecords, "materialize_many",
-                        batched(real_many))
-    monkeypatch.setattr(tdd.LazyRecords, "freeze_many", staticmethod(
-        batched(lambda items: freezes.append(1) or real_freeze(items))))
+    monkeypatch.setattr(tdd, "_gather_many", gather)
+    monkeypatch.setattr(L, "materialize_many",
+                        within("gate", L.materialize_many))
+    monkeypatch.setattr(L, "prefetch_many",
+                        staticmethod(within("mic", L.prefetch_many)))
+    monkeypatch.setattr(L, "freeze_many",
+                        staticmethod(within("freeze", L.freeze_many)))
+    return calls
+
+
+def test_prewarm_reads_records_in_batched_gathers(monkeypatch):
+    """No record of a drain is read alone: a prewarm makes at most three
+    gather calls, each one launch for every family it touches: the MIC
+    gates' representatives of each side (one call per side, before the
+    per-train plans) and the drain-wide freeze; the gates' own batches
+    find their records ready."""
+    trains = _fuzz_trains(24, seed=5)
+    assert {bool(f) for f, _p, _g in trains} == {False, True}
+    calls = _gather_passes(monkeypatch)
     reg = _registry(Registry, True)
     assert reg.prewarm_trains(trains, RATE) > 0
     assert reg._dec_cache
-    assert gathers["single"] == 0 and gathers["batched"] > 0
-    assert len(freezes) == 1
+    passes = [c[0] for c in calls]
+    assert set(passes) == {"mic", "freeze"}, passes
+    assert passes.count("mic") <= 2 and passes.count("freeze") == 1
+    assert len(calls) <= 3
+    # one call gathers several families, of several trains
+    fam_calls = [c for c in calls if len(c[1]) > 1]
+    assert fam_calls
+    assert any(len({int(b) for g in groups for b in g[2]}) > 1
+               for _p, groups in calls)
+
+
+def _mic_train(reg, trains):
+    """The first train whose device-sliced plan has MIC-gated
+    representatives."""
+    for fsk, p, g in trains:
+        bank = reg._get_device_bank(bool(fsk), RATE)
+        meta = reg._bank_meta(bank)
+        summary, _rec, group_of = bank.batch_slice(
+            [(np.asarray(p, np.int32), np.asarray(g, np.int32))])[0]
+        if len(summary) and tbase._mic_representatives(
+                bank.devices, meta, summary, group_of):
+            return fsk, p, g
+    raise AssertionError("no train with MIC-gated representatives")
+
+
+def test_prewarm_gathers_shared_mic_representatives_in_one_call(
+        monkeypatch, frozen_clock):
+    """Two trains of one drain whose MIC-gated records have the same
+    content (a train, and the same train sent twice): their
+    representatives come in one gather call with records of both trains,
+    and the memos, decode cache, events and stats equal those of a
+    prewarm in which each train's gates read their own records (no
+    prefetch)."""
+    probe = _registry(Registry, True)
+    fsk, p, g = _mic_train(probe, _fuzz_trains(8, seed=5))
+    p2, g2 = _repeat(p, g, 2)
+    drain = [(fsk, p, g), (fsk, p2, g2)]
+    calls = _gather_passes(monkeypatch)
+    reg = _registry(Registry, True)
+    assert reg.prewarm_trains(drain, RATE) == 2
+    mic = [groups for kind, groups in calls if kind == "mic"]
+    assert len(mic) == 1
+    assert {int(b) for grp in mic[0] for b in grp[2]} == {0, 1}
+    assert [kind for kind, _g in calls].count("freeze") == 1
+
+    monkeypatch.setattr(tdd.LazyRecords, "prefetch_many",
+                        staticmethod(lambda items: None))
+    alone = _registry(Registry, True)
+    assert alone.prewarm_trains(drain, RATE) == 2
+    assert [m["priorities"] for m in reg._train_cache.values()] == \
+        [m["priorities"] for m in alone._train_cache.values()]
+    assert _cache_view(reg) == _cache_view(alone)
+    assert _dispatch_all(reg, drain, prewarm=False) == \
+        _dispatch_all(alone, drain, prewarm=False)
 
 
 def test_fuzz_dispatch_matches_jax_and_host(frozen_clock):
