@@ -712,6 +712,42 @@ def osv1_steps(pulse, gap, npl, bounds):
     return int((steps * np.asarray(cols["ok"], bool)[None, :]).sum())
 
 
+def pcm_split(calls):
+    """PCM's recorded calls timed whole and in two cuts (device ms summed
+    over the calls, cuda_ms_all): with every spec's ok cleared, so that
+    the rate pass runs on every lane while the step tiles find no active
+    pulse (the rate pass, the empty tiles and the write-out), and with
+    every train empty (the launch and the write-out alone). Their
+    difference over the whole's less the write-out bounds the rate pass's
+    share from above."""
+    import torch
+    from rtl_433_tpu_torch.ops import slice as sl
+    whole, no_ok, empty = [], [], []
+    for kind, args in calls:
+        if kind != "slice" or args[0] != "pcm":
+            continue
+        fam, pulse, gap, npl, bounds, caps = args
+        tab = bounds if isinstance(bounds, torch.Tensor) else \
+            torch.from_numpy(sl.bound_table(fam, bounds)).to(pulse.device)
+        off = tab.clone()
+        off[:, -1] = 0
+        zero = torch.zeros_like(npl)
+        whole.append(lambda a=(pulse, gap, npl, tab, caps):
+                     sl.slice_cuda("pcm", *a))
+        no_ok.append(lambda a=(pulse, gap, npl, off, caps):
+                     sl.slice_cuda("pcm", *a))
+        empty.append(lambda a=(pulse, gap, zero, tab, caps):
+                     sl.slice_cuda("pcm", *a))
+    ms = {k: cuda_ms_all(v) for k, v in (("whole_ms", whole),
+                                         ("ok_cleared_ms", no_ok),
+                                         ("empty_trains_ms", empty))}
+    ms["calls"] = len(whole)
+    ms["rate_pass_share_at_most"] = (
+        (ms["ok_cleared_ms"] - ms["empty_trains_ms"])
+        / max(ms["whole_ms"] - ms["empty_trains_ms"], 1e-9))
+    return ms
+
+
 def ds_kernel_names():
     from rtl_433_tpu_torch.ops import _cuda
     return [f"slice_{f}" for f in _cuda.SLICE_FAMILIES] + [
@@ -1665,6 +1701,8 @@ def multichannel(dev, mesh, compare, ds_kernels, mh_dir, gathers,
         drain_checked = ds_check(drain_calls, compare, "dense_4096 drain",
                                  drain_lanes)
         ds_numbers = ds_measure(drain_calls)
+        if "slice_pcm" in ds_numbers:
+            ds_numbers["slice_pcm"]["split"] = pcm_split(drain_calls)
         ds_numbers_s = time.perf_counter() - t
         drain_decl = decl_measure(drain_dcalls, [
             c for c in drain_calls if c[0] == "decl_bank"], cpu=True)
@@ -3049,6 +3087,8 @@ def main():
             "launch_floor_ms": ts_numbers["timeshard_chain"][
                 "launch_floor_ms"],
             "measured_at": m.get("measured_at", "dense_4096 drain")})
+        if k == "slice_pcm" and "split" in m:
+            rows[-1]["rate_pass_split"] = m["split"]
         if k == "content_dup":
             # the bound: the bytes the compare must read (dup_live_bytes);
             # beside it the earlier figure, every plane read once

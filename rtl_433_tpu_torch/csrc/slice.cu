@@ -1,7 +1,5 @@
 // Device slicing: each (train, spec) lane runs one reference slicer over its
-// train and writes the lane's bitbuffers; two families (PCM, NRZS) walk
-// the lane's state machine on one thread, the other seven (PPM, MC, PWM,
-// DMC, PIWM-DC, RZI, OSV1) split it over a thread group.
+// train and writes the lane's bitbuffers; a thread group runs each lane.
 //
 // Replaces the nine lax.scan slicers of the JAX package's ops/slice.py
 // (slice_ppm, slice_pwm, slice_pcm with _pcm_rates, slice_mc, slice_dmc,
@@ -18,44 +16,20 @@
 // them uninitialized). A write outside the caps (event >= E, row >= R,
 // bit >= 8 * BY) is dropped, as the JAX scatters drop it.
 //
-// The walk (PCM, NRZS). A CTA covers one
-// train (blockIdx.y) and `lanes` specs of one family (blockIdx.x; 64, or
-// 32 where S <= 32 or 64 would not fit); it
-// stages the train's n_pulses[b] pulse and gap values into shared memory
-// once, and every thread then walks only that many steps, reading the
-// same shared word as all its neighbours (a broadcast). The spec's bounds
-// sit in registers. One
-// template takes a per-family step function (two instantiations); the
-// writer is shared (struct Lane, warp_put). Every family writes only its
-// current event, whose index only grows, so a lane stages its events in
-// shared memory: runs of ones are 32-bit word ors (the JAX cumulative sum
-// of +1/-1 deltas), PCM's erases word stores. The warp
-// writes a lane's events to device memory together, consecutive threads
-// on consecutive 16-byte chunks of that lane's contiguous range (bytes
-// where the caps do not allow 16), and writes zeros for the events the
-// lane never reached; so the planes are written once, coalesced, and
-// nothing is read back from device memory. Two staging modes, chosen by
-// ops/slice.py launch_plan:
-//   every event staged (kAll), where the grid then fits on the card at
-//     once: nothing leaves before the lane ends, so the walk never stops
-//     for a write-out (such a call is bound by its slowest lane);
-//   one event staged otherwise (784 bytes at PCM's caps 16 x 40, four
-//     blocks of 64 lanes per SM): at the top of each step, where the lanes
-//     of a block meet (they walk the same train), the warp writes out the
-//     lanes whose family moved past their staged event (warp_moved).
-//
-// The groups (PPM, MC, PWM, DMC, PIWM-DC, RZI, OSV1; slice_groups). A
-// group of G threads (32, or 8 or 16 where the train is short) runs one
-// lane over tiles of G steps, a step per thread: a pulse and its gap for
-// PPM, MC, PWM, RZI and OSV1, symbols of the interleaved pulse/gap axis
-// for DMC and PIWM-DC (kSymbols; 2n of them). A CTA holds one train and
-// up to four warps of lanes. Most of the seven step functions is not
-// serial: what a gap, pulse or symbol is (PPM's four classes, PWM's five;
-// MC's out, its resync 1, the flush; DMC's and PIWM-DC's classes and
-// reset test; RZI's ones, whether a pulse opens a message) and whether it
-// may end an event or a row depends on no state, and the cursors only
-// count or reset since the last reset. OSV1's phase machine has a closed
-// form (its phases are fixed pulses until the flush). So a tile is
+// The groups (slice_groups). A group of G threads (32, or 8 or 16 where
+// the train is short) runs one lane over tiles of G steps, a step per
+// thread: a pulse and its gap for PPM, MC, PWM, PCM, NRZS, RZI and OSV1,
+// symbols of the interleaved pulse/gap axis for DMC and PIWM-DC
+// (kSymbols; 2n of them). A CTA holds one train, staged once into shared
+// memory, and up to four warps of lanes. Most of the nine step functions
+// is not serial: what a gap, pulse or symbol is (PPM's four classes,
+// PWM's five; MC's out, its resync 1, the flush; DMC's and PIWM-DC's
+// classes and reset test; PCM's ones, zeros, clear and row break once its
+// rates are fixed; NRZS's and RZI's ones, whether an RZI pulse opens a
+// message) and whether it may end an event or a row depends on no state,
+// and the cursors only count or reset since the last reset. OSV1's phase
+// machine has a closed form (its phases are fixed pulses until the
+// flush). So a tile is
 //   1. classified, a predicate per thread; OSV1: its preamble and sync
 //      resolved from ballots, a phase carried across tiles;
 //   2. MC: walked for its time since the last bit (tsl), the one value
@@ -68,21 +42,30 @@
 //   3. given its cursors by ballots: popcounts of the emissions since the
 //      last reset give each emission its (event, row, bit), each flush its
 //      rows and the lane its overflow, judged on the pre-flush cursors as
-//      the step functions judge it; RZI, whose step adds a run of bits,
-//      by a segmented add-scan since the last flush candidate
+//      the step functions judge it; PCM, NRZS and RZI, whose steps add a
+//      run of bits, by a segmented add-scan since the last reset
 //      (Group::seg_scan); a tile hands its cursors to the next through
 //      its last thread;
 //   4. written to the group's stage (every event, struct Stage): a row's
 //      bit count by the thread of its last bit in the tile, its bytes by
 //      word ORs (the positions of a tile never decrease with the thread,
-//      so a segmented OR-scan gives each word one store; RZI's runs, which
-//      span words and share their edge words, by atomic ORs), syncs by
-//      shared adds; OSV1 ORs the ones below the row's last bit, counts
-//      those the JAX scatter-add clips to it and adds the count to the
-//      row's last byte once at the end (GroupFamily::end).
-// OSV1 stops a CTA's tiles once none of its lanes can write (kStops: a
-// CTA-wide vote a tile). At the end the group writes its stage out with
-// warp_put's writer.
+//      so a segmented OR-scan gives each word one store; the runs of PCM,
+//      NRZS and RZI, which span words and share their edge words, by
+//      atomic ORs), syncs by shared adds; OSV1 ORs the ones below the
+//      row's last bit, counts those the JAX scatter-add clips to it and
+//      adds the count to the row's last byte once at the end
+//      (GroupFamily::end); PCM's bitbuffer_clear erases the rows its open
+//      event staged in earlier tiles.
+// PCM first runs its rate pass (GroupFamily::begin: JAX _pcm_rates) over
+// the whole train in tiles of its own: the runs of its preamble estimator
+// from ballots and segmented sums, RZ's acceptances in closed form (a
+// running max), NRZ's, whose run test reads the running estimate, in
+// rounds of speculation (PcmLanes). OSV1 stops a CTA's tiles once none of
+// its lanes can write (kStops: a CTA-wide vote a tile). At the end the
+// group writes its stage out (put_events): consecutive threads on
+// consecutive 16-byte chunks of the lane's contiguous event range (bytes
+// where the caps do not allow 16), zeros for the events it never reached;
+// so the planes are written once, coalesced, and nothing is read back.
 //
 // Float32 in PCM: the JAX scan and the plain version round each product
 // and sum separately, so every float operation here is an explicit
@@ -92,20 +75,17 @@
 //
 // Bound: the bytes of the output planes (each written once) against
 // integer work over B * S * n steps (a few tens of int32 ops per step;
-// 2n symbols for DMC and PIWM-DC).
-// At a drain of the 4096-channel workload the planes are tens of MB, so
-// the bytes bound it on paper; on the card a call of up to a few
-// thousand lanes is one wave, bound by the latency of its slowest lane's
-// serial walk (one thread, about a microsecond a pulse at PCM), and the
-// large call by that walk plus the planes' write-out. The walk's design
-// takes the write-out off the walk (coalesced, by the warp, never per bit)
-// and, where it fits, out of the walk altogether; it does not shorten the
-// walk itself. The groups shorten it for all but PCM and NRZS: a tile of
-// G steps costs a fixed few hundred cycles of ballots, shuffles and stage
-// stores, and MC's remaining serial walk is as long as its longest piece
-// (a pulse or two on Manchester data).
+// 2n symbols for DMC and PIWM-DC, two passes for PCM). At a drain of the
+// 4096-channel workload the planes are tens of MB, so the bytes bound it
+// on paper; on the card a call of up to a few thousand lanes is one wave,
+// bound by the latency of its longest lane: a tile of G steps costs a
+// fixed few hundred cycles of ballots, shuffles and stage stores, MC's
+// remaining serial walk is as long as its longest piece (a pulse or two
+// on Manchester data), and PCM's NRZ rate pass takes one round a tile
+// more for each run it accepts there.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 #include <string.h>
 
@@ -118,29 +98,28 @@ __host__ __device__ __forceinline__ int round16(int v) {
 }
 
 // The output planes and caps of a launch, and the layout of a lane's
-// stage: ES staged events (E with every event staged, else 1), each as
-// rows [R, BYP] (BY rounded up to 4 bytes), then bits_per_row [ES, R],
-// syncs [ES, R] and num_rows [ES], each part rounded up to 16 bytes
-// (ops/slice.py stage_bytes).
+// stage: its E events, each as rows [R, BYP] (BY rounded up to 4 bytes),
+// then bits_per_row [E, R], syncs [E, R] and num_rows [E], each part
+// rounded up to 16 bytes (ops/slice.py stage_bytes).
 struct Planes {
   uint8_t* bytes;   // [B, S, E, R, BY]
   int* bpr;         // [B, S, E, R]
   int* syncs;       // [B, S, E, R]
   int* nrows;       // [B, S, E]
-  int E, R, BY, ES;
+  int E, R, BY;
   int BYP;          // bytes of a staged row
   int ob, os, on;   // stage offsets: bits_per_row, syncs, num_rows
   bool v16;         // rows in 16-byte stores: BY % 4 == 0, R * BY % 16 == 0
   bool r4;          // counts in 16-byte stores: R % 4 == 0
   __device__ Planes(uint8_t* b, int* p, int* s, int* n, int E_, int R_,
-                    int BY_, int ES_)
+                    int BY_)
       : bytes(b), bpr(p), syncs(s), nrows(n), E(E_), R(R_), BY(BY_),
-        ES(ES_), BYP((BY_ + 3) & ~3),
-        ob(round16(ES_ * R_ * ((BY_ + 3) & ~3))),
-        os(round16(ES_ * R_ * ((BY_ + 3) & ~3)) + 4 * ES_ * R_),
-        on(round16(ES_ * R_ * ((BY_ + 3) & ~3)) + round16(8 * ES_ * R_)),
+        BYP((BY_ + 3) & ~3),
+        ob(round16(E_ * R_ * ((BY_ + 3) & ~3))),
+        os(round16(E_ * R_ * ((BY_ + 3) & ~3)) + 4 * E_ * R_),
+        on(round16(E_ * R_ * ((BY_ + 3) & ~3)) + round16(8 * E_ * R_)),
         v16(BY_ % 4 == 0 && (R_ * BY_) % 16 == 0), r4(R_ % 4 == 0) {}
-  __device__ int stage_words() const { return (on + round16(4 * ES)) / 4; }
+  __device__ int stage_words() const { return (on + round16(4 * E)) / 4; }
 };
 
 // bits [lo, hi) of word k of a staged row (clipped to the word: lo and hi
@@ -155,165 +134,45 @@ __device__ __forceinline__ uint32_t run_word(int lo, int hi) {
   return __byte_perm(m, 0, 0x0123);
 }
 
-// One lane's stage in shared memory. Every family writes only its
-// current event, whose index only grows. With every event staged (kAll),
-// event e is stage slot e and nothing leaves before the lane ends. With
-// one, the slot holds event sev; once the family has moved past it, the
-// warp writes it out at the top of the next step (warp_moved) and the
-// slot takes the next event. Writes outside the caps are dropped.
-template <bool kAll>
-struct Lane {
-  const Planes& pl;
-  uint8_t* st;      // the stage
-  int E, R, BY, BYP;
-  int sev = 0;      // one event staged: that event (E: none left)
-
-  __device__ Lane(const Planes& p, uint8_t* stage)
-      : pl(p), st(stage), E(p.E), R(p.R), BY(p.BY), BYP(p.BYP) {
-    uint4* s4 = reinterpret_cast<uint4*>(stage);
-    for (int i = 0; i < p.stage_words() / 4; ++i)
-      s4[i] = make_uint4(0, 0, 0, 0);
-  }
-  __device__ int slot(int ev) const { return kAll ? ev : 0; }
-  __device__ uint8_t* row(int ev, int r) const {
-    return st + (slot(ev) * R + r) * BYP;
-  }
-  __device__ int& nbits(int ev, int r) const {
-    return reinterpret_cast<int*>(st + pl.ob)[slot(ev) * R + r];
-  }
-  __device__ int& nrow(int ev) const {
-    return reinterpret_cast<int*>(st + pl.on)[slot(ev)];
-  }
-
-  __device__ bool in(int ev, int row) const {
-    return ev >= 0 && ev < E && row >= 0 && row < R;
-  }
-  // one event staged: the slot now holds event ev (<= E)
-  __device__ void moved_to(int ev) { sev = ev; }
-  // ev's slot can take a write; false where ev lies outside the caps. A
-  // write past the one staged event inside a step breaks the contract
-  // above (the lane's stage would be lost): the launch fails.
-  __device__ bool at(int ev) {
-    if (kAll) return ev >= 0 && ev < E;
-    if (ev < sev || ev >= E) return false;
-    if (ev != sev) __trap();
-    return true;
-  }
-
-  __device__ void count(int ev, int r, int n) {
-    if (in(ev, r) && at(ev)) nbits(ev, r) += n;
-  }
-  __device__ void rows(int ev, int n) {
-    if (at(ev)) nrow(ev) += n;
-  }
-  // bits [start, start + len) of a row set to one, clipped at 8 * BY
-  __device__ void run(int ev, int r, int start, int len) {
-    if (len <= 0 || !in(ev, r) || !at(ev)) return;
-    const int a = max(start, 0), b = min(start + len, 8 * BY);
-    uint32_t* w = reinterpret_cast<uint32_t*>(row(ev, r));
-    for (int k = a >> 5; a < b && k <= (b - 1) >> 5; ++k)
-      w[k] |= run_word(a - 32 * k, b - 32 * k);
-  }
-  // rows [0, last] of an event back to zero (bytes and bit counts)
-  __device__ void erase(int ev, int last) {
-    if (last < 0 || !at(ev)) return;
-    const int n = min(last, R - 1) + 1;
-    uint32_t* w = reinterpret_cast<uint32_t*>(row(ev, 0));
-    for (int i = 0; i < n * BYP / 4; ++i) w[i] = 0u;
-    for (int r = 0; r < n; ++r) nbits(ev, r) = 0;
-  }
-};
-
-// Threads t = 0..nt-1 write one lane's events [ev, ev + nev) from its
-// stage `st` (its slots 0..nev-1; nothing where ev >= E) and zeros for the
-// events after them up to `to`; with `clear` they also clear the stage for
-// the lane's next event. Consecutive threads take consecutive 16-byte
-// chunks of the lane's contiguous event range (bytes where the caps do not
-// allow 16). Each calls it with the same values, after a __syncwarp that
-// makes the lane's stage visible; with `clear` (the lanes 0..nt-1 of a
-// warp, `alive`), the lane reads its stage again only after another.
-__device__ void put_events(const Planes& p, size_t lane, uint8_t* st, int ev,
-                           int nev, int to, bool clear, int t, int nt,
-                           unsigned alive) {
+// Threads t = 0..nt-1 write one lane's events from its stage `st` (every
+// event of the lane). Consecutive threads take consecutive 16-byte chunks
+// of the lane's contiguous event range (bytes where the caps do not allow
+// 16). Each calls it after a __syncwarp that makes the stage visible.
+__device__ void put_events(const Planes& p, size_t lane, const uint8_t* st,
+                           int t, int nt) {
   const int E = p.E, R = p.R;
   const int EV = R * p.BY;                         // bytes of one event
   uint8_t* gb = p.bytes + lane * E * EV;
   int* gp = p.bpr + lane * E * R;
   int* gs = p.syncs + lane * E * R;
   int* gn = p.nrows + lane * E;
-  int* sp = reinterpret_cast<int*>(st + p.ob);
-  int* ss = reinterpret_cast<int*>(st + p.os);
-  int* sn = reinterpret_cast<int*>(st + p.on);
-  int from = ev;
-  if (ev < E) {
-    nev = min(nev, E - ev);
-    if (p.v16) {
-      uint4* d = reinterpret_cast<uint4*>(gb + ev * EV);
-      uint4* s4 = reinterpret_cast<uint4*>(st);
-      for (int i = t; i < nev * EV / 16; i += nt) {
-        d[i] = s4[i];
-        if (clear) s4[i] = make_uint4(0, 0, 0, 0);
-      }
-    } else {
-      for (int i = t; i < nev * EV; i += nt)
-        gb[ev * EV + i] = st[(i / p.BY) * p.BYP + i % p.BY];
-      if (clear) {
-        __syncwarp(alive);
-        uint32_t* w = reinterpret_cast<uint32_t*>(st);
-        for (int i = t; i < nev * R * p.BYP / 4; i += nt) w[i] = 0u;
-      }
-    }
-    if (p.r4) {
-      int4* dp = reinterpret_cast<int4*>(gp + ev * R);
-      int4* ds = reinterpret_cast<int4*>(gs + ev * R);
-      int4* sp4 = reinterpret_cast<int4*>(sp);
-      int4* ss4 = reinterpret_cast<int4*>(ss);
-      for (int i = t; i < nev * R / 4; i += nt) {
-        dp[i] = sp4[i];
-        ds[i] = ss4[i];
-        if (clear) sp4[i] = ss4[i] = make_int4(0, 0, 0, 0);
-      }
-    } else {
-      for (int i = t; i < nev * R; i += nt) {
-        gp[ev * R + i] = sp[i];
-        gs[ev * R + i] = ss[i];
-        if (clear) sp[i] = ss[i] = 0;
-      }
-    }
-    for (int i = t; i < nev; i += nt) {
-      gn[ev + i] = sn[i];
-      if (clear) sn[i] = 0;
-    }
-    from = ev + nev;
+  const int* sp = reinterpret_cast<const int*>(st + p.ob);
+  const int* ss = reinterpret_cast<const int*>(st + p.os);
+  const int* sn = reinterpret_cast<const int*>(st + p.on);
+  if (p.v16) {
+    uint4* d = reinterpret_cast<uint4*>(gb);
+    const uint4* s4 = reinterpret_cast<const uint4*>(st);
+    for (int i = t; i < E * EV / 16; i += nt) d[i] = s4[i];
+  } else {
+    for (int i = t; i < E * EV; i += nt)
+      gb[i] = st[(i / p.BY) * p.BYP + i % p.BY];
   }
-  to = min(to, E);
-  if (from < to) {
-    if (p.v16) {
-      uint4* d = reinterpret_cast<uint4*>(gb);
-      for (int i = from * EV / 16 + t; i < to * EV / 16; i += nt)
-        d[i] = make_uint4(0, 0, 0, 0);
-    } else {
-      for (int i = from * EV + t; i < to * EV; i += nt) gb[i] = 0;
+  if (p.r4) {
+    int4* dp = reinterpret_cast<int4*>(gp);
+    int4* ds = reinterpret_cast<int4*>(gs);
+    const int4* sp4 = reinterpret_cast<const int4*>(sp);
+    const int4* ss4 = reinterpret_cast<const int4*>(ss);
+    for (int i = t; i < E * R / 4; i += nt) {
+      dp[i] = sp4[i];
+      ds[i] = ss4[i];
     }
-    if (p.r4) {
-      int4* dp = reinterpret_cast<int4*>(gp);
-      int4* ds = reinterpret_cast<int4*>(gs);
-      for (int i = from * R / 4 + t; i < to * R / 4; i += nt) {
-        dp[i] = make_int4(0, 0, 0, 0);
-        ds[i] = make_int4(0, 0, 0, 0);
-      }
-    } else {
-      for (int i = from * R + t; i < to * R; i += nt) gp[i] = gs[i] = 0;
+  } else {
+    for (int i = t; i < E * R; i += nt) {
+      gp[i] = sp[i];
+      gs[i] = ss[i];
     }
-    for (int e = from + t; e < to; e += nt) gn[e] = 0;
   }
-}
-
-// put_events by the lanes `alive` of a warp
-__device__ void warp_put(const Planes& p, size_t lane, uint8_t* st, int ev,
-                         int nev, int to, bool clear, unsigned alive) {
-  put_events(p, lane, st, ev, nev, to, clear, threadIdx.x & 31,
-             __popc(alive), alive);
+  for (int i = t; i < E; i += nt) gn[i] = sn[i];
 }
 
 // float helpers: explicit round-to-nearest, never contracted
@@ -333,253 +192,6 @@ __device__ __forceinline__ int trunc05(float v, bool& near) {
   float eps = __fadd_rn(1e-6f, __fmul_rn(fabsf(x), 2e-6f));
   near = fabsf(__fsub_rn(x, rintf(x))) < eps;
   return __float2int_rz(x);
-}
-
-// ---- the walk's families: state, step, end -----------------------------
-//
-// Each step is the JAX step of its family for one lane: the same
-// comparisons in the same order, its emissions written where the JAX
-// assembly scatters them. Each family also carries ev (events so far) and
-// ovf.
-
-struct Pcm {
-  int sh, lo, rst, gpl, tol, mz, mc0;
-  bool is_rz;
-  float fs, fl;
-  int ev = 0, row = 0, bir = 0, frb = 0;
-  int dirty = -1;   // last row written in the current segment of ev
-  bool ovf = false;
-  __device__ explicit Pcm(const int* c)
-      : sh(c[0]), lo(c[1]), rst(c[2]), gpl(c[3]), tol(c[4]), mz(c[5]),
-        mc0(c[6]), is_rz(c[7] != 0), fs(bits_to_float(c[8])),
-        fl(bits_to_float(c[9])) {}
-
-  // JAX _pcm_rates: the preamble run estimator (its condition reads the
-  // running estimate), then the order-free fallback sums
-  __device__ void pre(const int* P, const int* G, int n) {
-    int cnt = 0, sw = 0, lw = 0, mc = mc0, plen = 0;
-    bool prev_c = false, flag = false;
-    auto eval_run = [&]() {
-      if (cnt < mc) return;
-      float cntf = i2f(cnt);
-      float fs_rz = sw > 0 ? __fdiv_rn(cntf, i2f(sw)) : fs;
-      float fl_rz = lw > 0 ? __fdiv_rn(cntf, i2f(lw)) : fl;
-      float f_nrz = sw > 0 ? __fdiv_rn(cntf, i2f(sw)) : fs;
-      fs = is_rz ? fs_rz : f_nrz;
-      fl = is_rz ? fl_rz : f_nrz;
-      mc = cnt;
-      plen = cnt;
-    };
-    for (int i = 0; i < n; ++i) {
-      int p = P[i], g = G[i];
-      bool c_rz = p >= sh - tol && p <= sh + tol && p + g >= lo - tol &&
-                  p + g <= lo + tol;
-      bool near_p, near_g;
-      int hp = trunc05(__fmul_rn(i2f(p), fs), near_p);
-      int hg = trunc05(__fmul_rn(i2f(g), fl), near_g);
-      bool c = is_rz ? c_rz : (hp == 1 && hg == 1);
-      flag = flag || (!is_rz && ((near_p && hp <= 2) || (near_g && hg <= 2)));
-      if (prev_c && !c) eval_run();
-      if (c) {
-        cnt += is_rz ? 1 : 2;
-        sw += is_rz ? p : p + g;
-        lw += p + g;
-      } else {
-        cnt = sw = lw = 0;
-      }
-      prev_c = c;
-    }
-    if (cnt > 0) eval_run();
-    // fallbacks over the whole train
-    int rzc = 0, rzs = 0, rzl = 0, nw = 0, nc = 0;
-    for (int i = 0; i < n; ++i) {
-      int p = P[i], g = G[i];
-      if (p >= sh - tol && p <= sh + tol && p + g >= lo - tol &&
-          p + g <= lo + tol) {
-        rzc += 1; rzs += p; rzl += p + g;
-      }
-      if (p >= sh - tol && p <= sh + tol) { nw += p; nc += 1; }
-      if (p >= 2 * sh - tol && p <= 2 * sh + tol) { nw += p; nc += 2; }
-      if (g >= lo - tol && g <= lo + tol) { nw += g; nc += 1; }
-      if (g >= 2 * lo - tol && g <= 2 * lo + tol) { nw += g; nc += 2; }
-    }
-    if (is_rz && plen == 0 && rzc > 8) {
-      fs = __fdiv_rn(i2f(rzc), i2f(max(rzs, 1)));
-      fl = __fdiv_rn(i2f(rzc), i2f(max(rzl, 1)));
-    }
-    if (!is_rz && plen == 0 && nc > 20) {
-      fs = fl = __fdiv_rn(i2f(nc), i2f(max(nw, 1)));
-    }
-    ovf = flag;
-  }
-
-  template <class L>
-  __device__ void step(int p, int g, bool last, L& o) {
-    bool near_h, near_l;
-    int h = trunc05(__fmul_rn(i2f(p), fs), near_h);
-    int l0 = trunc05(__fmul_rn(i2f(g + sh - lo), fl), near_l);
-    near_l = near_l && l0 <= mz + 1;
-    h = max(h, 0);
-    int l = min(max(l0, 0), mz);
-    bool ovf2 = ovf || near_h || near_l;
-    // a run of h ones then l zeros at the cursor
-    if (h + l > 0 && o.in(ev, row)) {
-      o.count(ev, row, h + l);
-      o.run(ev, row, bir, h);
-      dirty = max(dirty, row);
-    }
-    int bir2 = bir + h + l;
-    int frb2 = row == 0 ? frb + h + l : frb;
-    bool do_clear = is_rz && abs(p - sh) > tol;
-    bool do_break = !do_clear && g > gpl && g <= rst;
-    // a clear starts a new segment: what this event wrote so far (this
-    // step's run too) is not kept
-    if (do_clear) { o.erase(ev, dirty); dirty = -1; }
-    int row2 = do_clear ? 0 : (do_break ? row + 1 : row);
-    int bir3 = (do_clear || do_break) ? 0 : bir2;
-    int frb3 = do_clear ? 0 : frb2;
-    bool flush = (g > rst || last) && (frb3 > 0 || row2 > 0);
-    if (flush) { o.rows(ev, row2 + 1); dirty = -1; }
-    int ev2 = flush ? ev + 1 : ev;
-    ovf = ovf2 || ev2 >= o.E || max(row2, row) >= o.R || bir2 >= o.BY * 8;
-    ev = ev2;
-    row = flush ? 0 : row2;
-    bir = flush ? 0 : bir3;
-    frb = flush ? 0 : frb3;
-  }
-  // the event left open at the end never flushed: none of it is kept
-  template <class L>
-  __device__ void end(L& o) { o.erase(ev, dirty); }
-};
-
-struct Nrzs {
-  int sh, rst;
-  int ev = 0, bir = 0;
-  bool ovf = false;
-  __device__ explicit Nrzs(const int* c) : sh(c[0]), rst(c[1]) {}
-  __device__ void pre(const int*, const int*, int) {}
-  template <class L>
-  __device__ void step(int p, int g, bool last, L& o) {
-    int h = p > sh ? p / max(sh, 1) : 0;
-    int z = p != sh ? 1 : 0;
-    o.run(ev, 0, bir, h);
-    if (h + z > 0) o.count(ev, 0, h + z);
-    int bir2 = bir + h + z;
-    bool flush = g >= rst || last;
-    if (flush) o.rows(ev, bir2 > 0 ? 1 : 0);
-    int ev2 = flush ? ev + 1 : ev;
-    ovf = ovf || bir2 > o.BY * 8 || (flush && ev2 >= o.E);
-    ev = ev2;
-    bir = flush ? 0 : bir2;
-  }
-  template <class L>
-  __device__ void end(L&) {}
-};
-
-// One event staged: lanes whose family moved past their staged event (a
-// flush in the step before) are written out by the warp, then each stages
-// its new event. Every thread of `alive` calls it at the same step.
-template <class F>
-__device__ __forceinline__ void warp_moved(const F& f, Lane<false>& o,
-                                           bool ok, unsigned alive,
-                                           const Planes& pl, size_t lane0,
-                                           uint8_t* stage0, int SB) {
-  const bool moved = ok && f.ev > o.sev && o.sev < o.E;
-  unsigned m = __ballot_sync(alive, moved);
-  if (!m) return;
-  __syncwarp(alive);
-  for (; m; m &= m - 1) {
-    const int L = __ffs(m) - 1;
-    warp_put(pl, lane0 + L, stage0 + (size_t)L * SB,
-             __shfl_sync(alive, o.sev, L), 1, __shfl_sync(alive, f.ev, L),
-             true, alive);
-  }
-  __syncwarp(alive);
-  if (moved) o.moved_to(min(f.ev, o.E));
-}
-
-template <class F, bool kAll>
-__global__ void slice_lanes(const int* __restrict__ pulse,
-                            const int* __restrict__ gap,
-                            const int* __restrict__ n_pulses, int N,
-                            const int* __restrict__ bounds, int S, int E,
-                            int R, int BY, int SB, uint8_t* bytes, int* bpr,
-                            int* syncs, int* nrows, int* n_events,
-                            uint8_t* ovf) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int* sp = reinterpret_cast<int*>(smem);
-  int* sg = sp + N;
-  const int b = blockIdx.y;
-  const int n = min(max(n_pulses[b], 0), N);
-  const int* pb = pulse + (size_t)b * N;
-  const int* gb = gap + (size_t)b * N;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    sp[i] = pb[i];
-    sg[i] = gb[i];
-  }
-  __syncthreads();
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  // the warp's lanes inside S: lanes 0..k-1, as s grows with the lane
-  const unsigned alive = __ballot_sync(0xffffffffu, s < S);
-  if (s >= S) return;
-  const int t = threadIdx.x & 31;
-  const size_t lane = (size_t)b * S + s;
-  uint8_t* stage = smem + round16(8 * N) + (size_t)threadIdx.x * SB;
-  const Planes pl(bytes, bpr, syncs, nrows, E, R, BY, kAll ? E : 1);
-  const int* c = bounds + (size_t)s * NCOLS;
-  const bool ok = c[NCOLS - 1] != 0;
-  Lane<kAll> o(pl, stage);
-  F f(c);
-  f.pre(sp, sg, n);      // PCM's rates run on every lane, as in JAX
-  // every lane of the block walks the same train, so the warp meets at
-  // the top of each step
-  const size_t lane0 = lane - t;
-  uint8_t* stage0 = stage - (size_t)t * SB;
-  for (int i = 0; i < n; ++i) {
-    if constexpr (!kAll)
-      warp_moved(f, o, ok, alive, pl, lane0, stage0, SB);
-    if (ok) f.step(sp[i], sg[i], i == n - 1, o);
-  }
-  if (ok) f.end(o);
-  if constexpr (!kAll) warp_moved(f, o, ok, alive, pl, lane0, stage0, SB);
-  // each lane's staged events and zeros for the events after them
-  __syncwarp(alive);
-  for (unsigned m = alive; m; m &= m - 1) {
-    const int L = __ffs(m) - 1;
-    warp_put(pl, lane0 + L, stage0 + (size_t)L * SB,
-             kAll ? 0 : __shfl_sync(alive, o.sev, L), kAll ? E : 1, E,
-             false, alive);
-  }
-  n_events[lane] = f.ev;
-  ovf[lane] = f.ovf ? 1 : 0;
-}
-
-// the launch plan comes from ops/slice.py launch_plan: `lanes` specs of one
-// train per block (a multiple of 32), every event staged or one, a stage
-// of SB bytes per lane after the train's pulses and gaps, smem bytes in
-// all
-template <class F>
-cudaError_t launch(const int* pulse, const int* gap, const int* n_pulses,
-                   int B, int N, const int* bounds, int S, int E, int R,
-                   int BY, int lanes, int every, int SB, int smem,
-                   uint8_t* bytes, int* bpr, int* syncs, int* nrows,
-                   int* n_events, uint8_t* ovf, cudaStream_t st) {
-  const int es = every ? E : 1, byp = (BY + 3) & ~3;
-  if (lanes < 32 || lanes > 1024 || lanes % 32 || SB % 16 ||
-      SB < round16(es * R * byp) + round16(8 * es * R) + round16(4 * es) ||
-      (long)smem < round16(8 * N) + (long)min(S, lanes) * SB)
-    return cudaErrorInvalidValue;
-  auto kern = every ? slice_lanes<F, true> : slice_lanes<F, false>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return e;
-  }
-  dim3 grid((S + lanes - 1) / lanes, B);
-  kern<<<grid, lanes, smem, st>>>(pulse, gap, n_pulses, N, bounds, S, E, R,
-                                  BY, SB, bytes, bpr, syncs, nrows, n_events,
-                                  ovf);
-  return cudaGetLastError();
 }
 
 // ---- the groups: a thread group per lane -------------------------------
@@ -637,6 +249,25 @@ struct Group {
   }
   __device__ unsigned from(unsigned v, int k) const {
     return __shfl_sync(kFull, v, k, G);
+  }
+  __device__ float from(float v, int k) const {
+    return __shfl_sync(kFull, v, k, G);
+  }
+  // v of thread t - 1 (thread 0 gets its own)
+  __device__ int prev(int v) const { return __shfl_up_sync(kFull, v, 1, G); }
+  // the sum of v over the group, at every thread (unsigned: it wraps as
+  // int32 does, alike in any order)
+  __device__ unsigned sum(unsigned v) const {
+    for (int d = G / 2; d; d >>= 1) v += __shfl_xor_sync(kFull, v, d, G);
+    return v;
+  }
+  // the max of v over threads [0, t]
+  __device__ int max_scan(int v) const {
+    for (int d = 1; d < G; d <<= 1) {
+      const int o = __shfl_up_sync(kFull, v, d, G);
+      if (t >= d) v = max(v, o);
+    }
+    return v;
   }
   __device__ unsigned lt() const { return (1u << t) - 1; }
   __device__ unsigned le() const { return lt() | (1u << t); }
@@ -713,14 +344,18 @@ struct Stage {
 };
 
 // What a group family leaves out unless it says otherwise: it steps over
-// pulses, does nothing at a lane's start and end, and runs every tile.
-// A family with kStops runs a tile only while running() holds for a lane
-// of its CTA.
+// pulses, does nothing at a lane's start and end, makes no pass over the
+// train before its tiles (pre: PCM's rate pass, given the train's pulses
+// and gaps and whether the lane is one of the call's), and runs every
+// tile. A family with kStops runs a tile only while running() holds for a
+// lane of its CTA.
 struct GroupFamily {
   static constexpr bool kSymbols = false;
   static constexpr bool kStops = false;
   template <int G>
   __device__ void begin(const Group<G>&, Stage&, bool) {}
+  template <int G>
+  __device__ void pre(const Group<G>&, bool, const int*, const int*, int) {}
   template <int G>
   __device__ void end(const Group<G>&, Stage&) {}
   __device__ bool running() const { return true; }
@@ -1168,6 +803,281 @@ struct RziLanes : GroupFamily {
   }
 };
 
+// PCM (JAX slice_pcm, its rates JAX _pcm_rates), a pulse per thread, in
+// two passes over the train.
+//
+// The rate pass (pre) re-estimates the bit rates fs and fl from the
+// preamble runs, then from the order-free fallback sums. A run is a
+// stretch of pulses in the run class; where it ends (a pulse out of the
+// class after one in it, or the train's end) it is accepted where its
+// count reaches mc, which only an acceptance moves, to that run's count:
+// so a run is accepted where its count reaches mc0 and every earlier
+// run's. A run's count, width sums and end come from a ballot of the class
+// and segmented sums (cursors since the last pulse out of the class). RZ's
+// class reads no state: every acceptance of a tile at once, from a running
+// max; fs and fl from the last accepted run whose width sum is positive.
+// NRZ's class (a pulse and gap of one bit each) reads the running fs and
+// fl, which only an acceptance moves, and every run ends outside the
+// class, where the run state is zero: so a tile is classified with the
+// rates in force, its first acceptance found, every pulse up to it final,
+// and the pulses after it classified again with the new rates, in rounds
+// until a round accepts no run. The float-boundary flag of a pulse counts
+// in the round that makes its class final. The fallbacks are group sums.
+//
+// The step pass (tile): with the rates fixed, a pulse's ones (h) and
+// zeros (l), its clear (an RZ pulse out of the short class) and row break
+// read no state. Clears and flush candidates reset the cursors: a
+// candidate flushes where the event was touched (bits, or a row break)
+// since the last reset, this pulse included, and one that does not finds
+// every cursor at zero, as a flush leaves them. So row counts the breaks
+// and bir (a segmented add-scan) the bits since the last reset (bir also
+// since the last break). bitbuffer_clear keeps a pulse's run only where
+// the first reset at or after it is a flush; the train's last pulse is a
+// candidate, so every pulse is decided by then. A tile writes the runs it
+// keeps and those no reset of the tile decides, and where its first reset
+// is a clear it first erases the rows the open event staged in earlier
+// tiles (all of them undecided until that clear).
+struct PcmLanes : GroupFamily {
+  int sh, lo, rst, gpl, tol, mz, mc0;
+  bool is_rz;
+  float fs, fl;
+  int ev = 0, row = 0, bir = 0;
+  bool tch = false, ovf = false;
+  __device__ PcmLanes(const int* c, bool)
+      : sh(c[0]), lo(c[1]), rst(c[2]), gpl(c[3]), tol(c[4]), mz(c[5]),
+        mc0(c[6]), is_rz(c[7] != 0), fs(bits_to_float(c[8])),
+        fl(bits_to_float(c[9])) {}
+
+  // the rate pass, on every lane of the call (`live`), as in JAX
+  template <int G>
+  __device__ void pre(const Group<G>& gr, bool live, const int* sp,
+                      const int* sg, int n) {
+    const int t = gr.t, dc = is_rz ? 1 : 2;
+    const unsigned lt = gr.lt(), le = gr.le();
+    int cnt = 0, sw = 0, lw = 0, mc = mc0, plen = 0;
+    bool prev = false, flag = false;
+    unsigned rzc = 0, rzs = 0, rzl = 0, nw = 0, nc = 0;
+    // NRZ's two width sums are one (p + g), and only RZ reads the running
+    // max: a warp with no RZ lane skips RZ's scans (a warp-wide vote, so
+    // every thread of the warp takes the same branch)
+    const bool any_rz = __any_sync(kFull, is_rz);
+    for (int base = 0; base < n; base += G) {
+      const int nact = live ? min(G, n - base) : 0;
+      const bool act = t < nact;
+      const int p = act ? sp[base + t] : 0, g = act ? sg[base + t] : 0;
+      const bool wp = p >= sh - tol && p <= sh + tol;
+      const bool crz = act && wp && p + g >= lo - tol && p + g <= lo + tol;
+      if (crz) {
+        rzc += 1;
+        rzs += p;
+        rzl += p + g;
+      }
+      if (act) {
+        if (wp) { nw += p; nc += 1; }
+        if (p >= 2 * sh - tol && p <= 2 * sh + tol) { nw += p; nc += 2; }
+        if (g >= lo - tol && g <= lo + tol) { nw += g; nc += 1; }
+        if (g >= 2 * lo - tol && g <= 2 * lo + tol) { nw += g; nc += 2; }
+      }
+      const int vs = is_rz ? p : p + g;
+      // rounds: every group of the warp runs one while any of them needs
+      // it (the collectives take the whole warp); a group whose tile is
+      // final keeps its classes and applies nothing
+      bool c = false, ff = false, run = nact > 0;
+      int start = 0;   // the first pulse whose class is not final
+      unsigned C = 0;
+      int cb = 0, swi = 0, lwi = 0;
+      for (;;) {
+        if (run && t >= start) {
+          bool np, ng;
+          const int hp = trunc05(__fmul_rn(i2f(p), fs), np);
+          const int hg = trunc05(__fmul_rn(i2f(g), fl), ng);
+          c = act && (is_rz ? crz : hp == 1 && hg == 1);
+          ff = act && !is_rz && ((np && hp <= 2) || (ng && hg <= 2));
+        }
+        // the run that ends before this pulse: its count and width sums
+        // (after a round's acceptance the pulse there is out of the class,
+        // so a later pulse's run never reaches back past it)
+        C = gr.ballot(c);
+        const bool ended = act && !c && (t ? ((C >> (t - 1)) & 1) : prev);
+        const unsigned z = ~C & lt;
+        cb = z ? (t - 1 - hibit(z)) * dc : cnt + t * dc;
+        const bool head = (~C & le) != 0;
+        swi = gr.seg_scan(c ? vs : 0, !c) + (head ? 0 : sw);
+        lwi = any_rz ? gr.seg_scan(c ? p + g : 0, !c) + (head ? 0 : lw) : swi;
+        const int swp = gr.prev(swi), lwp = any_rz ? gr.prev(lwi) : swp;
+        const int swb = t ? swp : sw, lwb = t ? lwp : lw;
+        const int pm =
+            any_rz ? gr.prev(gr.max_scan(ended ? cb : INT_MIN)) : INT_MIN;
+        const bool acc = ended && t >= start &&
+                         cb >= (is_rz ? max(mc, t ? pm : INT_MIN) : mc);
+        unsigned A = gr.ballot(acc);
+        if (!is_rz) A &= 0u - A;   // NRZ: the first acceptance alone
+        const int k = A ? hibit(A) : 0;
+        const unsigned SW = A & gr.ballot(swb > 0);
+        const unsigned LW = A & gr.ballot(lwb > 0);
+        const int ck = gr.from(cb, k);
+        const float fsk = gr.from(__fdiv_rn(i2f(cb), i2f(swb)),
+                                  SW ? hibit(SW) : 0);
+        const float flk = gr.from(__fdiv_rn(i2f(cb), i2f(lwb)),
+                                  LW ? hibit(LW) : 0);
+        const unsigned fin = (A && !is_rz ? (2u << k) - 1 : ~0u) &
+                             above(start - 1);
+        const bool fflag = (gr.ballot(ff) & fin) != 0;
+        if (run) {
+          flag = flag || fflag;
+          if (A) {
+            mc = plen = ck;
+            const float f2 = SW ? fsk : fs;
+            fl = is_rz ? (LW ? flk : fl) : f2;
+            fs = f2;
+          }
+          start = k + 1;
+          run = !is_rz && A && start < nact;
+        }
+        if (!__any_sync(kFull, run)) break;
+      }
+      // the run state after the tile's last pulse
+      const int kk = max(nact - 1, 0);
+      const int ncnt = gr.from(c ? cb + dc : 0, kk);
+      const int nsw = gr.from(swi, kk), nlw = gr.from(lwi, kk);
+      if (nact) {
+        cnt = ncnt;
+        sw = nsw;
+        lw = nlw;
+        prev = (C >> kk) & 1;
+      }
+    }
+    // a run still open at the train's end
+    if (cnt > 0 && cnt >= mc) {
+      const float fsn = sw > 0 ? __fdiv_rn(i2f(cnt), i2f(sw)) : fs;
+      fl = is_rz ? (lw > 0 ? __fdiv_rn(i2f(cnt), i2f(lw)) : fl) : fsn;
+      fs = fsn;
+      plen = cnt;
+    }
+    // the fallbacks, where no run was accepted
+    rzc = gr.sum(rzc);
+    rzs = gr.sum(rzs);
+    rzl = gr.sum(rzl);
+    nw = gr.sum(nw);
+    nc = gr.sum(nc);
+    if (is_rz && plen == 0 && (int)rzc > 8) {
+      fs = __fdiv_rn(i2f((int)rzc), i2f(max((int)rzs, 1)));
+      fl = __fdiv_rn(i2f((int)rzc), i2f(max((int)rzl, 1)));
+    }
+    if (!is_rz && plen == 0 && (int)nc > 20)
+      fs = fl = __fdiv_rn(i2f((int)nc), i2f(max((int)nw, 1)));
+    ovf = flag;
+  }
+
+  template <int G>
+  __device__ void tile(const Group<G>& gr, Stage& s, const int* sp,
+                       const int* sg, int base, int nact, int n) {
+    const int t = gr.t;
+    const bool act = t < nact;
+    const int p = act ? sp[base + t] : 0, g = act ? sg[base + t] : 0;
+    const unsigned lt = gr.lt(), le = gr.le();
+    // 1. what no state decides, the rates fixed
+    bool nh, nl;
+    const int h0 = trunc05(__fmul_rn(i2f(p), fs), nh);
+    const int l0 = trunc05(__fmul_rn(i2f(g + sh - lo), fl), nl);
+    const int h = act ? max(h0, 0) : 0;
+    const int d = act ? h + min(max(l0, 0), mz) : 0;
+    const bool near = act && (nh || (nl && l0 <= mz + 1));
+    const bool clr = act && is_rz && abs(p - sh) > tol;
+    const bool brk = act && !clr && g > gpl && g <= rst;
+    const bool cand = act && (g > rst || base + t == n - 1);
+    // 3. the cursors before this pulse
+    const unsigned CL = gr.ballot(clr), RS = CL | gr.ballot(cand);
+    const unsigned BK = gr.ballot(brk), EM = gr.ballot(d > 0);
+    const bool touched = since(RS & lt, (EM | BK) & le, tch) > 0;
+    const bool fl_ = cand && !clr && touched;
+    const unsigned FL = gr.ballot(fl_);
+    const int e_ = ev + __popc(FL & lt);
+    const int r_ = since(RS & lt, BK & lt, row);
+    const unsigned BR = RS | BK;   // bir restarts after these
+    const int b_ = gr.seg_scan(d, t && ((BR >> (t - 1)) & 1)) - d +
+                   ((BR & lt) ? 0 : bir);
+    const int bir2 = b_ + d, row2 = clr ? 0 : r_ + brk;
+    const unsigned o = gr.ballot(act && (near || e_ + fl_ >= s.E ||
+                                         max(row2, r_) >= s.R ||
+                                         bir2 >= s.BITS));
+    ovf = ovf || o;
+    // 4. the stage: the open event's undecided rows erased where the
+    // tile's first reset is a clear; then the runs that the first reset at
+    // or after them keeps (a flush) or no reset of the tile decides
+    if (RS && ((CL >> (__ffs(RS) - 1)) & 1) && ev < s.E) {
+      const int nr = min(row, s.R - 1) + 1;
+      uint32_t* w = s.words() + ev * s.R * s.WPR;
+      for (int i = t; i < nr * s.WPR; i += G) w[i] = 0u;
+      for (int r = t; r < nr; r += G) s.nbits(ev, r) = 0;
+    }
+    __syncwarp();
+    const unsigned nx = RS & ~lt;
+    const bool keep = !nx || ((FL >> (__ffs(nx) - 1)) & 1);
+    if (d > 0 && keep && s.in(e_, r_)) {
+      if (h > 0) s.or_run(e_, r_, b_, h);
+      if (row_ends(EM, BR << 1, le)) s.nbits(e_, r_) = bir2;
+    }
+    if (fl_ && e_ < s.E) s.nrow(e_) = row2 + 1;
+    // the cursors after the tile's last pulse
+    const int k = max(nact - 1, 0);
+    const bool rs = clr || cand;
+    const int ne = gr.from(e_ + fl_, k), nr = gr.from(rs ? 0 : row2, k);
+    const int nb = gr.from((rs || brk) ? 0 : bir2, k);
+    const int nt = gr.from((int)(!rs && touched), k);
+    if (nact) {
+      ev = ne; row = nr; bir = nb;
+      tch = nt != 0;
+    }
+  }
+};
+
+// NRZS (JAX slice_nrzs), a pulse per thread: a pulse over the bit limit
+// emits its width over the limit in ones, then a 0; one under it a 0; one
+// at it nothing. Every flush candidate (a gap at or over the reset limit,
+// or the last pulse) flushes, an empty event too. So the cursor is a
+// segmented add-scan of the bits since the last candidate; each event has
+// one row.
+struct NrzsLanes : GroupFamily {
+  int sh, rst;
+  int ev = 0, bir = 0;
+  bool ovf = false;
+  __device__ NrzsLanes(const int* c, bool) : sh(c[0]), rst(c[1]) {}
+  template <int G>
+  __device__ void tile(const Group<G>& gr, Stage& s, const int* sp,
+                       const int* sg, int base, int nact, int n) {
+    const int t = gr.t;
+    const bool act = t < nact;
+    const int p = act ? sp[base + t] : 0, g = act ? sg[base + t] : 0;
+    const unsigned lt = gr.lt();
+    // 1. what no state decides (p > sh >= 1 where h divides: the floor
+    // division of JAX truncates alike)
+    const int h = act && p > sh ? p / max(sh, 1) : 0;
+    const int d = h + (act && p != sh);
+    const bool fc = act && (g >= rst || base + t == n - 1);
+    // 3. the cursor before this pulse, and its event
+    const unsigned FC = gr.ballot(fc);
+    const int b_ = gr.seg_scan(d, t && ((FC >> (t - 1)) & 1)) - d +
+                   ((FC & lt) ? 0 : bir);
+    const int e_ = ev + __popc(FC & lt), bir2 = b_ + d;
+    const unsigned o = gr.ballot(act && (bir2 > s.BITS ||
+                                         (fc && e_ + 1 >= s.E)));
+    ovf = ovf || o;
+    // 4. the stage: the run of ones, the event's bit count by its last
+    // pulse in the tile, its row at the flush (none where it is empty)
+    if (h > 0 && e_ < s.E) s.or_run(e_, 0, b_, h);
+    if (act && e_ < s.E && (fc || t == nact - 1)) s.nbits(e_, 0) = bir2;
+    if (fc && e_ < s.E) s.nrow(e_) = bir2 > 0 ? 1 : 0;
+    // the cursors after the tile's last pulse
+    const int k = max(nact - 1, 0);
+    const int ne = gr.from(e_ + fc, k), nb = gr.from(fc ? 0 : bir2, k);
+    if (nact) {
+      ev = ne;
+      bir = nb;
+    }
+  }
+};
+
 // OSV1's preamble: pulses 0 to kPreamble - 1, the sync the next
 constexpr int kPreamble = 12;
 
@@ -1301,7 +1211,7 @@ slice_groups(const int* __restrict__ pulse, const int* __restrict__ gap,
   const Group<G> gr;
   const int s = blockIdx.x * (blockDim.x / G) + threadIdx.x / G;
   const bool live = s < S;
-  const Planes pl(bytes, bpr, syncs, nrows, E, R, BY, E);
+  const Planes pl(bytes, bpr, syncs, nrows, E, R, BY);
   Stage st(pl, smem + round16(8 * N) + (size_t)(threadIdx.x / G) * SB);
   st.clear(gr.t, G);
   const int* c = bounds + (size_t)(live ? s : 0) * NCOLS;
@@ -1309,6 +1219,7 @@ slice_groups(const int* __restrict__ pulse, const int* __restrict__ gap,
   F f(c, tame);
   __syncwarp();
   f.begin(gr, st, ok);
+  f.pre(gr, live, sp, sg, n);
   __syncwarp();
   // every group of the CTA runs the same tiles: the collectives line up;
   // a family that stops leaves once no lane of the CTA runs (one vote a
@@ -1325,7 +1236,7 @@ slice_groups(const int* __restrict__ pulse, const int* __restrict__ gap,
   __syncwarp();
   if (!live) return;
   const size_t lane = (size_t)b * S + s;
-  put_events(pl, lane, st.st, 0, E, E, false, gr.t, G, 0u);
+  put_events(pl, lane, st.st, gr.t, G);
   if (gr.t == 0) {
     n_events[lane] = f.ev;
     ovf[lane] = f.ovf ? 1 : 0;
@@ -1368,40 +1279,30 @@ cudaError_t launch_groups(const int* pulse, const int* gap,
 
 // bounds is the family's int32 [S, NCOLS] table (ops/slice.py
 // bound_table): its columns from 0 in the family's order, ok in the last.
-// lanes, mode, SB and smem: ops/slice.py launch_plan; mode is whether
-// every event is staged for the walk (PCM, NRZS), the threads per lane (8,
-// 16 or 32) for the groups (the other seven). Every element of the six
-// outputs is written.
+// lanes, group (the threads per lane: 8, 16 or 32), SB and smem:
+// ops/slice.py launch_plan. Every element of the six outputs is written.
 extern "C" int rtl433_slice(int family, const void* pulse, const void* gap,
                             const void* n_pulses, int B, int N,
                             const void* bounds, int S, int E, int R, int BY,
-                            int lanes, int mode, int SB, int smem,
+                            int lanes, int group, int SB, int smem,
                             void* bytes, void* bpr, void* syncs, void* nrows,
                             void* n_events, void* ovf, void* stream) {
-  auto P = (const int*)pulse;
-  auto G = (const int*)gap;
-  auto NP = (const int*)n_pulses;
-  auto BD = (const int*)bounds;
-  auto BYT = (uint8_t*)bytes;
-  auto BPR = (int*)bpr;
-  auto SY = (int*)syncs;
-  auto NR = (int*)nrows;
-  auto NE = (int*)n_events;
-  auto OV = (uint8_t*)ovf;
-  auto st = (cudaStream_t)stream;
-#define RTL433_SLICE(L, F)                                                   \
-  return (int)L<F>(P, G, NP, B, N, BD, S, E, R, BY, lanes, mode, SB, smem, \
-                   BYT, BPR, SY, NR, NE, OV, st)
+#define RTL433_SLICE(F)                                                      \
+  return (int)launch_groups<F>(                                              \
+      (const int*)pulse, (const int*)gap, (const int*)n_pulses, B, N,        \
+      (const int*)bounds, S, E, R, BY, lanes, group, SB, smem,               \
+      (uint8_t*)bytes, (int*)bpr, (int*)syncs, (int*)nrows, (int*)n_events,  \
+      (uint8_t*)ovf, (cudaStream_t)stream)
   switch (family) {
-    case 0: RTL433_SLICE(launch_groups, PpmLanes);
-    case 1: RTL433_SLICE(launch_groups, PwmLanes);
-    case 2: RTL433_SLICE(launch, Pcm);
-    case 3: RTL433_SLICE(launch_groups, McLanes);
-    case 4: RTL433_SLICE(launch_groups, DmcLanes);
-    case 5: RTL433_SLICE(launch_groups, PiwmDcLanes);
-    case 6: RTL433_SLICE(launch, Nrzs);
-    case 7: RTL433_SLICE(launch_groups, RziLanes);
-    case 8: RTL433_SLICE(launch_groups, Osv1Lanes);
+    case 0: RTL433_SLICE(PpmLanes);
+    case 1: RTL433_SLICE(PwmLanes);
+    case 2: RTL433_SLICE(PcmLanes);
+    case 3: RTL433_SLICE(McLanes);
+    case 4: RTL433_SLICE(DmcLanes);
+    case 5: RTL433_SLICE(PiwmDcLanes);
+    case 6: RTL433_SLICE(NrzsLanes);
+    case 7: RTL433_SLICE(RziLanes);
+    case 8: RTL433_SLICE(Osv1Lanes);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef RTL433_SLICE

@@ -62,8 +62,8 @@ LAUNCHERS = {
                 [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                  _P]),
     # family, pulse, gap, n_pulses, B, N, bounds, S, E, R, BY, lanes,
-    # mode, SB, smem, bytes, bits_per_row, syncs, num_rows, n_events,
-    # ovf, stream
+    # group (threads per lane), SB, smem, bytes, bits_per_row, syncs,
+    # num_rows, n_events, ovf, stream
     "slice": ("slice", "rtl433_slice",
               [_I, _P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                _P, _P, _P, _P, _P, _P, _P]),

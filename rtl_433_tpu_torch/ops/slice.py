@@ -19,19 +19,17 @@ row bytes) or a float32 rounding near a boundary (PCM) raises the lane's
 ``ovf`` instead, and an integration routes flagged lanes to the host
 slicer. Writes outside the caps are dropped, as the JAX scatters drop them.
 
-For a CUDA tensor each wrapper launches ``csrc/slice.cu`` (one thread per
-lane for PCM and NRZS, a thread group per lane for the seven families of
-:data:`GROUP_FAMILIES`; the train and each lane's events staged in shared
-memory, the launch shaped by :func:`launch_plan`); for a CPU tensor it
-runs the plain version: for PCM and NRZS the JAX ``step`` as vectorized
-torch over the ``[B, S]`` lane grid in a Python loop over the pulses
-(stopping at the longest train: padded steps are inactive), for the
-group families the kernel's phases vectorized over pulses (symbols for
-DMC and PIWM-DC) and lanes (what no state decides, MC's walk per piece,
-DMC's pending flag and OSV1's Manchester bit from parities, OSV1's phases
-in closed form, the cursors from running sums); then the JAX assembly by
-scatter-adds (``_lane_scatter_add``, ``_assemble_cols``,
-``_assemble_runs``, PCM's delta-scatter and cumulative sum).
+For a CUDA tensor each wrapper launches ``csrc/slice.cu`` (a thread group
+per lane; the train and each lane's events staged in shared memory, the
+launch shaped by :func:`launch_plan`); for a CPU tensor it runs the plain
+version: the kernel's phases vectorized over pulses (symbols for DMC and
+PIWM-DC) and lanes (what no state decides, MC's walk per piece, DMC's
+pending flag and OSV1's Manchester bit from parities, OSV1's phases in
+closed form, PCM's rate pass as RZ's closed form and NRZ's rounds of
+speculation, PCM's erase by the first reset at or after a pulse, the
+cursors from running sums); then the JAX assembly by scatter-adds
+(``_lane_scatter_add``, ``_assemble_cols``, ``_assemble_runs``, PCM's
+delta-scatter and cumulative sum).
 """
 
 from __future__ import annotations
@@ -340,10 +338,6 @@ def _cols(bounds, device):
     return out
 
 
-def _steps(n_pulses) -> int:
-    return int(n_pulses.max()) if n_pulses.numel() else 0
-
-
 def _scatter_add(shape, idx_cols, vals, mask):
     """int32 zeros of ``shape`` with ``vals`` added at ``idx_cols`` where
     ``mask`` holds and every index is in range (out-of-range updates are
@@ -370,13 +364,6 @@ def _lane_scatter_add(B, S, shape, idx_cols, vals, mask):
     out = _scatter_add((L,) + tuple(shape), [lane] + list(idx_cols), vals,
                        mask)
     return out.reshape((B, S) + tuple(shape))
-
-
-def _flat(ys, i, B, S):
-    """Component ``i`` of the per-step outputs as [L, steps]."""
-    if not ys:
-        return torch.zeros((B * S, 0), dtype=torch.int32)
-    return torch.stack([y[i] for y in ys], dim=-1).reshape(B * S, len(ys))
 
 
 def _assemble_cols(cols, B, S, n_ev, ovf, caps: SliceCaps):
@@ -407,24 +394,9 @@ def _bit(pos):
     return torch.ones_like(pos) << (7 - pos % 8)
 
 
-def _zeros(B, S, dev):
-    return torch.zeros((B, S), dtype=torch.int32, device=dev)
-
-
-def _falses(B, S, dev):
-    return torch.zeros((B, S), dtype=torch.bool, device=dev)
-
-
-def _step_inputs(pulse, gap, n_pulses, n):
-    """Column ``n`` of pulse and gap, and the valid and last masks, as
-    [B, 1]."""
-    return (pulse[:, n:n + 1].to(torch.int32), gap[:, n:n + 1].to(torch.int32),
-            (n < n_pulses)[:, None], (n == n_pulses - 1)[:, None])
-
-
-# ---- the phase form of PPM, MC and PWM (csrc/slice.cu's groups): what no
-# state decides, per pulse; MC's tsl walked per piece; the cursors from
-# running sums; the JAX assembly
+# ---- the kernel's phases (csrc/slice.cu's groups): what no state decides,
+# per step; MC's tsl walked per piece; PCM's rate pass in closed form and
+# rounds; the cursors from running sums; the JAX assembly
 
 # MC's pieces also end at a pulse or gap over 1.5 short widths where every
 # width of the train is below _TAME and the short width below _SHORT_MAX
@@ -574,85 +546,124 @@ def _trunc05(v):
     return n, near
 
 
+def _shift(x):
+    """``x`` one step later along the last axis (zero at the first)."""
+    out = torch.zeros_like(x)
+    out[..., 1:] = x[..., :-1]
+    return out
+
+
+def _at_last(v, mask):
+    """The value of ``v`` at the last step before each step where ``mask``
+    holds (0 where none does), along the last axis; ``v`` need not grow."""
+    shape = torch.broadcast_shapes(v.shape, mask.shape)
+    idx = torch.arange(shape[-1], device=v.device)
+    j = _before(torch.where(mask, idx + 1, 0).expand(shape))
+    vz = torch.cat([torch.zeros(shape[:-1] + (1,), dtype=v.dtype,
+                                device=v.device), v.expand(shape)], -1)
+    return torch.gather(vz, -1, j)
+
+
 def _pcm_rates(pulse, gap, n_pulses, b):
-    """Pass 1: preamble bit-rate re-estimation -> per-lane f_short/f_long
-    and the float-boundary flag (JAX ``_pcm_rates``): RZ/NRZ preamble runs
-    in a loop, then the order-free anywhere-in-stream fallbacks."""
+    """Pass 1 (JAX ``_pcm_rates``) in the kernel's form: the preamble
+    estimator's runs and acceptances, then the order-free fallbacks;
+    ``b`` holds [1, S, 1] bound columns. Returns fs, fl [B, S, 1] and the
+    float-boundary flag [B, S].
+
+    A run ends at a pulse out of the run class after one in it (one step
+    past the train's end ends a run still open there) and is accepted where
+    its count reaches mc, which only an acceptance moves, to that run's
+    count. RZ's class reads no state, so its acceptances have a closed
+    form: every run end whose count reaches mc0 and every earlier end's; fs
+    and fl come from the last accepted run whose width sum is positive.
+    NRZ's class reads the running fs and fl: each round classifies the
+    pulses not yet final with the rates in force and takes the first
+    acceptance among them, which makes every pulse up to it final (the
+    flag counts there) and gives the rates of the next round."""
     B, N = pulse.shape
     dev = pulse.device
-    sh, lo, tol = b["short"], b["long"], b["tol"]
-    is_rz, mc0 = b["is_rz"], b["min_count"]
-    S = sh.shape[1]
     w = torch.where
-    fs = b["f0s"].expand(B, S)
-    fl = b["f0l"].expand(B, S)
-    z = _zeros(B, S, dev)
-    cnt = sw = lw = plen = z
-    mc = mc0.expand(B, S)
-    prev_c = flag = _falses(B, S, dev)
+    sh, lo, tol, is_rz = b["short"], b["long"], b["tol"], b["is_rz"]
+    S = sh.shape[1]
+    pad = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    p = torch.cat([pulse.to(torch.int32), pad], 1)[:, None, :]
+    g = torch.cat([gap.to(torch.int32), pad], 1)[:, None, :]
+    idx = torch.arange(N + 1, device=dev)
+    valid = (idx[None, :] < n_pulses[:, None])[:, None, :]
+    c_rz = valid & ((p >= sh - tol) & (p <= sh + tol)
+                    & (p + g >= lo - tol) & (p + g <= lo + tol))
+    dc = w(is_rz, 1, 2).to(torch.int32)
+    v_sw = w(is_rz, p, p + g)
+    fs = b["f0s"].expand(B, S, 1)
+    fl = b["f0l"].expand(B, S, 1)
+    mc = b["min_count"].expand(B, S, 1)
+    plen = torch.zeros((B, S, 1), dtype=torch.int32, device=dev)
+    flag = torch.zeros((B, S, 1), dtype=torch.bool, device=dev)
+    start = torch.zeros((B, S, 1), dtype=torch.int64, device=dev)
+    open_ = torch.ones((B, S, 1), dtype=torch.bool, device=dev)
+    c = torch.zeros((B, S, N + 1), dtype=torch.bool, device=dev)
+    gat = lambda x, k: torch.gather(x, -1, k.clamp(min=0))
 
-    def eval_run(cnt, sw, lw, mc, fs, fl, plen):
-        acc = cnt >= mc
-        cntf = cnt.to(_F32)
-        fs_rz = w(sw > 0, cntf / sw.to(_F32), fs)
-        fl_rz = w(lw > 0, cntf / lw.to(_F32), fl)
-        f_nrz = w(sw > 0, cntf / sw.to(_F32), fs)
-        fs2 = w(acc, w(is_rz, fs_rz, f_nrz), fs)
-        fl2 = w(acc, w(is_rz, fl_rz, f_nrz), fl)
-        return w(acc, cnt, mc), fs2, fl2, w(acc, cnt, plen)
+    def run_sum(v, c, j):
+        # the sum of v over the run that ends before each step (from step
+        # j on), wrapped as the scan's int32 sums wrap
+        cs = torch.cumsum(w(c, v, 0).to(torch.int64), -1)
+        ex = _shift(cs)
+        return (ex - torch.gather(ex, -1, j)).to(torch.int32)
 
-    for n in range(_steps(n_pulses)):
-        p, g, vm, _last = _step_inputs(pulse, gap, n_pulses, n)
-        c_rz = ((p >= sh - tol) & (p <= sh + tol)
-                & (p + g >= lo - tol) & (p + g <= lo + tol))
+    while True:
         hp, near_p = _trunc05(p.to(_F32) * fs)
         hg, near_g = _trunc05(g.to(_F32) * fl)
-        c_nrz = (hp == 1) & (hg == 1)
-        c = vm & w(is_rz, c_rz, c_nrz)
-        flag = flag | (vm & ~is_rz & ((near_p & (hp <= 2))
-                                      | (near_g & (hg <= 2))))
-        ended = prev_c & ~c
-        new = eval_run(cnt, sw, lw, mc, fs, fl, plen)
-        mc, fs, fl, plen = (w(ended, a, o) for a, o in
-                            zip(new, (mc, fs, fl, plen)))
-        d_sw = w(is_rz, p, p + g)
-        d_lw = p + g
-        d_cnt = w(is_rz, 1, 2)
-        cnt = w(c, cnt + d_cnt, 0)
-        sw = w(c, sw + d_sw, 0)
-        lw = w(c, lw + d_lw, 0)
-        prev_c = c
-    # a run still open at the train's end (evaluated at the first padded
-    # step of the JAX scan, or after its last step)
-    new = eval_run(cnt, sw, lw, mc, fs, fl, plen)
-    mc, fs, fl, plen = (w(cnt > 0, a, o) for a, o in
-                        zip(new, (mc, fs, fl, plen)))
+        spec = open_ & (idx >= start)
+        c = w(spec, valid & w(is_rz, c_rz, (hp == 1) & (hg == 1)), c)
+        ff = valid & ~is_rz & ((near_p & (hp <= 2)) | (near_g & (hg <= 2)))
+        # the run that ends before each step
+        ended = _shift(c) & ~c
+        j = _before(w(c, 0, idx + 1))
+        cnt = (idx - j).to(torch.int32) * dc
+        sw = run_sum(v_sw, c, j)
+        lw = run_sum(p + g, c, j)
+        # RZ: every end whose count reaches every earlier end's and mc;
+        # NRZ: the first end (not yet final) whose count reaches mc
+        pm = _before(w(ended, cnt, torch.iinfo(torch.int32).min))
+        acc = spec & ended & (cnt >= w(is_rz, torch.maximum(mc, pm), mc))
+        acc = acc & (is_rz | (_csum(acc) == 1))
+        hit = acc.any(-1, keepdim=True)
+        k = w(acc, idx, -1).amax(-1, keepdim=True)
+        final = spec & (is_rz | ~hit | (idx <= k))
+        flag = flag | (ff & final).any(-1, keepdim=True)
+        ks = w(acc & (sw > 0), idx, -1).amax(-1, keepdim=True)
+        kl = w(acc & (lw > 0), idx, -1).amax(-1, keepdim=True)
+        fs2 = w(ks >= 0, gat(cnt, ks).to(_F32) / gat(sw, ks).to(_F32), fs)
+        fl2 = w(is_rz, w(kl >= 0, gat(cnt, kl).to(_F32)
+                         / gat(lw, kl).to(_F32), fl), fs2)
+        fs, fl = w(hit, fs2, fs), w(hit, fl2, fl)
+        mc = w(hit, gat(cnt, k), mc)
+        plen = w(hit, gat(cnt, k), plen)
+        start = w(hit, k + 1, start)
+        open_ = hit & ~is_rz
+        if not bool(open_.any()):
+            break
 
     # fallbacks (anywhere-in-stream, order-free)
-    p3 = pulse[:, :, None].to(torch.int32)
-    g3 = gap[:, :, None].to(torch.int32)
-    vm3 = torch.arange(N, device=dev)[None, :, None] < n_pulses[:, None, None]
-    sh3, lo3, tol3 = sh[:, None], lo[:, None], tol[:, None]
-    c_rz3 = vm3 & ((p3 >= sh3 - tol3) & (p3 <= sh3 + tol3)
-                   & (p3 + g3 >= lo3 - tol3) & (p3 + g3 <= lo3 + tol3))
-    isum = lambda x: x.sum(dim=1, dtype=torch.int32)
-    rzc = isum(c_rz3)
-    rzs = isum(w(c_rz3, p3, 0))
-    rzl = isum(w(c_rz3, p3 + g3, 0))
+    isum = lambda x: x.sum(-1, keepdim=True, dtype=torch.int32)
+    rzc = isum(c_rz)
+    rzs = isum(w(c_rz, p, 0))
+    rzl = isum(w(c_rz, p + g, 0))
     use_rzfb = is_rz & (plen == 0) & (rzc > 8)
     fs = w(use_rzfb, rzc.to(_F32) / rzs.clamp(min=1).to(_F32), fs)
     fl = w(use_rzfb, rzc.to(_F32) / rzl.clamp(min=1).to(_F32), fl)
     # NRZ fallback: four independent windows, each pulse/gap may add twice
-    w1 = vm3 & (p3 >= sh3 - tol3) & (p3 <= sh3 + tol3)
-    w2 = vm3 & (p3 >= 2 * sh3 - tol3) & (p3 <= 2 * sh3 + tol3)
-    w3 = vm3 & (g3 >= lo3 - tol3) & (g3 <= lo3 + tol3)
-    w4 = vm3 & (g3 >= 2 * lo3 - tol3) & (g3 <= 2 * lo3 + tol3)
-    nw = (isum(w(w1, p3, 0)) + isum(w(w2, p3, 0)) + isum(w(w3, g3, 0))
-          + isum(w(w4, g3, 0)))
+    w1 = valid & (p >= sh - tol) & (p <= sh + tol)
+    w2 = valid & (p >= 2 * sh - tol) & (p <= 2 * sh + tol)
+    w3 = valid & (g >= lo - tol) & (g <= lo + tol)
+    w4 = valid & (g >= 2 * lo - tol) & (g <= 2 * lo + tol)
+    nw = (isum(w(w1, p, 0)) + isum(w(w2, p, 0)) + isum(w(w3, g, 0))
+          + isum(w(w4, g, 0)))
     nc = isum(w1) + 2 * isum(w2) + isum(w3) + 2 * isum(w4)
     use_nrzfb = ~is_rz & (plen == 0) & (nc > 20)
     fnrz = nc.to(_F32) / nw.clamp(min=1).to(_F32)
-    return w(use_nrzfb, fnrz, fs), w(use_nrzfb, fnrz, fl), flag
+    return w(use_nrzfb, fnrz, fs), w(use_nrzfb, fnrz, fl), flag[..., 0]
 
 
 def _runs_to_bits(lead, starts, lens, mask, width, BITS):
@@ -670,75 +681,83 @@ def _runs_to_bits(lead, starts, lens, mask, width, BITS):
         .to(torch.uint8)
 
 
+def _next_at(mask):
+    """The first step at or after each step where ``mask`` holds (the
+    axis' length where none does), along the last axis."""
+    N = mask.shape[-1]
+    idx = torch.arange(N, device=mask.device)
+    x = torch.where(mask, idx, N).flip(-1)
+    return torch.cummin(x, -1).values.flip(-1)
+
+
 def slice_pcm_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
-    """Plain version of the PCM scan (JAX ``slice_pcm``): variable
-    bits-per-pulse emitted as runs, ``bitbuffer_clear`` handled by a
-    segment id per run (only runs of the segment an event flushed are
-    kept), float32 roundings near a boundary flagged."""
+    """Plain version of the PCM scan (JAX ``slice_pcm``) in the kernel's
+    phases, vectorized over pulses and lanes: the rate pass
+    (:func:`_pcm_rates`); with the rates fixed, each pulse's ones and
+    zeros, clear and row break; clears and flush candidates reset the
+    cursors, and a candidate flushes where bits or a row break touched the
+    event since the last reset, this pulse included (one that does not
+    finds every cursor at zero); row counts the breaks, bir the bits since
+    the last reset or break; ``bitbuffer_clear`` keeps a pulse's run where
+    the first reset at or after it is a flush (the last pulse is a
+    candidate); float32 roundings near a boundary flagged; the JAX
+    assembly (variable bits per pulse as runs)."""
     B, N = pulse.shape
     dev = pulse.device
     E, R, BY = caps
     BITS = BY * 8
-    b = _cols(bounds, dev)
+    b = {k: v[..., None] for k, v in _cols(bounds, dev).items()}
     S = b["short"].shape[1]
-    fs, fl, fflag = _pcm_rates(pulse, gap, n_pulses, b)
     sh, lo, rst, gpl = b["short"], b["long"], b["reset"], b["gap_limit"]
-    tol, mz, is_rz, okm = b["tol"], b["max_zeros"], b["is_rz"], b["ok"]
+    tol, mz, is_rz = b["tol"], b["max_zeros"], b["is_rz"]
+    fs, fl, flag = _pcm_rates(pulse, gap, n_pulses, b)
+    p, g, act, last = _lane_grid(pulse, gap, n_pulses, b["ok"])
     w = torch.where
-    ev = row = bir = frb = seg = _zeros(B, S, dev)
-    ovf = _falses(B, S, dev)
-    ys = []
-    for n in range(_steps(n_pulses)):
-        p, g, valid, last = _step_inputs(pulse, gap, n_pulses, n)
-        act = valid & okm
-        h, near_h = _trunc05(p.to(_F32) * fs)
-        l0, near_l = _trunc05((g + sh - lo).to(_F32) * fl)
-        near_l = near_l & (l0 <= mz + 1)
-        h = w(act, h.clamp(min=0), 0)
-        l = w(act, torch.minimum(l0.clamp(min=0), mz), 0)
-        ovf2 = ovf | (act & (near_h | near_l))
-        b_ev, b_row, b_start = ev, row, bir
-        bir2 = bir + h + l
-        frb2 = w(row == 0, frb + h + l, frb)
-        do_clear = act & is_rz & ((p - sh).abs() > tol)
-        do_break = act & ~do_clear & (g > gpl) & (g <= rst)
-        seg2 = w(do_clear, seg + 1, seg)
-        row2 = w(do_clear, 0, w(do_break, row + 1, row))
-        bir3 = w(do_clear | do_break, 0, bir2)
-        frb3 = w(do_clear, 0, frb2)
-        flush = act & ((g > rst) | last) & ((frb3 > 0) | (row2 > 0))
-        f_rows = row2 + 1
-        ev2 = w(flush, ev + 1, ev)
-        ovf = ovf2 | (ev2 >= E) | (torch.maximum(row2, row) >= R) \
-            | (bir2 >= BITS)
-        ys.append((h, l, b_ev, b_row, b_start, seg, flush, ev, f_rows))
-        ev, row = ev2, w(flush, 0, row2)
-        bir, frb, seg = w(flush, 0, bir3), w(flush, 0, frb3), \
-            w(flush, 0, seg2)
-    ovf = ovf | fflag
-
+    i32 = lambda x: x.to(torch.int32)
+    # 1. what no state decides, the rates fixed
+    h, near_h = _trunc05(p.to(_F32) * fs)
+    l0, near_l = _trunc05((g + sh - lo).to(_F32) * fl)
+    near = act & (near_h | (near_l & (l0 <= mz + 1)))
+    h = w(act, h.clamp(min=0), 0)
+    d = w(act, h + torch.minimum(l0.clamp(min=0), mz), 0)
+    clr = act & is_rz & ((p - sh).abs() > tol)
+    brk = act & ~clr & (g > gpl) & (g <= rst)
+    cand = act & ((g > rst) | last)
+    rs = clr | cand
+    # 3. the cursors
+    tm = _csum((d > 0) | brk)
+    fl_ = cand & ~clr & (tm > _at_last(tm, rs))
+    ev = _csum(fl_) - i32(fl_)
+    ks = _csum(brk)
+    row = ks - i32(brk) - _at_last(ks, rs)
+    run = torch.cumsum(d.to(torch.int64), -1)
+    bir = (run - d - _at_last(run, rs | brk)).to(torch.int32)
+    row2 = w(clr, 0, row + i32(brk))
+    ovf = (act & (near | (ev + i32(fl_) >= E) | (torch.maximum(row2, row) >= R)
+                  | (bir + d >= BITS))).any(-1) | flag
+    # the erase: a run is kept where the first reset at or after it flushes
+    nxt = _next_at(rs)
+    keep = torch.gather(torch.cat([fl_, torch.zeros_like(fl_[..., :1])], -1),
+                        -1, nxt)
+    live = act & keep & (d > 0)
+    # 4. the JAX assembly
     L = B * S
 
-    def flat(i):
-        return _flat(ys, i, B, S).to(dev)
+    def lanes(x):
+        return torch.broadcast_to(x, (B, S, N)).reshape(L, N)
 
-    h, l, ev_l, b_row, b_start, seg_l, flush, f_ev, f_rows = \
-        (flat(i) for i in range(9))
-    lane = torch.arange(L, device=dev)[:, None].expand(h.shape)
-    m_flush = flush.bool()
-    # final segment id per (lane, event); -1 for never-flushed events
-    fseg = _scatter_add((L, E), [lane, f_ev], seg_l + 1, m_flush) - 1
-    sel = torch.gather(fseg, 1, ev_l.clamp(0, E - 1).to(torch.int64))
-    live = (seg_l == sel) & (ev_l < E)
-    m_bits = live & (h + l > 0)
-    bytes_ = _runs_to_bits([lane, ev_l, b_row], b_start, h, live & (h > 0),
-                           (L, E, R), BITS).reshape(B, S, E, R, BY)
-    bits_per_row = _lane_scatter_add(B, S, (E, R), [ev_l, b_row], h + l,
-                                     m_bits)
-    num_rows = _lane_scatter_add(B, S, (E,), [f_ev], f_rows, m_flush)
+    lane = torch.arange(L, device=dev)[:, None].expand(L, N)
+    bytes_ = _runs_to_bits([lane, lanes(ev), lanes(row)], lanes(bir),
+                           lanes(h), lanes(live & (h > 0)), (L, E, R),
+                           BITS).reshape(B, S, E, R, BY)
+    bits_per_row = _lane_scatter_add(B, S, (E, R), [lanes(ev), lanes(row)],
+                                     lanes(d), lanes(live))
+    num_rows = _lane_scatter_add(B, S, (E,), [lanes(ev)], lanes(row2 + 1),
+                                 lanes(fl_))
     syncs = torch.zeros((B, S, E, R), dtype=torch.int32, device=dev)
     return {"bytes": bytes_, "bits_per_row": bits_per_row, "syncs": syncs,
-            "num_rows": num_rows, "n_events": ev, "ovf": ovf}
+            "num_rows": num_rows, "n_events": fl_.sum(-1, dtype=torch.int32),
+            "ovf": ovf}
 
 
 def _mc_tsl(p, g, act, out, fl, sh, tame):
@@ -974,36 +993,42 @@ def _assemble_runs(B, S, caps: SliceCaps, cols, ev_f, ovf):
 
 
 def slice_nrzs_plain(pulse, gap, n_pulses, bounds, caps=SliceCaps()):
-    """Plain version of the NRZS scan (JAX ``slice_nrzs``): a pulse longer
-    than the bit limit emits ``pulse // limit`` ones then a zero, a
-    shorter one a zero, an exact-limit one nothing; every reset gap (or
-    the final pulse) flushes an event, empty ones included."""
+    """Plain version of the NRZS scan (JAX ``slice_nrzs``) in the kernel's
+    phases, vectorized over pulses and lanes: a pulse longer than the bit
+    limit emits ``pulse // limit`` ones then a zero, a shorter one a zero,
+    an exact-limit one nothing; every reset gap (or the final pulse) is a
+    flush candidate and flushes, empty events included; the cursor is the
+    running sum of the bits minus its value at the last candidate; the
+    JAX assembly."""
     B, N = pulse.shape
-    dev = pulse.device
     E, R, BY = caps
-    BITS = BY * 8
-    b = _cols(bounds, dev)
+    b = {k: v[..., None] for k, v in _cols(bounds, pulse.device).items()}
     S = b["short"].shape[1]
-    sh, rst, okm = b["short"], b["reset"], b["ok"]
-    w = torch.where
-    ev = bir = _zeros(B, S, dev)
-    ovf = _falses(B, S, dev)
-    ys = []
-    for n in range(_steps(n_pulses)):
-        p, g, valid, last = _step_inputs(pulse, gap, n_pulses, n)
-        act = valid & okm
-        h = w(act & (p > sh), torch.div(p, sh.clamp(min=1),
-                                        rounding_mode="floor"), 0)
-        z = w(act & (p != sh), 1, 0)
-        bir2 = bir + h + z
-        flush = act & ((g >= rst) | last)
-        f_rows = w(bir2 > 0, 1, 0)
-        ev2 = w(flush, ev + 1, ev)
-        ovf = ovf | (bir2 > BITS) | (flush & (ev2 >= E))
-        ys.append((h, z, ev, bir, flush, ev, f_rows))
-        ev, bir = ev2, w(flush, 0, bir2)
-    return _assemble_runs(B, S, caps, [_flat(ys, i, B, S) for i in range(7)],
-                          ev, ovf)
+    p, g, act, last = _lane_grid(pulse, gap, n_pulses, b["ok"])
+    i32 = lambda x: x.to(torch.int32)
+    sh = b["short"]
+    # 1. what no state decides
+    h = torch.where(act & (p > sh), torch.div(p, sh.clamp(min=1),
+                                              rounding_mode="floor"), 0)
+    z = i32(act & (p != sh))
+    fc = act & ((g >= b["reset"]) | last)
+    # 2. the cursor before each pulse (summed in int64, then wrapped as the
+    # scan's int32 cursor wraps) and its event
+    d = h + z
+    run = torch.cumsum(d.to(torch.int64), -1)
+    bir = (run - d - _at_last(run, fc)).to(torch.int32)
+    ev = _csum(fc) - i32(fc)
+    ovf = (act & ((bir + d > BY * 8) | (fc & (ev + 1 >= E)))).any(-1)
+    # 3. the JAX assembly
+    L = B * S
+
+    def lanes(x):
+        return torch.broadcast_to(x, (B, S, N)).reshape(L, N)
+
+    return _assemble_runs(
+        B, S, caps, [lanes(x) for x in (h, z, ev, bir, fc, ev,
+                                        i32(bir + d > 0))],
+        fc.sum(-1, dtype=torch.int32), ovf)
 
 
 # ---- the phase form of RZI and OSV1 (csrc/slice.cu's groups, a pulse per
@@ -1161,10 +1186,9 @@ def _check(pulse, gap, n_pulses, caps):
 # 228 KB, and each resident block takes 1 KB more
 SMEM_MAX = 232448
 SMEM_SM = 233472
-# the families csrc/slice.cu runs as thread groups, a group per lane (the
-# others, PCM and NRZS, walk a lane on one thread); DMC and PIWM-DC step
-# over the 2N symbols of the interleaved pulse/gap axis
-GROUP_FAMILIES = ("ppm", "mc", "pwm", "dmc", "piwm_dc", "rzi", "osv1")
+# csrc/slice.cu runs every family as thread groups, a group per lane; DMC
+# and PIWM-DC step over the 2N symbols of the interleaved pulse/gap axis
+GROUP_FAMILIES = tuple(FAMILIES)
 SYMBOL_FAMILIES = ("dmc", "piwm_dc")
 
 
@@ -1172,67 +1196,40 @@ def _r16(v: int) -> int:
     return -(-v // 16) * 16
 
 
-def stage_bytes(caps: SliceCaps, events: int) -> int:
-    """Shared bytes of one lane's stage in ``csrc/slice.cu`` holding
-    ``events`` events: their rows padded to 4-byte words, then their
-    bits_per_row, syncs and num_rows, each part rounded up to 16 bytes;
-    the stride between lanes is made an odd multiple of 16 so that the
-    16-byte accesses of eight neighbouring lanes fall in distinct banks."""
-    _E, R, BY = (int(c) for c in caps)
-    sb = _r16(events * R * -(-BY // 4) * 4) + _r16(8 * events * R) \
-        + _r16(4 * events)
+def stage_bytes(caps: SliceCaps) -> int:
+    """Shared bytes of one lane's stage in ``csrc/slice.cu``: its events'
+    rows padded to 4-byte words, then their bits_per_row, syncs and
+    num_rows, each part rounded up to 16 bytes; the stride between lanes
+    is made an odd multiple of 16 so that the 16-byte accesses of eight
+    neighbouring lanes fall in distinct banks."""
+    E, R, BY = (int(c) for c in caps)
+    sb = _r16(E * R * -(-BY // 4) * 4) + _r16(8 * E * R) + _r16(4 * E)
     return sb + 16 if sb % 32 == 0 else sb
 
 
-def launch_plan(B: int, S: int, N: int, caps: SliceCaps, sms: int = 132,
-                fam: str | None = None):
-    """The slicer kernel's launch for B trains of N pulses and S specs on
-    a card of ``sms`` SMs: (lanes per block, mode, stage bytes per lane,
-    shared bytes per block); a block takes one train's pulses and gaps
-    (``8 N`` bytes) and its lanes' stages.
+def launch_plan(S: int, N: int, caps: SliceCaps, fam: str):
+    """The slicer kernel's launch for trains of N pulses and S specs of
+    family ``fam``: (lanes per block, threads per lane, stage bytes per
+    lane, shared bytes per block); a block takes one train's pulses and
+    gaps (``8 N`` bytes) and its lanes' stages.
 
-    For PPM, MC, PWM, DMC, PIWM-DC, RZI and OSV1 (``fam`` in
-    :data:`GROUP_FAMILIES`; the kernel's groups) the mode is the threads
-    per lane, by the lane's steps (N pulses, or 2N symbols for DMC and
-    PIWM-DC): 8 where they are
-    at most 8, 16 where at most 16, else a warp; up to four warps of lanes
-    per block (fewer where S is smaller), each lane staging every event,
-    so that several blocks share an SM; fewer warps, and then a warp per
-    lane, where that does not fit the 227 KB a block may use, raising
-    where one lane of a warp does not.
-
-    For PCM and NRZS (the walk) the mode is whether every event of
-    a lane is staged: up to 64 specs per block (32 where S <= 32), a
-    multiple of 32, each lane with its stage. Every event is staged
-    (nothing leaves before the lane ends) where the whole grid then fits
-    on the card at once: such a call is bound by its slowest lane, whose
-    walk would otherwise stop at each event's write-out. Otherwise a lane
-    stages one event, for more lanes per SM. Raises where not even 32
-    lanes with one event fit."""
-    E = int(caps[0])
+    The threads per lane follow the lane's steps (N pulses, or 2N
+    symbols for DMC and PIWM-DC): 8 where they are at most 8, 16 where at
+    most 16, else a warp; up to four warps of lanes per block (fewer where
+    S is smaller), each lane staging every event, so that several blocks
+    share an SM; fewer warps, and then a warp per lane, where that does
+    not fit the 227 KB a block may use, raising where one lane of a warp
+    does not."""
+    sb = stage_bytes(caps)
     pulses = _r16(8 * N)
-    if fam in GROUP_FAMILIES:
-        sb = stage_bytes(caps, E)
-        steps = 2 * N if fam in SYMBOL_FAMILIES else N
-        g0 = 8 if steps <= 8 else 16 if steps <= 16 else 32
-        for g in dict.fromkeys((g0, 32)):
-            per_warp = 32 // g
-            for warps in range(min(4, max(1, -(-S // per_warp))), 0, -1):
-                smem = pulses + warps * per_warp * sb
-                if smem <= SMEM_MAX:
-                    return warps * per_warp, g, sb, smem
-        raise ValueError(f"slice: caps {tuple(caps)} with N={N} pulses do "
-                         f"not fit one block's shared memory")
-    for every in (True, False):
-        sb = stage_bytes(caps, E if every else 1)
-        for lanes in ((64, 32) if S > 32 else (32,)):
-            smem = pulses + min(S, lanes) * sb
-            if smem > SMEM_MAX:
-                continue
-            if every and B * -(-S // lanes) > \
-                    sms * (SMEM_SM // (smem + 1024)):
-                continue
-            return lanes, every, sb, smem
+    steps = 2 * N if fam in SYMBOL_FAMILIES else N
+    g0 = 8 if steps <= 8 else 16 if steps <= 16 else 32
+    for g in dict.fromkeys((g0, 32)):
+        per_warp = 32 // g
+        for warps in range(min(4, max(1, -(-S // per_warp))), 0, -1):
+            smem = pulses + warps * per_warp * sb
+            if smem <= SMEM_MAX:
+                return warps * per_warp, g, sb, smem
     raise ValueError(f"slice: caps {tuple(caps)} with N={N} pulses do not "
                      f"fit one block's shared memory")
 
@@ -1258,9 +1255,7 @@ def slice_cuda(fam: str, pulse, gap, n_pulses, bounds,
     B, N = pulse.shape
     S = tab.shape[0]
     E, R, BY = (int(c) for c in caps)
-    lanes, mode, sb, smem = launch_plan(
-        B, S, N, caps, torch.cuda.get_device_properties(
-            dev).multi_processor_count, fam)
+    lanes, group, sb, smem = launch_plan(S, N, caps, fam)
     e = lambda *sh, dt=torch.int32: torch.empty(sh, dtype=dt, device=dev)
     out = {"bytes": e(B, S, E, R, BY, dt=torch.uint8),
            "bits_per_row": e(B, S, E, R), "syncs": e(B, S, E, R),
@@ -1271,7 +1266,7 @@ def slice_cuda(fam: str, pulse, gap, n_pulses, bounds,
         _cuda.LAUNCHES["slice_" + fam] += 1
         err = fn(FAMILIES[fam][0], pulse.data_ptr(), gap.data_ptr(),
                  n_pulses.data_ptr(), B, N, tab.data_ptr(), S, E, R, BY,
-                 lanes, int(mode), sb, smem, out["bytes"].data_ptr(),
+                 lanes, group, sb, smem, out["bytes"].data_ptr(),
                  out["bits_per_row"].data_ptr(), out["syncs"].data_ptr(),
                  out["num_rows"].data_ptr(), out["n_events"].data_ptr(),
                  out["ovf"].data_ptr(), _cuda.stream_of(pulse))

@@ -247,7 +247,7 @@ def test_slice_kernel_matches_plain(fam, caps):
 
 @pytest.mark.parametrize("fam", ["ppm", "pcm", "dmc", "piwm_dc"])
 def test_slice_kernel_long_trains(fam):
-    """Trains of hundreds of pulses (the symbol families walk twice as
+    """Trains of hundreds of pulses (the symbol families step over twice as
     many), padded to N = 8192: 64 KB of staging, above the default
     dynamic shared memory."""
     from rtl_433_tpu_torch.ops import slice as sl
@@ -280,8 +280,7 @@ def test_slice_kernel_at_the_drain_shape(fam):
     arrs, devs = drain_shaped(fam, 3)
     bounds = getattr(sl, f"{fam}_bounds")(devs, RATE)
     args = [torch.from_numpy(a) for a in arrs]
-    assert sl.launch_plan(256, 125, 64, BANK_CAPS[fam], fam=fam)[:2] == (
-        (4, 32) if fam in sl.GROUP_FAMILIES else (64, False))
+    assert sl.launch_plan(125, 64, BANK_CAPS[fam], fam)[:2] == (4, 32)
     # garbage where the outputs will be allocated: the kernel must write
     # every element, not find zeros
     torch.full((256 << 20,), 0x5A, dtype=torch.uint8, device=dev)
@@ -296,11 +295,9 @@ def test_slice_kernel_at_the_drain_shape(fam):
 @pytest.mark.parametrize("fam", ["ppm", "pwm", "pcm", "mc", "dmc", "piwm_dc",
                                  "nrzs", "rzi", "osv1"])
 def test_slice_kernel_either_staging(fam, every, monkeypatch):
-    """The same lanes (64 drain-shaped trains x 125 specs) with every
-    event of a lane staged and with one, the plan forced either way:
-    both equal the plain version. MC, PWM, DMC and PIWM-DC (thread groups,
-    every event staged) take a block of one lane and one of four lanes
-    instead."""
+    """The same lanes (64 drain-shaped trains x 125 specs) in blocks of
+    one lane (``every``) and of four lanes, every event of a lane staged,
+    the plan forced either way: both equal the plain version."""
     from rtl_433_tpu_torch.ops import slice as sl
     from torch_slice_cases import BANK_CAPS, RATE, drain_shaped
     dev = _gpu()
@@ -308,14 +305,9 @@ def test_slice_kernel_either_staging(fam, every, monkeypatch):
     arrs, devs = drain_shaped(fam, 4, B=64)
     bounds = getattr(sl, f"{fam}_bounds")(devs, RATE)
     args = [torch.from_numpy(a) for a in arrs]
-    if fam in sl.GROUP_FAMILIES:
-        sb = sl.stage_bytes(caps, caps.events)
-        lanes = 1 if every else 4
-        plan = (lanes, 32, sb, -(-8 * 64 // 16) * 16 + lanes * sb)
-    else:
-        sb = sl.stage_bytes(caps, caps.events if every else 1)
-        lanes = 32 if every else 64
-        plan = (lanes, every, sb, -(-8 * 64 // 16) * 16 + lanes * sb)
+    sb = sl.stage_bytes(caps)
+    lanes = 1 if every else 4
+    plan = (lanes, 32, sb, -(-8 * 64 // 16) * 16 + lanes * sb)
     monkeypatch.setattr(sl, "launch_plan", lambda *a, **k: plan)
     got = sl.slice_cuda(fam, *(a.to(dev) for a in args), bounds, caps)
     torch.cuda.synchronize()
@@ -366,17 +358,15 @@ def test_slice_kernel_lane_past_every_cap(caps):
     assert (want["bits_per_row"][own, own].amax((-1, -2)) > 8 * BY).all()
 
 def _group_call(fam, arrs, bounds, caps, dev, g=None, monkeypatch=None):
-    """One launch of a group family's kernel (PPM, MC, PWM, DMC, PIWM-DC,
-    RZI, OSV1) over
-    outputs allocated where garbage was (every element must be written),
-    the plan's threads per lane forced to ``g``; held to the plain
-    version."""
+    """One launch of a family's kernel over outputs allocated where
+    garbage was (every element must be written), the plan's threads per
+    lane forced to ``g``; held to the plain version."""
     from rtl_433_tpu_torch.ops import slice as sl
     args = [torch.from_numpy(np.ascontiguousarray(a)) for a in arrs]
     B, N = args[0].shape
     if g is not None:
         S = len(bounds["ok"])
-        sb = sl.stage_bytes(caps, caps.events)
+        sb = sl.stage_bytes(caps)
         lanes = min(4 * 32 // g, -(-S // (32 // g)) * (32 // g))
         plan = (lanes, g, sb, -(-8 * N // 16) * 16 + lanes * sb)
         monkeypatch.setattr(sl, "launch_plan", lambda *a, **k: plan)
@@ -392,8 +382,8 @@ def _group_call(fam, arrs, bounds, caps, dev, g=None, monkeypatch=None):
 
 
 @pytest.mark.parametrize("g", [8, 16, 32])
-@pytest.mark.parametrize("fam", ["ppm", "mc", "pwm", "dmc", "piwm_dc", "rzi",
-                                 "osv1"])
+@pytest.mark.parametrize("fam", ["ppm", "mc", "pwm", "pcm", "dmc", "piwm_dc",
+                                 "nrzs", "rzi", "osv1"])
 def test_slice_kernel_each_group_size(fam, g, monkeypatch):
     """Each threads-per-lane the plan can pick, forced on the drain's
     shape (64 trains of up to 64 pulses x 125 specs) and on trains of 1,
@@ -414,27 +404,48 @@ def test_slice_kernel_each_group_size(fam, g, monkeypatch):
 
 
 def _pulse_group_trains(fam, caps):
-    """RZI's or OSV1's planted trains (edge cases, a train past each cap
-    it can pass, trains of 1 to 1200 pulses around tiles of 8) with the
-    planted specs' bound columns."""
+    """RZI's, OSV1's, PCM's or NRZS's planted trains (edge cases, a train
+    past each cap it can pass, trains of 1 to 1200 pulses around tiles of
+    8; PCM's and NRZS's edge trains also behind 1 to 32 pulses of a
+    flushed event, so that each case falls on every thread of a tile) with
+    the planted specs' bound columns."""
     from torch_slice_cases import (family_devices, length_trains,
-                                   osv1_edges, pulse_cap_trains,
-                                   pulse_edge_bounds, rzi_edges)
-    edges = rzi_edges() if fam == "rzi" else osv1_edges()
-    trains = edges + pulse_cap_trains(fam, caps) + length_trains(
-        fam, family_devices(fam), 29, (1, 7, 8, 9, 12, 13, 31, 32, 33, 1200))
-    return trains, pulse_edge_bounds(fam)
+                                   nrzs_cap_trains, nrzs_edge_bounds,
+                                   nrzs_edges, osv1_edges, pcm_cap_trains,
+                                   pcm_edge_bounds, pcm_edges,
+                                   pulse_cap_trains, pulse_edge_bounds,
+                                   rzi_edges)
+    lengths = length_trains(fam, family_devices(fam), 29,
+                            (1, 7, 8, 9, 12, 13, 31, 32, 33, 1200))
+    if fam in ("rzi", "osv1"):
+        edges = rzi_edges() if fam == "rzi" else osv1_edges()
+        return (edges + pulse_cap_trains(fam, caps) + lengths,
+                pulse_edge_bounds(fam))
+    if fam == "pcm":
+        edges, caps_, bounds, lead = (pcm_edges(), pcm_cap_trains(caps),
+                                      pcm_edge_bounds(), (80, 80, 500))
+    else:
+        edges, caps_, bounds, lead = (nrzs_edges(), nrzs_cap_trains(caps),
+                                      nrzs_edge_bounds(), (9, 5, 100))
+    shifted = []
+    for k, (p, g) in enumerate(edges[:-1] * 5):
+        n = k % 32
+        shifted.append(([lead[0]] * (n + 1) + p,
+                        [lead[1]] * n + [lead[2]] + g))
+    return edges + caps_ + shifted + lengths, bounds
 
 
 @pytest.mark.parametrize("caps", ["bank", "small"])
 @pytest.mark.parametrize("g", [8, 16, 32])
-@pytest.mark.parametrize("fam", ["rzi", "osv1"])
+@pytest.mark.parametrize("fam", ["rzi", "osv1", "pcm", "nrzs"])
 def test_slice_kernel_pulse_group_edges_each_group_size(fam, g, caps,
                                                          monkeypatch):
-    """RZI's and OSV1's planted trains on the group kernel with 8, 16 and
-    32 threads per lane: runs over several words and past the row, empty
-    flushes, OSV1's preambles, syncs and clipped ones, phase 0 across a
-    tile of 8."""
+    """RZI's, OSV1's, PCM's and NRZS's planted trains on the group kernel
+    with 8, 16 and 32 threads per lane: runs over several words and past
+    the row, empty flushes, OSV1's preambles, syncs and clipped ones,
+    phase 0 across a tile of 8; PCM's accepted runs (several in one tile,
+    one across a tile's edge), its clears across tiles and its row break
+    at the last pulse, each behind leads of 1 to 32 pulses."""
     from torch_slice_cases import BANK_CAPS, SMALL_CAPS, pack
     dev = _gpu()
     caps = BANK_CAPS[fam] if caps == "bank" else SMALL_CAPS
@@ -444,9 +455,27 @@ def test_slice_kernel_pulse_group_edges_each_group_size(fam, g, caps,
     assert want["n_events"].sum() > 0
 
 
+@pytest.mark.parametrize("g", [8, 16])
+def test_slice_kernel_pcm_rounds_differ_within_a_warp(g, monkeypatch):
+    """Several lanes of one warp (8 or 16 threads each) whose NRZ rate
+    passes take different numbers of rounds on the same train: the
+    planted RZ spec (one round a tile) and the NRZ specs seeded at 1/20,
+    1/26 and 1/40 (the last accepts a run more) in the first warp, on the
+    PCM edge trains behind leads of 1 to 32 pulses: every group of the
+    warp runs a round while any needs one, and each lane equals the plain
+    version."""
+    from torch_slice_cases import BANK_CAPS, pack, pcm_edge_bounds
+    dev = _gpu()
+    trains, _b = _pulse_group_trains("pcm", BANK_CAPS["pcm"])
+    bounds = {k: v[:4] for k, v in pcm_edge_bounds().items()}
+    want = _group_call("pcm", pack(trains), bounds, BANK_CAPS["pcm"], dev, g,
+                       monkeypatch)
+    assert want["n_events"][:, 1:].sum() > 0 and want["n_events"][:, 0].sum()
+
+
 @pytest.mark.parametrize("caps", ["bank", "small"])
-@pytest.mark.parametrize("fam", ["ppm", "mc", "pwm", "dmc", "piwm_dc", "rzi",
-                                 "osv1"])
+@pytest.mark.parametrize("fam", ["ppm", "mc", "pwm", "pcm", "dmc", "piwm_dc",
+                                 "nrzs", "rzi", "osv1"])
 def test_slice_kernel_planted_group_trains(fam, caps):
     """The planted trains of tests/torch_slice_cases.py: each family's edge
     cases, a train past each cap, and trains of 1 to 1200 pulses."""
@@ -460,7 +489,7 @@ def test_slice_kernel_planted_group_trains(fam, caps):
                                    symbol_edge_bounds)
     dev = _gpu()
     caps = BANK_CAPS[fam] if caps == "bank" else SMALL_CAPS
-    if fam in ("rzi", "osv1"):
+    if fam in ("rzi", "osv1", "pcm", "nrzs"):
         trains, bounds = _pulse_group_trains(fam, caps)
         want = _group_call(fam, pack(trains), bounds, caps, dev)
         assert want["ovf"].any() and (~want["ovf"]).any()
@@ -493,13 +522,13 @@ def test_slice_kernel_planted_group_trains(fam, caps):
     assert want["ovf"].any() and (~want["ovf"]).any()
 
 
-@pytest.mark.parametrize("fam", ["ppm", "mc", "pwm", "dmc", "piwm_dc", "rzi",
-                                 "osv1"])
+@pytest.mark.parametrize("fam", ["ppm", "mc", "pwm", "pcm", "dmc", "piwm_dc",
+                                 "nrzs", "rzi", "osv1"])
 def test_slice_kernel_groups_at_the_mixed_shapes(fam):
     """The mixed streams' calls: a few trains of tens to 1200 pulses in a
     bucket of 2048, every spec of the family in the registry (MC 41, PWM
-    91, DMC 6, PIWM-DC 4, RZI and OSV1 one each, PPM all of its), the
-    plan's own choice."""
+    91, DMC 6, PIWM-DC 4, RZI, OSV1 and NRZS one each, PPM and PCM all of
+    theirs), the plan's own choice."""
     from rtl_433_tpu_torch.ops import slice as sl
     from torch_slice_cases import (BANK_CAPS, RATE, family_devices,
                                    length_trains, pack)

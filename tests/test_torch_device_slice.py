@@ -15,7 +15,6 @@ package's tests/test_device_slice.py. PCM trains with widths on a bit
 period's half raise the float-boundary flag on the same lanes in both.
 """
 
-import itertools
 
 import numpy as np
 import pytest
@@ -30,7 +29,9 @@ from rtl_433_tpu_torch.pulse.data import PulseData
 from torch_slice_cases import (BANK_CAPS, DMC_SYMS, PIWM_DC_SYMS, RATE,
                                SMALL_CAPS, cap_trains, dmc_edges,
                                family_devices, family_trains, length_trains,
-                               mc_edge_devs, mc_edges, osv1_edges, pack,
+                               mc_edge_devs, mc_edges, nrzs_cap_trains,
+                               nrzs_edge_bounds, nrzs_edges, osv1_edges, pack,
+                               pcm_cap_trains, pcm_edge_bounds, pcm_edges,
                                piwm_dc_edges, ppm_cap_trains,
                                ppm_edge_bounds, ppm_edges, pulse_cap_trains,
                                pulse_edge_bounds, pwm_edge_dev, pwm_edges,
@@ -326,6 +327,104 @@ def test_osv1_edge_trains_match_jax(caps):
 
 
 @pytest.mark.parametrize("caps", ["bank", "small"])
+def test_pcm_edge_trains_match_jax(caps):
+    """NRZ preambles with three accepted runs, two of them inside one tile
+    of 32 pulses, each at a width only the rate before accepted puts in the
+    run class, and a fourth for the lane seeded at 1/40; an accepted run
+    across a tile's edge; RZ runs of equal length, the later accepted too;
+    a clear in a later tile erasing an event begun in the tile before; a
+    clear after a flush in one tile; a clear that is a flush candidate too;
+    a row break at the last pulse; runs of ones over word edges and past
+    the row's bits; and trains past each cap; on the planted specs (lanes
+    0-3) and the registry's."""
+    caps = BANK_CAPS["pcm"] if caps == "bank" else SMALL_CAPS
+    edges = pcm_edges()
+    _d, _t, want, got = _run_both("pcm", caps,
+                                  trains=edges + pcm_cap_trains(caps),
+                                  bounds=pcm_edge_bounds())
+    _same(want, got, "pcm edges")
+    E, R, BY = caps
+    K = len(edges)
+    # one event a train on the NRZ specs; the RZ clears leave three
+    assert (want["n_events"][:3, 1:4] == 1).all()
+    assert want["n_events"][3:7, 0].tolist() == [1, 3, 1, 1]
+    # the cap trains are flagged for their cap alone
+    assert want["ovf"][K:, 0].all()
+    assert want["n_events"][K, 0] > E
+    assert want["num_rows"][K + 1, 0].max() > R
+    assert want["bits_per_row"][K + 2, 0].max() > 8 * BY
+    if caps == BANK_CAPS["pcm"]:
+        # the three rates the NRZ lanes accept give them one event of three
+        # rows (row breaks at gaps of 160 and 150), none flagged
+        assert not want["ovf"][:2, 1:4].any()
+        assert (want["num_rows"][0, 1:4, 0] == 3).all()
+        assert want["bits_per_row"][0, 1, 0, :3].tolist() == [22, 70, 17]
+        assert want["bits_per_row"][1, 1, 0, 0] == 154
+        # runs of 37 to 40 ones past the row's 320 bits
+        assert want["ovf"][2, 1] and want["bits_per_row"][2, 1, 0, 0] == 373
+        assert want["bytes"][2, 1, 0, 0, -1] == 255
+        assert not want["ovf"][3:7, 0].any()
+        # a clear keeps only what follows it (10 pulses of a 1 and two
+        # zeros, and the flush's 1 and 3 zeros), also after a flush in its
+        # tile; a clear that is a flush candidate flushes nothing
+        assert want["bits_per_row"][4, 0, :3, 0].tolist() == [34, 10, 10]
+        assert want["bits_per_row"][5, 0, 0, 0] == 16
+        # the row break at the last pulse: the event keeps the row it
+        # opened, empty
+        assert want["num_rows"][6, 0, 0] == 3
+        assert want["bits_per_row"][6, 0, 0, :3].tolist() == [17, 13, 0]
+
+
+@pytest.mark.parametrize("caps", ["bank", "small"])
+def test_pcm_edge_trains_match_jax_over_tile_borders(caps):
+    """The PCM edge trains from every offset of a tile of 32 pulses (each
+    train behind 1 to 32 pulses out of every run class, the last of them a
+    flush candidate), so that each accepted run, clear and flush also falls
+    on a tile's first and last thread."""
+    caps = BANK_CAPS["pcm"] if caps == "bank" else SMALL_CAPS
+    trains = []
+    for k, (p, g) in enumerate(pcm_edges()[:-1] * 5):
+        lead = k % 32
+        trains.append(([80] * (lead + 1) + p, [80] * lead + [500] + g))
+    _d, _t, want, got = _run_both("pcm", caps, trains=trains,
+                                  bounds=pcm_edge_bounds())
+    _same(want, got, "pcm edges over tile borders")
+    assert (want["n_events"][:, 1:4] >= 1).all()
+
+
+@pytest.mark.parametrize("caps", ["bank", "small"])
+def test_nrzs_edge_trains_match_jax(caps):
+    """Pulses at exactly the bit limit (no bit), an event of them alone
+    (flushed, empty), empty flushes back to back, a zero alone, runs of
+    ones over word edges and past the row's bits, more events than E; on
+    the planted spec (lane 0) and the registry's."""
+    caps = BANK_CAPS["nrzs"] if caps == "bank" else SMALL_CAPS
+    edges = nrzs_edges()
+    _d, _t, want, got = _run_both("nrzs", caps,
+                                  trains=edges + nrzs_cap_trains(caps),
+                                  bounds=nrzs_edge_bounds())
+    _same(want, got, "nrzs edges")
+    E, R, BY = caps
+    K = len(edges)
+    # the exact-limit pulses emit nothing: event 0 flushes with no row,
+    # event 1 holds two runs of 3 ones and a 0 each, and the last 0
+    assert want["n_events"][:3, 0].tolist() == [2, 7, 2]
+    assert want["bits_per_row"][0, 0, :2, 0].tolist() == [0, 9][:E]
+    # empty flushes back to back: a row only where a 0 fell
+    assert want["num_rows"][1, 0, :2].tolist() == [0, 0]
+    assert want["ovf"][K:, 0].all()
+    assert want["n_events"][K, 0] > E
+    assert want["bits_per_row"][K + 1, 0, 0, 0] > 8 * BY
+    if caps == BANK_CAPS["nrzs"]:
+        assert want["num_rows"][0, 0, :2].tolist() == [0, 1]
+        assert not want["ovf"][0, 0] and want["ovf"][1, 0]   # 7 events
+        # 37, 29 and 33 ones, each and a zero: bits 0-36 set, 37 clear
+        assert want["bytes"][2, 0, 0, 0, :5].tolist() == [255] * 4 + [251]
+        assert want["bits_per_row"][2, 0, :2, 0].tolist() == [144, 370]
+        assert want["ovf"][2, 0]
+
+
+@pytest.mark.parametrize("caps", ["bank", "small"])
 @pytest.mark.parametrize("fam", ["ppm", "mc", "pwm", "dmc", "piwm_dc", "rzi",
                                  "osv1"])
 def test_cap_trains_match_jax(fam, caps):
@@ -365,18 +464,19 @@ def test_cap_trains_match_jax(fam, caps):
     assert want["bits_per_row"][2, 0].max() > 8 * BY
 
 
-@pytest.mark.parametrize("fam", ["ppm", "mc", "pwm", "dmc", "piwm_dc", "rzi",
-                                 "osv1"])
+@pytest.mark.parametrize("fam", FAMS)
 def test_length_trains_match_jax(fam):
     """Trains of 1, 31, 32, 33 and 1200 pulses: inside one tile of 32,
     on its edge, across it, and over 38 tiles; for DMC and PIWM-DC, whose
     tiles hold 32 symbols (16 pulses), of 1, 15, 16, 17 and 1200 pulses;
     for RZI and OSV1 also of 7, 8, 9, 12 and 13 (around a tile of 8, and
-    OSV1's preamble and sync)."""
+    OSV1's preamble and sync); for PCM and NRZS of 1, 31, 32, 33 and 8192
+    (256 tiles, PCM's rate pass over every one of them first)."""
     devs = family_devices(fam)
     lengths = (1, 15, 16, 17, 1200) if fam in tslice.SYMBOL_FAMILIES \
         else (1, 7, 8, 9, 12, 13, 31, 32, 33, 1200) \
-        if fam in ("rzi", "osv1") else (1, 31, 32, 33, 1200)
+        if fam in ("rzi", "osv1") else (1, 31, 32, 33, 8192) \
+        if fam in ("pcm", "nrzs") else (1, 31, 32, 33, 1200)
     trains = length_trains(fam, devs, 17, lengths)
     assert [len(p) for p, _g in trains] == list(lengths)
     _d, _t, want, got = _run_both(fam, BANK_CAPS[fam], trains=trains,
@@ -435,7 +535,7 @@ def test_pcm_boundary_trains_raise_the_float_flag():
     assert got["ovf"][boundary].sum() > 0
 
 
-@pytest.mark.parametrize("fam", ["ppm", "pcm", "dmc", "osv1"])
+@pytest.mark.parametrize("fam", ["ppm", "pcm", "dmc", "nrzs", "osv1"])
 def test_padding_past_the_longest_train_changes_nothing(fam):
     devs = family_devices(fam)
     trains = family_trains(fam, devs, 13, n=8)
@@ -500,73 +600,15 @@ def test_table_columns_invert_bound_table(fam):
 
 _CAPS_IN_USE = sorted(set(BANK_CAPS.values()) | {
     SMALL_CAPS, tslice.SliceCaps(16, 24, 40), tslice.SliceCaps(16, 64, 64)})
-# the families the walk runs (one thread per lane)
-WALK_FAMILIES = [f for f in FAMS if f not in tslice.GROUP_FAMILIES]
 
 
-def test_the_walk_runs_pcm_and_nrzs_alone():
-    assert WALK_FAMILIES == ["pcm", "nrzs"]
+def test_all_nine_families_run_as_groups():
+    """No family walks a lane on one thread: every family of the kernel
+    runs a thread group per lane."""
+    assert tslice.GROUP_FAMILIES == tuple(tslice.FAMILIES)
     assert sorted(tslice.GROUP_FAMILIES) == sorted(
-        ["ppm", "mc", "pwm", "dmc", "piwm_dc", "rzi", "osv1"])
+        ["ppm", "pwm", "pcm", "mc", "dmc", "piwm_dc", "nrzs", "rzi", "osv1"])
 
-
-@pytest.mark.parametrize("N", [64, 2048, 8192])
-@pytest.mark.parametrize("caps", _CAPS_IN_USE, ids=str)
-def test_launch_plan_fits_every_cap_set_in_use(caps, N):
-    """The bank's caps, the tests' caps, the drain's longest bucket (2048
-    pulses) and the long-train case (8192), for PCM and NRZS: blocks of
-    64 lanes, or 32 where S <= 32 or 64 would not fit, inside the 227 KB
-    a block may use; each lane's stage an odd multiple of 16 bytes that
-    holds its staged events' rows (padded to words) and counts."""
-    E, R, BY = caps
-    for B, S, fam in itertools.product((1, 64, 256, 4096),
-                                       (1, 29, 32, 33, 125, 1000),
-                                       WALK_FAMILIES):
-        lanes, every, sb, smem = tslice.launch_plan(B, S, N, caps, fam=fam)
-        assert lanes in (32, 64) and lanes % 32 == 0
-        if S <= 32:
-            assert lanes == 32
-        es = E if every else 1
-        assert sb == tslice.stage_bytes(caps, es) and sb % 32 == 16
-        assert sb >= es * (R * (-(-BY // 4) * 4) + 8 * R + 4)
-        assert smem == -(-8 * N // 16) * 16 + min(S, lanes) * sb
-        assert smem <= tslice.SMEM_MAX
-
-
-@pytest.mark.parametrize("B,S,caps,every", [
-    (256, 125, (4, 16, 40), False),   # the drain's large PCM call
-    (64, 29, (4, 16, 40), True),      # its small one
-    (64, 26, (8, 24, 20), True),
-    (256, 12, (8, 24, 20), True),
-    (4096, 125, (4, 16, 20), False),
-    (24, 12, (16, 64, 64), False)])   # 16 events of 64 x 64: too large
-def test_launch_plan_stages_every_event_where_the_grid_fits_at_once(
-        B, S, caps, every):
-    """Every event staged exactly where the blocks (one train x up to 64
-    specs each) then fit on the card's 132 SMs at once, by shared memory;
-    else one event, the denser plan."""
-    caps = tslice.SliceCaps(*caps)
-    lanes, got, sb, smem = tslice.launch_plan(B, S, 64, caps, fam="pcm")
-    assert got == every
-    blocks = B * -(-S // lanes)
-    if every:
-        assert blocks <= 132 * (tslice.SMEM_SM // (smem + 1024))
-    else:
-        for ln in (32, 64):
-            sm = -(-8 * 64 // 16) * 16 + min(S, ln) * tslice.stage_bytes(
-                caps, caps.events)
-            assert sm > tslice.SMEM_MAX or B * -(-S // ln) > \
-                132 * (tslice.SMEM_SM // (sm + 1024))
-
-
-@pytest.mark.parametrize("caps,N", [((4, 64, 1024), 64), ((4, 16, 40), 30000)])
-def test_launch_plan_raises_where_32_lanes_do_not_fit(caps, N):
-    for fam in WALK_FAMILIES:
-        with pytest.raises(ValueError, match="shared memory"):
-            tslice.launch_plan(8, 100, N, tslice.SliceCaps(*caps), fam=fam)
-
-
-# ---- the groups' launch plan (PPM, MC, PWM, DMC, PIWM-DC, RZI, OSV1)
 
 @pytest.mark.parametrize("N", [1, 12, 64, 1200, 8192])
 @pytest.mark.parametrize("caps", _CAPS_IN_USE, ids=str)
@@ -578,17 +620,17 @@ def test_launch_plan_groups_fit_every_cap_set_in_use(fam, caps, N):
     inside the 227 KB a block may use."""
     E, R, BY = caps
     steps = 2 * N if fam in tslice.SYMBOL_FAMILIES else N
-    for B in (1, 256):
-        for S in (1, 3, 12, 26, 125):
-            lanes, g, sb, smem = tslice.launch_plan(B, S, N, caps, fam=fam)
-            assert g in (8, 16, 32) and lanes * g % 32 == 0
-            assert lanes * g <= 128
-            assert lanes <= -(-S // (32 // g)) * (32 // g)
-            assert sb == tslice.stage_bytes(caps, E)
-            assert smem == -(-8 * N // 16) * 16 + lanes * sb
-            assert smem <= tslice.SMEM_MAX
-            if g < 32:
-                assert steps <= g
+    for S in (1, 3, 12, 26, 125):
+        lanes, g, sb, smem = tslice.launch_plan(S, N, caps, fam)
+        assert g in (8, 16, 32) and lanes * g % 32 == 0
+        assert lanes * g <= 128
+        assert lanes <= -(-S // (32 // g)) * (32 // g)
+        assert sb == tslice.stage_bytes(caps) and sb % 32 == 16
+        assert sb >= E * (R * (-(-BY // 4) * 4) + 8 * R + 4)
+        assert smem == -(-8 * N // 16) * 16 + lanes * sb
+        assert smem <= tslice.SMEM_MAX
+        if g < 32:
+            assert steps <= g
 
 
 @pytest.mark.parametrize("fam,N,g", [
@@ -601,22 +643,23 @@ def test_launch_plan_groups_fit_every_cap_set_in_use(fam, caps, N):
     ("piwm_dc", 5, 16), ("piwm_dc", 9, 32), ("rzi", 1, 8), ("rzi", 8, 8),
     ("rzi", 9, 16), ("rzi", 16, 16), ("rzi", 17, 32), ("rzi", 1200, 32),
     ("osv1", 8, 8), ("osv1", 12, 16), ("osv1", 13, 16), ("osv1", 17, 32),
-    ("osv1", 2048, 32)])
+    ("osv1", 2048, 32), ("pcm", 1, 8), ("pcm", 8, 8), ("pcm", 9, 16),
+    ("pcm", 16, 16), ("pcm", 17, 32), ("pcm", 64, 32), ("pcm", 8192, 32),
+    ("nrzs", 1, 8), ("nrzs", 8, 8), ("nrzs", 9, 16), ("nrzs", 16, 16),
+    ("nrzs", 17, 32), ("nrzs", 8192, 32)])
 def test_launch_plan_group_size_follows_n(fam, N, g):
     """A group per lane of 8, 16 or 32 threads by the lane's steps: N
     pulses, or for DMC and PIWM-DC 2N symbols."""
-    assert tslice.launch_plan(8, 26, N, BANK_CAPS[fam], fam=fam)[1] == g
+    assert tslice.launch_plan(26, N, BANK_CAPS[fam], fam)[1] == g
 
 
 @pytest.mark.parametrize("N", [64, 1200, 2048, 8192])
 @pytest.mark.parametrize("fam", ["mc", "dmc", "piwm_dc"])
 def test_launch_plan_puts_several_group_blocks_on_an_sm_at_mc_caps(fam, N):
     """At MC's caps (8 x 24 x 20: 5.4 KB a lane; DMC's and PIWM-DC's too)
-    a block of four lanes leaves room for several blocks per SM, where the
-    walk's plan put one block of 32 lanes (one warp) on an SM."""
+    a block of four lanes leaves room for several blocks per SM."""
     assert BANK_CAPS[fam] == BANK_CAPS["mc"]
-    lanes, g, sb, smem = tslice.launch_plan(256, 125, N, BANK_CAPS[fam],
-                                            fam=fam)
+    lanes, g, sb, smem = tslice.launch_plan(125, N, BANK_CAPS[fam], fam)
     assert (lanes, g) == (4, 32)
     assert tslice.SMEM_SM // (smem + 1024) >= (4 if N <= 2048 else 2)
 
@@ -626,15 +669,15 @@ def test_launch_plan_takes_a_warp_per_lane_where_a_group_would_not_fit(fam):
     """Four lanes of 8 threads (one warp) need four stages; where those do
     not fit, a warp runs one lane."""
     caps = tslice.SliceCaps(4, 32, 500)
-    sb = tslice.stage_bytes(caps, 4)
+    sb = tslice.stage_bytes(caps)
     assert 16 + 4 * sb > tslice.SMEM_MAX >= 16 + 3 * sb
-    assert tslice.launch_plan(8, 26, 2, caps, fam=fam)[:2] == (3, 32)
+    assert tslice.launch_plan(26, 2, caps, fam)[:2] == (3, 32)
 
 
 @pytest.mark.parametrize("caps,N", [((4, 64, 1024), 64), ((4, 16, 40), 30000)])
 def test_launch_plan_raises_where_no_group_fits(caps, N):
-    """No fallback to the walk or to the plain version: a plan that does
-    not fit raises."""
+    """No fallback to the plain version: a plan that does not fit
+    raises."""
     for fam in tslice.GROUP_FAMILIES:
         with pytest.raises(ValueError, match="shared memory"):
-            tslice.launch_plan(8, 100, N, tslice.SliceCaps(*caps), fam=fam)
+            tslice.launch_plan(100, N, tslice.SliceCaps(*caps), fam)

@@ -798,3 +798,139 @@ def pulse_cap_trains(fam, caps):
                         OSV1_RST),
             _osv1_frame(pre, "SY", ([100] * 2 * n, [100] * 2 * n), None),
             _osv1_frame(pre, "SYN", ([200] * n, [200] * n), OSV1_RST)]
+
+
+# ---- planted trains for PCM and NRZS (thread groups over the pulses):
+# planted specs, the edge cases of the rate pass and of the step pass,
+# trains past each cap
+
+# bound columns of the planted PCM specs (samples): spec 0 RZ (short 10,
+# long 30: its run class a pulse of 7-13 whose period is 27-33, its clear a
+# pulse off 10 by more than 3), specs 1-3 NRZ at rate seeds of 1/20, 1/26
+# and 1/40 (a pulse and a gap of one bit each are a run step); a gap over
+# 100 and up to 400 breaks a row, one over 400 is a flush candidate
+PCM_SPECS = (
+    {"short": 10, "long": 30, "reset": 400, "gap_limit": 100, "tol": 3,
+     "max_zeros": 3, "min_count": 4, "is_rz": True, "f0s": 1 / 10,
+     "f0l": 1 / 30},
+    {"short": 20, "long": 20, "reset": 400, "gap_limit": 100, "tol": 5,
+     "max_zeros": 5, "min_count": 12, "is_rz": False, "f0s": 1 / 20,
+     "f0l": 1 / 20},
+    {"short": 26, "long": 26, "reset": 400, "gap_limit": 100, "tol": 6,
+     "max_zeros": 5, "min_count": 12, "is_rz": False, "f0s": 1 / 26,
+     "f0l": 1 / 26},
+    {"short": 40, "long": 40, "reset": 400, "gap_limit": 100, "tol": 10,
+     "max_zeros": 5, "min_count": 12, "is_rz": False, "f0s": 1 / 40,
+     "f0l": 1 / 40})
+# NRZS: a bit limit of 10 samples, flush candidates at gaps of 100 or more
+NRZS_SPECS = ({"short": 10, "reset": 100},)
+
+
+def pcm_edge_bounds():
+    """The planted PCM specs (lanes 0-3), then the registry's, as
+    ``pcm_bounds`` gives them."""
+    from rtl_433_tpu_torch.ops import slice as sl
+    reg = sl.pcm_bounds(family_devices("pcm"), RATE)
+    out = {}
+    for k, v in reg.items():
+        if k == "ok":
+            continue
+        planted = np.asarray([p[k] for p in PCM_SPECS], v.dtype)
+        out[k] = np.concatenate([planted, v])
+    out["ok"] = np.concatenate([np.ones(len(PCM_SPECS), bool), reg["ok"]])
+    return out
+
+
+def nrzs_edge_bounds():
+    """The planted NRZS spec (lane 0), then the registry's."""
+    from rtl_433_tpu_torch.ops import slice as sl
+    reg = sl.nrzs_bounds(family_devices("nrzs"), RATE)
+    out = {k: np.concatenate([np.asarray([p[k] for p in NRZS_SPECS],
+                                         np.int32), reg[k]])
+           for k in ("short", "reset")}
+    out["ok"] = np.concatenate([np.ones(len(NRZS_SPECS), bool), reg["ok"]])
+    return out
+
+
+def _pairs(*parts):
+    """A train from runs of (pulse, gap) pairs: (count, pulse, gap)."""
+    p, g = [], []
+    for n, a, b in parts:
+        p += [a] * n
+        g += [b] * n
+    return p, g
+
+
+def pcm_edges():
+    """PCM trains for the planted specs. NRZ (spec 1, seed 1/20): three
+    runs accepted, two of them inside one tile of 32 pulses, each at a
+    width that only the rate the run before accepted puts in the run class
+    (24, then 34, then 44 samples a bit; spec 3, seed 1/40, accepts a run
+    at 44 first, so that its lane takes a round more), and a run that stays
+    below the count (not accepted) between them; an accepted run that
+    spans pulses 26-33 (a tile's edge) after pulses out of the class; runs
+    of ones over word edges and past the row's bits. RZ (spec 0): two runs
+    of equal length, the later accepted too; a clear in a later tile
+    erasing an event begun in the tile before, then the event kept from
+    the clear on; a clear after a flush in one tile; a clear that is also
+    a flush candidate (nothing flushes there); a row break at the last
+    pulse (the event flushes with the row it opened); then all of them in
+    one train."""
+    OUT = (80, 80)                 # out of the NRZ class at every rate here
+    nrz3 = _pairs((7, 44, 44), (1, 160, 160), (7, 24, 24), (1, *OUT),
+                  (8, 34, 34), (1, 100, 100),
+                  (3, 44, 44), (1, *OUT), (9, 44, 44), (1, 44, 150),
+                  (3, 88, 44), (1, 132, 500))
+    span = _pairs((26, *OUT), (8, 24, 24), (1, *OUT), (8, 34, 34),
+                  (2, 68, 68), (1, 34, 500))
+    wide = _pairs((6, 24, 24), (1, *OUT), (1, 24 * 37, 24),
+                  (1, 24 * 29, 48), (1, 24 * 33, 24), (6, 24 * 40, 24),
+                  (1, 24, 500))
+    rz_eq = _pairs((5, 10, 20), (1, 10, 60), (5, 11, 21), (1, 10, 60),
+                   (4, 10, 20), (6, 10, 50), (1, 10, 500))
+    rz_clear = _pairs((5, 10, 20), (38, 10, 50), (1, 24, 20), (10, 10, 80),
+                      (1, 10, 500), (3, 10, 50), (1, 10, 500), (2, 10, 20),
+                      (1, 24, 20), (3, 10, 50), (1, 10, 500))
+    rz_both = _pairs((5, 10, 20), (6, 10, 50), (1, 24, 500), (4, 10, 80),
+                     (1, 10, 500), (1, 10, 20), (1, 24, 500))
+    rz_last = _pairs((5, 10, 20), (4, 10, 50), (1, 10, 200), (3, 10, 80),
+                     (1, 10, 200))
+    parts = [nrz3, span, wide, rz_eq, rz_clear, rz_both, rz_last]
+    return parts + [tuple(sum((list(t[k]) for t in parts), [])
+                          for k in (0, 1))]
+
+
+def pcm_cap_trains(caps):
+    """Trains for the planted RZ spec (lane 0) past each cap of ``caps``
+    on its own: more events than E, more rows in one event than R, more
+    bits in one row than 8 * BY (a bit a pulse)."""
+    E, R, BY = caps
+    pre = (5, 10, 20)
+    return [_pairs(pre, *[(1, 10, 50), (1, 10, 500)] * (E + 3)),
+            _pairs(pre, *[(1, 10, 50), (1, 10, 200)] * (R + 3),
+                   (1, 10, 500)),
+            _pairs(pre, (8 * BY + 5, 10, 20), (1, 10, 500))]
+
+
+def nrzs_edges():
+    """NRZS trains for the planted spec: pulses at exactly the bit limit
+    (no bit), an event of them alone (flushed empty), empty flushes back
+    to back, a zero alone, runs of ones over word edges (37, 29, 33 and 40
+    ones) and past the row's bits, and the flush at the last pulse; then
+    all of them in one train."""
+    exact = _pairs((3, 10, 5), (1, 10, 100), (2, 35, 5), (1, 10, 5),
+                   (1, 9, 100))
+    empty = _pairs((2, 10, 100), (1, 9, 150), (3, 10, 100), (1, 9, 5))
+    wide = _pairs((1, 370, 5), (1, 290, 5), (1, 335, 5), (1, 10, 5),
+                  (1, 400, 5), (1, 9, 100), (9, 405, 5), (1, 9, 100))
+    parts = [exact, empty, wide]
+    return parts + [tuple(sum((list(t[k]) for t in parts * 3), [])
+                          for k in (0, 1))]
+
+
+def nrzs_cap_trains(caps):
+    """Trains for the planted NRZS spec past each cap it can pass (one row
+    an event): more events than E, and more bits in one row than 8 * BY."""
+    E, R, BY = caps
+    return [_pairs(*[(1, 35, 5), (1, 9, 100)] * (E + 3)),
+            _pairs((2 * BY + 3, 45, 5), (1, 9, 100))]
