@@ -5,6 +5,12 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
+(``python3 chip_smoke.py --mic-only`` runs phases 1 and 4e alone, and
+``--compact-only`` phase 1 and phase 4b's checks and times without the
+profiler or the host split, against the rtl_433_tpu_torch package beside
+the script: copied into an earlier checkout, either times that
+checkout's kernel the same way.)
+
 Phases, each printing one JSON line (any failure exits non-zero):
 
 1. device  -- the card's name and power limit;
@@ -37,6 +43,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
               behind a spinning card) and its time per call with the
               host's launch cost, the same two for the gather by
               torch.index_select (the library yardstick), and its bound;
+              the device activities of 20 calls under torch.profiler (one
+              kernel each, or the run fails) and the wrapper's host time by
+              part (checks, allocation, launch, the six views);
 4c. slice -- device slicing's kernels against their plain versions,
               bit-exact on every plane of every lane: csrc/slice.cu for each
               of the nine slicer families on fuzz trains
@@ -60,7 +69,12 @@ Phases, each printing one JSON line (any failure exits non-zero):
               uint8 and int32 rows, bit-exact against the plain version and
               against bits/util.py on a sample of rows; through the entry
               points with the launch counts set to 0 before and read after;
-              device time, plain time, bound;
+              device time, plain time, bound; then each digest's largest
+              case at 2^22 rows of 16 bytes (made on the card from the
+              seed, freed after), bit-exact the same way, timed, with its
+              bound (MIC_OPS, the least table-driven work per byte; the
+              bit-serial kernel's count beside it) and the share of it
+              reached;
 5. main    -- RtlTpu(device="cuda").decode_file with -R <n> on all 106
               fixtures of tests/fixtures/ (250, 1024 and 4096 kS/s); events
               must equal the committed .json. Then the fixtures are decoded
@@ -148,7 +162,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
               equal the multichannel warm-up's one-process events, and
               their all-reduced noise floor its noise floor within 1e-4
               dB; each process's wall ms per block, cold and cached, and
-              the all-reduce's ms;
+              the all-reduce's ms; every compaction call of one more
+              rotation held to the plain version in each process;
 7. kernels -- one line per kernel with its launches on the main path, its
               largest error against the plain version over every check
               above, its times and bound, and its cycles per sample at
@@ -179,7 +194,9 @@ Phases, each printing one JSON line (any failure exits non-zero):
               and torch.where; the declarative bank
               with its launches on the device-slicing paths, timed at the
               dense_4096 drain's batch and at the fuzz batch; each MIC
-              digest with its launches and times at the mic phase.
+              digest with its launches and times at the mic phase (both
+              batches); compaction and each digest beside the floor of
+              any launch (launch_floor_ms).
 
 Every phase line carries its seconds. Before the kernels line, a
 "processes" line names the child processes still live after the phases
@@ -1100,9 +1117,7 @@ def per_train_decl(tcalls, compare, what):
 
 
 # the MIC phase: (digest, nbytes, parameters), the cases of
-# tests/test_mic_kernels.py; int32 operations per message byte, counted
-# from csrc/mic.cu (per bit a test, a shift, a xor and a mask for the CRCs;
-# a test and a xor for the LFSR digests)
+# tests/test_mic_kernels.py
 MIC_CASES = ([("crc8", *c) for c in ((4, 0x31, 0), (7, 0x31, 0),
                                     (2, 0x07, 0), (14, 0x2F, 0),
                                     (8, 0x31, 0xFF), (6, 0x81, 0),
@@ -1120,17 +1135,59 @@ MIC_CASES = ([("crc8", *c) for c in ((4, 0x31, 0), (7, 0x31, 0),
                                                 (11, 0x8810, 0x0ACC))]
              + [(f, n) for f in ("xor_bytes", "add_bytes", "add_nibbles",
                                  "parity_bytes") for n in (1, 7, 13)])
-MIC_OPS = {"crc8": 33, "crc8le": 33, "crc16": 34, "crc16lsb": 33,
-           "lfsr_digest8": 17, "lfsr_digest8_reverse": 17,
-           "lfsr_digest8_reflect": 17, "lfsr_digest16": 17, "xor_bytes": 1,
-           "add_bytes": 1, "add_nibbles": 4, "parity_bytes": 1}
+# integer operations per message byte that a table-driven digest needs,
+# each table read counted and none of a kernel's own address arithmetic: a
+# CRC byte step is the byte's extraction, its index (crc8, crc8le: v ^ b;
+# crc16: v >> 8, ^ b; crc16lsb: v ^ b, & 0xFF), the table read and the new
+# remainder (crc16: (v << 8) & 0xFFFF, ^; crc16lsb: v >> 8, ^); an LFSR
+# digest's byte is its extraction, one read of a 256-word table for its
+# position and one XOR; a fold is one operation per four bytes (add_nibbles
+# five: two masks, a shift, an add and the byte sum). csrc/mic.cu does
+# more (an LFSR byte there is two nibble reads, two address adds and two
+# byte selects besides), which the bound does not credit.
+MIC_OPS = {"crc8": 3, "crc8le": 3, "crc16": 7, "crc16lsb": 6,
+           "lfsr_digest8": 3, "lfsr_digest8_reverse": 3,
+           "lfsr_digest8_reflect": 3, "lfsr_digest16": 3,
+           "xor_bytes": 0.25, "add_bytes": 0.25, "add_nibbles": 1.25,
+           "parity_bytes": 0.25}
+# the same count for the earlier, bit-serial kernel (per bit a test, a
+# shift, a xor and a mask for the CRCs; a test and a xor for the LFSR
+# digests; a byte load an operation for the folds)
+MIC_OPS_BITSERIAL = {"crc8": 33, "crc8le": 33, "crc16": 34, "crc16lsb": 33,
+                     "lfsr_digest8": 17, "lfsr_digest8_reverse": 17,
+                     "lfsr_digest8_reflect": 17, "lfsr_digest16": 17,
+                     "xor_bytes": 1, "add_bytes": 1, "add_nibbles": 4,
+                     "parity_bytes": 1}
 MIC_ROWS = 65536
+# the large batch: 2^22 rows of 16 bytes (64 MB of uint8)
+MIC_BIG_ROWS = 1 << 22
 # the JAX functions (rtl_433_tpu/ops/mic.py)
 MIC_LINES = {"crc8": 32, "crc8le": 45, "crc16": 59, "crc16lsb": 72,
              "lfsr_digest8": 110, "lfsr_digest8_reverse": 118,
              "lfsr_digest8_reflect": 128, "lfsr_digest16": 141,
              "xor_bytes": 149, "add_bytes": 154, "add_nibbles": 159,
              "parity_bytes": 164}
+
+
+def mic_bound(name, rows, nbytes, ops=MIC_OPS):
+    """The least time of one digest call over ``rows`` rows: the message
+    bytes read once, one int32 written per row and the kernel's table read
+    once (a CRC's 256 words, an LFSR digest's 32 words per byte position),
+    or ``ops`` per message byte at the int32 peak.
+    (ms, "bytes" or "operations")."""
+    table = 1024 if name.startswith("crc") else \
+        128 * nbytes if name.startswith("lfsr") else 0
+    b_ms = (rows * (nbytes + 4) + table) / HBM_BPS * 1e3
+    o_ms = rows * nbytes * ops[name] / INT32_OPS * 1e3
+    return max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations"
+
+
+def launch_floor_ms(dev):
+    """The floor of any launch: a one-element fill, queued behind a
+    spinning card as cuda_ms(busy_first=True) queues a kernel."""
+    import torch
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    return cuda_ms(lambda: one.fill_(1), reps=20, busy_first=True)
 
 
 def mic_phase(dev, compare, rng):
@@ -1141,7 +1198,13 @@ def mic_phase(dev, compare, rng):
     per digest, its largest case timed (device ms, the calls queued behind
     a spinning card), its plain version, its bound and, for add_bytes, the
     one PyTorch call that computes it (``torch.sum`` of the rows' first
-    nbytes bytes into int32; equal to the kernel, or the run fails).
+    nbytes bytes into int32; equal to the kernel, or the run fails). Then
+    each digest's largest case once more at MIC_BIG_ROWS rows of 16 bytes
+    of uint8 (made on the card from SEED): bit-exact against the plain
+    version and bits/util.py on 64 sampled rows, timed, with its bound from
+    MIC_OPS, the share of it reached and the bound by the bit-serial count
+    beside it; the batch is freed after. Uses only the entry points, so
+    that ``--mic-only`` also measures an earlier checkout's kernel.
     Returns the phase line and the kernels' rows of numbers."""
     import torch
     from rtl_433_tpu_torch.bits import util
@@ -1166,20 +1229,26 @@ def mic_phase(dev, compare, rng):
         launches[k] = _cuda.LAUNCHES[k]
         if not launches[k]:
             fail(f"kernel {k} was not launched on the mic phase")
+
+    def host_check(got, rows, idx, name, nbytes, params):
+        host = [getattr(util, name)(bytes(rows[i]), nbytes, *params)
+                for i in idx]
+        if got.cpu().numpy()[idx].tolist() != host:
+            fail(f"mic_{name} differs from bits/util.py ({nbytes}, "
+                 f"{params}, {len(got)} rows)")
+
     for name, nbytes, params, t, got in outs:
         want = mic.DIGESTS[name][1](t, nbytes, *params)
         compare(f"mic_{name}", [got], [want], ("digest",),
                 f"{name} nbytes={nbytes} {params} {t.dtype}")
-        host = [getattr(util, name)(bytes(msgs[i]), nbytes, *params)
-                for i in sample]
-        if got.cpu().numpy()[sample].tolist() != host:
-            fail(f"mic_{name} differs from bits/util.py ({nbytes}, "
-                 f"{params})")
+        host_check(got, msgs, sample, name, nbytes, params)
     del outs
+    largest = {name: max((c for c in MIC_CASES if c[0] == name),
+                         key=lambda c: c[1])[1:]
+               for name in _cuda.MIC_ALGOS}
     rows = {}
     for name in _cuda.MIC_ALGOS:
-        _n, nbytes, *params = max((c for c in MIC_CASES if c[0] == name),
-                                  key=lambda c: c[1])
+        nbytes, *params = largest[name]
         t = ins["uint8"]
         fn, plain = mic.DIGESTS[name]
         ms = cuda_ms(lambda: fn(t, nbytes, *params), reps=20,
@@ -1192,19 +1261,53 @@ def mic_phase(dev, compare, rng):
             compare(f"mic_{name}", [fn(t, nbytes)], [library()],
                     ("digest",), f"{name} nbytes={nbytes} against torch.sum")
             library_ms = cuda_ms(library, reps=20, busy_first=True)
-        b_ms = (MIC_ROWS * (nbytes + 4) + 32 * nbytes) / HBM_BPS * 1e3
-        o_ms = MIC_ROWS * nbytes * MIC_OPS[name] / INT32_OPS * 1e3
+        bound, by = mic_bound(name, MIC_ROWS, nbytes)
         rows[f"mic_{name}"] = {
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(b_ms, o_ms),
-            "bound_by": "bytes" if b_ms >= o_ms else "operations",
-            "library_ms": library_ms, "launches": launches[f"mic_{name}"],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": library_ms,
+            "bound_bitserial_ms": mic_bound(name, MIC_ROWS, nbytes,
+                                            MIC_OPS_BITSERIAL)[0],
+            "launches": launches[f"mic_{name}"],
             "shape": [MIC_ROWS, 16, nbytes]}
+    del ins
+    # the large batch: 2^22 rows of 16 bytes, each digest's largest case
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    big = torch.randint(0, 256, (MIC_BIG_ROWS, 16), device=dev,
+                        generator=gen, dtype=torch.uint8)
+    big_sample = np.random.default_rng(SEED).integers(0, MIC_BIG_ROWS, 64)
+    big_rows = big[torch.from_numpy(big_sample).to(dev)].cpu().numpy()
+    for name in _cuda.MIC_ALGOS:
+        nbytes, *params = largest[name]
+        fn, plain = mic.DIGESTS[name]
+        got = fn(big, nbytes, *params)
+        compare(f"mic_{name}", [got], [plain(big, nbytes, *params)],
+                ("digest",), f"{name} nbytes={nbytes} at {MIC_BIG_ROWS} rows")
+        host_check(got[torch.from_numpy(big_sample).to(dev)], big_rows,
+                   np.arange(64), name, nbytes, params)
+        del got
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: fn(big, nbytes, *params), reps=20,
+                     busy_first=True)
+        bound, by = mic_bound(name, MIC_BIG_ROWS, nbytes)
+        # the same bound with the rows' bytes counted whole: two 16-byte
+        # rows share each 32-byte sector, so every byte of them moves
+        whole = MIC_BIG_ROWS * (16 + 4) / HBM_BPS * 1e3
+        rows[f"mic_{name}"]["large"] = {
+            "rows": MIC_BIG_ROWS, "nbytes": nbytes, "ms": ms,
+            "bound_ms": bound, "bound_by": by, "share": bound / ms,
+            "bound_whole_rows_ms": max(whole, bound),
+            "bound_bitserial_ms": mic_bound(name, MIC_BIG_ROWS, nbytes,
+                                            MIC_OPS_BITSERIAL)[0]}
+    del big
+    torch.cuda.empty_cache()
     line = {"phase": "mic", "rows": MIC_ROWS, "cases": len(MIC_CASES),
-            "inputs": list(ins), "bit_exact": True, "host_sampled_rows": 64,
-            "launches": launches,
+            "inputs": ["uint8", "int32"], "bit_exact": True,
+            "host_sampled_rows": 64, "launches": launches,
+            "launch_floor_ms": launch_floor_ms(dev),
             "ms": {k: v["ms"] for k, v in rows.items()},
             "library_ms": {k: v["library_ms"] for k, v in rows.items()
-                           if v["library_ms"] is not None}}
+                           if v["library_ms"] is not None},
+            "large": {k: v["large"] for k, v in rows.items()}}
     return line, rows
 
 
@@ -1292,12 +1395,97 @@ def detector_check_sampled(compare, args, kw, what):
     compare("detector_scan", got, want, DET_OUTS, what)
 
 
-def compact_measure(ins, cap):
+def device_kernels(fn, calls=20):
+    """The names of the device activities (kernels, copies, fills) that
+    ``calls`` calls of ``fn`` run back to back, from one torch.profiler
+    window around them. Taken only early in the run (phase 4b): a window
+    that follows the stream phases' long traced runs has come back on the
+    card with none or only some of its device records."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def compact_host_split(ins, cap, reps=200):
+    """Host ms per call of each part of the compaction wrapper
+    (ops/compact.py compact_packages_cuda), each run ``reps`` times back to
+    back: the checks, the one allocation, the launch through ctypes, the
+    six views of the buffer; then the whole call."""
+    import torch
+    from rtl_433_tpu_torch.ops import compact as cmp
+    out_n, out_p, out_g, out_meta = ins
+    C, _, P = out_p.shape
+    F = out_meta.shape[2]
+    n = cmp.buffer_ints(C, P, F, cap)
+    buf = torch.empty(n, dtype=torch.int32, device=out_p.device)
+
+    def per_call(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        dt = time.perf_counter() - t
+        torch.cuda.synchronize()
+        return dt / reps * 1e3
+
+    return {
+        "check_ms": per_call(lambda: cmp._check_cuda(*ins, cap)),
+        "alloc_ms": per_call(lambda: torch.empty(
+            n, dtype=torch.int32, device=out_p.device)),
+        "launch_ms": per_call(lambda: cmp._run(*ins, cap, buf)),
+        "views_ms": per_call(lambda: cmp.views_of(buf, cap, P, F)),
+        "call_ms": per_call(lambda: cmp.compact_packages_cuda(*ins, cap))}
+
+
+def compact_states(dev, compare):
+    """Phase 4b's two ragged states at bench.py's widths (C=MC_CHANNELS,
+    S=8, P=1200): out_n over 0..12 (beyond S) on 2% and on all of the
+    channels, pulse and gap over 0..2^31, meta over all of int32, made on
+    the card from SEED; each compacted at caps 768 and 2048 and held to
+    the plain version. Returns the states and their valid totals."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def compact_state(active):
+        C_, S_, P_ = MC_CHANNELS, 8, 1200
+        on = torch.rand(C_, device=dev, generator=gen) < active
+        out_n = (torch.randint(0, 13, (C_,), device=dev, generator=gen)
+                 * on).to(torch.int32)
+        rnd = lambda lo, *sh: torch.randint(
+            lo, (1 << 31) - 1, sh, device=dev, generator=gen,
+            dtype=torch.int64).to(torch.int32)
+        return [out_n, rnd(0, C_, S_, P_), rnd(0, C_, S_, P_),
+                rnd(-(1 << 31), C_, S_, 9)]
+
+    states = {"sparse": compact_state(0.02), "dense": compact_state(1.0)}
+    totals = {k: int(v[0].clamp(0, 8).sum()) for k, v in states.items()}
+    if not (totals["sparse"] < 768 and totals["dense"] > 2048):
+        fail(f"compaction states do not straddle the caps: {totals}")
+    for kind, ins in states.items():
+        if int((ins[3].abs() > (1 << 24)).sum()) == 0:
+            fail("compaction meta has no value above 2^24")
+        for cap in (768, 2048):
+            compact_check(compare, ins, cap, f"{kind} state, cap={cap}")
+    return states, totals
+
+
+def compact_measure(ins, cap, count_kernels=False):
     """The compaction kernel's and the library's device time and time per
     call (index_select on the three flattened planes with a precomputed
     index), the plain version's time,
     and the bound from the bytes this state needs: out_n and the kept rows
-    read once, every output row written once."""
+    read once, every output row written once; with ``count_kernels``, the
+    device activities of 20 calls under torch.profiler, which must be the
+    one kernel each. Uses only the entry points, so that
+    ``--compact-only`` also measures an earlier checkout's wrapper."""
     import torch
     from rtl_433_tpu_torch.ops import compact as cmp
     out_n, out_p, out_g, out_meta = ins
@@ -1312,7 +1500,16 @@ def compact_measure(ins, cap):
     nbytes = 4 * (C + k * (2 * P + F) + cap * (2 * P + F + 1) + 1)
     kernel = lambda: cmp.compact_packages_cuda(*ins, cap)
     library = lambda: [pl.index_select(0, idx) for pl in planes]
-    return {
+    out = {}
+    if count_kernels:
+        kernels = device_kernels(kernel)
+        if len(kernels) != 20 or not all("compact_kernel" in k
+                                         for k in kernels):
+            fail(f"20 compaction calls ran {len(kernels)} device activities "
+                 f"({sorted(set(kernels))}), not one kernel each")
+        out = {"device_kernels_per_call": len(kernels) / 20,
+               "device_activities": sorted(set(kernels))}
+    return {**out,
         "ms": cuda_ms(kernel, reps=20, busy_first=True),
         "library_ms": cuda_ms(library, reps=20, busy_first=True),
         # per call with the host's launch cost, as ShardedEngine pays it
@@ -1560,6 +1757,7 @@ def multichannel(dev, mesh, compare, ds_kernels, mh_dir, gathers,
         for i, ins in enumerate(recorded):
             compact_check(compare, ins, cap, f"multichannel warm-up call {i}")
         numbers = compact_measure(recorded[-1], cap)
+        numbers["host_split"] = compact_host_split(recorded[-1], cap)
         del recorded
         torch.cuda.empty_cache()
 
@@ -1876,10 +2074,8 @@ def ts_measure(picks):
         D: chain_numbers(*picks[D]["timeshard_chain"])
         for D in sorted(picks) if "timeshard_chain" in picks[D]}
     # the floor of any launch: a one-element fill, queued the same way
-    one = torch.zeros(1, dtype=torch.int32,
-                      device=pick["timeshard_chain"][0][0].device)
-    out["timeshard_chain"]["launch_floor_ms"] = cuda_ms(
-        lambda: one.fill_(1), reps=20, busy_first=True)
+    out["timeshard_chain"]["launch_floor_ms"] = launch_floor_ms(
+        pick["timeshard_chain"][0][0].device)
     args, kw = pick["timeshard_gather"]
     key3, p3, g3, eop3, sel, delta = args
     R = kw["R"]
@@ -2169,6 +2365,23 @@ def _mh_worker(rank, files, port, out, device):
             eng.local_events()
         sync()
         cached_s = time.perf_counter() - t
+        # one more rotation, untimed: every compaction call against the
+        # plain version on the same state, all six outputs
+        from rtl_433_tpu_torch.ops import compact as cmp
+        real_compact, checked = eng._compact, []
+
+        def checking_compact(st):
+            got = real_compact(st)
+            want = cmp.compact_packages_plain(
+                st["out_n"], st["out_p"], st["out_g"], st["out_meta"],
+                got["rows"].shape[0])
+            checked.append(all(torch.equal(got[k], want[k]) for k in want))
+            return got
+        eng._compact = checking_compact
+        for blk in blocks:
+            eng.push(blk)
+            eng.local_events()
+        eng._compact = real_compact
         with open(out, "w") as f:
             json.dump({"rank": rank, "channels": blocks[0].shape[0],
                        "per_block": per_block,
@@ -2177,6 +2390,8 @@ def _mh_worker(rank, files, port, out, device):
                            cached_s / len(blocks) * 1e3,
                        "all_reduce_ms": [x * 1e3 for x in reduce_s],
                        "launches": launches,
+                       "compact_calls_checked": len(checked),
+                       "compact_bit_exact": all(checked),
                        "n_pkg_dropped": eng.n_pkg_dropped}, f)
     finally:
         dist.destroy_process_group()
@@ -2226,6 +2441,10 @@ def multihost_phase(dev, mh_dir, warm_blocks):
     if worst >= 1e-4:
         fail(f"multihost: noise floor {worst} dB from the one-process one")
     for w in res:
+        if dev.type == "cuda" and not (w["compact_calls_checked"]
+                                       and w["compact_bit_exact"]):
+            fail(f"multihost: process {w['rank']}: a compaction call "
+                 f"differs from the plain version, or none was checked")
         if dev.type == "cuda" and min(w["launches"].values()) <= 0:
             fail(f"multihost: process {w['rank']} launched "
                  f"{w['launches']}")
@@ -2242,6 +2461,8 @@ def multihost_phase(dev, mh_dir, warm_blocks):
                               "mean": sum(reduce_ms) / len(reduce_ms),
                               "max": max(reduce_ms)},
             "launches": {w["rank"]: w["launches"] for w in res},
+            "compact_calls_checked": {w["rank"]: w["compact_calls_checked"]
+                                      for w in res},
             "n_pkg_dropped": sum(w["n_pkg_dropped"] for w in res),
             "processes_wall_s": wall}
 
@@ -2313,6 +2534,24 @@ def main():
     emit({"phase": "device", "name": name, "count": torch.cuda.device_count(),
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda})
+
+    if "--mic-only" in sys.argv[1:]:
+        # the MIC kernel alone (phase 4e), for a comparison with another
+        # checkout of the package beside this script
+        _cuda.build(["mic"])
+        emit(mic_phase(dev, compare, rng)[0])
+        return 0
+    if "--compact-only" in sys.argv[1:]:
+        # the compaction wrapper and kernel alone at phase 4b's states,
+        # for a comparison with another checkout of the package
+        _cuda.build(["compact"])
+        states, totals = compact_states(dev, compare)
+        emit({"phase": "compact_only", "totals": totals, "bit_exact": True,
+              "launch_floor_ms": launch_floor_ms(dev),
+              "times": {f"{kind}_cap{cap}": compact_measure(ins, cap)
+                        for kind, ins in states.items()
+                        for cap in (768, 2048)}})
+        return 0
 
     # ---- 2. build
     t = time.perf_counter()
@@ -2467,33 +2706,14 @@ def main():
           "sm_clock_mhz_c1": mhz, "sampled_c4096": 64})
 
     # ---- 4b. compaction kernel vs plain: ragged states at bench.py's widths
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-
-    def compact_state(active):
-        """out_n over 0..12 (beyond S=8) on a share ``active`` of the
-        channels; pulse and gap over 0..2^31, meta over all of int32."""
-        C_, S_, P_ = MC_CHANNELS, 8, 1200
-        on = torch.rand(C_, device=dev, generator=gen) < active
-        out_n = (torch.randint(0, 13, (C_,), device=dev, generator=gen)
-                 * on).to(torch.int32)
-        rnd = lambda lo, *sh: torch.randint(
-            lo, (1 << 31) - 1, sh, device=dev, generator=gen,
-            dtype=torch.int64).to(torch.int32)
-        return [out_n, rnd(0, C_, S_, P_), rnd(0, C_, S_, P_),
-                rnd(-(1 << 31), C_, S_, 9)]
-
     errs["compact"] = 0
-    states = {"sparse": compact_state(0.02), "dense": compact_state(1.0)}
-    totals = {k: int(v[0].clamp(0, 8).sum()) for k, v in states.items()}
-    if not (totals["sparse"] < 768 and totals["dense"] > 2048):
-        fail(f"compaction states do not straddle the caps: {totals}")
-    for kind, ins in states.items():
-        if int((ins[3].abs() > (1 << 24)).sum()) == 0:
-            fail("compaction meta has no value above 2^24")
-        for cap in (768, 2048):
-            compact_check(compare, ins, cap, f"{kind} state, cap={cap}")
-    ctimes = {f"dense_cap{cap}": compact_measure(states["dense"], cap)
+    states, totals = compact_states(dev, compare)
+    ctimes = {f"dense_cap{cap}": compact_measure(states["dense"], cap,
+                                                 count_kernels=True)
               for cap in (768, 2048)}
+    for cap in (768, 2048):
+        ctimes[f"dense_cap{cap}"]["host_split"] = compact_host_split(
+            states["dense"], cap)
     del states
     torch.cuda.empty_cache()
     emit({"phase": "compact", "c": MC_CHANNELS, "s": 8, "p": 1200,
@@ -3043,6 +3263,12 @@ def main():
         "bound_by": "bytes", "library_ms": m["library_ms"],
         "call_ms": m["call_ms"], "library_call_ms": m["library_call_ms"],
         "rows": m["rows"], "count": m["count"],
+        # the profiler's count at phase 4b's state at this cap
+        "device_kernels_per_call": ctimes["dense_cap768"][
+            "device_kernels_per_call"],
+        "device_activities": ctimes["dense_cap768"]["device_activities"],
+        "host_split": m["host_split"],
+        "launch_floor_ms": ts_numbers["timeshard_chain"]["launch_floor_ms"],
         "dense_cap768_ms": ctimes["dense_cap768"]["ms"],
         "dense_cap2048_ms": ctimes["dense_cap2048"]["ms"],
         "dense_cap2048_bound_ms": ctimes["dense_cap2048"]["bound_ms"],
@@ -3120,7 +3346,10 @@ def main():
             "ms": m["ms"], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
             "library_ms": m["library_ms"], "shape": m["shape"],
-            "measured_at": "mic phase"})
+            "bound_bitserial_ms": m["bound_bitserial_ms"],
+            "launch_floor_ms": ts_numbers["timeshard_chain"][
+                "launch_floor_ms"],
+            "large": m["large"], "measured_at": "mic phase"})
     # the time-shard kernels: launches on the timeshard phase's decodes,
     # times at the first call of TS_CHECKED at the most segments that ran it
     for k, line in (("timeshard_chain", 189), ("timeshard_gather", 245)):

@@ -14,10 +14,13 @@ engine's ``compact_packages``, to the integer:
 
 The four row outputs are views of one int32 buffer, ``rows`` ``[cap, W]``
 (pulse, gap, meta, channel, then zeros to a 16-byte stride), so that the
-kept rows reach the host in one copy.
+kept rows reach the host in one copy. Both versions return the six in a
+dict (:func:`_views`); the kernel's ``rows`` and ``count`` lie in its one
+buffer (:func:`views_of`).
 
-:func:`compact_packages` launches ``csrc/compact.cu`` for CUDA tensors and
-runs :func:`compact_packages_plain` for CPU tensors. All tensors are int32.
+:func:`compact_packages` launches ``csrc/compact.cu`` (one kernel launch)
+for CUDA tensors and runs :func:`compact_packages_plain` for CPU tensors.
+All tensors are int32.
 """
 
 from __future__ import annotations
@@ -25,6 +28,12 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+
+# channels up to which every CTA of the kernel counts out_n itself; past
+# them it shares MAX_TILES tile sums through scratch after the count
+# (csrc/compact.cu kOneCta, kMaxTiles)
+ONE_CTA = 8192
+MAX_TILES = 8192
 
 
 def _check(out_n, out_p, out_g, out_meta, cap):
@@ -34,7 +43,9 @@ def _check(out_n, out_p, out_g, out_meta, cap):
     if out_n.shape != (C,) or out_meta.dim() != 3 \
             or out_meta.shape[:2] != (C, S):
         raise ValueError("compact: out_n must be [C] and out_meta [C, S, F]")
-    if any(t.dtype != torch.int32 for t in (out_n, out_p, out_g, out_meta)):
+    i32 = torch.int32
+    if out_n.dtype != i32 or out_p.dtype != i32 or out_g.dtype != i32 \
+            or out_meta.dtype != i32:
         raise ValueError("compact: every input must be int32")
     if int(cap) < 1:
         raise ValueError(f"compact: cap must be at least 1, not {cap}")
@@ -47,10 +58,29 @@ def _width(P, F):
     return -(-(2 * P + F + 1) // 4) * 4
 
 
+def buffer_ints(C, P, F, cap):
+    """The kernel's one int32 buffer: ``rows`` ``[cap, W]``, the count, and
+    past ONE_CTA channels the tile sums' scratch."""
+    return cap * _width(P, F) + 1 + (MAX_TILES if C > ONE_CTA else 0)
+
+
 def _views(rows, count, P, F):
     return {"pulse": rows[:, :P], "gap": rows[:, P:2 * P],
             "meta": rows[:, 2 * P:2 * P + F], "channel": rows[:, 2 * P + F],
             "count": count.reshape(()), "rows": rows}
+
+
+def views_of(buf, cap, P, F):
+    """The six outputs of :func:`_views` over the kernel's one buffer
+    ``buf`` (a tensor at the start of its own storage, laid out as
+    :func:`buffer_ints` says), each made by one ``as_strided``, which
+    costs the host less than :func:`_views`' slicing and reshaping."""
+    W = _width(P, F)
+    at = buf.as_strided
+    return {"pulse": at((cap, P), (W, 1)), "gap": at((cap, P), (W, 1), P),
+            "meta": at((cap, F), (W, 1), 2 * P),
+            "channel": at((cap,), (W,), 2 * P + F),
+            "count": at((), (), cap * W), "rows": at((cap, W), (W, 1))}
 
 
 def compact_packages_plain(out_n, out_p, out_g, out_meta, cap: int) -> dict:
@@ -72,36 +102,44 @@ def compact_packages_plain(out_n, out_p, out_g, out_meta, cap: int) -> dict:
     return _views(rows, valid.sum(dtype=torch.int32), P, F)
 
 
-def compact_packages_cuda(out_n, out_p, out_g, out_meta, cap: int) -> dict:
-    """Launch ``csrc/compact.cu``; same contract as
-    :func:`compact_packages_plain` (``count`` stays on the card)."""
+def _check_cuda(out_n, out_p, out_g, out_meta, cap):
+    """:func:`_check`, and every input contiguous on one CUDA device."""
     _check(out_n, out_p, out_g, out_meta, cap)
-    ins = (out_n, out_p, out_g, out_meta)
-    if not all(t.is_cuda and t.is_contiguous() and t.device == out_p.device
-               for t in ins):
+    dev = out_p.get_device()
+    if dev < 0 or out_n.get_device() != dev or out_g.get_device() != dev \
+            or out_meta.get_device() != dev or not (
+                out_n.is_contiguous() and out_p.is_contiguous()
+                and out_g.is_contiguous() and out_meta.is_contiguous()):
         raise ValueError("compact: inputs must be contiguous CUDA tensors on "
                          "one device")
+
+
+def _run(out_n, out_p, out_g, out_meta, cap, buf):
+    """One launch of ``csrc/compact.cu`` into ``buf`` (int32, laid out as
+    :func:`buffer_ints` says; the kernel takes its int4 path where P % 4 ==
+    0 and the planes are 16-byte aligned)."""
     C, S, P = out_p.shape
     F = out_meta.shape[2]
-    cap = int(cap)
-    W = _width(P, F)
-    rows = torch.empty((cap, W), dtype=torch.int32, device=out_p.device)
-    # the kernel's row sources, then the count
-    scratch = torch.empty((cap + 1,), dtype=torch.int32, device=out_p.device)
-    # 16-byte row copies need P % 4 == 0 and 16-byte aligned planes
-    vec = int(P % 4 == 0 and all(t.data_ptr() % 16 == 0
-                                 for t in (out_p, out_g, rows)))
     fn = _cuda.launcher("compact")
     _cuda.LAUNCHES["compact"] += 1
-    err = fn(out_n.data_ptr(), out_p.data_ptr(), out_g.data_ptr(),
-             out_meta.data_ptr(), C, S, P, F, cap, W, vec, scratch.data_ptr(),
-             rows.data_ptr(), scratch[cap:].data_ptr(),
-             _cuda.stream_of(out_p))
-    _cuda.check(err, "compact")
-    return _views(rows, scratch[cap], P, F)
+    _cuda.check(fn(out_n.data_ptr(), out_p.data_ptr(), out_g.data_ptr(),
+                   out_meta.data_ptr(), C, S, P, F, cap, _width(P, F),
+                   buf.data_ptr(), _cuda.stream_of(buf)), "compact")
 
 
-def compact_packages(out_n, out_p, out_g, out_meta, cap: int) -> dict:
+def compact_packages_cuda(out_n, out_p, out_g, out_meta, cap: int):
+    """Launch ``csrc/compact.cu`` once; same contract as
+    :func:`compact_packages_plain` (``count`` stays on the card). One
+    allocation holds ``rows``, the count and any scratch."""
+    _check_cuda(out_n, out_p, out_g, out_meta, cap)
+    P, F, cap = out_p.shape[2], out_meta.shape[2], int(cap)
+    buf = torch.empty(buffer_ints(out_p.shape[0], P, F, cap),
+                      dtype=torch.int32, device=out_p.device)
+    _run(out_n, out_p, out_g, out_meta, cap, buf)
+    return views_of(buf, cap, P, F)
+
+
+def compact_packages(out_n, out_p, out_g, out_meta, cap: int):
     """The kernel for CUDA tensors, the plain version for CPU tensors."""
     run = compact_packages_cuda if out_p.is_cuda else compact_packages_plain
     return run(out_n, out_p, out_g, out_meta, cap)

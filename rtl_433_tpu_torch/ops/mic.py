@@ -10,13 +10,19 @@ is int32 ``[...]`` on the input's device.
 A tensor runs on its own device (``device``, if given, must name it); an
 array-like goes to ``device``, by default ``"cuda"``, which must exist (no
 fallback to the CPU: pass ``device="cpu"``). On a CUDA tensor each function
-launches ``csrc/mic.cu`` (one thread per row, the algorithm a template
+launches ``csrc/mic.cu`` (a thread per row, the algorithm a template
 parameter; launches count as ``mic_<name>``); on a CPU tensor it runs its
 plain version, ``<name>_plain``, torch written statement for statement from
-the JAX function. The Galois LFSR digests XOR a rolling-key schedule under
-the message bits: the schedule does not depend on the data, so it is
-computed on the host (:func:`_lfsr_keys`) and laid out in the message's
-MSB-first bit order (:func:`lfsr_key_layout`).
+the JAX function.
+
+The kernel steps a byte at a time through tables that do not depend on the
+data, built here on the host and uploaded once per parameters: a CRC's
+256-entry byte table (:func:`crc_table`, eight steps of the bit-serial
+recurrence on every byte value), and an LFSR digest's two 16-entry nibble
+tables per byte position (:func:`lfsr_tables`, the XOR of the rolling keys
+(:func:`_lfsr_keys`, laid out by :func:`lfsr_key_layout` in the message's
+MSB-first bit order) under each nibble value), of which a CTA holds
+``MIC_CHUNK`` positions at once.
 """
 
 from __future__ import annotations
@@ -31,6 +37,11 @@ from ..bits.util import reverse8
 
 # the kernel's algorithm ids (csrc/mic.cu enum Algo), in _cuda.MIC_ALGOS order
 ALGO_ID = {name: i for i, name in enumerate(_cuda.MIC_ALGOS)}
+
+# LFSR byte positions whose nibble tables the kernel holds in shared memory
+# at once; longer messages are digested in chunks of positions (a multiple
+# of 16, csrc/mic.cu)
+MIC_CHUNK = 64
 
 # LFSR digests: (key width mask, key rolls left)
 _LFSR = {"lfsr_digest8": (0xFF, False), "lfsr_digest8_reverse": (0xFF, False),
@@ -235,10 +246,61 @@ def _device_keys(name: str, nbytes: int, gen: int, key: int, device):
         device)
 
 
-def _launch(name: str, msg, nbytes: int, p1: int = 0, p2: int = 0,
-            keys=None):
+@functools.lru_cache(maxsize=None)
+def crc_table(name: str, poly: int):
+    """The kernel's byte step of CRC ``name``: int32 ``[256]``, eight steps
+    of the JAX function's bit-serial recurrence on each byte value (the
+    MSB-first CRC-16 on the value shifted into its high byte). The CRC is
+    linear, so a byte steps the remainder v to ``T[v ^ b]`` (8-bit),
+    ``((v << 8) & 0xFFFF) ^ T[(v >> 8) ^ b]`` (crc16) or
+    ``(v >> 8) ^ T[(v ^ b) & 0xFF]`` (crc16lsb)."""
+    v = np.arange(256, dtype=np.int64)
+    if name == "crc8":
+        for _ in range(8):
+            v = np.where(v & 0x80, ((v << 1) ^ poly) & 0xFF, (v << 1) & 0xFF)
+    elif name == "crc8le":
+        rpoly = reverse8(poly)
+        for _ in range(8):
+            v = np.where(v & 1, (v >> 1) ^ rpoly, v >> 1)
+    elif name == "crc16":
+        v = v << 8
+        for _ in range(8):
+            v = np.where(v & 0x8000, ((v << 1) ^ poly) & 0xFFFF,
+                         (v << 1) & 0xFFFF)
+    else:
+        for _ in range(8):
+            v = np.where(v & 1, ((v >> 1) ^ poly) & 0xFFFF, v >> 1)
+    return v.astype(np.int32)
+
+
+def lfsr_tables(name: str, nbytes: int, gen: int, key: int):
+    """The kernel's byte step of LFSR digest ``name``: int32
+    ``[nbytes, 32]``; row k holds, for each high nibble h, the XOR of the
+    keys that bits 7..4 of byte k carry where h has them set (``[k, h]``),
+    then the same for the low nibble (``[k, 16 + l]``), so that byte b
+    XORs in ``T[k, b >> 4] ^ T[k, 16 + (b & 15)]``."""
+    keys = lfsr_key_layout(name, nbytes, gen, key).reshape(nbytes, 2, 4)
+    nib = np.arange(16)
+    bits = (nib[:, None] >> np.arange(3, -1, -1)) & 1        # [16, 4]
+    sel = np.where(bits[None, None] != 0, keys[:, :, None, :], 0)
+    return np.bitwise_xor.reduce(sel, axis=-1).reshape(
+        nbytes, 32).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_table(name: str, nbytes: int, a: int, b: int, device):
+    """The kernel's table of digest ``name`` on ``device``, uploaded once:
+    :func:`crc_table` (``a`` the polynomial) or :func:`lfsr_tables` (``a``,
+    ``b`` the generator and the key)."""
+    t = crc_table(name, a) if name.startswith("crc") \
+        else lfsr_tables(name, nbytes, a, b)
+    return torch.from_numpy(np.ascontiguousarray(t)).to(device)
+
+
+def _launch(name: str, msg, nbytes: int, init: int = 0, mask: int = 0,
+            table=None):
     """One launch of ``csrc/mic.cu`` for algorithm ``name`` over the rows of
-    a CUDA ``msg`` (``keys``: the LFSR key layout on its device); int32
+    a CUDA ``msg`` (``table``: the digest's table on its device); int32
     ``[...]``."""
     m = msg.contiguous()
     out = torch.empty(m.shape[:-1], dtype=torch.int32, device=m.device)
@@ -246,9 +308,9 @@ def _launch(name: str, msg, nbytes: int, p1: int = 0, p2: int = 0,
         fn = _cuda.launcher("mic")
         _cuda.LAUNCHES[f"mic_{name}"] += 1
         err = fn(ALGO_ID[name], int(m.dtype == torch.int32), m.data_ptr(),
-                 out.numel(), m.shape[-1], nbytes, p1, p2,
-                 None if keys is None else keys.data_ptr(), out.data_ptr(),
-                 _cuda.stream_of(m))
+                 out.numel(), m.shape[-1], nbytes, init, mask,
+                 None if table is None else table.data_ptr(), MIC_CHUNK,
+                 out.data_ptr(), _cuda.stream_of(m))
         _cuda.check(err, f"mic_{name}")
     return out
 
@@ -258,16 +320,18 @@ def _crc(name, plain, msg, nbytes, poly, init, device):
     if not msg.is_cuda:
         return plain(msg, nbytes, poly, init)
     if name == "crc8le":
-        poly, init = reverse8(poly), reverse8(init)
-    return _launch(name, msg, nbytes, poly, init)
+        init = reverse8(init)
+    return _launch(name, msg, nbytes, init,
+                   table=_device_table(name, 0, poly, 0, msg.device))
 
 
 def _lfsr(name, plain, msg, nbytes, gen, key, device):
     msg = _input(msg, nbytes, device)
     if not msg.is_cuda:
         return plain(msg, nbytes, gen, key)
-    return _launch(name, msg, nbytes, _LFSR[name][0],
-                   keys=_device_keys(name, nbytes, gen, key, msg.device))
+    table = _device_table(name, nbytes, gen, key, msg.device) if nbytes \
+        else None
+    return _launch(name, msg, nbytes, mask=_LFSR[name][0], table=table)
 
 
 def _reduction(name, plain, msg, nbytes, device):

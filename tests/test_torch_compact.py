@@ -9,8 +9,13 @@ blocks). All five outputs and every package dict must be equal. Pulse and
 gap widths stay below 2^24 there, where the JAX engine's f32 one-hot
 product is exact; at 2^24 and above only the port stays exact (ROADMAP
 Queue 3). The CUDA kernel is held to the plain version in
-tests/test_torch_cuda.py and chip_smoke.py.
+tests/test_torch_cuda.py and chip_smoke.py; here the wrapper's layout of
+the kernel's one buffer (``buffer_ints``, ``views_of``) is held to the
+plain version's outputs.
 """
+
+import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -20,8 +25,9 @@ import torch
 from rtl_433_tpu.dsp import engine as je
 from rtl_433_tpu_torch.dsp import engine as te
 from rtl_433_tpu_torch.ops import _cuda
-from rtl_433_tpu_torch.ops.compact import (compact_packages,
-                                           compact_packages_plain)
+from rtl_433_tpu_torch.ops.compact import (MAX_TILES, ONE_CTA, _width,
+                                           buffer_ints, compact_packages,
+                                           compact_packages_plain, views_of)
 
 from synth import fsk_pcm_bits, pwm_pulses, synth_fsk, synth_ook
 from torch_parity import pad_block
@@ -172,3 +178,56 @@ def test_bad_inputs_raise(bad):
     with pytest.raises(ValueError):
         compact_packages(st["out_n"], st["out_p"], st["out_g"],
                          st["out_meta"], cap)
+
+
+def _kernel_buffer(st, cap):
+    """The plain version's outputs, written into one buffer as the kernel
+    lays it out (``buffer_ints``: rows, the count, then any scratch, here
+    filled with junk), and the plain version's dict."""
+    ins = [torch.from_numpy(st[k]) for k in ("out_n", "out_p", "out_g",
+                                             "out_meta")]
+    want = compact_packages_plain(*ins, cap)
+    C, _, P = ins[1].shape
+    F = ins[3].shape[2]
+    buf = torch.full((buffer_ints(C, P, F, cap),), 7, dtype=torch.int32)
+    n = want["rows"].numel()
+    buf[:n] = want["rows"].reshape(-1)
+    buf[n] = want["count"]
+    return buf, want, P, F
+
+
+@pytest.mark.parametrize("C,S,P,cap,seed,n_hi",
+                         STATES + [(ONE_CTA + 3, 1, 4, 9, 8, 2)])
+def test_kernel_buffer_views_match_plain(C, S, P, cap, seed, n_hi):
+    """The wrapper's views of the kernel's one buffer give the plain
+    version's six outputs: the same keys, values, shapes and strides, all
+    views of the buffer, rows its first cap * W ints and the count the
+    next one; past ONE_CTA channels the buffer also holds the tile sums'
+    scratch."""
+    buf, want, P, F = _kernel_buffer(_state(C, S, P, seed, n_hi), cap)
+    W = _width(P, F)
+    assert buf.numel() == cap * W + 1 + (MAX_TILES if C > ONE_CTA else 0)
+    got = views_of(buf, cap, P, F)
+    assert list(got) == list(want) and len(got) == 6
+    for k in got:
+        assert got[k].dtype == torch.int32, k
+        assert got[k].shape == want[k].shape, k
+        assert got[k].stride() == want[k].stride(), k
+        assert torch.equal(got[k], want[k]), k
+        assert got[k].untyped_storage().data_ptr() == buf.data_ptr(), k
+    assert got["rows"].data_ptr() == buf.data_ptr()
+    assert got["count"].data_ptr() == buf.data_ptr() + 4 * cap * W
+    tp, tc = te.packages_from_compact(got)
+    wp, wc = te.packages_from_compact(want)
+    assert tc == wc
+    _same_packages(tp, wp)
+
+
+def test_kernel_constants_match_the_source():
+    """ONE_CTA and MAX_TILES are the kernel's kOneCta and kMaxTiles, which
+    size the scratch the wrapper leaves."""
+    with open(os.path.join(_cuda.CSRC, "compact.cu")) as f:
+        src = f.read()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(consts["kOneCta"]) == ONE_CTA
+    assert int(consts["kMaxTiles"]) == MAX_TILES

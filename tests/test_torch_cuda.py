@@ -175,6 +175,44 @@ def test_compact_kernel_matches_plain(C, cap, P):
         assert torch.equal(got[k].cpu(), want[k].cpu()), k
 
 
+def _compact_ins(rng, C, S, P, n_hi):
+    return [rng.integers(0, n_hi + 1, C).astype(np.int32),
+            rng.integers(0, 1 << 31, (C, S, P), dtype=np.int64).astype(
+                np.int32),
+            rng.integers(0, 1 << 31, (C, S, P), dtype=np.int64).astype(
+                np.int32),
+            rng.integers(-(1 << 31), 1 << 31, (C, S, 9), dtype=np.int64)
+            .astype(np.int32)]
+
+
+@pytest.mark.parametrize("what,C,S,P,cap", [
+    ("large C, two-level count", 65536, 8, 13, 768),
+    ("large C, every row kept", 20000, 2, 8, 50000),
+    ("cap past C * S", 33, 8, 12, 400),
+    ("every channel full", 4096, 8, 16, 2048),
+    ("every channel full, all kept", 300, 8, 1200, 2400)])
+def test_compact_kernel_new_paths(what, C, S, P, cap):
+    """The one-launch kernel's other branches: past 8192 channels the
+    tile sums shared across a cooperative grid, a cap beyond every slot
+    (padding rows after all C * S), and states whose every channel is full
+    (out_n at or past S): all six outputs bit-exact, one launch a call."""
+    dev = _gpu()
+    rng = np.random.default_rng(C + cap)
+    ins = _compact_ins(rng, C, S, P, 12)
+    if "full" in what:
+        ins[0] = np.where(rng.random(C) < 0.5, S, S + 3).astype(np.int32)
+    ins = [torch.from_numpy(a).to(dev) for a in ins]
+    before = _cuda.LAUNCHES["compact"]
+    got = cmp.compact_packages_cuda(*ins, cap)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["compact"] == before + 1
+    want = cmp.compact_packages_plain(*ins, cap)
+    for k in ("pulse", "gap", "meta", "channel", "count", "rows"):
+        assert torch.equal(got[k].cpu(), want[k].cpu()), k
+    if "full" in what:
+        assert int(want["count"]) == C * S
+
+
 def test_sharded_engine_on_the_card_matches_cpu():
     """ShardedEngine on a one-GPU mesh and on the CPU: the same packages,
     through the compaction kernel on the card."""
@@ -1038,6 +1076,88 @@ def test_mic_kernel_matches_plain_and_host(case):
     assert fn(msgs[0, 0], nbytes, *params).device.type == "cuda"
     assert int(fn(msgs[0, 0], nbytes, *params)) == host[0, 0]
     assert fn(msgs[:0, 0], nbytes, *params).shape == (0,)
+
+
+def _mic_check(name, t, nbytes, params, host_rows):
+    """One launch of digest ``name`` on ``t``, bit-exact against the plain
+    version and against bits/util.py on ``host_rows`` (uint8 [n, B])."""
+    from rtl_433_tpu_torch.bits import util
+    from rtl_433_tpu_torch.ops import mic
+    fn, plain = mic.DIGESTS[name]
+    before = _cuda.LAUNCHES[f"mic_{name}"]
+    got = fn(t, nbytes, *params)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[f"mic_{name}"] == before + 1
+    assert torch.equal(got, plain(t, nbytes, *params))
+    host = [getattr(util, name)(bytes(m), nbytes, *params)
+            for m in host_rows]
+    assert got.reshape(-1).cpu().tolist() == host
+
+
+MIC_SHAPE_CASES = [("crc8", 14, 0x2F, 0x00), ("crc8le", 5, 0x9C, 0x3D),
+                   ("crc16", 14, 0x8005, 0xFFFF),
+                   ("crc16lsb", 9, 0x1021, 0xFFFF),
+                   ("lfsr_digest8", 9, 0x31, 0xF4),
+                   ("lfsr_digest8_reverse", 7, 0x83, 0x7A),
+                   ("lfsr_digest8_reflect", 9, 0x31, 0xF4),
+                   ("lfsr_digest16", 11, 0x8810, 0x0ACC),
+                   ("xor_bytes", 13), ("add_bytes", 16), ("add_nibbles", 1),
+                   ("parity_bytes", 15)]
+
+
+@pytest.mark.parametrize("layout", ["stride16_aligned", "stride15",
+                                    "int32", "int32_offset", "offset_view",
+                                    "wide_rows"])
+@pytest.mark.parametrize("case", MIC_SHAPE_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_mic_kernel_row_paths(case, layout):
+    """Each way the kernel reads its rows: uint8 rows of stride 16 on an
+    aligned base (16-byte row loads), stride 15 (single loads), int32 rows
+    (read & 0xFF: 16-byte loads on an aligned base, single loads one int
+    off it), an offset view made contiguous (unaligned, single loads), and
+    rows of 81 bytes (single loads); 4099 rows, so that the last tile is
+    ragged."""
+    dev = _gpu()
+    name, nbytes, *params = case
+    B = {"stride15": 15, "wide_rows": 81}.get(layout, 16)
+    nbytes = min(nbytes, B)
+    rng = np.random.default_rng(len(name) * 100 + B)
+    msgs = rng.integers(0, 256, (4099, B), dtype=np.uint8)
+    if layout.startswith("int32"):
+        t = torch.from_numpy(msgs.astype(np.int32) + (rng.integers(
+            -9, 9, msgs.shape) << 8).astype(np.int32)).to(dev)
+        if layout == "int32_offset":
+            t = torch.cat([t.reshape(-1)[:1], t.reshape(-1)])[1:].view(
+                4099, B)
+            assert t.data_ptr() % 16 == 4
+    elif layout == "offset_view":
+        flat = torch.from_numpy(msgs.reshape(-1)).to(dev)
+        t = torch.cat([flat[:3], flat])[3:].view(4099, B)
+        assert t.is_contiguous() and t.data_ptr() % 16 == 3
+    else:
+        t = torch.from_numpy(msgs).to(dev)
+    if layout == "stride16_aligned":
+        assert t.data_ptr() % 16 == 0 and t.stride(0) == 16
+    _mic_check(name, t, nbytes, params, msgs)
+
+
+@pytest.mark.parametrize("name", ["lfsr_digest8", "lfsr_digest8_reverse",
+                                  "lfsr_digest8_reflect", "lfsr_digest16",
+                                  "crc8", "crc16lsb", "add_nibbles"])
+@pytest.mark.parametrize("B", [112, 133])
+def test_mic_kernel_past_one_table_chunk(name, B):
+    """nbytes past MIC_CHUNK: the LFSR digests walk their position tables
+    in chunks (every tile reloading them), on aligned rows of 112 bytes
+    and unaligned rows of 133; 600 rows."""
+    from rtl_433_tpu_torch.ops import mic
+    dev = _gpu()
+    nbytes = mic.MIC_CHUNK + 37
+    params = {"crc8": (0x31, 0x00), "crc16lsb": (0x8005, 0xFFFF),
+              "lfsr_digest16": (0x8810, 0x5412),
+              "add_nibbles": ()}.get(name, (0x98, 0xF1))
+    msgs = np.random.default_rng(B).integers(0, 256, (600, B),
+                                             dtype=np.uint8)
+    _mic_check(name, torch.from_numpy(msgs).to(dev), nbytes, params, msgs)
 
 
 def test_mic_tensor_is_not_moved():

@@ -143,3 +143,74 @@ def test_bad_inputs_raise():
         mic.add_bytes(msgs.to(torch.float32), 4)
     with pytest.raises(ValueError, match="B >= nbytes"):
         mic.xor_bytes(torch.tensor(3, dtype=torch.uint8), 0)
+
+
+def _table_digest(name, msgs, nbytes, params):
+    """The kernel's byte steps over the host-built tables, in NumPy: a
+    CRC's byte table (csrc/mic.cu Crc), or the LFSR nibble tables taken
+    MIC_CHUNK positions at a time as the kernel loads them (Lfsr)."""
+    b = msgs.astype(np.int64) & 0xFF
+    if name.startswith("crc"):
+        poly, init = params
+        t = mic.crc_table(name, poly).astype(np.int64)
+        assert t.shape == (256,)
+        v = np.full(len(b), {"crc8": init & 0xFF, "crc8le": util.reverse8(init),
+                             "crc16": init & 0xFFFF,
+                             "crc16lsb": init & 0xFFFF}[name], np.int64)
+        for k in range(nbytes):
+            if name in ("crc8", "crc8le"):
+                v = t[v ^ b[:, k]]
+            elif name == "crc16":
+                v = ((v << 8) & 0xFFFF) ^ t[(v >> 8) ^ b[:, k]]
+            else:
+                v = (v >> 8) ^ t[(v ^ b[:, k]) & 0xFF]
+        return v
+    tabs = mic.lfsr_tables(name, nbytes, *params)
+    assert tabs.shape == (nbytes, 32) and tabs.dtype == np.int32
+    v = np.zeros(len(b), np.int64)
+    for k0 in range(0, nbytes, mic.MIC_CHUNK):
+        chunk = tabs[k0:k0 + mic.MIC_CHUNK]
+        for k in range(k0, min(k0 + mic.MIC_CHUNK, nbytes)):
+            p = chunk[k - k0]
+            v ^= p[b[:, k] >> 4] ^ p[16 + (b[:, k] & 15)]
+    return v & mic._LFSR[name][0]
+
+
+TABLE_CASES = [c for c in CASES if c[0].startswith(("crc", "lfsr"))]
+
+
+@pytest.mark.parametrize("case", TABLE_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_host_tables_reproduce_plain_and_jax(case):
+    """Every table the kernel reads, stepped as the kernel steps it, gives
+    the plain version's and the JAX function's digest: on random rows of
+    every case of tests/test_mic_kernels.py, and on all 256 one-byte rows
+    (the whole byte table of a CRC, every nibble pair of an LFSR
+    position)."""
+    name, nbytes, *params = case
+    rows = _msgs(100 + nbytes, (64, nbytes + 2))
+    one = np.arange(256, dtype=np.uint8)[:, None]
+    plain = mic.DIGESTS[name][1]
+    for m, n in ((rows, nbytes), (one, 1)):
+        want = np.asarray(getattr(jmic, name)(m, n, *params))
+        got = _table_digest(name, m, n, params)
+        assert np.array_equal(got, want)
+        assert np.array_equal(plain(torch.from_numpy(m), n, *params).numpy(),
+                              want)
+
+
+@pytest.mark.parametrize("name", ["lfsr_digest8", "lfsr_digest8_reverse",
+                                  "lfsr_digest8_reflect", "lfsr_digest16",
+                                  "crc16"])
+def test_host_tables_past_one_chunk(name):
+    """At nbytes past MIC_CHUNK (the LFSR positions a CTA holds at once)
+    the chunked table walk still gives the JAX function's and the host
+    library's digest."""
+    params = (0x8005, 0xFFFF) if name == "crc16" else \
+        (0x8810, 0x5412) if name == "lfsr_digest16" else (0x98, 0xF1)
+    nbytes = mic.MIC_CHUNK + 37
+    assert mic.MIC_CHUNK % 16 == 0        # the kernel's chunk granularity
+    msgs = _msgs(11, (16, nbytes + 3))
+    want = np.asarray(getattr(jmic, name)(msgs, nbytes, *params))
+    assert want.tolist() == _host(name, msgs, nbytes, params)
+    assert np.array_equal(_table_digest(name, msgs, nbytes, params), want)
