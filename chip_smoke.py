@@ -5,11 +5,15 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-(``python3 chip_smoke.py --mic-only`` runs phases 1 and 4e alone, and
+(``python3 chip_smoke.py --mic-only`` runs phases 1 and 4e alone,
 ``--compact-only`` phase 1 and phase 4b's checks and times without the
-profiler or the host split, against the rtl_433_tpu_torch package beside
-the script: copied into an earlier checkout, either times that
-checkout's kernel the same way.)
+profiler or the host split, and ``--timeshard-only`` phase 6c on
+lacrosse_tx35 alone, against the rtl_433_tpu_torch package beside the
+script: copied into an earlier checkout, each times that checkout's
+kernels the same way; ``--timeshard-only`` needs a time-shard step that
+launches the gather before it reads the chain's verdict, or, for one that
+reads it first, pair_behind set to pair_host_read and the gather's copies
+counted in ``_cuda.LAUNCHES["timeshard_gather_copied"]``.)
 
 Phases, each printing one JSON line (any failure exits non-zero):
 
@@ -153,9 +157,15 @@ Phases, each printing one JSON line (any failure exits non-zero):
               wall ms per block of both, and under torch.profiler the
               device ms per block of both by kernel (front end, detector,
               timeshard_chain, timeshard_gather, compaction, copies, other:
-              the drain); every per-lane-origin front-end and detector call
-              and every chain and gather call of one more lacrosse_tx35
-              decode held to its plain version;
+              the drain; the gather's span holds its wait on the chain and
+              its launches behind a failed chain, which return early, so
+              beside it its time after the chain (gather_own_ms_per_block)
+              and its launches and those that copied; the total and the
+              busy share count the union of the spans); every
+              per-lane-origin front-end and
+              detector call and every chain and gather call of one more
+              lacrosse_tx35 decode held to its plain version (a gather
+              behind a failed chain: no output written);
 6d. multihost -- two processes on the one card (gloo on loopback), each
               with 2048 channels of the rotation blocks through
               MultiHostEngine: per block, their events in process order
@@ -186,12 +196,22 @@ Phases, each printing one JSON line (any failure exits non-zero):
               chain
               and gather with their launches on the timeshard phase and
               their times at its first lacrosse_tx35 call at the most
-              segments that made one (a block that fails verification
-              stops after the chain, so the gather runs only on verified
-              blocks), the chain also at each D with its launches by D,
-              beside the device time of a one-element fill queued the
-              same way (launch_floor_ms), the gather beside index_select
-              and torch.where; the declarative bank
+              segments that made one (the gather's first that copied:
+              the gather is launched behind every chain and writes
+              nothing where the chain failed, so it has launches and
+              launches that copied, by D), the chain also at each D with
+              its launches by D, beside the device time of a one-element
+              fill queued the same way (launch_floor_ms), the gather
+              back to back as plain launches (ms, the kernel alone) and
+              in the path's launch form (pdl_ms), and behind such a fill
+              in either form (behind_fill_ms, behind_fill_pdl_ms),
+              beside index_select and torch.where and with the device
+              span of chain and gather as the step enqueues them, on a
+              block that verified (pair_ms) and on one that failed
+              (skip_ms), each also with the gather as a plain launch
+              (*_plain_ms), with the host's read of the verdict between
+              the launches (*_host_read_ms) and beside the same span of
+              the chain alone (*_chain_ms); the declarative bank
               with its launches on the device-slicing paths, timed at the
               dense_4096 drain's batch and at the fuzz batch; each MIC
               digest with its launches and times at the mic phase (both
@@ -493,6 +513,27 @@ def profile_groups(prof):
             g = group_of(e.key)
             groups[g] = groups.get(g, 0.0) + us / 1e3
     return groups
+
+
+def device_spans(prof):
+    """(kernel group, start us, end us) of every device event of a
+    torch.profiler run."""
+    from torch.autograd import DeviceType
+    return [(group_of(e.name), e.time_range.start, e.time_range.end)
+            for e in prof.events()
+            if e.device_type == DeviceType.CUDA
+            and e.time_range.end > e.time_range.start]
+
+
+def union_ms(spans):
+    """Milliseconds of the union of ``spans``' intervals: the time in which
+    at least one of them ran, overlaps counted once."""
+    total, end = 0.0, -math.inf
+    for _, a, b in sorted(spans, key=lambda x: x[1]):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
 
 
 def timed(acc, key, fn):
@@ -2010,7 +2051,11 @@ def ts_recorder(calls):
 
 def ts_check(calls, compare, what):
     """Each recorded call rerun on the card and held to its plain version
-    on the same inputs. Returns the calls checked by kernel."""
+    on the same inputs; a gather recorded behind a failed chain with
+    skip_if_bad (the step's launch on a block that falls back) is rerun
+    into outputs filled with a sentinel, which must stay as they were.
+    Returns the calls checked by kernel (the gather's skipped launches
+    apart, as timeshard_gather_skipped)."""
     import torch
     from rtl_433_tpu_torch.ops import detector as det
     from rtl_433_tpu_torch.ops import frontend as fe
@@ -2023,32 +2068,153 @@ def ts_check(calls, compare, what):
            "timeshard_gather": (ots.timeshard_gather_cuda,
                                 ots.timeshard_gather_plain, GATHER_OUTS)}
     checked = {}
+    sentinel = -0x5a5a5a5b
     for i, (kind, args, kw) in enumerate(calls):
         kernel, plain, names = fns[kind]
-        got = kernel(*args, **kw)
-        torch.cuda.synchronize()
-        compare(kind, got, plain(*args, **kw), names, f"{what}, call {i}")
+        pkw = {k: v for k, v in kw.items() if k != "skip_if_bad"}
+        want = plain(*args, **pkw)
+        if ts_skipped(kind, kw):
+            out = [torch.full_like(w, sentinel) for w in want]
+            kernel(*args, **kw, out=out)
+            torch.cuda.synchronize()
+            for o, nm in zip(out, names):
+                if not bool((o == sentinel).all()):
+                    fail(f"{kind} {nm} written behind a failed chain "
+                         f"({what}, call {i})")
+            kind = "timeshard_gather_skipped"
+        else:
+            got = kernel(*args, **kw)
+            torch.cuda.synchronize()
+            compare(kind, got, want, names, f"{what}, call {i}")
         checked[kind] = checked.get(kind, 0) + 1
     return checked
+
+
+def ts_skipped(kind, kw):
+    """Whether a recorded gather call was a launch behind a failed chain
+    that writes nothing (skip_if_bad given and set)."""
+    sk = kw.get("skip_if_bad")
+    return kind == "timeshard_gather" and sk is not None and int(sk[0]) != 0
+
+
+def ts_picks(calls):
+    """The calls of one recorded decode that ts_measure times: the first
+    chain call, the first gather call that copied, and the first chain
+    call, with the gather right behind it, of a block that verified
+    (pair_ok) and of one that failed (pair_bad; the gather None where the
+    package launches none behind a failed chain)."""
+    out = {}
+    for i, (kind, args, kw) in enumerate(calls):
+        if kind == "timeshard_gather" and not ts_skipped(kind, kw):
+            out.setdefault(kind, (args, kw))
+        if kind != "timeshard_chain":
+            continue
+        out.setdefault(kind, (args, kw))
+        nxt = calls[i + 1] if i + 1 < len(calls) else None
+        gather = nxt[1:] if nxt and nxt[0] == "timeshard_gather" else None
+        ok = gather is not None and not ts_skipped(nxt[0], nxt[2])
+        out.setdefault("pair_ok" if ok else "pair_bad", ((args, kw), gather))
+    return out
+
+
+def pair_behind(cargs, ckw, logs, R, a, b, pdl=True):
+    """The step's order: the chain, the gather right behind it
+    (skip_if_bad: the chain's bad; ``pdl``: its launch form) and the
+    second event, then the host's one read of bad. Returns the verdict."""
+    from rtl_433_tpu_torch.ops import timeshard as ots
+    a.record()
+    sel, delta, _, _, bad = ots.timeshard_chain_cuda(*cargs, **ckw)
+    ots.timeshard_gather_cuda(*logs, sel, delta, R=R, skip_if_bad=bad,
+                              pdl=pdl)
+    b.record()
+    return not bad.item()
+
+
+def pair_host_read(cargs, ckw, logs, R, a, b):
+    """The chain, the host's read of bad, the gather only where the block
+    verified, then the second event: the span holds the host's round
+    trip."""
+    from rtl_433_tpu_torch.ops import timeshard as ots
+    a.record()
+    sel, delta, _, _, bad = ots.timeshard_chain_cuda(*cargs, **ckw)
+    ok = not bool(bad.any())
+    if ok:
+        ots.timeshard_gather_cuda(*logs, sel, delta, R=R)
+    b.record()
+    return ok
+
+
+def pair_chain(cargs, ckw, logs, R, a, b):
+    """The chain alone and the second event, then the read."""
+    from rtl_433_tpu_torch.ops import timeshard as ots
+    a.record()
+    bad = ots.timeshard_chain_cuda(*cargs, **ckw)[4]
+    b.record()
+    return not bad.item()
+
+
+def ts_pair_ms(chain, gather, reps=20):
+    """Device ms from before the chain to after the gather, in each of the
+    forms pair_behind (``behind``; ``behind_plain``: the gather as a plain
+    launch), pair_host_read and pair_chain: the mean over ``reps`` runs,
+    each queued behind about 3 ms of a spinning card (longer than the host
+    takes to enqueue both), with CUDA events around the launches, and the
+    verdict (``ok``). ``gather`` None: no gather call was recorded behind
+    this chain, and only a form that launches none where the chain failed
+    can run."""
+    import torch
+    (cargs, ckw), g = chain, gather
+    gargs, gkw = g if g is not None else ((None,) * 6, {})
+    logs, R = gargs[:4], gkw.get("R")
+    forms = {"behind": pair_behind,
+             "behind_plain": lambda *x: pair_behind(*x, pdl=False),
+             "host_read": pair_host_read, "chain": pair_chain}
+    out = {}
+    for name, fn in forms.items():
+        total, ok = 0.0, None
+        for i in range(reps + 1):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(5_000_000)
+            ok = fn(cargs, ckw, logs, R, a, b)
+            torch.cuda.synchronize()
+            if i:                                       # the first warms up
+                total += a.elapsed_time(b)
+        out[name] = total / reps
+        out["ok"] = ok
+    return out
 
 
 def ts_measure(picks):
     """The chain's and the gather's device time (queued behind a spinning
     card), plain time and bound at one recorded call of each (``picks``:
-    segments -> kernel -> (args, kw); each kernel's call at the most
-    segments that recorded one; the chain also at every D, beside the
-    device time of a one-element fill, the floor of any launch timed this
-    way), and for the gather the library's time:
+    segments -> ts_picks' calls; each kernel's call at the most segments
+    that recorded one, the gather's one that copied; the chain also at
+    every D, beside the device time of a one-element fill, the floor of
+    any launch timed this way), and for the gather the library's time:
     index_select of the selected lanes' rows and torch.where for the
     rebase. The bound counts the bytes the function needs: the selected
     candidates' registers or logs read once (a third of the candidate
-    tensors), the other inputs read once, the outputs written once."""
+    tensors), the other inputs read once, the outputs written once. Then
+    the pair (ts_pair_ms) at the gather's segments: pair_ms on the first
+    block that verified, skip_ms on the first that failed (at the most
+    segments that had one, where none at the gather's did), in the step's
+    order (behind) and, beside it, with the host's read between the
+    launches (host_read), each beside the same span of its chain alone
+    (*_chain_ms), and with the gather as a plain launch (*_plain_ms). The
+    gather's ``ms`` is the kernel alone: plain launches back to back, each
+    starting after the one before has ended; ``pdl_ms`` the same with the
+    launch form of the path, where each launch overlaps the one before
+    (so under the launch floor, and no time of the kernel); and
+    ``behind_fill_ms``/``behind_fill_pdl_ms`` behind a one-element fill
+    each, in either form."""
     import torch
     from rtl_433_tpu_torch.ops import detector as det
     from rtl_433_tpu_torch.ops import timeshard as ots
-    pick = {}
+    pick, at = {}, {}
     for D in sorted(picks):
         pick.update(picks[D])
+        at.update({k: D for k in picks[D]})
     for k in ("timeshard_chain", "timeshard_gather"):
         if k not in pick:
             fail(f"timeshard: no recorded {k} call to time")
@@ -2077,6 +2243,7 @@ def ts_measure(picks):
     out["timeshard_chain"]["launch_floor_ms"] = launch_floor_ms(
         pick["timeshard_chain"][0][0].device)
     args, kw = pick["timeshard_gather"]
+    pkw = {"R": kw["R"]}
     key3, p3, g3, eop3, sel, delta = args
     R = kw["R"]
     D, C = sel.shape
@@ -2099,14 +2266,44 @@ def ts_measure(picks):
         torch.where(e[:, :, det.M_TYPE:det.M_TYPE + 1] != det.PKG_NONE,
                     e + egen, e)
 
+    one = torch.zeros(1, dtype=torch.int32, device=key3.device)
+
+    def gather(pdl, fill=False):
+        def run():
+            if fill:
+                one.fill_(1)
+            ots.timeshard_gather_cuda(*args, **kw, pdl=pdl)
+        return cuda_ms(run, reps=20, busy_first=True)
+
     out["timeshard_gather"] = {
-        "ms": cuda_ms(lambda: ots.timeshard_gather_cuda(*args, **kw),
-                      reps=20, busy_first=True),
-        "plain_ms": host_ms(lambda: ots.timeshard_gather_plain(*args, **kw)),
+        # back to back: plain launches (the kernel alone), and as the path
+        # launches it (each launch overlapping the one before)
+        "ms": gather(False), "pdl_ms": gather(True),
+        # behind a kernel that does not release it early: a one-element
+        # fill (launch_floor_ms) and the gather
+        "behind_fill_ms": gather(False, fill=True),
+        "behind_fill_pdl_ms": gather(True, fill=True),
+        "plain_ms": host_ms(lambda: ots.timeshard_gather_plain(*args, **pkw)),
         "library_ms": cuda_ms(library, reps=20, busy_first=True),
         "bound_ms": nbytes / HBM_BPS * 1e3, "bytes": nbytes,
         "shape": {"key3": list(key3.shape), "eop3": list(eop3.shape),
                   "D": D}}
+    # the pair at the gather's segments: a block that verified, and one
+    # that failed (its chain's bad set)
+    Dg = at["timeshard_gather"]
+    for key, name in (("pair_ok", "pair"), ("pair_bad", "skip")):
+        src = picks[Dg] if key in picks[Dg] else pick
+        if key not in src:
+            fail(f"timeshard: no recorded {key} to time")
+        nums = ts_pair_ms(*src[key])
+        if nums.pop("ok") != (key == "pair_ok"):
+            fail(f"timeshard: the {key} call gave the other verdict")
+        out["timeshard_gather"].update({
+            f"{name}_ms": nums["behind"],
+            f"{name}_plain_ms": nums["behind_plain"],
+            f"{name}_host_read_ms": nums["host_read"],
+            f"{name}_chain_ms": nums["chain"],
+            f"{name}_D": src[key][0][1]["D"]})
     return out
 
 
@@ -2158,15 +2355,15 @@ def ts_reasons(params, mesh, blocks, dev):
             "sequential_step_ms_per_block": seq_s / nb * 1e3}
 
 
-def timeshard_phase(dev, compare, fx, rate_of):
-    """Phase 6c: the single-channel streams through TimeShardEngine on
-    Mesh([cuda] * D) and, in the same call, through the one-channel
-    ShardedEngine: equal events, fallbacks, wall ms per block of both, and
-    under torch.profiler the device ms per block of both by kernel. Every
-    per-lane-origin front-end and detector call and every chain and gather
-    call of TS_CHECKED's decode is held to its plain version. Returns (the
-    phase lines, the launches of the time-sharded decodes, the chain's and
-    gather's numbers)."""
+def timeshard_phase(dev, compare, fx, rate_of, only=None):
+    """Phase 6c: the single-channel streams (``only``: those named) through
+    TimeShardEngine on Mesh([cuda] * D) and, in the same call, through the
+    one-channel ShardedEngine: equal events, fallbacks, wall ms per block of
+    both, and under torch.profiler the device ms per block of both by
+    kernel. Every per-lane-origin front-end and detector call and every
+    chain and gather call of TS_CHECKED's decode is held to its plain
+    version. Returns (the phase lines, the launches of the time-sharded
+    decodes, the chain's and gather's numbers)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from rtl_433_tpu_torch.decoders import Registry
@@ -2198,23 +2395,45 @@ def timeshard_phase(dev, compare, fx, rate_of):
 
     def traced(mk, blocks):
         """A fresh engine over ``blocks`` under torch.profiler: (events,
-        wall ms per block, device ms per block by kernel, busy share)."""
+        wall ms per block, device ms per block by kernel, and the gather's
+        launches and those that copied). A gather's span starts when the
+        chain releases it, at the chain's start, and so holds its wait on
+        the chain (launches behind a failed chain, which return early,
+        included): the kernels' sum counts that time twice. The total and
+        the busy share count the union of the kernels' spans, and
+        gather_own_ms_per_block the gather's time outside every other
+        kernel's span (after the chain has ended)."""
+        _cuda.reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             evs, wall = drive(mk(), blocks)
+        launched = dict(_cuda.LAUNCHES)
         groups = profile_groups(prof)
+        spans = device_spans(prof)
+        if groups and not spans:
+            fail("timeshard: the profiler gave device times but no spans")
+        busy = union_ms(spans)
+        own = busy - union_ms([x for x in spans
+                               if x[0] != "timeshard_gather"])
         nb = len(blocks)
         return evs, {
             "blocks": nb, "wall_ms_per_block": wall / nb * 1e3,
             "device_ms_per_block": {k: v / nb for k, v in groups.items()},
-            "device_ms_per_block_total": sum(groups.values()) / nb,
-            "device_busy_share": sum(groups.values()) / (wall * 1e3)}
+            "device_ms_per_block_sum": sum(groups.values()) / nb,
+            "device_ms_per_block_total": busy / nb,
+            "device_busy_share": busy / (wall * 1e3),
+            "gather_own_ms_per_block": own / nb,
+            "gather_launches": launched["timeshard_gather"],
+            "gather_copied": launched["timeshard_gather_copied"]}
 
     rows = []
     launches = {k: 0 for k in TS_KERNELS}
     chain_by_D = {D: 0 for D in TS_SEGMENTS}
+    gather_by_D = {D: {"launches": 0, "copied": 0} for D in TS_SEGMENTS}
     picks = {}
     for name, nums, samples, rate in timeshard_streams(fx, rate_of):
+        if only is not None and name not in only:
+            continue
         reg = registry(nums)
         params = DetectorParams(
             sample_rate=rate, fsk_minmax=False,
@@ -2252,17 +2471,23 @@ def timeshard_phase(dev, compare, fx, rate_of):
             _cuda.reset_launches()
             eng = ts()
             got, ts_s = drive(eng, blocks)
-            # this run's own launches, read before any other run; a block
-            # that fails verification stops after the chain, so the gather
-            # runs only where a block verified
+            # this run's own launches, read before any other run; the
+            # gather launched behind a failed chain writes nothing, so one
+            # gather copies for each verified block
             seg_launches = {k: _cuda.LAUNCHES[k] for k in TS_KERNELS}
+            copied = _cuda.LAUNCHES["timeshard_gather_copied"]
             for k in TS_KERNELS:
                 if seg_launches[k] <= 0 and (k != "timeshard_gather"
                                              or eng.verified):
                     fail(f"kernel {k} was not launched on timeshard {name} "
                          f"D={D}")
                 launches[k] += seg_launches[k]
+            if copied != eng.verified:
+                fail(f"timeshard {name} D={D}: {copied} gathers copied, "
+                     f"{eng.verified} blocks verified")
             chain_by_D[D] += seg_launches["timeshard_chain"]
+            gather_by_D[D]["launches"] += seg_launches["timeshard_gather"]
+            gather_by_D[D]["copied"] += copied
             if got != want:
                 fail(f"timeshard {name} D={D}: {len(got)} events, the "
                      f"sequential engine {len(want)}")
@@ -2277,6 +2502,7 @@ def timeshard_phase(dev, compare, fx, rate_of):
                    "fallbacks": eng.fallbacks, "verified": eng.verified,
                    "wall_ms_per_block": ts_s / nb * 1e3,
                    "launches": seg_launches,
+                   "launches_gather_copied": copied,
                    "traced": ts_traced,
                    "why": ts_reasons(params, ts_mesh, blocks, dev)}
             if name == TS_CHECKED:
@@ -2291,9 +2517,8 @@ def timeshard_phase(dev, compare, fx, rate_of):
                 seg["checked"] = ts_check(rec, compare,
                                           f"timeshard {name} D={D}")
                 seg["check_seconds"] = time.perf_counter() - t
-                # each kernel's first call at the most segments it ran at
-                for call in rec:
-                    picks.setdefault(D, {}).setdefault(call[0], call[1:])
+                # the calls to time, at each D
+                picks[D] = ts_picks(rec)
                 del rec
             row["segments"][str(D)] = seg
         rows.append(row)
@@ -2302,6 +2527,9 @@ def timeshard_phase(dev, compare, fx, rate_of):
             fail(f"kernel {k} was not launched on the timeshard phase")
     numbers = ts_measure(picks)
     numbers["timeshard_chain"]["launches_by_D"] = chain_by_D
+    numbers["timeshard_gather"]["launches_by_D"] = gather_by_D
+    numbers["timeshard_gather"]["launches_copied"] = sum(
+        v["copied"] for v in gather_by_D.values())
     return rows, launches, numbers
 
 
@@ -2540,6 +2768,24 @@ def main():
         # checkout of the package beside this script
         _cuda.build(["mic"])
         emit(mic_phase(dev, compare, rng)[0])
+        return 0
+    if "--timeshard-only" in sys.argv[1:]:
+        # phase 6c on TS_CHECKED alone, for a comparison with another
+        # checkout of the package
+        from rtl_433_tpu_torch.decoders import garage
+        _cuda.build()
+        fx = [(d, nums, cu8, None) for d, nums, cu8 in fixture_cases()]
+        real_time = garage.time
+        garage.time = types.SimpleNamespace(monotonic=lambda: 0.0)
+        try:
+            rows, launches, numbers = timeshard_phase(
+                dev, compare, fx, rate_of, only=(TS_CHECKED,))
+        finally:
+            garage.time = real_time
+        for r in rows:
+            emit(r)
+        emit({"phase": "timeshard_only", "launches": launches,
+              "numbers": numbers, "nvidia_smi": smi_line()})
         return 0
     if "--compact-only" in sys.argv[1:]:
         # the compaction wrapper and kernel alone at phase 4b's states,
@@ -3370,6 +3616,13 @@ def main():
                 launch_floor_ms=m["launch_floor_ms"],
                 **{f"{x}_by_D": {D: v[x] for D, v in m["by_D"].items()}
                    for x in ("ms", "plain_ms", "bound_ms")})
+        else:
+            rows[-1].update({x: m[x] for x in (
+                "launches_by_D", "launches_copied", "pdl_ms",
+                "behind_fill_ms", "behind_fill_pdl_ms", "pair_ms",
+                "pair_plain_ms", "pair_host_read_ms", "pair_chain_ms",
+                "pair_D", "skip_ms", "skip_plain_ms", "skip_host_read_ms",
+                "skip_chain_ms", "skip_D")})
     emit({"processes": {"live_children_stopped": stop_children()}})
     emit({"kernel_launches": launches,
           "kernel_launches_multichannel": mc_launches,

@@ -47,11 +47,35 @@
 //     d of its selected final - start, :267-281), sel and delta, with sel
 //     read from shared memory, never from what the kernel wrote.
 //
-// timeshard_gather_kernel, one thread per output element, gathers each segment's
-// selected candidate's logs into the block's [C*R, D*G] record planes and
-// [C, D*G*E, 9] EOP log, adding delta << KEY_IDX_BITS to valid keys and
-// delta to the M_GEN field of valid EOPs. All arithmetic wraps as JAX's
-// int32 does (unsigned in C).
+// timeshard_gather_kernel gathers each segment's selected candidate's logs
+// into the block's [C*R, D*G] record planes and [C, D*G*E, 9] EOP log,
+// adding delta << KEY_IDX_BITS to valid keys and delta to the M_GEN field
+// of valid EOPs. All arithmetic wraps as JAX's int32 does (unsigned in C).
+// What it moves are contiguous runs: per (channel, ring row, segment) the
+// G ints of each record plane, per (channel, segment) the G*E*9 ints of
+// the EOP log. So a warp, which is a whole CTA, takes a unit: a record run,
+// or a chunk of 32 items of an EOP run (grid-stride over units beyond the
+// grid's cap). One warp a CTA puts the units on as many SMs as there are
+// units: at C=1, D=8 the eight EOP runs (74 KB) in one 256-thread CTA took
+// 6 us on its one SM. The unit's offsets come from 32-bit arithmetic over
+// its index, sel and delta are loaded once per unit, and the copy goes 16
+// bytes a lane where the runs and their pointers are 16-byte aligned
+// (scalar otherwise). An EOP is rebased from its own M_TYPE word in the
+// lane's registers: an item is four whole records (nine int4) or, where
+// the runs are not aligned, one record, and nothing is loaded twice.
+//
+// The gather runs behind the chain with no host round trip between them:
+// it is launched with programmatic stream serialization (PDL), the chain
+// releases it at its start (its blocks are then all resident, and at C=1
+// one block leaves 131 SMs free), and the gather's blocks take their
+// first unit's offsets before cudaGridDependencySynchronize() (as PTX:
+// griddepcontrol.wait), which waits for the chain's results; then bad,
+// sel and delta load in one round. With skip_if_bad a set bad flag makes
+// every block return without writing: the host reads bad once, after both
+// launches, and discards the logs of a block that failed. The candidate
+// logs are not read before the wait: the kernel right before the gather
+// need not be the chain, and one that wrote them would not yet have made
+// its writes visible.
 //
 // What bounds them. The chain's bytes (NROW ints per lane, 10.7 KB at
 // C=1, D=32) would take nanoseconds; a one-block launch takes
@@ -59,9 +83,14 @@
 // dependent rounds of loads, not bytes. The design keeps those rounds few:
 // every register load of all links is issued in phase 1 at once (no load
 // waits on a selection), the walk touches only shared memory, and phase 3
-// is one more round. The gather moves every log int once each way: bytes,
-// coalesced on both sides (consecutive threads take consecutive chunk
-// columns of one row).
+// is one more round. The gather moves every log int once each way (344 KB
+// at C=1, D=8, N=131072: about 0.1 us of bytes), so it too is bound by
+// latency: its launch, hidden behind the chain by PDL, its wake-up when
+// the chain's writes are visible, then two dependent rounds (the chain's
+// results, then the units) and the stores. Alone, as a plain launch, it
+// measured no faster on an H100 (700 W) than the thread-per-int loop it
+// replaced (2.9 us, about 1 us over a launch): what the step gains is
+// the PDL launch and the missing host round trip, not the run table.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -88,6 +117,17 @@ __device__ __forceinline__ int wsub(int a, int b) {
 // |v| as jnp.abs on int32: INT_MIN stays INT_MIN
 __device__ __forceinline__ int wabs(int v) {
     return v < 0 ? static_cast<int>(0u - static_cast<unsigned>(v)) : v;
+}
+
+// programmatic dependent launch (sm_90): the PTX of the runtime's
+// cudaTriggerProgrammaticLaunchCompletion() and
+// cudaGridDependencySynchronize()
+__device__ __forceinline__ void launch_dependents() {
+    asm volatile("griddepcontrol.launch_dependents;" :::);
+}
+
+__device__ __forceinline__ void grid_dependency_sync() {
+    asm volatile("griddepcontrol.wait;" ::: "memory");
 }
 
 struct Rows {
@@ -132,6 +172,10 @@ timeshard_chain_kernel(const int* __restrict__ start,
                        int* __restrict__ sel_out, int* __restrict__ delta_out,
                        int* __restrict__ out, int* __restrict__ by_key,
                        int* __restrict__ bad) {
+    // every block of the chain is resident once each has started: a
+    // gather launched behind it with PDL may take the free SMs now (it
+    // waits for the chain's results in grid_dependency_sync)
+    launch_dependents();
     extern __shared__ __align__(16) unsigned char smem_raw[];
     const ChainSmem sm = chain_smem(smem_raw, NROW, D, G);
     const int c0 = blockIdx.x * G;
@@ -264,53 +308,170 @@ timeshard_chain_kernel(const int* __restrict__ start,
     }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// A unit of the gather, one warp's work: its source offset at candidate 0,
+// in ints (the candidate adds sel times the candidate stride), its
+// destination offset, d*C + c (the index of its sel and delta), and for an
+// EOP unit the items it holds. Record units are whole runs, numbered
+// (c*R + r)*D + d, so that consecutive warps write consecutive columns.
+// EOP units follow: run c*D + d cut into chunks of 32 items, an item being
+// four records (VEC) or one record, one item a lane.
+struct Unit {
+    unsigned src, dst, dc, items;
+    bool eop;
+};
+
+struct Shape {
+    unsigned D, C, R, G, GE;
+    unsigned n_rec;        // record units: C*R*D
+    unsigned eitems;       // items of an EOP run: GE/4 (VEC) or GE
+    unsigned echunks;      // chunks of an EOP run: ceil(eitems / 32)
+    unsigned item_ints;    // ints of an item: 36 (VEC) or 9
+};
+
+__device__ __forceinline__ Unit unit_of(unsigned i, const Shape& sh) {
+    Unit u;
+    u.eop = i >= sh.n_rec;
+    if (!u.eop) {
+        const unsigned row = i / sh.D, d = i - row * sh.D;  // row = c*R + r
+        const unsigned c = row / sh.R, r = row - c * sh.R;
+        u.dc = d * sh.C + c;
+        u.src = (u.dc * sh.R + r) * sh.G;
+        u.dst = i * sh.G;
+        u.items = 0;
+    } else {
+        const unsigned j = i - sh.n_rec, run = j / sh.echunks;
+        const unsigned k = j - run * sh.echunks;        // the chunk
+        const unsigned c = run / sh.D, d = run - c * sh.D;
+        const unsigned first = k * 32;                  // its first item
+        u.dc = d * sh.C + c;
+        u.src = u.dc * sh.GE * META_FIELDS + first * sh.item_ints;
+        u.dst = run * sh.GE * META_FIELDS + first * sh.item_ints;
+        u.items = min(32u, sh.eitems - first);
+    }
+    return u;
+}
+
+__device__ __forceinline__ int rebase_key(int k, unsigned dk) {
+    return k < KEY_INVALID
+               ? static_cast<int>(static_cast<unsigned>(k) + dk) : k;
+}
+
+__device__ __forceinline__ int4 rebase_keys(int4 k, unsigned dk) {
+    return make_int4(rebase_key(k.x, dk), rebase_key(k.y, dk),
+                     rebase_key(k.z, dk), rebase_key(k.w, dk));
+}
+
+// four EOP records (36 ints, nine int4) in registers, each rebased from
+// its own M_TYPE word
+__device__ __forceinline__ void copy_eop4(const int4* __restrict__ s,
+                                          int4* __restrict__ o, int dl) {
+    int v[4 * META_FIELDS];
+#pragma unroll
+    for (int q = 0; q < META_FIELDS; ++q) {
+        const int4 t = __ldg(s + q);
+        v[4 * q] = t.x;
+        v[4 * q + 1] = t.y;
+        v[4 * q + 2] = t.z;
+        v[4 * q + 3] = t.w;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+        if (v[e * META_FIELDS + M_TYPE] != PKG_NONE)
+            v[e * META_FIELDS + M_GEN] = wadd(v[e * META_FIELDS + M_GEN], dl);
+#pragma unroll
+    for (int q = 0; q < META_FIELDS; ++q)
+        o[q] = make_int4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
+}
+
+// one EOP record (nine ints) in registers, rebased from its M_TYPE word
+__device__ __forceinline__ void copy_eop1(const int* __restrict__ s,
+                                          int* __restrict__ o, int dl) {
+    int v[META_FIELDS];
+#pragma unroll
+    for (int f = 0; f < META_FIELDS; ++f) v[f] = __ldg(s + f);
+    if (v[M_TYPE] != PKG_NONE) v[M_GEN] = wadd(v[M_GEN], dl);
+#pragma unroll
+    for (int f = 0; f < META_FIELDS; ++f) o[f] = v[f];
+}
+
+// one warp's unit, of the candidate s, rebased by dl
+__device__ __forceinline__ void copy_unit(
+    const Unit& u, unsigned s, int dl, unsigned lane, const Shape& sh,
+    unsigned rec_stride, unsigned eop_stride, bool vec_rec, bool vec_eop,
+    const int* __restrict__ key3, const int* __restrict__ p3,
+    const int* __restrict__ g3, const int* __restrict__ eop3,
+    int* __restrict__ key, int* __restrict__ p, int* __restrict__ g,
+    int* __restrict__ eop) {
+    if (u.eop) {
+        if (lane >= u.items) return;
+        const unsigned off = lane * sh.item_ints;
+        const int* es = eop3 + u.src + s * eop_stride + off;
+        int* eo = eop + u.dst + off;
+        if (vec_eop)
+            copy_eop4(reinterpret_cast<const int4*>(es),
+                      reinterpret_cast<int4*>(eo), dl);
+        else
+            copy_eop1(es, eo, dl);
+        return;
+    }
+    const unsigned src = u.src + s * rec_stride;
+    const unsigned dk = static_cast<unsigned>(dl) << KEY_IDX_BITS;
+    if (vec_rec) {
+        const int4* ks = reinterpret_cast<const int4*>(key3 + src);
+        const int4* ps = reinterpret_cast<const int4*>(p3 + src);
+        const int4* gs = reinterpret_cast<const int4*>(g3 + src);
+        int4* ko = reinterpret_cast<int4*>(key + u.dst);
+        int4* po = reinterpret_cast<int4*>(p + u.dst);
+        int4* go = reinterpret_cast<int4*>(g + u.dst);
+        for (unsigned j = lane; j < sh.G / 4; j += 32) {
+            const int4 kv = __ldg(ks + j), pv = __ldg(ps + j),
+                       gv = __ldg(gs + j);
+            ko[j] = rebase_keys(kv, dk);
+            po[j] = pv;
+            go[j] = gv;
+        }
+    } else {
+        for (unsigned j = lane; j < sh.G; j += 32) {
+            const int kv = __ldg(key3 + src + j), pv = __ldg(p3 + src + j),
+                      gv = __ldg(g3 + src + j);
+            key[u.dst + j] = rebase_key(kv, dk);
+            p[u.dst + j] = pv;
+            g[u.dst + j] = gv;
+        }
+    }
+}
+
+// one warp a CTA: the units land on as many SMs as there are units (up to
+// the grid's cap), so that no SM carries more than a few KB of the copy
+__global__ void __launch_bounds__(32)
 timeshard_gather_kernel(const int* __restrict__ key3,
                         const int* __restrict__ p3,
                         const int* __restrict__ g3,
-                        const int* __restrict__ eop3,
-                        const int* __restrict__ sel,
-                        const int* __restrict__ delta, int D, int C, int R,
-                        int G, int EM, int* __restrict__ key,
-                        int* __restrict__ p, int* __restrict__ g,
-                        int* __restrict__ eop) {
-    const size_t DG = static_cast<size_t>(D) * G;
-    const size_t n1 = static_cast<size_t>(C) * R * DG;
-    const size_t n2 = static_cast<size_t>(C) * DG * EM;
-    const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
-    for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-         i < n1 + n2; i += stride) {
-        if (i < n1) {
-            const size_t row = i / DG, col = i - row * DG;   // row = c*R + r
-            const int d = static_cast<int>(col / G);
-            const int gg = static_cast<int>(col - static_cast<size_t>(d) * G);
-            const int c = static_cast<int>(row / R), r = static_cast<int>(row % R);
-            const int dc = d * C + c;
-            const size_t lane = (static_cast<size_t>(sel[dc]) * D + d) * C + c;
-            const size_t src = (lane * R + r) * G + gg;
-            int k = key3[src];
-            if (k < KEY_INVALID)
-                k = static_cast<int>(static_cast<unsigned>(k) +
-                                     (static_cast<unsigned>(delta[dc]) << KEY_IDX_BITS));
-            key[i] = k;
-            p[i] = p3[src];
-            g[i] = g3[src];
-        } else {
-            const size_t j = i - n1;
-            const size_t per_c = DG * EM;
-            const int c = static_cast<int>(j / per_c);
-            const size_t rem = j - static_cast<size_t>(c) * per_c;
-            const int d = static_cast<int>(rem / (static_cast<size_t>(G) * EM));
-            const size_t q = rem - static_cast<size_t>(d) * G * EM;
-            const int m = static_cast<int>(q % META_FIELDS);
-            const int dc = d * C + c;
-            const size_t src =
-                ((static_cast<size_t>(sel[dc]) * D + d) * C + c) * G * EM + q;
-            int v = eop3[src];
-            if (m == M_GEN && eop3[src - M_GEN + M_TYPE] != PKG_NONE)
-                v = wadd(v, delta[dc]);
-            eop[j] = v;
-        }
+                        const int* __restrict__ eop3, const int* sel,
+                        const int* delta, const int* bad, int skip_if_bad,
+                        Shape sh, unsigned n_units, unsigned rec_stride,
+                        unsigned eop_stride, int vec_rec, int vec_eop,
+                        int* __restrict__ key, int* __restrict__ p,
+                        int* __restrict__ g, int* __restrict__ eop) {
+    const unsigned lane = threadIdx.x;
+    // the first unit's offsets need nothing of the chain's
+    const Unit u0 = unit_of(blockIdx.x, sh);
+    // sel, delta and bad are the chain's: wait for it to complete and its
+    // writes to be visible (behind a kernel that does not release its
+    // dependents early, the block starts after it and this returns at
+    // once); then load the three in one round
+    grid_dependency_sync();
+    const int b = skip_if_bad ? __ldcg(bad) : 0;
+    const unsigned s0 = static_cast<unsigned>(__ldcg(sel + u0.dc));
+    const int dl0 = __ldcg(delta + u0.dc);
+    if (b != 0) return;
+    copy_unit(u0, s0, dl0, lane, sh, rec_stride, eop_stride, vec_rec,
+              vec_eop, key3, p3, g3, eop3, key, p, g, eop);
+    for (unsigned i = blockIdx.x + gridDim.x; i < n_units; i += gridDim.x) {
+        const Unit u = unit_of(i, sh);
+        copy_unit(u, static_cast<unsigned>(__ldcg(sel + u.dc)),
+                  __ldcg(delta + u.dc), lane, sh, rec_stride, eop_stride,
+                  vec_rec, vec_eop, key3, p3, g3, eop3, key, p, g, eop);
     }
 }
 
@@ -352,26 +513,68 @@ extern "C" int rtl433_timeshard_chain(const void* start, const void* fin,
     return static_cast<int>(cudaGetLastError());
 }
 
-// key3/p3/g3 int32 [3*D*C*R, G]; eop3 int32 [3*D*C, G*E, 9] (EM = E*9);
-// sel, delta int32 [D, C]. Writes key/p/g int32 [C*R, D*G] and eop int32
-// [C, D*G*E, 9]. Returns cudaGetLastError() after the launch.
+// key3/p3/g3 int32 [3*D*C*R, G]; eop3 int32 [3*D*C, GE, 9] (GE = G*E);
+// sel, delta int32 [D, C] and bad int32 [1] from the chain. Writes key/p/g
+// int32 [C*R, D*G] and eop int32 [C, D*GE, 9], unless skip_if_bad is set
+// and so is bad: then nothing. With pdl set, launched with programmatic
+// stream serialization, so that it may start while the kernel before it
+// (the chain) runs; with pdl 0 as a plain launch, which starts after the
+// kernel before it has ended (to time the kernel alone). A launch the card
+// refuses returns its error. The offsets
+// are 32-bit: every tensor must hold fewer than 2^31 ints. Returns
+// cudaGetLastError() after the launch.
 extern "C" int rtl433_timeshard_gather(const void* key3, const void* p3,
                                        const void* g3, const void* eop3,
                                        const void* sel, const void* delta,
-                                       int D, int C, int R, int G, int EM,
-                                       void* key, void* p, void* g, void* eop,
-                                       void* stream) {
-    if (D < 1 || C < 1 || R < 1 || G < 1 || EM < 1)
+                                       const void* bad, int skip_if_bad,
+                                       int pdl, int D, int C, int R, int G,
+                                       int GE, void* key, void* p, void* g,
+                                       void* eop, void* stream) {
+    if (D < 1 || C < 1 || R < 1 || G < 1 || GE < 1 ||
+        (skip_if_bad && bad == nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
-    const size_t n = static_cast<size_t>(C) * D * G * (R + EM);
-    size_t blocks = (n + kThreads - 1) / kThreads;
-    if (blocks > 132 * 16) blocks = 132 * 16;
-    timeshard_gather_kernel<<<static_cast<int>(blocks), kThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(key3), static_cast<const int*>(p3),
-        static_cast<const int*>(g3), static_cast<const int*>(eop3),
-        static_cast<const int*>(sel), static_cast<const int*>(delta), D, C, R,
-        G, EM, static_cast<int*>(key), static_cast<int*>(p), static_cast<int*>(g),
+    const size_t rec = 3ull * D * C * R * G, eops = 3ull * D * C * GE * 9;
+    if (rec >= (1ull << 31) || eops >= (1ull << 31))
+        return static_cast<int>(cudaErrorInvalidValue);
+    auto a16 = [](const void* q) {
+        return (reinterpret_cast<uintptr_t>(q) & 15u) == 0;
+    };
+    const int vec_rec = G % 4 == 0 && a16(key3) && a16(p3) && a16(g3) &&
+                        a16(key) && a16(p) && a16(g);
+    const int vec_eop = GE % 4 == 0 && a16(eop3) && a16(eop);
+    Shape sh;
+    sh.D = D;
+    sh.C = C;
+    sh.R = R;
+    sh.G = G;
+    sh.GE = GE;
+    sh.n_rec = static_cast<unsigned>(C * R * D);
+    sh.eitems = vec_eop ? GE / 4 : GE;
+    sh.echunks = (sh.eitems + 31) / 32;
+    sh.item_ints = vec_eop ? 4 * META_FIELDS : META_FIELDS;
+    const unsigned n_units = sh.n_rec + static_cast<unsigned>(C * D) *
+                                            sh.echunks;
+    // a warp a CTA, grid-stride beyond 32 CTAs an SM
+    const unsigned blocks = n_units < 132 * 32 ? n_units : 132 * 32;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(blocks);
+    cfg.blockDim = dim3(32);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = static_cast<cudaStream_t>(stream);
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = pdl ? 1 : 0;
+    const cudaError_t e = cudaLaunchKernelEx(
+        &cfg, timeshard_gather_kernel, static_cast<const int*>(key3),
+        static_cast<const int*>(p3), static_cast<const int*>(g3),
+        static_cast<const int*>(eop3), static_cast<const int*>(sel),
+        static_cast<const int*>(delta), static_cast<const int*>(bad),
+        skip_if_bad, sh, n_units, static_cast<unsigned>(D * C * R * G),
+        static_cast<unsigned>(D * C * GE * META_FIELDS), vec_rec, vec_eop,
+        static_cast<int*>(key), static_cast<int*>(p), static_cast<int*>(g),
         static_cast<int*>(eop));
+    if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());
 }

@@ -77,11 +77,11 @@ LAUNCHERS = {
     "timeshard_chain": ("timeshard", "rtl433_timeshard_chain",
                         [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _P, _P, _P, _P, _P, _P]),
-    # key3, p3, g3, eop3, sel, delta, D, C, R, G, EM, key, p, g, eop,
-    # stream
+    # key3, p3, g3, eop3, sel, delta, bad, skip_if_bad, pdl, D, C, R, G,
+    # GE, key, p, g, eop, stream
     "timeshard_gather": ("timeshard", "rtl433_timeshard_gather",
-                         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P,
-                          _P, _P, _P, _P]),
+                         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _P, _P, _P, _P, _P]),
     # bits, n_bits, n_store, sid, B, IN, spec, K, S, entries, chunk_dir,
     # chunk_start, FB, C, R, PW, code, raws, stream
     "decl_bank": ("decl_bank", "rtl433_decl_bank",
@@ -104,7 +104,10 @@ KERNELS = ("frontend", "detector_scan", "compact",
            *(f"slice_{f}" for f in SLICE_FAMILIES), "content_dup",
            "gather_records", "timeshard_chain", "timeshard_gather",
            "decl_bank", *(f"mic_{a}" for a in MIC_ALGOS))
-LAUNCHES = {name: 0 for name in KERNELS}
+# each kernel's launches, and the time-shard gather's launches that copied
+# (the step reads the chain's verdict after the gather's launch, and a
+# launch behind a failed chain writes nothing)
+LAUNCHES = {name: 0 for name in KERNELS} | {"timeshard_gather_copied": 0}
 
 _libs: dict = {}   # library name -> the loaded library
 _fns: dict = {}    # launcher name -> its C function

@@ -12,9 +12,13 @@ detector launch. Then:
   selects the hedge candidate, computes each segment's package-generation
   offset, and gives the block-outgoing registers and re-based counters
   (:267-281);
-- :func:`timeshard_gather` gathers each segment's selected candidate's
-  record logs into the block's logs and re-bases their generations
-  (:245-265).
+- the gather (:func:`timeshard_gather_plain`, :func:`timeshard_gather_cuda`)
+  gathers each segment's selected candidate's record logs into the
+  block's logs and re-bases their generations (:245-265);
+- :func:`timeshard_chain_gather` is the step's pair: on the card both
+  launches go before the host's one read of the chain's verdict, the
+  gather waiting on the card for the chain and writing nothing behind a
+  failed one.
 
 Lane layout: ``start`` ``[NROW, D*C]`` holds segment ``d``'s start
 registers for channel ``c`` at lane ``d*C + c``; ``fin`` ``[NROW, 3*D*C]``
@@ -36,8 +40,8 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
-from .detector import (KEY_IDX_BITS, KEY_INVALID, M_GEN, M_TYPE, PKG_NONE,
-                       REG_KEYS, ST_IDLE)
+from .detector import (KEY_IDX_BITS, KEY_INVALID, M_GEN, M_TYPE,
+                       META_FIELDS, PKG_NONE, REG_KEYS, ST_IDLE)
 from .frontend import STATE_KEYS
 
 TS_KEYS = REG_KEYS + STATE_KEYS
@@ -233,9 +237,15 @@ def timeshard_chain(start, fin, rowinfo, *, D, ratio):
 
 
 def timeshard_gather_plain(key3, p3, g3, eop3, sel, delta, *, R):
-    """Plain version of the gather kernel (JAX timeshard.py:245-265).
-    Returns (log_key, log_p, log_g int32 [C*R, D*G], eop_log int32
-    [C, D*G*E, 9])."""
+    """Each segment's selected candidate's logs, as the block's: the plain
+    version of the gather kernel (JAX timeshard.py:245-265).
+
+    ``key3``/``p3``/``g3`` int32 ``[3*D*C*R, G]`` and ``eop3`` ``[3*D*C,
+    G*E, 9]``: the candidate lanes' logs; ``sel``/``delta`` ``[D, C]`` from
+    :func:`timeshard_chain`. Returns ``(log_key, log_p, log_g)`` ``[C*R,
+    D*G]`` and ``eop_log`` ``[C, D*G*E, 9]``, segment ``d`` at columns
+    ``d*G..``: valid keys gain ``delta << KEY_IDX_BITS`` and valid EOPs'
+    ``M_GEN`` gains ``delta``."""
     D, C = sel.shape
     G = key3.shape[1]
     GE = eop3.shape[1]
@@ -260,9 +270,16 @@ def timeshard_gather_plain(key3, p3, g3, eop3, sel, delta, *, R):
     return key, planes(p3), planes(g3), eop
 
 
-def timeshard_gather_cuda(key3, p3, g3, eop3, sel, delta, *, R):
+def timeshard_gather_cuda(key3, p3, g3, eop3, sel, delta, *, R,
+                          skip_if_bad=None, out=None, pdl=True):
     """Launch ``csrc/timeshard.cu``'s gather; same contract as
-    :func:`timeshard_gather_plain`."""
+    :func:`timeshard_gather_plain`. ``skip_if_bad``: the chain's ``bad``
+    flag int32 ``[1]``; where given and set, the launch writes nothing.
+    ``out``: the four output tensors to write into (else new ones). With
+    ``pdl`` the launch may start while the kernel before it on the stream
+    runs (the chain, which releases it early) and reads ``sel``, ``delta``
+    and ``bad`` only once that kernel is done; without it, it is a plain
+    launch that starts after that kernel has ended."""
     dev = key3.device
     D, C = sel.shape
     if not key3.is_cuda or key3.dim() != 2 or key3.shape[0] != 3 * D * C * R:
@@ -273,39 +290,67 @@ def timeshard_gather_cuda(key3, p3, g3, eop3, sel, delta, *, R):
     key3 = _check(key3, shape, "key3", dev)
     p3 = _check(p3, shape, "p3", dev)
     g3 = _check(g3, shape, "g3", dev)
-    if eop3.dim() != 3 or eop3.shape[0] != 3 * D * C:
+    if eop3.dim() != 3 or eop3.shape[0] != 3 * D * C \
+            or eop3.shape[2] != META_FIELDS:
         raise ValueError("timeshard_gather: eop3 must be int32 "
                          "[3*D*C, G*E, 9]")
     eop3 = _check(eop3, tuple(eop3.shape), "eop3", dev)
     sel = _check(sel, (D, C), "sel", dev)
     delta = _check(delta, (D, C), "delta", dev)
-    GE, F = eop3.shape[1:]
+    GE = eop3.shape[1]
     if GE % G:
         raise ValueError("timeshard_gather: eop3 rows must be G*E")
-    key = torch.empty((C * R, D * G), dtype=torch.int32, device=dev)
-    p = torch.empty_like(key)
-    g = torch.empty_like(key)
-    eop = torch.empty((C, D * GE, F), dtype=torch.int32, device=dev)
+    if max(key3.numel(), eop3.numel()) >= 1 << 31:
+        raise ValueError("timeshard_gather: the kernel's offsets are 32-bit")
+    if skip_if_bad is not None:
+        skip_if_bad = _check(skip_if_bad, (1,), "skip_if_bad", dev)
+    shapes = [(C * R, D * G)] * 3 + [(C, D * GE, META_FIELDS)]
+    if out is None:
+        out = tuple(torch.empty(sh, dtype=torch.int32, device=dev)
+                    for sh in shapes)
+    elif any(t.shape != sh or t.dtype != torch.int32 or t.device != dev
+             or not t.is_contiguous() for t, sh in zip(out, shapes)):
+        raise ValueError("timeshard_gather: out must be four contiguous "
+                         "int32 tensors of the outputs' shapes on the "
+                         "input's device")
     fn = _cuda.launcher("timeshard_gather")
     _cuda.LAUNCHES["timeshard_gather"] += 1
     err = fn(key3.data_ptr(), p3.data_ptr(), g3.data_ptr(), eop3.data_ptr(),
-             sel.data_ptr(), delta.data_ptr(), D, C, R, G, GE // G * F,
-             key.data_ptr(), p.data_ptr(), g.data_ptr(), eop.data_ptr(),
-             _cuda.stream_of(key3))
+             sel.data_ptr(), delta.data_ptr(),
+             None if skip_if_bad is None else skip_if_bad.data_ptr(),
+             int(skip_if_bad is not None), int(pdl), D, C, R, G, GE,
+             *(t.data_ptr() for t in out), _cuda.stream_of(key3))
     _cuda.check(err, "timeshard_gather")
-    return key, p, g, eop
+    return out
 
 
-def timeshard_gather(key3, p3, g3, eop3, sel, delta, *, R):
-    """Each segment's selected candidate's logs, as the block's.
+def timeshard_chain_gather(start, fin, rowinfo, key3, p3, g3, eop3, *, D,
+                           ratio, R, debug=False):
+    """The verified step's chain, then its gather, and the one read of the
+    chain's verdict.
 
-    ``key3``/``p3``/``g3`` int32 ``[3*D*C*R, G]`` and ``eop3`` ``[3*D*C,
-    G*E, 9]``: the candidate lanes' logs; ``sel``/``delta`` ``[D, C]`` from
-    :func:`timeshard_chain`. Returns ``(log_key, log_p, log_g)`` ``[C*R,
-    D*G]`` and ``eop_log`` ``[C, D*G*E, 9]``, segment ``d`` at columns
-    ``d*G..``: valid keys gain ``delta << KEY_IDX_BITS`` and valid EOPs'
-    ``M_GEN`` gains ``delta``. Launches the CUDA kernel for a CUDA tensor,
-    and runs the plain version for a CPU tensor.
+    Returns ``(chain, ok, logs)``: ``chain`` is :func:`timeshard_chain`'s
+    ``(sel, delta, out, by_key, bad)``, ``ok`` whether every link
+    verified, ``logs`` the gather's four tensors, or None
+    where the block failed and ``debug`` is off. On the card the gather is
+    launched right behind the chain, before the host reads ``bad``, and
+    writes nothing where the chain failed (under ``debug`` it gathers
+    whatever the chain selected, as JAX does); so there is no host round
+    trip between the two launches, and a failed block costs one gather
+    launch that returns early. On the CPU the plain gather runs after the
+    read, only where the block verified or under ``debug``.
     """
-    run = timeshard_gather_cuda if key3.is_cuda else timeshard_gather_plain
-    return run(key3, p3, g3, eop3, sel, delta, R=R)
+    chain = timeshard_chain(start, fin, rowinfo, D=D, ratio=ratio)
+    sel, delta, bad = chain[0], chain[1], chain[4]
+    logs = None
+    if start.is_cuda:
+        logs = timeshard_gather_cuda(key3, p3, g3, eop3, sel, delta, R=R,
+                                     skip_if_bad=None if debug else bad)
+    ok = not bad.item()
+    if not (ok or debug):
+        return chain, ok, None
+    if logs is None:
+        logs = timeshard_gather_plain(key3, p3, g3, eop3, sel, delta, R=R)
+    else:
+        _cuda.LAUNCHES["timeshard_gather_copied"] += 1
+    return chain, ok, logs

@@ -43,7 +43,9 @@ On one card the segments are not devices: the D halos, and the 3 x D
 candidate segments, are lanes of one front-end and one detector launch
 with a per-lane origin (``ops/frontend.py``, ``ops/detector.py``); the
 verification chain and the candidate gather are ``csrc/timeshard.cu``
-(``ops/timeshard.py``). The front end never reads ``low_est``, so it runs
+(``ops/timeshard.py``), both launched before the host reads the chain's
+verdict (the gather waits on the card for the chain, and writes nothing
+where it failed). The front end never reads ``low_est``, so it runs
 once per (segment, channel) and the three candidates' detector lanes read
 the same am/fm columns. A mesh is ``Mesh([device] * D, ("sp",))``: D
 entries of ONE device. A mesh over several distinct devices is not ported
@@ -62,7 +64,7 @@ from ..dsp.engine import (SEG, DetectorParams, _drain_block, _flush,
 from ..ops.detector import (KEY_INVALID, M_TYPE, NREG, PKG_NONE, REG_KEYS,
                             ST_IDLE, detector_scan, pack_regs, unpack_regs)
 from ..ops.frontend import STATE_KEYS, frontend
-from ..ops.timeshard import timeshard_chain, timeshard_gather, verify_layout
+from ..ops.timeshard import timeshard_chain_gather, verify_layout
 from .sharding import Mesh, ShardedEngine
 
 # State keys that are legitimately different between a speculative run and
@@ -162,8 +164,9 @@ def timeshard_process_block(params: DetectorParams, mesh: Mesh,
     result is bit-identical to :func:`~..dsp.engine.process_block`; False
     means the caller MUST discard the returned state and re-run the block
     sequentially (see :class:`TimeShardEngine`): without ``debug`` the step
-    then stops after the chain and returns the incoming ``state``, with
-    ``debug`` it runs to the end as JAX does. With ``debug`` a fourth
+    then stops after the chain (and, on the card, the gather launched
+    behind it, which writes nothing) and returns the incoming ``state``,
+    with ``debug`` it runs to the end as JAX does. With ``debug`` a fourth
     value is the per-link, per-key failure flags, bool ``[D-1, K]`` in the
     order of :func:`~..ops.timeshard.verify_layout`.
     """
@@ -250,18 +253,18 @@ def timeshard_process_block(params: DetectorParams, mesh: Mesh,
             params=params, n_valid=nv, lane_t0=seg_t0.repeat(3))
         fin = torch.cat([regs3, fe_rows.repeat(1, 3)])
 
-        # verification chain, candidate select, generation rebase
-        sel, delta, out, by_key, bad = timeshard_chain(
-            start, fin, rowinfo, D=D, ratio=ratio)
+        # verification chain, candidate select, generation rebase: on the
+        # card both launches are queued before the one read of the verdict
+        (_, _, out, by_key, _), ok, logs = timeshard_chain_gather(
+            start, fin, rowinfo, key3, p3, g3, eop3, D=D, ratio=ratio, R=R,
+            debug=debug)
         # the level is the mean of the segments' levels (JAX's pmean)
         avg_db = avg.view(D, C).mean(0)
-        ok = not bool(bad.any())
-        if not ok and not debug:
+        if logs is None:
             # the caller discards a failed step's result and replays the
-            # block: skip the gather, flush and drain
+            # block: skip the flush and drain
             return state, avg_db, False
-        log_key, log_p, log_g, eop_log = timeshard_gather(
-            key3, p3, g3, eop3, sel, delta, R=R)
+        log_key, log_p, log_g, eop_log = logs
 
         regs = unpack_regs(out[:NREG], regs)
         for i, k in enumerate(STATE_KEYS):

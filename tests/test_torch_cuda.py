@@ -842,8 +842,15 @@ def test_timeshard_chain_kernel_matches_plain(seed, D, C):
         assert int(want[4][0]) == 1 and int(want[3].ne(0).sum()) > 0
 
 
+# (8, 1, 8, 128, 2): the smoke's shape at D=8 (16-byte copies, two EOP
+# chunks a run); G=2, 9, 7 and 33 and G*E = 6, 9, 21 and 66: runs not
+# 16-byte aligned (G=33: a record run past 32 lanes, three EOP chunks);
+# G=80: a last EOP chunk of 8 items; C=70: units over many CTAs
 @pytest.mark.parametrize("D,C,R,G,E", [(8, 3, 8, 4, 2), (32, 1, 8, 32, 2),
-                                       (1, 2, 4, 2, 3), (4, 70, 2, 9, 1)])
+                                       (1, 2, 4, 2, 3), (4, 70, 2, 9, 1),
+                                       (8, 1, 8, 128, 2), (3, 5, 3, 7, 3),
+                                       (2, 70, 8, 128, 2), (2, 3, 4, 33, 2),
+                                       (2, 2, 2, 80, 2)])
 def test_timeshard_gather_kernel_matches_plain(D, C, R, G, E):
     from rtl_433_tpu_torch.ops import timeshard as ots
     from torch_timeshard_cases import random_logs
@@ -856,6 +863,137 @@ def test_timeshard_gather_kernel_matches_plain(D, C, R, G, E):
     want = ots.timeshard_gather_plain(*args, R=R)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+def test_timeshard_gather_kernel_unaligned_pointers():
+    """Inputs and outputs that start 4 bytes past a 16-byte boundary (G and
+    G*E multiples of 4): the scalar copies, equal to the plain version."""
+    from rtl_433_tpu_torch.ops import timeshard as ots
+    from torch_timeshard_cases import random_logs
+    dev = _gpu()
+    D, C, R, G, E = 8, 2, 8, 32, 2
+    args = [torch.from_numpy(a) for a in random_logs(11, D, C, R, G, E)]
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=torch.int32, device=dev)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        return v
+    ins = [shifted(a) for a in args[:4]] + [a.to(dev) for a in args[4:]]
+    assert all(a.data_ptr() % 16 == 4 for a in ins[:4])
+    want = ots.timeshard_gather_plain(*args, R=R)
+    out = [shifted(torch.zeros_like(w)) for w in want]
+    got = ots.timeshard_gather_cuda(*ins, R=R, out=out)
+    torch.cuda.synchronize()
+    for g, o, w in zip(got, out, want):
+        assert g.data_ptr() == o.data_ptr()
+        assert torch.equal(g.cpu(), w)
+
+
+def _pair_case(seed, D, C, dev):
+    """A chain (random_chain: links that fail for D > 2) and candidate logs
+    of the same D and C, on the card."""
+    from rtl_433_tpu_torch.ops import timeshard as ots
+    from rtl_433_tpu_torch.parallel import timeshard as pts
+    from torch_timeshard_cases import random_chain, random_logs
+    start, fin = random_chain(seed, D, C)
+    _, rowinfo = ots.verify_layout(*pts._verify_keys(DetectorParams()),
+                                   pts._COUNTER_KEYS)
+    chain = [torch.from_numpy(start).to(dev), torch.from_numpy(fin).to(dev),
+             rowinfo.to(dev)]
+    logs = [torch.from_numpy(a).to(dev)
+            for a in random_logs(seed, D, C, 8, 128, 2)[:4]]
+    return chain, logs
+
+
+@pytest.mark.parametrize("seed,D,C", [(1, 8, 1), (2, 32, 1), (3, 8, 70),
+                                      (4, 1, 3)])
+def test_timeshard_gather_behind_the_chain(seed, D, C):
+    """The gather enqueued right behind the chain, as the step enqueues it,
+    before any host read: with skip_if_bad on a chain that fails (D > 2)
+    it writes nothing (the sentinel fill stays), on one that verifies
+    (D=1) it equals the plain version; without skip_if_bad it gathers what
+    the chain selected, also where the chain failed."""
+    from rtl_433_tpu_torch.ops import timeshard as ots
+    dev = _gpu()
+    chain, logs = _pair_case(seed, D, C, dev)
+    ratio = DetectorParams().ook_high_low_ratio
+    R = 8
+    sentinel = -0x5a5a5a5b
+    for skip in (True, False):
+        sel, delta, _, _, bad = ots.timeshard_chain_cuda(*chain, D=D,
+                                                         ratio=ratio)
+        shapes = [(C * R, D * 128)] * 3 + [(C, D * 256, 9)]
+        out = [torch.full(sh, sentinel, dtype=torch.int32, device=dev)
+               for sh in shapes]
+        got = ots.timeshard_gather_cuda(*logs, sel, delta, R=R,
+                                        skip_if_bad=bad if skip else None,
+                                        out=out)
+        torch.cuda.synchronize()
+        failed = int(bad[0]) != 0
+        assert failed == (D > 2)
+        want = ots.timeshard_gather_plain(*(a.cpu() for a in logs),
+                                          sel.cpu(), delta.cpu(), R=R)
+        for g, w in zip(got, want):
+            if skip and failed:
+                assert bool((g == sentinel).all())
+            else:
+                assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("seed,D,C", [(7, 8, 1), (8, 1, 70)])
+def test_timeshard_gather_plain_launch(seed, D, C):
+    """The gather as a plain launch (pdl=False, which the smoke times the
+    kernel alone with) behind the chain: the same outputs as with PDL,
+    nothing written behind a chain that fails (D > 2)."""
+    from rtl_433_tpu_torch.ops import timeshard as ots
+    dev = _gpu()
+    chain, logs = _pair_case(seed, D, C, dev)
+    ratio = DetectorParams().ook_high_low_ratio
+    sentinel = -0x5a5a5a5b
+    sel, delta, _, _, bad = ots.timeshard_chain_cuda(*chain, D=D,
+                                                     ratio=ratio)
+    want = ots.timeshard_gather_plain(*(a.cpu() for a in logs), sel.cpu(),
+                                      delta.cpu(), R=8)
+    out = [torch.full_like(w, sentinel).to(dev) for w in want]
+    got = ots.timeshard_gather_cuda(*logs, sel, delta, R=8, skip_if_bad=bad,
+                                    out=out, pdl=False)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        if D > 2:
+            assert bool((g == sentinel).all())
+        else:
+            assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("debug", [False, True])
+def test_timeshard_chain_gather_counts(debug):
+    """timeshard_chain_gather on the card: one chain and one gather launch
+    for a block that fails and one that verifies; the gather counts as
+    copied where the block verified, or under debug (its logs then equal
+    the plain version's on the chain's selection); a failed block without
+    debug gives no logs."""
+    from rtl_433_tpu_torch.ops import timeshard as ots
+    dev = _gpu()
+    ratio = DetectorParams().ook_high_low_ratio
+    _cuda.reset_launches()
+    for n, (seed, D) in enumerate(((5, 8), (6, 1)), 1):
+        chain, logs = _pair_case(seed, D, 2, dev)
+        (sel, delta, *_), ok, got = ots.timeshard_chain_gather(
+            *chain, *logs, D=D, ratio=ratio, R=8, debug=debug)
+        assert ok == (D == 1)
+        assert _cuda.LAUNCHES["timeshard_chain"] == n
+        assert _cuda.LAUNCHES["timeshard_gather"] == n
+        if not ok and not debug:
+            assert got is None
+        else:
+            want = ots.timeshard_gather_plain(*(a.cpu() for a in logs),
+                                              sel.cpu(), delta.cpu(), R=8)
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w)
+    assert _cuda.LAUNCHES["timeshard_gather_copied"] == (2 if debug else 1)
+    _cuda.reset_launches()
+    assert _cuda.LAUNCHES["timeshard_gather_copied"] == 0
 
 
 @pytest.mark.parametrize("D,cut", [(8, 0), (32, 0), (8, 40000)])

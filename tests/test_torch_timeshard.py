@@ -491,7 +491,7 @@ def test_chain_plan(D, C, want):
 @pytest.mark.parametrize("D,C,R,G,E", [(8, 3, 8, 4, 2), (2, 1, 2, 16, 1),
                                        (1, 2, 4, 2, 3)])
 def test_plain_gather_matches_the_jax_lines(D, C, R, G, E):
-    """timeshard_gather against JAX's select and rebase (:245-265) per
+    """timeshard_gather_plain against JAX's select and rebase (:245-265) per
     segment, concatenated along the segment axis as its out_specs do."""
     key3, p3, g3, eop3, sel, delta = random_logs(D * 100 + C, D, C, R, G,
                                                  E)
@@ -516,10 +516,88 @@ def test_plain_gather_matches_the_jax_lines(D, C, R, G, E):
             jnp.where(evalid, jnp.asarray(delta[d])[:, None], 0))
         outs.append([np.asarray(v) for v in (ky, py, gy, ey)])
     want = [np.concatenate([o[i] for o in outs], 1) for i in range(4)]
-    got = ots.timeshard_gather(*(torch.from_numpy(a) for a in
-                                 (key3, p3, g3, eop3, sel, delta)), R=R)
+    got = ots.timeshard_gather_plain(*(torch.from_numpy(a) for a in
+                                       (key3, p3, g3, eop3, sel, delta)),
+                                     R=R)
     for g, w in zip(got, want):
         assert np.array_equal(g.numpy(), w)
+
+
+# ---- the order of the CPU step: chain, the verdict, then the plain gather
+# only where the block verified or under debug
+
+def _counting_plain_gather(monkeypatch):
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append(1)
+        return plain(*args, **kw)
+    plain = ots.timeshard_gather_plain
+    monkeypatch.setattr(ots, "timeshard_gather_plain", spy)
+    return calls
+
+
+@pytest.mark.parametrize("seed,D,debug", [(1, 1, False), (2, 8, False),
+                                          (3, 8, True)])
+def test_chain_gather_pair_on_the_cpu(seed, D, debug, monkeypatch):
+    """timeshard_chain_gather on CPU tensors: the chain's five outputs, the
+    verdict read from ``bad``, and the plain gather's logs where the block
+    verified (D=1: no link) or under debug; a failed block without debug
+    gives no logs and never calls the gather."""
+    C, R, G, E = 3, 4, 8, 2
+    start, fin = random_chain(seed, D, C)
+    _, rowinfo = ots.verify_layout(*pts._verify_keys(te.DetectorParams()),
+                                   pts._COUNTER_KEYS)
+    ratio = te.DetectorParams().ook_high_low_ratio
+    key3, p3, g3, eop3, _, _ = (torch.from_numpy(a) for a in
+                                random_logs(seed, D, C, R, G, E))
+    args = (torch.from_numpy(start), torch.from_numpy(fin), rowinfo)
+    calls = _counting_plain_gather(monkeypatch)
+    chain, ok, logs = ots.timeshard_chain_gather(
+        *args, key3, p3, g3, eop3, D=D, ratio=ratio, R=R, debug=debug)
+    want = ots.timeshard_chain_plain(*args, D=D, ratio=ratio)
+    for g, w in zip(chain, want):
+        assert torch.equal(g, w)
+    assert ok == (D == 1) == (int(want[4][0]) == 0)
+    if ok or debug:
+        assert len(calls) == 1
+        for g, w in zip(logs, ots.timeshard_gather_plain(
+                key3, p3, g3, eop3, want[0], want[1], R=R)):
+            assert torch.equal(g, w)
+    else:
+        assert logs is None and not calls
+
+
+def test_failed_block_under_debug_gathers_as_jax(monkeypatch):
+    """A package longer than a 2-chunk halo across a segment boundary: the
+    block fails in both packages. Under debug the CPU step still gathers
+    (once, after the verdict) and drains, and its whole outgoing state
+    equals JAX's debug step; without debug it never gathers and returns
+    the incoming state."""
+    jp = je.DetectorParams()
+    blk, n = _pad(_long_package_sig(), 8)
+    state = {k: np.asarray(v) for k, v in je.detector_init(jp, 1).items()}
+    js, javg, jok, _ = _jax_step(jp, 8, 2, True)(
+        {k: jnp.asarray(v) for k, v in state.items()}, jnp.asarray(blk),
+        jnp.int32(n))
+    assert not bool(jok)
+    x = torch.from_numpy(np.ascontiguousarray(blk))
+    calls = _counting_plain_gather(monkeypatch)
+    for debug in (False, True):
+        fn = pts.timeshard_process_block(params_from_jax(jp), _mesh(8),
+                                         halo_chunks=2, flush=True,
+                                         debug=debug)
+        st = state_from_numpy(state, CPU)
+        out = fn(st, x, n)
+        assert out[2] is False
+        assert len(calls) == int(debug)
+        assert (out[0] is st) == (not debug)
+    ts = state_to_numpy(out[0])
+    assert sorted(ts) == sorted(js)
+    for k in js:
+        assert np.array_equal(ts[k], np.asarray(js[k])), k
+    assert any(not np.array_equal(ts[k], state[k]) for k in state)
+    assert np.allclose(np.asarray(javg), out[1].numpy(), atol=1e-4)
 
 
 # ---- per-lane origins: one launch for many regions == one call per region
