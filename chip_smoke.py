@@ -6,6 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --mic-only`` runs phases 1 and 4e alone,
+``--replay-cli-only`` phases 1 and 5d,
 ``--compact-only`` phase 1 and phase 4b's checks and times without the
 profiler or the host split, and ``--timeshard-only`` phase 6c on
 lacrosse_tx35 alone, against the rtl_433_tpu_torch package beside the
@@ -97,6 +98,25 @@ Phases, each printing one JSON line (any failure exits non-zero):
               DeclRunner.decode_many of those decodes timed on the card
               and on the NumPy host backend on the same items (the same
               result), with its kernel, plain and bound times;
+5d. replay_cli -- the port's CLI (cli.main in this process, stdout and
+              stderr captured, the API's clock pinned by
+              tests/torch_replay_cases.py) on the card, each run byte for
+              byte and exit code equal to the same argv with --device cpu:
+              a -X flex decoder made from the timings of nexus (OOK_PPM),
+              lacrosse_tx141x (OOK_PWM) and lacrosse_tx35 (FSK_PCM) alone
+              (-R 0) on its capture, on the default path and with -Y
+              deviceslice (the same output); three conf files (-c) beside
+              -R <protocol> with device slicing (the protocol's committed
+              events among the output); nexus as SigMF (io/sigmf.py's
+              writer) and as .ook pulse text (PulseData.dump of the
+              replay's packages), each with the .cu8 replay's events; and
+              one run each of -F csv, log, jsons, null, -M level/protocol/
+              time:unix:usec:utc, -M stats:1, -C si, -v and -vvv. The
+              launch counts are set to 0 before the card's runs and read
+              after them (the front end, the detector, the PPM, PWM and
+              PCM slicers, the dedup, the gather and the bank must each
+              launch), then every device-slicing kernel call of those runs
+              is held to its plain version;
 6. stream  -- nexus and lacrosse_tx35 concatenated 64 times, lacrosse_tx29
               16 times, decoded end to end: copies x the committed events;
               MS/s and ms/block, then the same decode under torch.profiler
@@ -180,11 +200,11 @@ Phases, each printing one JSON line (any failure exits non-zero):
               C=1 at the SM clock that nvidia-smi read while the same
               launch ran back to back (sm_clock_mhz). The front end and the
               detector are timed at C=1, the shape of file replay, and at
-              C=4096; compaction at the multichannel phase's real state;
+              C=4096, with their launches on the replay_cli phase beside; compaction at the multichannel phase's real state;
               the device-slicing kernels (slice_<family>, content_dup,
               gather_records) with their launches on the device-slicing
-              paths and their times summed over every one of one
-              dense_4096 drain's calls (NRZS, which no default spec runs,
+              paths (replay_cli's among them) and their times summed over
+              every one of one dense_4096 drain's calls (NRZS, which no default spec runs,
               at its fuzz call), and per path (fixtures, mixed_250k,
               mixed_1024k, the dense_4096 drain) their device ms summed
               over every recorded call of that path (ms_by_path beside
@@ -2695,6 +2715,150 @@ def multihost_phase(dev, mh_dir, warm_blocks):
             "processes_wall_s": wall}
 
 
+# the kernels of the replay_cli phase: the front end and detector of every
+# replay, and device slicing's over the flex and conf runs (OOK_PPM,
+# OOK_PWM and FSK_PCM specs; nexus and prologue reach the bank)
+REPLAY_CLI_KERNELS = REPLAY_KERNELS + ("slice_ppm", "slice_pwm", "slice_pcm",
+                                       "content_dup", "gather_records",
+                                       "decl_bank")
+
+
+def replay_cli_phase(compare):
+    """Phase 5d: the port's CLI (``cli.main``, in this process, stdout and
+    stderr captured, the API's clock pinned) on the card. Every run is held,
+    byte for byte with its exit code, to the same argv with ``--device
+    cpu``; the launch counts are set to 0 before the card's runs and read
+    after them; every device-slicing kernel call of those runs is then held
+    to its plain version."""
+    import torch
+    from rtl_433_tpu_torch import cli
+    from rtl_433_tpu_torch.decoders import base as dbase
+    from rtl_433_tpu_torch.decoders.flex import MODULATIONS
+    from rtl_433_tpu_torch.io import load_iq, sigmf
+    from rtl_433_tpu_torch.ops import _cuda
+    from torch_fixture_cases import expected, normalize
+    from torch_replay_cases import (CONF, CONF_RUNS, FLEX_FIXTURES,
+                                    OPTION_RUNS, fixture, flex_spec, run_cli)
+
+    t_phase = time.perf_counter()
+    secs = {"card": 0.0, "cpu": 0.0}
+    calls = []
+
+    def card(argv, record=False):
+        t = time.perf_counter()
+        if record:
+            with ds_recorder(calls):
+                res = run_cli(cli.main, argv)
+        else:
+            res = run_cli(cli.main, argv)
+        torch.cuda.synchronize()
+        secs["card"] += time.perf_counter() - t
+        return res
+
+    def held(what, argv, record=False):
+        """``argv`` on the card and with --device cpu: the same exit code,
+        stdout and stderr; exit code 0. Returns stdout."""
+        got = card(argv, record)
+        t = time.perf_counter()
+        want = run_cli(cli.main, argv + ["--device", "cpu"])
+        secs["cpu"] += time.perf_counter() - t
+        if got != want:
+            fail(f"replay_cli {what}: the card's run differs from "
+                 f"--device cpu: rc {got[0]} vs {want[0]}, stdout "
+                 f"{got[1][:400]!r} vs {want[1][:400]!r}, stderr "
+                 f"{got[2][-400:]!r} vs {want[2][-400:]!r}")
+        if got[0] != 0:
+            fail(f"replay_cli {what}: exit code {got[0]}: {got[2][-400:]}")
+        return got[1]
+
+    def events(out):
+        return [json.loads(ln) for ln in out.splitlines()]
+
+    reg = dbase.Registry()
+    runs = {}
+    _cuda.reset_launches()
+    # flex decoders made from a registered device's timings, alone (-R 0),
+    # on the default path and with device slicing
+    for name, num in FLEX_FIXTURES:
+        spec = flex_spec(reg.get(num), MODULATIONS, name=f"flex_{name}")
+        argv = ["-R", "0", "-X", spec, "-r", fixture(name), "-F", "json"]
+        out = held(f"flex {name}", argv)
+        evs = events(out)
+        if not evs or any(e["model"] != f"flex_{name}" for e in evs):
+            fail(f"replay_cli flex {name}: {evs}")
+        if held(f"flex {name}, device slicing", argv + ["-Y", "deviceslice"],
+                record=True) != out:
+            fail(f"replay_cli flex {name}: device slicing differs")
+        runs[f"flex_{name}"] = len(evs)
+    # conf files (-c) beside -R <protocol>, with device slicing: the
+    # protocol's events are the committed ones
+    for conf, name, num in CONF_RUNS:
+        path = fixture(name)
+        out = held(f"-c {conf}", ["-c", os.path.join(CONF, conf), "-R",
+                                  str(num), "-r", path, "-F", "json", "-Y",
+                                  "deviceslice"], record=True)
+        evs = [normalize(e) for e in events(out)]
+        want = expected(path)
+        models = {w["model"] for w in want}
+        if [e for e in evs if e["model"] in models] != want:
+            fail(f"replay_cli -c {conf}: {evs} lacks {want}")
+        runs[f"conf_{conf}"] = {"events": len(evs),
+                                "flex_events": len(evs) - len(want)}
+    if not any(runs[f"conf_{c}"]["flex_events"] for c, _n, _p in CONF_RUNS):
+        fail("replay_cli: no conf file's flex decoder decoded")
+    # SigMF and .ook input against the capture's own replay
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        path = fixture("nexus")
+        base = ["-R", "19", "-F", "json"]
+        pds = []
+        real = dbase.Registry.run_ook_demods
+
+        def keep(self, pd, cb):
+            pds.append(pd)
+            return real(self, pd, cb)
+
+        with patched((dbase.Registry, "run_ook_demods", keep)):
+            ref = card(base + ["-r", path])
+        if ref[0] != 0 or not ref[1]:
+            fail(f"replay_cli: the nexus replay failed: {ref}")
+        sm = os.path.join(tmp, "nexus.sigmf")
+        sigmf.write(sm, load_iq(path, "cu8"), 250_000, 433_920_000)
+        if held("SigMF", base + ["-r", sm]) != ref[1]:
+            fail("replay_cli: the SigMF replay differs from the .cu8's")
+        ook = os.path.join(tmp, "nexus_433.92M_250k.ook")
+        with open(ook, "w") as f:
+            f.write("".join(pd.dump() for pd in pds))
+        strip = lambda out: [dict(e, time=None) for e in events(out)]
+        if strip(held(".ook", base + ["-r", ook])) != strip(ref[1]):
+            fail("replay_cli: the .ook replay differs from the .cu8's")
+        runs["sigmf_events"] = len(events(ref[1]))
+        runs["ook_packages"] = len(pds)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # one run each of the replay options
+    for opts in OPTION_RUNS:
+        held(" ".join(opts), ["-R", "19", "-r", path] + opts)
+    runs["options"] = len(OPTION_RUNS)
+    launches = {k: _cuda.LAUNCHES[k]
+                for k in REPLAY_KERNELS + tuple(ds_kernel_names())}
+    for k in REPLAY_CLI_KERNELS:
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the replay_cli phase")
+    t = time.perf_counter()
+    checked = ds_check(calls, compare, "replay_cli with device slicing")
+    check_s = time.perf_counter() - t
+    if any(checked.get(k, 0) < launches[k] for k in ds_kernel_names()):
+        fail(f"replay_cli: the checked kernel calls {checked} are fewer "
+             f"than the launches {launches}")
+    return {"phase": "replay_cli", "runs": runs,
+            "card_s": secs["card"], "cpu_s": secs["cpu"],
+            "check_s": check_s,
+            "seconds_total": time.perf_counter() - t_phase,
+            "launches": launches, "checked": checked, "bit_exact": True,
+            "nvidia_smi": smi_line()}, launches
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "rtl_433_tpu_torch")):
         print("chip_smoke: run me from the root of a checkout (the "
@@ -2786,6 +2950,13 @@ def main():
             emit(r)
         emit({"phase": "timeshard_only", "launches": launches,
               "numbers": numbers, "nvidia_smi": smi_line()})
+        return 0
+    if "--replay-cli-only" in sys.argv[1:]:
+        # phase 5d alone, for a first check of the CLI on the card
+        _cuda.build()
+        _native.build()
+        get_runner()
+        emit(replay_cli_phase(compare)[0])
         return 0
     if "--compact-only" in sys.argv[1:]:
         # the compaction wrapper and kernel alone at phase 4b's states,
@@ -3205,6 +3376,12 @@ def main():
           "check_seconds": round(check_s, 3),
           "decl": decl_paths["fixtures"]})
 
+    # ---- 5d. replay_cli: the port's CLI on the card against --device cpu
+    rc_line, rc_launches = replay_cli_phase(compare)
+    emit(rc_line)
+    ds_paths["replay_cli"] = {k: rc_launches[k] for k in ds_kernel_names()}
+    launches_cli = {k: rc_launches[k] for k in REPLAY_KERNELS}
+
     # ---- 6. stream: fixtures concatenated, decoded untraced and traced
     from torch.profiler import ProfilerActivity, profile
     from rtl_433_tpu_torch.decoders import garage
@@ -3498,6 +3675,7 @@ def main():
             "bound_ms_c4096": 4096 * max(bytes_ms, ops_ms),
             "launches_multichannel": mc_launches[k],
             "launches_timeshard": ts_launches[k],
+            "launches_replay_cli": launches_cli[k],
             "shape": [1, N_BLOCK]})
     m = kinds["compact"]
     rows.append({
@@ -3625,6 +3803,7 @@ def main():
                 "skip_chain_ms", "skip_D")})
     emit({"processes": {"live_children_stopped": stop_children()}})
     emit({"kernel_launches": launches,
+          "kernel_launches_replay_cli": launches_cli,
           "kernel_launches_multichannel": mc_launches,
           "kernel_launches_device_slice": ds_paths,
           "kernel_launches_timeshard": ts_launches,

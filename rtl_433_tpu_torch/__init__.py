@@ -8,7 +8,7 @@ Python, apart from the batch slicer bank of the default decode dispatch
 
 Layer map:
 
-- ``io``       -- file names and cu8 sample loading.
+- ``io``       -- file names, sample loading and SigMF archives.
 - ``dsp``      -- baseband ops and the block engine: front end, detector
                   scan and the record-log drain over ``[channels, block]``.
 - ``ops``      -- the CUDA kernels' wrappers, each beside its plain version;
@@ -16,8 +16,10 @@ Layer map:
 - ``pulse``    -- pulse-train data model and slicers (pulse widths -> bits),
                   per decoder and as one native batch.
 - ``bits``     -- 2-D bit buffers and bit/CRC/LFSR utilities.
-- ``decoders`` -- protocol registry (the ``-R <n>`` contract) and decoders.
-- ``output``   -- events and output sinks.
+- ``decoders`` -- protocol registry (the ``-R <n>`` contract), decoders and
+                  the flex decoder of ``-X``.
+- ``output``   -- events, output sinks and the logging facade.
+- ``confparse``, ``cli`` -- conf files (``-c``) and the command line.
 """
 
 __version__ = "0.1.0"

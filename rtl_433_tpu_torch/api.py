@@ -5,15 +5,15 @@ state, the protocol registry and the output sinks; drives IQ blocks through
 the engine on ``device`` and routes published packages through slicers +
 decoders to events (ref src/r_flow.c:104-372, src/r_api.c:632-839).
 
-This slice carries file replay (``-r``) and ``[C, N, 2]`` multi-channel
+It carries file replay (``-r``: cu8/cs8/cs16/cf32 samples, SigMF archives,
+``.ook`` pulse text, ``-M replay`` pacing) and ``[C, N, 2]`` multi-channel
 blocks through ``push_block``, the ``-y`` test-string entry point
 (``decode_test_string``), the noise floor (squelch, ``-M noise`` reports and
-autolevel, from channel 0's block level), and the body of the ``-M stats``
-report (``stats_report``, ``flush_report_data``) over the frame and
-per-decoder counters. Live input, dumpers, raw taps, the sample grabber
-(``-S``), the pulse analyzer (``-A``) and SigMF are not ported yet and raise
-when asked for; the stats report's interval trigger and CLI flag are not
-ported yet.
+autolevel, from channel 0's block level), the ``-M stats`` reports (interval
+and on-demand, ``_maybe_interval_stats``), the ``-M time`` formats, and the
+log fan-out through the sinks (``redirect_logging``) with the decoder and
+pulse debug dumps of ``-v``. Live input and the pulse analyzer (``-A``) are
+not ported yet and raise when asked for.
 """
 
 from __future__ import annotations
@@ -33,7 +33,8 @@ from .dsp.engine import (DetectorParams, PKG_FSK, detector_init,
 from .io import load_iq, parse_filename
 from .ops._cuda import resolve_device
 from .output.data_model import Event, convert_units
-from .output.logger import LOG_ERROR, LOG_NOTICE, LOG_WARNING, print_logf
+from .output.logger import (LOG_ERROR, LOG_NOTICE, LOG_TRACE, LOG_WARNING,
+                            print_logf)
 from .pulse import slicers as _slicers
 from .pulse.data import PulseData, rfraw_check, rfraw_parse
 
@@ -55,7 +56,7 @@ class RtlTpu:
                  convert: str = "native",         # native|si|customary
                  report_meta: bool = False,
                  report_protocol: bool = False,
-                 report_time: str = "off",        # off|samples|iso
+                 report_time: str = "off",        # off|iso|unix
                  channels: int = 1,
                  analyze: bool = False,
                  register_all: bool = True,
@@ -77,13 +78,16 @@ class RtlTpu:
                  device="cuda"):
         if analyze:
             _not_ported("the pulse analyzer (-A)")
-        if report_time not in ("off", "samples", "iso"):
-            _not_ported(f"report_time={report_time!r}")
-        # gain_db, ppm_error, verbosity, verbose_bits and report_time_tz are
-        # accepted for the JAX package's signature; nothing of file replay
-        # reads them yet
         self.device = resolve_device(device)
-        self.fm_filter = float(fm_filter)
+        self.fm_filter = float(fm_filter)   # -Y filter= (us/Hz/ratio)
+        # -g and -p are kept for live input, which is not ported yet
+        self.gain_db = gain_db
+        self.ppm_error = int(ppm_error)
+        self.verbosity = verbosity
+        # log verbosity in logger levels: default LOG_WARNING, each -v
+        # steps one level up (ref src/r_api.c:127, src/rtl_433.c:509)
+        self.log_verbosity = 4 + int(verbosity)
+        self.verbose_bits = bool(verbose_bits)   # -M bits
         self.sample_rate = int(sample_rate)
         self.center_frequency = float(center_frequency)
         self.fsk_mode = fsk_mode
@@ -94,6 +98,7 @@ class RtlTpu:
         self.report_time = report_time
         self.report_time_hires = report_time_hires
         self.report_time_utc = report_time_utc
+        self.report_time_tz = report_time_tz
         self.channels = channels
         self.fixed_level_db = fixed_level_db
         self.min_level_db = min_level_db
@@ -105,6 +110,10 @@ class RtlTpu:
             # (Registry.prewarm_trains), then dispatched from the memo
             self.registry.device_slice = True
             self.registry.slice_device = self.device
+        # -vv enables decode-success bitbuffer logs, -vvv/-vvvv more
+        # (ref src/r_api.c:263 p->verbose derivation)
+        self.registry.decoder_verbose = max(0, int(verbosity) - 1)
+        self.registry.verbose_bits = bool(verbose_bits)
         if register_all:
             self.registry.register_all()
         self.events: List[Event] = []
@@ -125,7 +134,16 @@ class RtlTpu:
         self.noise_level = 0.0
         self.total_frames_squelch = 0
         self._last_noise_report = 0
+        # -M stats[:level][:interval] + on-demand reports
+        # (ref src/rtl_433.c:785-788, :1155-1164)
+        self.report_stats = 0
+        self.stats_interval = 600
+        self.stats_now = 0
+        self._stats_time = None
         self._frames_since = _time.time()
+        # -M replay[:N]: realtime (N-times) file replay pacing
+        # (ref src/delay_timer.c, src/rtl_433.c:1803-1810)
+        self.in_replay = 0
 
     # -- config ---------------------------------------------------------------
 
@@ -223,6 +241,7 @@ class RtlTpu:
                 self.total_frames_squelch += 1
                 self.frames_count += 1
                 self._stream_pos += N
+                self._maybe_interval_stats()
                 return 0
         self._state, avg_db = process_block(self._params, self._state, x,
                                             n_valid, flush=flush)
@@ -257,6 +276,7 @@ class RtlTpu:
         if events:
             self.frames_events += 1
         self._stream_pos += N
+        self._maybe_interval_stats()
         return events
 
     def _block_avg_db(self, x) -> float:
@@ -314,6 +334,19 @@ class RtlTpu:
         pd.calc_rssi_snr(self.sample_rate, self.center_frequency,
                          sample_size=2, use_mag_est=self.use_mag_est)
         is_fsk = pkg["type"] == PKG_FSK
+        if self.verbosity >= 3:
+            # verbosity-gated pulse-train dump (ref src/r_flow.c:279-281
+            # LOG_TRACE package print, src/pulse_data.c:193 text format)
+            kind = "FSK" if is_fsk else "OOK"
+            print_logf(LOG_TRACE, "pulse_data",
+                       "%s package, %d pulses, rssi %.1f dB snr %.1f dB "
+                       "@%d", kind, len(pd.pulse), pd.rssi_db, pd.snr_db,
+                       pd.offset)
+            if self.verbosity >= 4:
+                for i in range(len(pd.pulse)):
+                    print_logf(LOG_TRACE, "pulse_data",
+                               "[%4d] pulse %5d gap %5d",
+                               i, pd.pulse[i], pd.gap[i])
         cb = functools.partial(self._event_cb, pd=pd, is_fsk=is_fsk)
         if is_fsk:
             return self.registry.run_fsk_demods(pd, cb)
@@ -347,19 +380,61 @@ class RtlTpu:
             sink(ev)
 
     def _time_string(self, offset_samples=None):
-        """time_pos_str equivalent (ref src/r_api.c:306-332): file replay
-        stamps the stream position ("@%fs", ref src/r_util.c:153-156)."""
+        """Format the current time per -M time config (time_pos_str
+        equivalent, ref src/r_api.c:306-332)."""
         if self.report_time == "samples":
+            # file replay: position-based time (ref src/r_util.c:153-156,
+            # src/r_api.c:306-310 "@%fs")
             pos = self._stream_pos if offset_samples is None \
                 else offset_samples
             return f"@{pos / self.sample_rate:f}s"
+        # -M time:unix|iso[:usec][:utc][:tz] (ref src/r_api.c:306-332)
         now = _time.time()
         tm = (_time.gmtime(now) if self.report_time_utc
               else _time.localtime(now))
-        ts = _time.strftime("%Y-%m-%d %H:%M:%S", tm)
+        if self.report_time == "unix":
+            return (f"{int(now)}.{int(now % 1 * 1e6):06d}"
+                    if self.report_time_hires else str(int(now)))
+        # "iso8601" = -M time:iso (T separator); the default
+        # ("iso" legacy value) is the reference's date format
+        fmt = ("%Y-%m-%dT%H:%M:%S" if self.report_time == "iso8601"
+               else "%Y-%m-%d %H:%M:%S")
+        ts = _time.strftime(fmt, tm)
         if self.report_time_hires:
             ts += f".{int(now % 1 * 1e6):06d}"
+        if self.report_time_tz:
+            # "+0000" collapses to "Z" (ref src/r_util.c:120-126)
+            tzs = "+0000" if self.report_time_utc \
+                else _time.strftime("%z", tm)
+            ts += "Z" if tzs == "+0000" else tzs
         return ts
+
+    def redirect_logging(self):
+        """Fan print_log messages out through the output sinks as
+        src/lvl/msg events, gated by the global log verbosity and each
+        sink's ``log_level`` (ref log_handler + r_redirect_logging,
+        src/r_api.c:554-589; per-sink gate include/data.h:191). Call
+        after the sinks are configured; reset with
+        ``logger.set_log_handler(None)``."""
+        from .output import logger as _logger
+
+        def fan_out(level, ev):
+            if self.report_time != "off":
+                ev.prepend(("time", self._time_string()))
+            for sink in self.sinks:
+                if getattr(sink, "log_level", 0) >= level:
+                    sink(ev)
+
+        def handler(level, src, msg):
+            if self.log_verbosity < level:
+                return
+            fan_out(level, Event.make(("src", src), ("lvl", level),
+                                      ("msg", msg)))
+
+        # structured decoder logs skip the verbosity gate: the decoder's
+        # own verbose gate already ran (ref log_device_handler :610-630)
+        _logger.set_log_handler(handler, fan_out)
+        return handler
 
     def stats_report(self, level: int = 1) -> Event:
         """-M stats interval report (ref create_report_data,
@@ -403,6 +478,29 @@ class RtlTpu:
             dev.decode_messages = 0
             dev.decode_fails = {}
 
+    def _maybe_interval_stats(self):
+        """Interval (-M stats:l:s) and on-demand (``stats_now``; live
+        input's SIGUSR2, not ported yet) stats reports, checked once per
+        frame and emitted as events through every sink (ref
+        src/rtl_433.c:1155-1164)."""
+        if not (self.stats_now or (self.report_stats
+                                   and self.stats_interval)):
+            return
+        now = _time.time()
+        if self._stats_time is None:
+            self._stats_time = now + self.stats_interval
+        due = self.report_stats and now >= self._stats_time
+        if not (self.stats_now or due):
+            return
+        ev = self.stats_report(3 if self.stats_now else self.report_stats)
+        for sink in self.sinks:
+            sink(ev)
+        self.flush_report_data()
+        if due:
+            self._stats_time += self.stats_interval
+        if self.stats_now:
+            self.stats_now -= 1
+
     # -- entry points -------------------------------------------------------
 
     def decode_file(self, path: str) -> List[Event]:
@@ -411,24 +509,60 @@ class RtlTpu:
             self.report_time = "samples"  # file mode defaults to @position
         self._current_file = path
         if path.lower().endswith(".sigmf"):
-            _not_ported("SigMF input")
-        info = parse_filename(path)
-        if info.sample_rate and info.sample_rate != self.sample_rate:
-            self.sample_rate = info.sample_rate
-            self._invalidate()
-        if info.center_frequency and \
-                info.center_frequency != self.center_frequency:
-            self.center_frequency = info.center_frequency
-            self._invalidate()
-        iq = load_iq(info.path, info.format or "cu8")
+            from .io import sigmf
+            info_s = sigmf.read(path)
+            if info_s.sample_rate and info_s.sample_rate != self.sample_rate:
+                self.sample_rate = info_s.sample_rate
+                self._invalidate()
+            if info_s.frequency and \
+                    float(info_s.frequency) != self.center_frequency:
+                self.center_frequency = float(info_s.frequency)
+                self._invalidate()
+            iq = info_s.data
+        else:
+            info = parse_filename(path)
+            if info.sample_rate and info.sample_rate != self.sample_rate:
+                self.sample_rate = info.sample_rate
+                self._invalidate()
+            if info.center_frequency and \
+                    info.center_frequency != self.center_frequency:
+                self.center_frequency = info.center_frequency
+                self._invalidate()
+            fmt = info.format or "cu8"
+            if fmt == "ook":
+                return self.decode_ook_file(info.path)
+            iq = load_iq(info.path, fmt)
         self._reset_flow()
         start = len(self.events)
         n = iq.shape[0]
+        # -M replay[:N]: pace blocks against a wall-clock schedule at
+        # N-times realtime (ref delay_timer_wait, src/delay_timer.c;
+        # src/rtl_433.c:1803-1810)
+        deadline = _time.monotonic()
         for pos in range(0, max(n, 1), DEFAULT_BUF_SAMPLES):
             blk = iq[pos: pos + DEFAULT_BUF_SAMPLES]
             if blk.shape[0] == 0:
                 break
+            if self.in_replay:
+                deadline += blk.shape[0] / (self.sample_rate
+                                            * self.in_replay)
+                wait = deadline - _time.monotonic()
+                if wait > 0:
+                    _time.sleep(wait)
             self.push_block(blk, flush=pos + DEFAULT_BUF_SAMPLES >= n)
+        return self.events[start:]
+
+    def decode_ook_file(self, path: str) -> List[Event]:
+        """Replay an OOK text pulse file (ref src/rtl_433.c:1755-1794)."""
+        start = len(self.events)
+        with open(path) as f:
+            text = f.read()
+        for pd in PulseData.load_all(text, self.sample_rate):
+            cb = functools.partial(self._event_cb, pd=pd, is_fsk=pd.is_fsk)
+            if pd.is_fsk:
+                self.registry.run_fsk_demods(pd, cb)
+            else:
+                self.registry.run_ook_demods(pd, cb)
         return self.events[start:]
 
     def decode_test_string(self, code: str) -> List[Event]:
@@ -449,9 +583,12 @@ class RtlTpu:
         dummy_pd = PulseData(sample_rate=self.sample_rate)
         for dev in self.registry.active:
             for bits in _slicers.slicer_string(code):
+                sliced = bits.clone()
                 ret = dev.decode_fn(bits, dev) if dev.decode_fn else 0
-                for ev in dev.account(ret):
+                events = dev.account(ret)
+                for ev in events:
                     self._event_cb(dev, ev, pd=dummy_pd, is_fsk=dev.is_fsk)
+                self.registry.maybe_log_bitbuffer(dev, sliced, bool(events))
         return self.events[start:]
 
     def run_live(self, *args, **kwargs):

@@ -3,27 +3,51 @@
 Mirrors the rtl_433 flags of the replay path (ref src/rtl_433.c:103-167
 usage, :399-1002 parser):
 
-  -r <file>      replay a cu8 sample file (rate/freq parsed from the name,
-                 "cu8:250k:path" prefixes override); also positional
-  -y <code>      decode a test string: "{n}hex" bit rows ("{24}abcdef
-                 {24}abcdef") fed to every registered decoder, or an RfRaw
-                 "AA B1 ..." pulse string run through the demods; repeatable
-  -R [-]<n>[:<arg>]  enable only / disable protocol n (0 = disable all),
-                 with an optional decoder argument; repeatable
-  -F json|kv     output format (default: kv)
+  Input
+  -r <file>      replay a sample file (cu8/cs8/cs16/cf32/ook/sigmf; rate/freq
+                 parsed from the name, "cu8:250k:path" prefixes override);
+                 also positional
+  -y <code>      decode test data ({n}hex rows or RfRaw strings)
+  -n <n>         stop after n samples (metric suffixes ok; live input only)
+  -f <freq>      center frequency; repeat for hop list (metric suffixes ok)
+  -H <secs>      hop interval for multiple -f frequencies (live input only)
+  -s <rate>      sample rate
+  -c <file>      read options from a config file (long keywords, repeatable;
+                 rtl_433.conf is auto-loaded from CWD/XDG/etc paths)
+
+  Decoding
+  -R [-]<n>[:arg]  enable only / disable protocol n (0 = disable all)
+  -X <spec>      add a flex general-purpose decoder (same grammar as rtl_433)
   -Y <mode>      FSK detector: auto|classic|minmax[,ampest|magest]
-                 [,squelch][,autolevel[=<n>]][,deviceslice]: squelch
-                 skips noise-only frames of live input; autolevel tracks
-                 the minimum level with the noise floor; deviceslice
-                 slices each drain's pulse trains in batched kernels on
-                 the --device before decoding
-  -M noise[:<secs>]  report the block level and the noise floor every
-                 <secs> seconds (default 1); no other -M is ported yet
+                 [,level=<dB>][,minlevel=<dB>][,minsnr=<dB>][,squelch]
+                 [,autolevel[=N]][,filter=<us|Hz|ratio>][,deviceslice]:
+                 deviceslice slices each drain's pulse trains in batched
+                 kernels on the --device before decoding
+  -g <dB>, -p <ppm>  tuner gain and frequency correction (live input only)
+  -a             (deprecated in the reference; accepted, no-op)
+
+  Output
+  -F <fmt>       add an output, repeatable: json | jsons | kv | log | csv
+                 | null, each with an optional ",v=<level>" log level
+  -M <meta>      time[:rel|unix|iso|usec|tz|utc|local] | protocol | level
+                 | noise[:secs] | stats[:level[:interval]] | replay[:N]
+                 | bits | newmodel | oldmodel
+  -C <mode>      unit conversion: native|si|customary
+  -E <mode>, -T <secs>, -D <mode>  hop/quit after outputs, duration,
+                 watchdog (live input only)
+  -v             increase verbosity (repeatable)
+  -V             print this package's name and version
   --device cuda|cpu   where the engine runs (default: cuda; with no GPU
                  the run fails rather than falling back to the CPU)
 
-With no -R, the default protocols are registered (every protocol not
-disabled by default). With -y, the exit code is 1 when no code decoded.
+Not ported yet, refused with exit code 2: live input (-d), the sample
+dumpers (-w/-W), the signal grabber (-S), data tags (-K), the pulse
+analyzer (-A) and the network outputs (-F mqtt|mqtts|influx|syslog|
+trigger|http|rtltcp).
+
+Exit codes follow the reference: 0 ok, 1 = -y decoded nothing
+(ref src/rtl_433.c:1661), 2 = a usage error or an input file that cannot
+be opened.
 """
 
 from __future__ import annotations
@@ -31,16 +55,70 @@ from __future__ import annotations
 import sys
 
 from .api import RtlTpu
-from .output.sinks import JsonSink, KvSink
+from .output.data_model import event_to_json, event_to_jsons, event_to_kv
+
+
+# the options of later parts of the port, refused by name
+_NOT_PORTED = {"-d": "live input", "-w": "sample dumpers",
+               "-W": "sample dumpers", "-S": "the signal grabber",
+               "-K": "data tags", "-A": "the pulse analyzer"}
+_NOT_PORTED_OUTPUTS = ("mqtt", "mqtts", "influx", "syslog", "trigger", "http",
+                       "rtltcp")
+
+
+def _metric(v: str) -> float:
+    v = v.strip()
+    mult = 1.0
+    if v and v[-1] in "kKmMgG":
+        mult = {"k": 1e3, "m": 1e6, "g": 1e9}[v[-1].lower()]
+        v = v[:-1]
+    return float(v) * mult
 
 
 def main(argv=None):
+    from .output.logger import set_log_handler
+    set_log_handler(None)  # drop any handler left by a prior invocation
     argv = list(sys.argv[1:] if argv is None else argv)
-    in_files, outputs, reg_actions, test_codes = [], [], [], []
+    in_files = []
+    test_codes = []
+    outputs = []
+    # ordered -R/-X registration actions: ("R", num, arg) / ("X", spec, None)
+    reg_actions = []
+    freq = 433_920_000.0
+    rate = None
     fsk_mode = "auto"
     use_mag_est = False
-    y_opts, noise_parts, report_noise = {}, [], 0
-    device = "cuda"
+    convert = "native"
+    meta = set()
+    meta_opts = {}
+    y_opts = {}
+    verbosity = 0
+
+    # parsed as the JAX CLI parses them; only live input reads them
+    max_samples = None
+    run_mode = "quit"
+    hop_times = []
+    frequencies = []
+    after_events = None
+    duration = None
+    device = "cuda"     # where the engine runs
+
+    # conf files: explicit -c plus default search (ref src/rtl_433.c:466-490)
+    from .confparse import find_default_conf, parse_conf_file
+    expanded = []
+    default_conf = find_default_conf()
+    if default_conf:
+        expanded += parse_conf_file(default_conf)
+    j = 0
+    while j < len(argv):
+        if argv[j] == "-c" and j + 1 < len(argv):
+            expanded += parse_conf_file(argv[j + 1])
+            j += 2
+        else:
+            expanded.append(argv[j])
+            j += 1
+    argv = expanded
+
     i = 0
     while i < len(argv):
         a = argv[i]
@@ -53,18 +131,59 @@ def main(argv=None):
                 sys.exit(2)
             return argv[i]
 
-        if a == "-r":
+        if a in _NOT_PORTED:
+            print(f"option {a} ({_NOT_PORTED[a]}) is not ported yet",
+                  file=sys.stderr)
+            return 2
+        elif a == "-n":
+            max_samples = int(_metric(val()))
+        elif a == "-D":
+            run_mode = val()
+            if run_mode not in ("quit", "restart", "pause", "manual"):
+                run_mode = "quit"
+        elif a == "-H":
+            hop_times.append(_metric(val()))
+        elif a == "-E":
+            after_events = val()
+        elif a == "-T":
+            duration = _metric(val())
+        elif a == "-g":
+            # tuner gain in dB ("auto"/empty = leave the server default),
+            # applied over rtl_tcp (ref src/sdr.c set_gain)
+            v = val()
+            try:
+                y_opts["gain_db"] = float(v)
+            except ValueError:
+                if v.strip().lower() not in ("", "auto"):
+                    print(f"rtl_433_tpu_torch: ignoring malformed gain {v!r} "
+                          "(expected dB value or 'auto')", file=sys.stderr)
+        elif a == "-p":
+            y_opts["ppm_error"] = int(float(val()))  # tuner ppm correction
+        elif a in ("-G", "-b", "-l", "-t",
+                   "-I", "-z", "-x", "-a"):
+            val()  # accepted for CLI compat; no-op or handled elsewhere
+        elif a == "-r":
             in_files.append(val())
         elif a == "-y":
             test_codes.append(val())
-        elif a == "-R":
-            # -R <num>[:<arg>] passes a decoder argument (ref src/r_api.c
-            # register_protocol arg handling, e.g. blueline "-R 176:auto")
-            num, _, parg = val().partition(":")
-            reg_actions.append((int(num), parg or None))
+        elif a == "-X":
+            reg_actions.append(("X", val(), None))
         elif a == "-F":
             outputs.append(val())
+        elif a == "-R":
+            v = val()
+            # -R <num>[:<arg>] passes a decoder argument (ref src/r_api.c
+            # register_protocol arg handling, e.g. blueline "-R 176:auto")
+            num, _, parg = v.partition(":")
+            reg_actions.append(("R", int(num), parg or None))
+        elif a == "-f":
+            freq = _metric(val())
+            frequencies.append(freq)
+        elif a == "-s":
+            rate = int(_metric(val()))
         elif a == "-Y":
+            # -Y auto|classic|minmax,level=,minlevel=,minsnr=,squelch,
+            #    ampest|magest (ref src/rtl_433.c usage, src/r_api.c:148-166)
             for part in val().split(","):
                 if part in ("auto", "classic", "minmax"):
                     fsk_mode = part
@@ -72,51 +191,135 @@ def main(argv=None):
                     use_mag_est = True
                 elif part == "ampest":
                     use_mag_est = False
+                elif part.startswith("level="):
+                    y_opts["fixed_level_db"] = float(part[6:])
+                elif part.startswith("minlevel="):
+                    y_opts["min_level_db"] = float(part[9:])
+                elif part.startswith("minsnr="):
+                    y_opts["min_snr_db"] = float(part[7:])
                 elif part == "squelch":
                     y_opts["squelch"] = True
                 elif part.startswith("autolevel"):
                     # autolevel or autolevel=N (ref src/rtl_433.c:944-946)
                     y_opts["auto_level"] = (int(part[10:])
                                             if part[9:10] == "=" else 1)
+                elif part.startswith("filter="):
+                    # FM low-pass cutoff: us (1-9999), Hz (10000+), or
+                    # ratio of fs (ref src/rtl_433.c:978, r_flow.c:204)
+                    y_opts["fm_filter"] = float(part[7:])
                 elif part == "deviceslice":
-                    # batch (package, spec) slicing on the device
+                    # batch (package, spec) slicing on the accelerator
                     # (decoders/device_dispatch.py; no reference analogue)
                     y_opts["device_slice"] = True
-                else:
-                    print(f"-Y {part} is not ported yet", file=sys.stderr)
-                    return 2
+        elif a == "-C":
+            convert = val()
         elif a == "-M":
-            key, *parts = val().split(":")
-            if key != "noise":
-                print(f"-M {key} is not ported yet", file=sys.stderr)
-                return 2
-            # repeated -M noise accumulates, like the reference applying
-            # each invocation in turn (ref src/rtl_433.c:714-800)
-            noise_parts.extend(parts)
-            report_noise = int(noise_parts[0]) if noise_parts else 1
+            m = val()
+            meta.add(m.split(":")[0])
+            # repeated -M for the same key accumulates, like the reference
+            # applying each invocation in turn (ref src/rtl_433.c:714-800)
+            meta_opts.setdefault(m.split(":")[0], []).extend(m.split(":")[1:])
         elif a == "--device":
             device = val()
         elif a.startswith("--device="):
             device = a.split("=", 1)[1]
+        elif a.startswith("-v"):
+            verbosity += a.count("v")
+        elif a == "-V":
+            from . import __version__
+            print(f"rtl_433_tpu_torch version {__version__}")
+            return 0
         elif a in ("-h", "--help"):
             print(__doc__)
             return 0
-        elif a.startswith("-"):
-            print(f"option {a} is not ported yet", file=sys.stderr)
-            return 2
         else:
-            in_files.append(a)
+            in_files.append(a)  # positional = input file
         i += 1
 
-    rx = RtlTpu(fsk_mode=fsk_mode, use_mag_est=use_mag_est,
-                report_time="iso" if (in_files or test_codes) else "off",
-                register_all=False, report_noise=report_noise,
-                device=device, **y_opts)
+    if rate is None:
+        # auto 1 MS/s above 800 MHz (ref src/rtl_433.c:558-562)
+        rate = 1_024_000 if freq > 800_000_000 else 250_000
+
+    # -M time:rel|unix|iso|usec|sec|tz|utc|local (ref src/rtl_433.c:687-740);
+    # token matching is prefix-based and ordered as in the reference, so
+    # "notz" hits the "no" (= off) check first — a faithfully kept quirk
+    time_parts = meta_opts.get("time", [])
+    report_time = "iso" if ("time" in meta or in_files or test_codes) \
+        else "off"
+    time_hires = "usec" in time_parts
+    time_utc = "utc" in time_parts
+    time_tz = False
+    for p in time_parts:
+        lp = p.lower()
+        if lp.startswith(("0", "no", "off")):
+            report_time = "off"
+        elif lp.startswith(("1", "yes", "on")):
+            report_time = "iso"
+        elif lp.startswith("rel"):
+            report_time = "samples"
+        elif lp.startswith("unix"):
+            report_time = "unix"
+        elif lp.startswith("iso"):
+            report_time = "iso8601"
+        elif lp.startswith("usec"):
+            time_hires = True
+        elif lp.startswith("sec"):
+            time_hires = False
+        elif lp.startswith("tz"):
+            time_tz = True
+        elif lp.startswith("utc"):
+            time_utc = True
+        elif lp.startswith("local"):
+            time_utc = False
+        else:
+            print(f"Unknown time format option: {p}", file=sys.stderr)
+    noise_parts = meta_opts.get("noise", [])
+    if "noise" in meta:
+        y_opts["report_noise"] = int(noise_parts[0]) if noise_parts else 1
+    # -M replay[:N]: N-times realtime file replay (ref src/rtl_433.c:790)
+    replay_parts = meta_opts.get("replay", [])
+    in_replay = 0
+    if "replay" in meta:
+        in_replay = int(replay_parts[0]) if replay_parts and \
+            replay_parts[0] else 1
+    # -M stats[:level][:interval] (ref src/rtl_433.c:783-788)
+    stats_parts = meta_opts.get("stats", [])
+    report_stats = 0
+    stats_interval = 600
+    if "stats" in meta:
+        report_stats = int(stats_parts[0]) if stats_parts and \
+            stats_parts[0] else 1
+        if len(stats_parts) > 1 and stats_parts[1]:
+            stats_interval = int(_metric(stats_parts[1]))
+
+    rx = RtlTpu(sample_rate=rate, center_frequency=freq, fsk_mode=fsk_mode,
+                use_mag_est=use_mag_est, convert=convert,
+                report_meta="level" in meta,
+                report_protocol="protocol" in meta,
+                report_time=report_time,
+                report_time_hires=time_hires,
+                report_time_utc=time_utc,
+                report_time_tz=time_tz,
+                verbosity=verbosity,
+                verbose_bits="bits" in meta,
+                **y_opts,
+                register_all=False, device=device)
+    rx.in_replay = in_replay
+    rx.report_stats = report_stats
+    rx.stats_interval = stats_interval
+
+    # Ordered -R/-X replay (ref src/rtl_433.c:820-851, defaults at :1511):
     # any -R suppresses the default registration; a negative -R first
     # registers all defaults; -R 0 clears everything registered so far
-    # (ref src/rtl_433.c:820-851)
+    # (including earlier -X flex decoders); with no -R at all, defaults
+    # register after option parsing, i.e. AFTER any -X decoders, so flex
+    # devices dispatch (and print) first.
+    from .decoders.flex import flex_create_device
     no_default = False
-    for v, parg in reg_actions:
+    for kind, v, parg in reg_actions:
+        if kind == "X":
+            rx.registry.add_device(flex_create_device(v))
+            continue
         if v < 0 and not no_default:
             rx.registry.register_all()
         no_default = True
@@ -129,20 +332,84 @@ def main(argv=None):
     if not no_default:
         rx.registry.register_all()
 
-    for spec in outputs or ["kv"]:
-        kind = spec.split(":")[0].split(",")[0]
-        if kind == "json":
-            rx.sinks.append(JsonSink())
-        elif kind == "kv":
-            rx.sinks.append(KvSink())
-        else:
-            print(f"-F {kind} is not ported yet", file=sys.stderr)
+    outputs_explicit = bool(outputs)
+    if not outputs:
+        # default event output plus a stderr log sink (the reference
+        # defaults to kv which doubles as its log output,
+        # ref src/rtl_433.c:1500-1506)
+        outputs = ["json", "log"]
+
+    for spec in outputs:
+        fmt, _, arg = spec.partition(":")
+        # "-F json,v=8:path" attaches a per-sink log_level (lvlarg_param,
+        # ref src/r_api.c:938-960): log messages with level <= v reach
+        # this sink through the fan-out (redirect_logging below)
+        fmt, _, lvl_str = fmt.partition(",")
+        log_lvl = None
+        if lvl_str:
+            k, _, v = lvl_str.replace(" ", "").partition("=")
+            if k != "v" or not v.isdigit():
+                print(f"Unknown output option \"{lvl_str}\"",
+                      file=sys.stderr)
+                return 2
+            log_lvl = int(v)
+        if fmt in ("json", "jsons"):
+            from .output.sinks import JsonSink
+            rx.sinks.append(JsonSink(compact=fmt == "jsons",
+                                     log_level=log_lvl or 0))
+        elif fmt == "kv":
+            def emit_kv(ev):
+                print(event_to_kv(ev, color=sys.stdout.isatty()))
+                print("", flush=True)
+            emit_kv.log_level = 8 if log_lvl is None else log_lvl
+            rx.sinks.append(emit_kv)
+        elif fmt == "log":
+            from .output.sinks import LogSink
+            rx.sinks.append(LogSink(log_level=8 if log_lvl is None
+                                    else log_lvl))
+        elif fmt == "csv":
+            from .output.sinks import CsvSink, determine_csv_fields
+            rx.sinks.append(CsvSink(
+                determine_csv_fields(rx.registry.active,
+                                     verbose_bits=rx.verbose_bits),
+                log_level=log_lvl or 0))
+        elif fmt in _NOT_PORTED_OUTPUTS:
+            print(f"-F {fmt} (a network output) is not ported yet",
+                  file=sys.stderr)
             return 2
+        elif fmt == "null":
+            pass
+        else:
+            print(f"unknown output format: {fmt}", file=sys.stderr)
+            return 2
+
+    if outputs_explicit and \
+            not any(getattr(s, "log_level", 0) > 0 for s in rx.sinks):
+        print('Use "-F log" if you want any messages, warnings, and '
+              'errors in the console.', file=sys.stderr)
+    # change the log handler after outputs are set up: messages fan out
+    # through every sink whose log_level admits them (ref
+    # r_redirect_logging, src/rtl_433.c:1508)
+    rx.redirect_logging()
+
     n_events = 0
     for code in test_codes:
         n_events += len(rx.decode_test_string(code))
     for path in in_files:
-        rx.decode_file(path)
+        try:
+            evs = rx.decode_file(path)
+        except FileNotFoundError as e:
+            print(f"error: cannot open input file: {e.filename}",
+                  file=sys.stderr)
+            return 2
+        n_events += len(evs)
+
+    if report_stats:
+        # final report through every sink (ref src/rtl_433.c:1926-1928)
+        ev = rx.stats_report(report_stats)
+        for sink in rx.sinks:
+            sink(ev)
+
     if test_codes and n_events == 0:
         return 1
     return 0

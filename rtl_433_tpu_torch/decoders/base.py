@@ -19,7 +19,9 @@ JAX package takes it by design: under decoder debug verbosity, or where a
 caller makes ``_use_native`` return False. With ``device_slice`` on,
 ``prewarm_trains`` slices a drain's trains on ``slice_device`` in batched
 kernels (decoders/device_dispatch.py) and fills the train memo before the
-packages are dispatched. Decoder debug logging is not ported yet.
+packages are dispatched. Under decoder debug verbosity ``_run_host``
+logs each sliced bitbuffer (``maybe_log_bitbuffer``), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -192,8 +194,11 @@ class Registry:
         self.slice_device = "cuda"
         self._device_banks: dict = {}
         # decoder debug verbosity (-vv.. => 1..3): any level takes the
-        # per-decoder host path, as in the JAX package
+        # per-decoder host path, as in the JAX package, whose bitbuffer
+        # dumps (ref account_event src/pulse_slicer.c:58-60) carry the row
+        # bit strings under -M bits
         self.decoder_verbose = 0
+        self.verbose_bits = False
         # declarative decoder bank (decoders/declarative.py): batched
         # decode for spec'd protocols; Python decode_fns stay the
         # differential oracle and the fallback
@@ -279,15 +284,48 @@ class Registry:
                 if dev.is_fsk != want_fsk:
                     continue
                 for bits in slicers.slice_pulses(pulses, dev):
+                    # the decoder may mutate its input (invert, extract);
+                    # keep the sliced rows for the debug dump below
+                    dv = dev.verbose or self.decoder_verbose
+                    sliced = bits.clone() if dv else bits
                     ret = dev.decode_fn(bits, dev) if dev.decode_fn else 0
                     events = dev.account(ret)
                     for ev in events:
                         event_cb(dev, ev)
                     p_events += len(events)
+                    self.maybe_log_bitbuffer(dev, sliced, bool(events))
             if p_events or next_priority is None:
                 break
             priority = next_priority
         return p_events
+
+    def maybe_log_bitbuffer(self, dev, bits, got_events: bool):
+        """Debug printout rules of account_event (ref
+        src/pulse_slicer.c:58-60): dump the sliced bitbuffer when the
+        decoder is verbose enough for what just happened."""
+        dv = dev.verbose or self.decoder_verbose
+        max_bits = max(bits.bits_per_row[:bits.num_rows], default=0) \
+            if dv else 0
+        if (not dev.decode_fn) or (dv and got_events) \
+                or (dv > 1 and max_bits > 16) or (dv > 2):
+            lvl = 1 if got_events else 2
+            if dv >= lvl:
+                self._log_bitbuffer(dev, lvl, bits)
+
+    def _log_bitbuffer(self, dev, level, bits):
+        """Emit the decoder bitbuffer dump as a structured log event:
+        src/lvl/msg/num_rows/codes, plus per-row bit strings under -M bits
+        (ref decoder_log_bitbuffer, src/decoder_util.c:160-198)."""
+        from ..output.data_model import Event
+        from ..output import logger as _logger
+        nrows = bits.num_rows
+        fields = [("src", dev.modulation), ("lvl", level + 4),
+                  ("msg", dev.name), ("num_rows", nrows),
+                  ("codes", [bits.row_code(r) for r in range(nrows)])]
+        if self.verbose_bits:
+            fields.append(("bits",
+                           [bits.row_bits_str(r) for r in range(nrows)]))
+        _logger.log_data(level + 4, Event.make(*fields))
 
     def _get_device_bank(self, want_fsk: bool, sample_rate: int):
         from .device_dispatch import DeviceBank

@@ -29,8 +29,8 @@ keeps the inline path.
 
 Workers are forked, also from a process that has already used the GPU:
 they run host code only (``decoders/``, ``pulse/``, ``bits/``), never a
-CUDA call. Flex decoders (``-X``) are not ported yet, so a flex spec is
-refused before any worker starts.
+CUDA call. A worker adds the flex decoders (``-X``) of its parent's specs
+through ``flex_create_device``.
 """
 
 from __future__ import annotations
@@ -55,6 +55,9 @@ def _worker_main(conn, register_nums, flex_specs):
             d = reg.register(num)
             if d is not None:
                 d.arg = arg
+    for spec in flex_specs or ():
+        from .flex import flex_create_device
+        reg.add_device(flex_create_device(spec))
 
     while True:
         msg = conn.recv()
@@ -84,8 +87,6 @@ class DecodePool:
     def __init__(self, registry, n_workers: Optional[int] = None,
                  register_nums: Optional[Sequence] = None,
                  flex_specs: Sequence[str] = ()):
-        if flex_specs:
-            raise NotImplementedError("flex decoders (-X) are not ported yet")
         if n_workers is None:
             n_workers = max(1, (os.cpu_count() or 1) - 1)
         self.registry = registry

@@ -1310,3 +1310,47 @@ def test_mic_tensor_is_not_moved():
         mic.crc16(msgs, 9, 0x1021, 0, device="cuda")
     with pytest.raises(ValueError, match="not moved"):
         mic.crc16(on_card, 9, 0x1021, 0, device="cpu")
+
+
+def _replay(argv):
+    """The port's CLI in this process, clock pinned: (rc, stdout, stderr)."""
+    from rtl_433_tpu_torch import cli
+    from torch_replay_cases import run_cli
+    return run_cli(cli.main, argv)
+
+
+@pytest.mark.parametrize("name,num", [("nexus", 19), ("lacrosse_tx35", 75)])
+def test_flex_device_slice_replay_matches_cpu(name, num):
+    """A -X flex decoder made from a protocol's timings, alone, with
+    -Y deviceslice on the card: the same bytes as --device cpu, and the
+    slicer kernels launched."""
+    _gpu()
+    from rtl_433_tpu_torch.decoders import Registry
+    from rtl_433_tpu_torch.decoders.flex import MODULATIONS
+    from torch_replay_cases import fixture, flex_spec
+    spec = flex_spec(Registry().get(num), MODULATIONS, name=f"flex_{name}")
+    argv = ["-R", "0", "-X", spec, "-r", fixture(name), "-F", "json", "-Y",
+            "deviceslice"]
+    _cuda.reset_launches()
+    got = _replay(argv)
+    assert sum(v for k, v in _cuda.LAUNCHES.items()
+               if k.startswith("slice_")) > 0
+    assert got == _replay(argv + ["--device", "cpu"])
+    assert got[0] == 0 and f'"flex_{name}"' in got[1]
+
+
+def test_sigmf_replay_matches_cpu(tmp_path):
+    """A capture written as SigMF replays on the card to the bytes of
+    --device cpu and of the capture's own replay."""
+    _gpu()
+    from rtl_433_tpu_torch.io import load_iq, sigmf
+    from torch_replay_cases import fixture
+    path = fixture("lacrosse_tx35")
+    sm = str(tmp_path / "tx35.sigmf")
+    sigmf.write(sm, load_iq(path, "cu8"), 250_000, 433_920_000)
+    argv = ["-R", "75", "-r", sm, "-F", "json", "-M", "level"]
+    got = _replay(argv)
+    assert got == _replay(argv + ["--device", "cpu"])
+    assert got == _replay(["-R", "75", "-r", path, "-F", "json", "-M",
+                           "level"])
+    assert got[0] == 0 and "LaCrosse" in got[1]

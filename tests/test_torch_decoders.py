@@ -16,9 +16,12 @@ backend, and ``DeclRunner.decode_many``'s ``device`` where JAX has
 members it runs (``_run``, ``_get_device_bank`` and ``prewarm_trains``
 aside), and
 ``csrc/slicers.cpp``, byte for byte
-with ``native/slicers.cpp``. The decode pool, ``decoders/pool.py``, is its
-twin with two declared differences (no JAX_PLATFORMS in the worker, flex
-specs refused).
+with ``native/slicers.cpp``. The flex decoder (``decoders/flex.py``) and
+the conf parser (``confparse.py``) are their twins. The decode pool,
+``decoders/pool.py``, is its twin with two declared differences (no
+JAX_PLATFORMS in the worker, whose flex loop calls ``flex_create_device``
+where the JAX worker imports a ``flex_device`` that JAX's flex module does
+not define).
 """
 
 import ast
@@ -134,7 +137,8 @@ DISPATCH_DIFFERENCES = {
 # imports beyond numpy, ctypes and threading: the torch backend's
 DISPATCH_IMPORTS = {"ops/decode_bank.py": {"torch", "weakref"}}
 
-# Registry members copied from the JAX package as they are; ``_run`` (no
+# Registry members copied from the JAX package as they are (the host path
+# and its decoder debug dumps among them); ``_run`` (no
 # ``except RuntimeError`` that would turn a failed build into the host
 # path), ``_get_device_bank`` (the bank runs on ``slice_device``) and
 # ``prewarm_trains`` (the decode-cache keys are read after the drain-wide
@@ -142,7 +146,8 @@ DISPATCH_IMPORTS = {"ops/decode_bank.py": {"torch", "weakref"}}
 # decode cache to JAX's) are the deliberate differences
 REGISTRY_COPIED = ["_verbose_decoding", "_use_native", "_get_bank",
                    "_bank_meta", "_build_train_memo", "_memo_plans",
-                   "_run_fast", "run_ook_demods", "run_fsk_demods"]
+                   "_run_fast", "run_ook_demods", "run_fsk_demods",
+                   "_run_host", "maybe_log_bitbuffer", "_log_bitbuffer"]
 
 
 def _drop_names(tree, names):
@@ -354,20 +359,50 @@ def _body_of(tree, name):
 def test_pool_matches_jax_twin():
     """decoders/pool.py is its JAX twin but for two declared differences:
     the worker does not set JAX_PLATFORMS (nothing of JAX runs in it), and
-    a flex spec is refused in DecodePool.__init__ before any worker starts
-    (decoders/flex.py is not ported yet), so the worker has no flex loop."""
+    its flex loop imports and calls ``flex_create_device`` where the JAX
+    worker names ``flex_device``, which JAX's decoders/flex.py does not
+    define (so a JAX pool with a flex spec dies in its worker)."""
     jax_tree, port_tree = _pool_tree("rtl_433_tpu"), _pool_tree(
         "rtl_433_tpu_torch")
     worker = _body_of(jax_tree, "_worker_main")
-    dropped = [n for n in worker
-               if ("JAX_PLATFORMS" in ast.dump(n)
-                   or (isinstance(n, ast.For)
-                       and "flex_specs" in ast.dump(n.iter)))]
-    assert len(dropped) == 2
+    dropped = [n for n in worker if "JAX_PLATFORMS" in ast.dump(n)]
+    assert len(dropped) == 1
     worker[:] = [n for n in worker if n not in dropped]
-    init = _body_of(port_tree, "DecodePool.__init__")
-    refuse = init[0]
-    assert isinstance(refuse, ast.If) and "flex_specs" in ast.dump(
-        refuse.test) and isinstance(refuse.body[0], ast.Raise)
-    del init[0]
+    flex_loop = next(n for n in worker if isinstance(n, ast.For)
+                     and "flex_specs" in ast.dump(n.iter))
+    renamed = 0
+    for node in ast.walk(flex_loop):
+        if isinstance(node, ast.alias) and node.name == "flex_device":
+            node.name, renamed = "flex_create_device", renamed + 1
+        elif isinstance(node, ast.Name) and node.id == "flex_device":
+            node.id, renamed = "flex_create_device", renamed + 1
+    assert renamed == 2
     assert _strip(jax_tree) == _strip(port_tree)
+
+
+# host modules copied from the JAX package as they are, by path under each
+# package, with the standard-library modules each imports
+COPIED_MODULES = {"decoders/flex.py": {"re", "typing"},
+                  "confparse.py": {"os", "typing"}}
+
+
+@pytest.mark.parametrize("rel", list(COPIED_MODULES))
+def test_copied_module_matches_jax_twin(rel):
+    trees = []
+    for pkg in ("rtl_433_tpu", "rtl_433_tpu_torch"):
+        with open(os.path.join(REPO, pkg, rel)) as f:
+            trees.append(_strip(ast.parse(f.read())))
+    assert trees[0] == trees[1], f"{rel} differs from its JAX twin"
+
+
+@pytest.mark.parametrize("rel", list(COPIED_MODULES))
+def test_copied_module_imports_stay_inside_the_port(rel):
+    with open(os.path.join(REPO, "rtl_433_tpu_torch", rel)) as f:
+        tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.level == 0:
+            assert node.module in ("__future__", *COPIED_MODULES[rel]), \
+                node.module
+        elif isinstance(node, ast.Import):
+            for a in node.names:
+                assert a.name in COPIED_MODULES[rel], a.name

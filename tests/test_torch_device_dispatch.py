@@ -380,16 +380,6 @@ def _cache_view(reg):
             else v for k, v in reg._dec_cache.items()}
 
 
-def test_prewarm_decodes_the_same_candidates_as_jax():
-    """The port reads the declarative candidates' cache keys after the
-    drain-wide freeze, where JAX reads each before it: the same keys and
-    the same decodes."""
-    trains = _fuzz_trains(24, seed=5)
-    t, j = _registry(Registry, True), _registry(JaxRegistry, True)
-    assert t.prewarm_trains(trains, RATE) == j.prewarm_trains(trains, RATE)
-    assert t._dec_cache and _cache_view(t) == _cache_view(j)
-
-
 def _gather_passes(monkeypatch):
     """Record every batched gather call as (pass, groups): the pass is
     ``mic`` (LazyRecords.prefetch_many), ``gate`` (a MIC gate's
@@ -422,17 +412,38 @@ def _gather_passes(monkeypatch):
     return calls
 
 
-def test_prewarm_reads_records_in_batched_gathers(monkeypatch):
+@pytest.fixture(scope="module")
+def fuzz_prewarm():
+    """One port prewarm of a 24-train fuzz drain with every gather call
+    recorded (``_gather_passes``), which the two tests below read:
+    (trains, registry, memos built, gather calls)."""
+    trains = _fuzz_trains(24, seed=5)
+    with pytest.MonkeyPatch.context() as mp:
+        calls = _gather_passes(mp)
+        reg = _registry(Registry, True)
+        built = reg.prewarm_trains(trains, RATE)
+    return trains, reg, built, calls
+
+
+def test_prewarm_decodes_the_same_candidates_as_jax(fuzz_prewarm):
+    """The port reads the declarative candidates' cache keys after the
+    drain-wide freeze, where JAX reads each before it: the same keys and
+    the same decodes."""
+    trains, t, built, _calls = fuzz_prewarm
+    j = _registry(JaxRegistry, True)
+    assert built == j.prewarm_trains(trains, RATE)
+    assert t._dec_cache and _cache_view(t) == _cache_view(j)
+
+
+def test_prewarm_reads_records_in_batched_gathers(fuzz_prewarm):
     """No record of a drain is read alone: a prewarm makes at most three
     gather calls, each one launch for every family it touches: the MIC
     gates' representatives of each side (one call per side, before the
     per-train plans) and the drain-wide freeze; the gates' own batches
     find their records ready."""
-    trains = _fuzz_trains(24, seed=5)
+    trains, reg, built, calls = fuzz_prewarm
     assert {bool(f) for f, _p, _g in trains} == {False, True}
-    calls = _gather_passes(monkeypatch)
-    reg = _registry(Registry, True)
-    assert reg.prewarm_trains(trains, RATE) > 0
+    assert built > 0
     assert reg._dec_cache
     passes = [c[0] for c in calls]
     assert set(passes) == {"mic", "freeze"}, passes

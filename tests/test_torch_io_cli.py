@@ -6,7 +6,8 @@ package's ``load_iq_bytes`` converts them; a fixture written as cs16 and
 as cs8 decodes in both packages to its committed events. The CLI of each
 package runs in this process on the same arguments and prints the same
 events; so do the noise floor's options (``-Y squelch``, ``-Y
-autolevel[=N]``, ``-M noise[:secs]``), with the same autolevel warnings.
+autolevel[=N]``, ``-M noise[:secs]``), with the same autolevel warnings,
+and ``-M stats`` with the same report.
 """
 
 import contextlib
@@ -19,6 +20,7 @@ import pytest
 
 from rtl_433_tpu import cli as jax_cli
 from rtl_433_tpu.api import RtlTpu as JaxRtlTpu
+from rtl_433_tpu.io.fileformat import load_iq as jax_load_iq
 from rtl_433_tpu.io.fileformat import load_iq_bytes as jax_load_iq_bytes
 from rtl_433_tpu.output.data_model import event_to_json as jax_event_to_json
 from rtl_433_tpu_torch import cli
@@ -27,6 +29,7 @@ from rtl_433_tpu_torch.io import load_iq, load_iq_bytes
 from rtl_433_tpu_torch.output.data_model import event_to_json
 from test_decoder_oracle import VECTORS
 from torch_fixture_cases import cases, expected, normalize
+from torch_replay_cases import run_cli
 
 SEED = 20261016
 NEXUS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
@@ -71,27 +74,42 @@ def _as(fmt, u8):
     return (s << 8).astype(np.int16) if fmt == "cs16" else s.astype(np.int8)
 
 
+ROUND_TRIP = ("nexus", "lacrosse_tx35")
+
+
+@pytest.fixture(scope="module")
+def jax_round_trip_events():
+    """The JAX package's events of each round-trip capture: both formats
+    convert back to the capture's exact cu8 (checked per case with the JAX
+    loader), so one JAX decode per capture serves every format."""
+    out = {}
+    for name, nums, cu8 in cases():
+        if name in ROUND_TRIP:
+            jrx = JaxRtlTpu(register_all=False, report_time="off")
+            jrx.registry.register(nums[0])
+            out[name] = [normalize(json.loads(jax_event_to_json(e)))
+                         for e in jrx.decode_file(cu8)]
+    return out
+
+
 @pytest.mark.parametrize("fmt", ["cs16", "cs8"])
-def test_fixture_round_trip_decodes(fmt, tmp_path):
+def test_fixture_round_trip_decodes(fmt, tmp_path, jax_round_trip_events):
     """nexus and lacrosse_tx35 (OOK and FSK) written as cs16 / cs8: the
-    conversion back to cu8 is exact, so both packages decode the
+    conversion back to cu8 is exact in both packages, so both decode the
     committed events."""
     for name, nums, cu8 in cases():
-        if name not in ("nexus", "lacrosse_tx35"):
+        if name not in ROUND_TRIP:
             continue
         u8 = np.fromfile(cu8, np.uint8)
         path = tmp_path / (cu8.rsplit("/", 1)[1][:-4] + "." + fmt)
         _as(fmt, u8).tofile(path)
         assert np.array_equal(load_iq(str(path), fmt).reshape(-1), u8)
+        assert np.array_equal(jax_load_iq(str(path), fmt).reshape(-1), u8)
         rx = RtlTpu(register_all=False, report_time="off", device="cpu")
-        jrx = JaxRtlTpu(register_all=False, report_time="off")
-        for r in (rx, jrx):
-            r.registry.register(nums[0])
+        rx.registry.register(nums[0])
         port = [normalize(json.loads(event_to_json(e)))
                 for e in rx.decode_file(str(path))]
-        jax = [normalize(json.loads(jax_event_to_json(e)))
-               for e in jrx.decode_file(str(path))]
-        assert port == jax == expected(cu8), name
+        assert port == jax_round_trip_events[name] == expected(cu8), name
 
 
 def _run(main, argv):
@@ -193,6 +211,15 @@ def test_cli_noise_options_match_jax(opts, monkeypatch):
 
 
 def test_cli_other_meta_options_not_ported():
-    rc, _, _ = _cli(cli.main, ["-R", "19", "-r", NEXUS, "-M", "stats",
-                               "--device", "cpu"])
-    assert rc == 2
+    """-M stats, once refused here, is ported: with the clock pinned the
+    port's CLI prints the same events and the same final stats report as
+    the JAX CLI, byte for byte (tests/test_torch_replay_cli.py has every
+    other -M key)."""
+    argv = ["-R", "19", "-r", NEXUS, "-M", "stats", "-F", "json"]
+    port = run_cli(cli.main, ["--device", "cpu"] + argv)
+    assert port == run_cli(jax_cli.main, argv)
+    rc, out, _err = port
+    assert rc == 0
+    report = json.loads(out.splitlines()[-1])
+    assert report["enabled"] == 1 and report["frames"]["events"] == 1
+    assert [s["device"] for s in report["stats"]] == [19]

@@ -2,7 +2,9 @@
 
 A subprocess with ``jax`` and ``rtl_433_tpu`` made unimportable imports
 every port module (``parallel/`` and ``decoders/pool.py`` among them) and
-decodes a fixture on the CPU, through the API, the CLI, and a
+decodes a fixture on the CPU, through the API, the CLI (also as SigMF
+through a conf file's flex decoder: ``io/sigmf.py``, ``confparse.py``,
+``decoders/flex.py``), and a
 ``ShardedEngine`` on a 2-device CPU mesh whose events come from forked
 ``DecodePool`` workers, and a ``TimeShardEngine`` on a 4-segment CPU mesh.
 Another runs a copy of the port alone in a directory, with
@@ -73,6 +75,21 @@ from rtl_433_tpu_torch.dsp.engine import DetectorParams
 from rtl_433_tpu_torch.io import load_iq
 from rtl_433_tpu_torch.parallel.sharding import ShardedEngine, make_mesh
 one = load_iq(NEXUS, "cu8")
+# the replay CLI's inputs of their own modules: a conf file (confparse.py)
+# whose flex decoder (decoders/flex.py) takes the capture, as SigMF
+# (io/sigmf.py)
+import os, shutil, tempfile
+from rtl_433_tpu_torch.io import sigmf
+tmpd = tempfile.mkdtemp()
+sm = os.path.join(tmpd, "nexus.sigmf")
+sigmf.write(sm, one, 250_000, 433_920_000)
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    rc_flex = cli.main(["-c", os.path.join(REPO, "conf", "nexus_th.conf"),
+                        "-R", "19", "-r", sm, "-F", "json", "--device",
+                        "cpu"])
+flex_cli = [json.loads(l) for l in buf.getvalue().splitlines() if l]
+shutil.rmtree(tmpd)
 n = one.shape[0] + (-one.shape[0]) % 128
 blk = np.full((2, n, 2), 128, np.uint8)
 blk[0, :one.shape[0]] = one
@@ -100,6 +117,7 @@ bad = sorted(k for k in sys.modules
              if k == "jax" or k.startswith("jax.")
              or k == "rtl_433_tpu" or k.startswith("rtl_433_tpu."))
 print(json.dumps({"api": api, "cli": cli_events, "rc": rc,
+                  "flex_cli": flex_cli, "rc_flex": rc_flex,
                   "sharded": sharded, "sliced": sliced,
                   "timeshard": timeshard,
                   "loaded": [k for k in bad if sys.modules[k] is not None]}))
@@ -180,6 +198,10 @@ def test_port_runs_with_jax_and_reference_blocked():
     assert [e.pop("time").startswith("@") for e in res["cli"]] == \
         [True] * len(want)
     assert res["cli"] == want
+    # nexus_th.conf's flex decoder (priority 0) takes the package first
+    assert res["rc_flex"] == 0
+    assert [(e["model"], e["rows"][0]["id"]) for e in res["flex_cli"]] == \
+        [("nexus", want[0]["id"])]
     assert res["sharded"] == [[0, e] for e in want]
     assert res["timeshard"] == want
 
@@ -190,7 +212,8 @@ def _sources():
              if os.sep + "_build" + os.sep not in f]
     # and the helpers the port's GPU runs and process workers import
     helpers = ["chip_smoke.py", "tests/torch_multihost_worker.py",
-               "tests/torch_timeshard_cases.py", "tests/torch_decl_cases.py"]
+               "tests/torch_timeshard_cases.py", "tests/torch_decl_cases.py",
+               "tests/torch_replay_cases.py"]
     return sorted(files) + [os.path.join(REPO, h) for h in helpers]
 
 

@@ -1,8 +1,8 @@
 """The port's DecodePool: worker-process decode fan-out, event-identical and
 order-preserving against the inline dispatch, and against the JAX
 package's inline dispatch on the same jobs (the three tests of
-tests/test_decode_pool.py, on the port). The module itself is held to its
-JAX twin in tests/test_torch_decoders.py.
+tests/test_decode_pool.py, on the port); a flex spec reaches the workers.
+The module itself is held to its JAX twin in tests/test_torch_decoders.py.
 """
 
 import sys
@@ -15,6 +15,7 @@ from rtl_433_tpu.decoders import Registry as JaxRegistry
 from rtl_433_tpu.output.data_model import event_to_json as jax_event_to_json
 from rtl_433_tpu.pulse.data import PulseData as JaxPulseData
 from rtl_433_tpu_torch.decoders import Registry
+from rtl_433_tpu_torch.decoders.flex import flex_create_device
 from rtl_433_tpu_torch.decoders.pool import DecodePool
 from rtl_433_tpu_torch.output.data_model import event_to_json
 from rtl_433_tpu_torch.pulse.data import PulseData
@@ -104,10 +105,28 @@ def test_pool_equals_jax_inline():
     assert len(got) >= len(ids)
 
 
+@fork_only
 def test_flex_spec_refused_before_forking():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        DecodePool(_registry(Registry), n_workers=1,
-                   flex_specs=["n=x,m=OOK_PWM,s=100,l=200,r=300"])
+    """A flex spec, once refused here, now reaches the workers: beside the
+    default registration, the pool decodes as the inline registry with the
+    same flex device added last (the workers' order)."""
+    spec = "n=nx,m=OOK_PPM,s=1000,l=2000,g=3000,r=5000,bits=36"
+    reg = _registry(Registry)
+    reg.add_device(flex_create_device(spec))
+    jobs = [(ch, _pd(PulseData, 0x30 + ch, 190 + 5 * i))
+            for i, ch in enumerate([1, 0, 1])]
+    inline = []
+    for ch, pd in jobs:
+        reg.run_ook_demods(
+            pd, lambda dev, ev, c=ch: inline.append((c, dev.symbol,
+                                                     event_to_json(ev))))
+    with DecodePool(reg, n_workers=1, flex_specs=[spec]) as pool:
+        for ch, pd in jobs:
+            pool.submit(ch, False, pd)
+        got = [(c, dev.symbol, event_to_json(ev))
+               for c, dev, ev in pool.drain()]
+    assert got == inline
+    assert {s for _c, s, _e in got} == {"flex_nx"}
 
 
 @fork_only

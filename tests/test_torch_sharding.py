@@ -175,11 +175,18 @@ def _jax_engine(channels, mesh):
                      registry=reg)
 
 
-def test_sharded_event_service_matches_per_channel(nexus8):
-    """drain_events == N independent single-channel runs, channel-tagged."""
+@pytest.fixture(scope="module")
+def port8_events(nexus8):
+    """The port's 8-channel engine on nexus8, pushed whole: its drained
+    events, which two tests below hold to their references."""
     eng = _port_engine(8, make_mesh(8, devices=CPU8))
     eng.push(nexus8, flush=True)
-    got = [(c, event_to_json(ev)) for c, ev in eng.drain_events()]
+    return [(c, event_to_json(ev)) for c, ev in eng.drain_events()]
+
+
+def test_sharded_event_service_matches_per_channel(nexus8, port8_events):
+    """drain_events == N independent single-channel runs, channel-tagged."""
+    got = port8_events
 
     want = []
     for c in range(8):
@@ -212,12 +219,10 @@ def test_port_engine_matches_jax_engine(nexus8):
     assert port.n_pkg_dropped == jeng.n_pkg_dropped == 0
 
 
-def test_drain_events_equal_jax_in_order(nexus8):
-    port = _port_engine(8, make_mesh(8, devices=CPU8))
+def test_drain_events_equal_jax_in_order(nexus8, port8_events):
     jeng = _jax_engine(8, jax_make_mesh(8))
-    port.push(nexus8, flush=True)
     jeng.push(nexus8, flush=True)
-    got = [(c, event_to_json(ev)) for c, ev in port.drain_events()]
+    got = port8_events
     want = [(c, jax_event_to_json(ev)) for c, ev in jeng.drain_events()]
     assert got == want
     assert len(got) >= 4
