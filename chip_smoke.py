@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 (``python3 chip_smoke.py --mic-only`` runs phases 1 and 4e alone,
-``--replay-cli-only`` phases 1 and 5d,
+``--replay-cli-only`` phases 1 and 5d, ``--live-only`` phases 1 and 5e,
 ``--compact-only`` phase 1 and phase 4b's checks and times without the
 profiler or the host split, and ``--timeshard-only`` phase 6c on
 lacrosse_tx35 alone, against the rtl_433_tpu_torch package beside the
@@ -117,6 +117,29 @@ Phases, each printing one JSON line (any failure exits non-zero):
               PCM slicers, the dedup, the gather and the bank must each
               launch), then every device-slicing kernel call of those runs
               is held to its plain version;
+5e. live   -- live input on the card, RtlTpu.run_live (default
+              registration, the Security+ clock pinned) against a loopback
+              rtl_tcp server thread (tests/torch_live_cases.py) that paces
+              whole 131072-sample blocks to a wall-clock schedule:
+              live_1024k (mixed_1024k's samples, then a quiet block, at
+              1.024 MS/s, real time) and live_250k (mixed_250k's, at 1.024
+              MS/s, four times its rate), each with no block dropped, every
+              block received, the events (time removed) equal to the card's
+              decode_file of the same samples and one front-end and one
+              detector launch a block; per run push_block's wall per block
+              (median, max, the first), the device span of process_block
+              (CUDA events around it), the consumer's busy share of the 128
+              ms period, the ring's highest fill; live_flat (mixed_250k as
+              fast as loopback carries it): the consumer's MS/s and the
+              drops. A cold start: one run_live in a fresh process (the
+              kernels built) against a 1.024 MS/s server: the one-time
+              loads run_live does before it connects, its first block's
+              wall and drops. Then the CLI (cli.main in this process, clock
+              pinned), each run equal to the same argv with --device cpu:
+              -d over a stream of 7 blocks with -F rtltcp (the bytes a
+              passthrough client reads too), every -w format with FM off
+              (a capture whose envelope reaches 32768) and on, with -S all,
+              and a .sr session (its members);
 6. stream  -- nexus and lacrosse_tx35 concatenated 64 times, lacrosse_tx29
               16 times, decoded end to end: copies x the committed events;
               MS/s and ms/block, then the same decode under torch.profiler
@@ -200,7 +223,7 @@ Phases, each printing one JSON line (any failure exits non-zero):
               C=1 at the SM clock that nvidia-smi read while the same
               launch ran back to back (sm_clock_mhz). The front end and the
               detector are timed at C=1, the shape of file replay, and at
-              C=4096, with their launches on the replay_cli phase beside; compaction at the multichannel phase's real state;
+              C=4096, with their launches on the replay_cli and live phases beside; compaction at the multichannel phase's real state;
               the device-slicing kernels (slice_<family>, content_dup,
               gather_records) with their launches on the device-slicing
               paths (replay_cli's among them) and their times summed over
@@ -2859,6 +2882,301 @@ def replay_cli_phase(compare):
             "nvidia_smi": smi_line()}, launches
 
 
+# the live phase: the server's rate (a 128 ms block period), the blocks of
+# the CLI's -d run (at most the ring's 15, so that the CPU's run drops
+# nothing) and of the cold start
+LIVE_RATE = 1_024_000
+LIVE_CLI_BLOCKS = 7
+LIVE_COLD_BLOCKS = 10
+
+# the cold start: one run_live in a fresh process against the parent's
+# server (argv: port, sample rate, checkout); prints one JSON line
+LIVE_COLD = r"""
+import json, sys, time
+t0 = time.perf_counter()
+sys.path.insert(0, sys.argv[3])
+from rtl_433_tpu_torch.api import RtlTpu
+from rtl_433_tpu_torch.io import rtltcp
+t_import = time.perf_counter()
+rx = RtlTpu(sample_rate=int(sys.argv[2]), device="cuda")
+clients, walls = [], []
+real_run, real_push = rtltcp.RtlTcpClient.run, rx.push_block
+real_prep, prep = rx._prepare_live, []
+
+
+def prepare():
+    t = time.perf_counter()
+    real_prep()
+    prep.append(time.perf_counter() - t)
+
+
+def run(self, *a, **k):
+    clients.append((self, time.perf_counter()))
+    return real_run(self, *a, **k)
+
+
+def push(iq, *a, **k):
+    t = time.perf_counter()
+    out = real_push(iq, *a, **k)
+    walls.append((t, time.perf_counter() - t))
+    return out
+
+
+rtltcp.RtlTcpClient.run = run
+rx.push_block = push
+rx._prepare_live = prepare
+t_ready = time.perf_counter()
+rx.run_live(f"rtl_tcp:127.0.0.1:{sys.argv[1]}")
+print(json.dumps({
+    "import_s": t_import - t0, "receiver_s": t_ready - t_import,
+    "prepare_s": prep[0],
+    "run_live_to_stream_s": clients[0][1] - t_ready,
+    "stream_to_first_block_s": walls[0][0] - clients[0][1],
+    "first_block_ms": walls[0][1] * 1e3,
+    "second_block_ms": walls[1][1] * 1e3 if len(walls) > 1 else None,
+    "blocks": len(walls), "blocks_dropped": clients[0][0].blocks_dropped,
+    "events": len(rx.events), "exit_code": rx.exit_code}))
+"""
+
+
+def live_run(rx, blocks, rate):
+    """``rx.run_live`` on the card against a loopback server of ``blocks``
+    paced at ``rate`` samples a second (None: as fast as loopback carries
+    them). Returns the run's numbers: blocks sent, received and dropped,
+    push_block's wall per block (median, max, the first block's), the
+    device span of each process_block (CUDA events before and after it),
+    the consumer's busy share of the block period (over all blocks, and
+    after the first, which may carry one-time loads), the ring's highest
+    fill and the kernels' launches."""
+    import torch
+    from rtl_433_tpu_torch import api as tapi
+    from rtl_433_tpu_torch.io import native, rtltcp
+    from rtl_433_tpu_torch.ops import _cuda
+    from torch_live_cases import LoopbackRtlTcp
+
+    walls, spans, clients, high = [], [], [], [0]
+    real_push, real_pb = rx.push_block, tapi.process_block
+    real_run = rtltcp.RtlTcpClient.run
+
+    def push(iq, *a, **k):
+        t = time.perf_counter()
+        out = real_push(iq, *a, **k)
+        walls.append(time.perf_counter() - t)
+        return out
+
+    def pb(*a, **k):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = real_pb(*a, **k)
+        ev[1].record()
+        spans.append(ev)
+        return out
+
+    def run(self, *a, **k):
+        clients.append(self)
+        return real_run(self, *a, **k)
+
+    class Ring(native.BlockRing):
+        def pop(self):
+            high[0] = max(high[0], self.fill)
+            return super().pop()
+
+    srv = LoopbackRtlTcp(blocks, rate=rate)
+    srv.start()
+    rx.push_block = push
+    _cuda.reset_launches()
+    t = time.perf_counter()
+    with patched((tapi, "process_block", pb),
+                 (rtltcp.RtlTcpClient, "run", run),
+                 (native, "BlockRing", Ring)):
+        rx.run_live(srv.device)
+    wall = time.perf_counter() - t
+    torch.cuda.synchronize()
+    srv.join(timeout=60)
+    rx.push_block = real_push
+    dev_ms = [a.elapsed_time(b) for a, b in spans]
+    n = len(walls)
+    return {"blocks_sent": len(blocks), "blocks": n,
+            "blocks_dropped": clients[0].blocks_dropped,
+            "ring_high_fill": high[0], "exit_code": rx.exit_code,
+            "seconds": wall,
+            "launches": {k: _cuda.LAUNCHES[k] for k in REPLAY_KERNELS},
+            "push_ms": {"median": 1e3 * float(np.median(walls)),
+                        "max": 1e3 * max(walls), "first": 1e3 * walls[0]},
+            "device_ms": {"median": float(np.median(dev_ms)),
+                          "max": max(dev_ms)},
+            "busy_share": sum(walls) / (n * N_BLOCK / LIVE_RATE),
+            "busy_share_after_first": sum(walls[1:])
+            / max(n - 1, 1) / (N_BLOCK / LIVE_RATE),
+            "consumer_msps": n * N_BLOCK / sum(walls) / 1e6,
+            "wall_msps": n * N_BLOCK / wall / 1e6}
+
+
+def live_phase(fx, rate_of):
+    """The ``live`` phase (module docstring). Returns (lines, the front
+    end's and detector's launches on the paced and flat runs)."""
+    import torch
+    from rtl_433_tpu_torch import cli
+    from rtl_433_tpu_torch.api import RtlTpu
+    from rtl_433_tpu_torch.io import load_iq
+    from rtl_433_tpu_torch.ops import _cuda
+    from rtl_433_tpu_torch.output.data_model import event_to_json
+    from torch_live_cases import (LoopbackRtlTcp, Passthrough, dump_argv,
+                                  fixed_localtime, free_port, read_dumps,
+                                  stream_blocks)
+    from torch_replay_cases import fixture, run_cli
+
+    t_phase = time.perf_counter()
+    lines, launches = [], {k: 0 for k in REPLAY_KERNELS}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_live_")
+
+    def events(evs):
+        out = []
+        for e in evs:
+            d = json.loads(event_to_json(e))
+            d.pop("time", None)
+            out.append(d)
+        return out
+
+    def live(name, rate, blocks, served, check=True, **extra):
+        rx = RtlTpu(sample_rate=rate, device="cuda")
+        row = live_run(rx, blocks, served)
+        for k in REPLAY_KERNELS:
+            launches[k] += row["launches"][k]
+        row = dict({"phase": "live", "stream": name, "rate": rate,
+                    "served_msps": served and served / 1e6, **extra}, **row)
+        if check:
+            path = os.path.join(tmp, f"{name}_433.92M_{rate // 1000}k.cu8")
+            np.concatenate(blocks).tofile(path)
+            want = events(RtlTpu(device="cuda").decode_file(path))
+            got = events(rx.events)
+            if got != want:
+                fail(f"live {name}: {len(got)} events differ from "
+                     f"decode_file's {len(want)}")
+            if row["blocks_dropped"] or row["blocks"] != len(blocks):
+                fail(f"live {name}: {row['blocks']} of {len(blocks)} "
+                     f"blocks, {row['blocks_dropped']} dropped")
+            if any(row["launches"][k] != len(blocks)
+                   for k in REPLAY_KERNELS):
+                fail(f"live {name}: launches {row['launches']} for "
+                     f"{len(blocks)} blocks")
+            row["events"] = len(got)
+        lines.append(row)
+
+    try:
+        mixed = {}
+        for rate in (1_024_000, 250_000):
+            files = [cu8 for _d, _n, cu8, _w in fx if rate_of(cu8) == rate]
+            mixed[rate] = stream_blocks(np.concatenate(
+                [load_iq(f, "cu8") for f in files]))
+            live(f"live_{rate // 1000}k", rate, mixed[rate], LIVE_RATE,
+                 fixtures=len(files))
+        live("live_flat", 250_000, mixed[250_000], None, check=False)
+
+        # a cold start: run_live in a fresh process (the kernels built)
+        srv = LoopbackRtlTcp(mixed[1_024_000][:LIVE_COLD_BLOCKS],
+                             rate=LIVE_RATE)
+        srv.start()
+        t = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-c", LIVE_COLD, str(srv.port), "1024000",
+             HERE], capture_output=True, text=True, timeout=120)
+        srv.join(timeout=60)
+        if out.returncode != 0:
+            fail(f"live cold start: {out.stderr[-2000:]}")
+        cold = json.loads(out.stdout.strip().splitlines()[-1])
+        lines.append(dict({"phase": "live_cold_start",
+                           "blocks_sent": LIVE_COLD_BLOCKS,
+                           "process_s": time.perf_counter() - t}, **cold))
+
+        # the CLI on the card against --device cpu: -d with -F rtltcp,
+        # every -w format with FM off and on (-S all beside), a .sr session
+        secs = {"card": 0.0, "cpu": 0.0}
+
+        def both(what, argv, run):
+            res = {}
+            for device in ("cuda", "cpu"):
+                t = time.perf_counter()
+                res[device] = run(device, argv + ["--device", device])
+                secs["card" if device == "cuda" else "cpu"] += \
+                    time.perf_counter() - t
+            if res["cuda"] != res["cpu"]:
+                fail(f"live_cli {what}: the card's run differs from "
+                     f"--device cpu: {str(res['cuda'])[:600]} vs "
+                     f"{str(res['cpu'])[:600]}")
+            if res["cuda"][0][0] != 0:
+                fail(f"live_cli {what}: {res['cuda'][0]}")
+            return res["cuda"]
+
+        def live_cli(device, argv):
+            blocks = mixed[1_024_000][:LIVE_CLI_BLOCKS - 1] \
+                + mixed[1_024_000][-1:]
+            port = free_port()
+            reader = Passthrough(port)
+            reader.start()
+            srv = LoopbackRtlTcp(blocks, gate=reader.connected)
+            srv.start()
+            res = run_cli(cli.main, ["-d", srv.device, "-F",
+                                     f"rtltcp:127.0.0.1:{port}"] + argv)
+            reader.done.set()
+            srv.join(timeout=60)
+            reader.join(timeout=60)
+            want = b"".join(b.tobytes() for b in blocks)
+            if reader.data[12:] != want:
+                fail(f"live_cli on {device}: the passthrough client read "
+                     f"{len(reader.data)} bytes, want 12 + {len(want)}")
+            return res, srv.commands, reader.data
+
+        def dumps(device, argv, cwd):
+            d = os.path.join(cwd, device)
+            os.makedirs(d)
+            here = os.getcwd()
+            os.chdir(d)
+            try:
+                return run_cli(cli.main, argv), read_dumps(".")
+            finally:
+                os.chdir(here)
+
+        _cuda.reset_launches()
+        cli_runs = {}
+        res = both("-d", ["-s", "1024k", "-F", "json", "-M", "level"],
+                   live_cli)
+        cli_runs["live_events"] = res[0][1].count("\n")
+        cap = os.path.join(tmp, "sat_433.92M_250k.cu8")
+        np.concatenate([load_iq(fixture("nexus"), "cu8"),
+                        np.full((2000, 2), 255, np.uint8)]).tofile(cap)
+        with fixed_localtime():
+            for fm, argv in (("fm_off", ["-R", "19", "-r", cap]),
+                             ("fm_on", ["-R", "75", "-r",
+                                        fixture("lacrosse_tx35")])):
+                d = os.path.join(tmp, fm)
+                os.makedirs(d)
+                res = both(f"-w {fm}", argv + ["-F", "json", "-S", "all"]
+                           + dump_argv("."),
+                           lambda dv, a, _d=d: dumps(dv, a, _d))
+                cli_runs[fm] = {k: len(v) for k, v in res[1].items()}
+            d = os.path.join(tmp, "sr")
+            os.makedirs(d)
+            res = both(".sr", ["-R", "75", "-r", fixture("lacrosse_tx35"),
+                               "-F", "json", "-w", "session.sr"],
+                       lambda dv, a, _d=d: dumps(dv, a, _d))
+        cli_runs["sr_members"] = {k: len(v) for k, v in
+                                  res[1]["session.sr"].items()}
+        cli_launches = {k: _cuda.LAUNCHES[k] for k in REPLAY_KERNELS}
+        if any(v <= 0 for v in cli_launches.values()):
+            fail(f"live_cli: launches {cli_launches}")
+        torch.cuda.synchronize()
+        lines.append({"phase": "live_cli", "runs": cli_runs,
+                      "card_s": secs["card"], "cpu_s": secs["cpu"],
+                      "launches": cli_launches, "byte_equal": True,
+                      "seconds_total": time.perf_counter() - t_phase,
+                      "nvidia_smi": smi_line()})
+        return lines, launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "rtl_433_tpu_torch")):
         print("chip_smoke: run me from the root of a checkout (the "
@@ -2958,6 +3276,19 @@ def main():
         get_runner()
         emit(replay_cli_phase(compare)[0])
         return 0
+    if "--live-only" in sys.argv[1:]:
+        # phase 5e alone, for a first check of live input on the card
+        from rtl_433_tpu_torch.decoders import garage
+        _cuda.build()
+        _native.build()
+        _native.build(_native.INGEST_SOURCE)
+        get_runner()
+        fx = [(d, nums, cu8, None) for d, nums, cu8 in fixture_cases()]
+        with patched((garage, "time",
+                      types.SimpleNamespace(monotonic=lambda: 0.0))):
+            for line in live_phase(fx, rate_of)[0]:
+                emit(line)
+        return 0
     if "--compact-only" in sys.argv[1:]:
         # the compaction wrapper and kernel alone at phase 4b's states,
         # for a comparison with another checkout of the package
@@ -2979,8 +3310,9 @@ def main():
     try:
         slicer_lib = _native.build()
         native_slicers.available()
+        ingest_lib = _native.build(_native.INGEST_SOURCE)
     except RuntimeError as e:
-        fail(f"the slicer library did not build: {e}")
+        fail(f"a host library did not build: {e}")
     slicer_s = time.perf_counter() - t_host
     t_host = time.perf_counter()
     get_runner()
@@ -2994,6 +3326,7 @@ def main():
     emit({"phase": "build", "seconds": round(time.perf_counter() - t, 3),
           "per_kernel_s": {k: round(v, 3) for k, v in took.items()},
           "ptxas": ptxas, "slicer_lib": os.path.basename(slicer_lib),
+          "ingest_lib": os.path.basename(ingest_lib),
           "slicer_lib_s": round(slicer_s, 3),
           "decl_runner_s": round(runner_s, 3)})
 
@@ -3382,6 +3715,16 @@ def main():
     ds_paths["replay_cli"] = {k: rc_launches[k] for k in ds_kernel_names()}
     launches_cli = {k: rc_launches[k] for k in REPLAY_KERNELS}
 
+    # ---- 5e. live: run_live against loopback rtl_tcp servers, a cold
+    # start, the CLI's live run and dumps against --device cpu; on the
+    # fixed Security+ clock of the mixed streams
+    from rtl_433_tpu_torch.decoders import garage
+    with patched((garage, "time",
+                  types.SimpleNamespace(monotonic=lambda: 0.0))):
+        live_lines, launches_live = live_phase(fx, rate_of)
+    for line in live_lines:
+        emit(line)
+
     # ---- 6. stream: fixtures concatenated, decoded untraced and traced
     from torch.profiler import ProfilerActivity, profile
     from rtl_433_tpu_torch.decoders import garage
@@ -3676,6 +4019,7 @@ def main():
             "launches_multichannel": mc_launches[k],
             "launches_timeshard": ts_launches[k],
             "launches_replay_cli": launches_cli[k],
+            "launches_live": launches_live[k],
             "shape": [1, N_BLOCK]})
     m = kinds["compact"]
     rows.append({
@@ -3804,6 +4148,7 @@ def main():
     emit({"processes": {"live_children_stopped": stop_children()}})
     emit({"kernel_launches": launches,
           "kernel_launches_replay_cli": launches_cli,
+          "kernel_launches_live": launches_live,
           "kernel_launches_multichannel": mc_launches,
           "kernel_launches_device_slice": ds_paths,
           "kernel_launches_timeshard": ts_launches,

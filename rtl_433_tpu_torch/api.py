@@ -6,14 +6,22 @@ the engine on ``device`` and routes published packages through slicers +
 decoders to events (ref src/r_flow.c:104-372, src/r_api.c:632-839).
 
 It carries file replay (``-r``: cu8/cs8/cs16/cf32 samples, SigMF archives,
-``.ook`` pulse text, ``-M replay`` pacing) and ``[C, N, 2]`` multi-channel
-blocks through ``push_block``, the ``-y`` test-string entry point
-(``decode_test_string``), the noise floor (squelch, ``-M noise`` reports and
-autolevel, from channel 0's block level), the ``-M stats`` reports (interval
-and on-demand, ``_maybe_interval_stats``), the ``-M time`` formats, and the
-log fan-out through the sinks (``redirect_logging``) with the decoder and
-pulse debug dumps of ``-v``. Live input and the pulse analyzer (``-A``) are
-not ported yet and raise when asked for.
+``.ook`` pulse text, ``-M replay`` pacing), live input over rtl_tcp
+(``run_live``: the ingest ring, the watchdog, hopping, ``-E``/``-T``/``-n``,
+SIGHUP/SIGUSR1/SIGUSR2, the retune setters) and ``[C, N, 2]`` multi-channel
+blocks through ``push_block``, with the IQ taps of the block loop (the raw
+taps of ``-F rtltcp``, the ``-S`` grabber, the ``-w`` dumpers, whose am/fm
+streams are the front end's own outputs), the ``-y`` test-string entry
+point (``decode_test_string``), the noise floor (squelch, ``-M noise``
+reports and autolevel, from channel 0's block level), the ``-M stats``
+reports (interval and on-demand, ``_maybe_interval_stats``), the ``-M
+time`` formats, and the log fan-out through the sinks
+(``redirect_logging``) with the decoder and pulse debug dumps of ``-v``.
+The pulse analyzer (``-A``) and data tags (``-K``) are not ported yet; the
+analyzer raises when asked for.
+
+The block loop, and so every CUDA call, runs on the caller's thread; live
+input's producer thread and watchdog timer touch no tensor.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ import torch
 
 from .decoders import Registry
 from .dsp import baseband
-from .dsp.engine import (DetectorParams, PKG_FSK, detector_init,
+from .dsp.engine import (DetectorParams, PKG_FSK, detector_init, preload,
                          process_block, take_packages)
 from .io import load_iq, parse_filename
 from .ops._cuda import resolve_device
@@ -36,7 +44,8 @@ from .output.data_model import Event, convert_units
 from .output.logger import (LOG_ERROR, LOG_NOTICE, LOG_TRACE, LOG_WARNING,
                             print_logf)
 from .pulse import slicers as _slicers
-from .pulse.data import PulseData, rfraw_check, rfraw_parse
+from .pulse.data import (PulseData, pulse_data_dump_raw, rfraw_check,
+                         rfraw_parse)
 
 DEFAULT_BUF_SAMPLES = 131072   # 256 KiB cu8 (ref include/sdr.h:17)
 FSK_PULSE_DETECTOR_LIMIT = 800_000_000  # ref include/rtl_433.h:18
@@ -80,9 +89,8 @@ class RtlTpu:
             _not_ported("the pulse analyzer (-A)")
         self.device = resolve_device(device)
         self.fm_filter = float(fm_filter)   # -Y filter= (us/Hz/ratio)
-        # -g and -p are kept for live input, which is not ported yet
-        self.gain_db = gain_db
-        self.ppm_error = int(ppm_error)
+        self.gain_db = gain_db              # -g, applied to rtl_tcp tuner
+        self.ppm_error = int(ppm_error)     # -p, applied to rtl_tcp tuner
         self.verbosity = verbosity
         # log verbosity in logger levels: default LOG_WARNING, each -v
         # steps one level up (ref src/r_api.c:127, src/rtl_433.c:509)
@@ -118,6 +126,11 @@ class RtlTpu:
             self.registry.register_all()
         self.events: List[Event] = []
         self.sinks = []
+        self.dumpers = []       # io.grab.Dumper list (-w)
+        self.raw_taps = []      # raw CU8 block callbacks (-F rtltcp,
+                                # ref include/raw_output.h)
+        self.samp_grab = None   # io.grab.SampGrab (-S)
+        self._logic_buf = None  # the -w U8:LOGIC buffer of the block
         self._current_file = None
         self._state = None
         self._params = None
@@ -146,6 +159,49 @@ class RtlTpu:
         self.in_replay = 0
 
     # -- config ---------------------------------------------------------------
+
+    def set_frequency(self, hz: float):
+        """Retune: pipeline params AND the live radio, when one is
+        connected (ref set_center_freq, src/r_api.c:82-89)."""
+        if float(hz) != self.center_frequency:
+            self.center_frequency = float(hz)
+            self._invalidate()
+        live = getattr(self, "_live", None)
+        if live is not None:
+            live.set_center_freq(int(self.center_frequency))
+
+    def set_sample_rate(self, rate: int):
+        """(ref set_sample_rate, src/r_api.c:91-99)"""
+        if int(rate) != self.sample_rate:
+            self.sample_rate = int(rate)
+            self._invalidate()
+        live = getattr(self, "_live", None)
+        if live is not None:
+            live.set_sample_rate(self.sample_rate)
+
+    def set_gain(self, db):
+        """Tuner gain in dB; None/"auto"/"" = tuner AGC. Reaches the live
+        rtl_tcp tuner immediately (ref set_gain_str, src/r_api.c:101-115)."""
+        self.gain_db = None if db in (None, "", "auto") else float(db)
+        live = getattr(self, "_live", None)
+        if live is not None:
+            if self.gain_db is None:
+                live.set_gain_mode(0)
+            else:
+                live.set_gain(int(round(self.gain_db * 10)))
+
+    def set_ppm_error(self, ppm):
+        """Tuner frequency correction (-p), applied live (ref -p handling
+        + sdr_set_freq_correction, src/sdr.c:1224)."""
+        self.ppm_error = int(ppm)
+        live = getattr(self, "_live", None)
+        if live is not None:
+            live.set_freq_correction(self.ppm_error)
+
+    def set_hop_interval(self, seconds):
+        """Replace the hop cadence used by the live loop (-H equivalent,
+        ref src/http_server.c hop_interval verb)."""
+        self._hop_times = [max(1, int(seconds))]
 
     def _invalidate(self):
         self._state = None
@@ -230,11 +286,24 @@ class RtlTpu:
             iq = np.pad(iq, ((0, 0), (0, pad), (0, 0)), constant_values=128)
         # full blocks need no tail masking
         n_valid = None if pad == 0 else N
+        iq0 = iq[0, :N]
+        for tap in self.raw_taps:
+            tap(iq0)
+        if self.samp_grab is not None:
+            self.samp_grab.push(iq0)
+        # filtered am/fm streams for -w dumpers (ref src/r_flow.c:439-455):
+        # channel 0's front-end outputs, handed back by process_block
+        streams = any(d.wants_streams for d in self.dumpers)
+        self._logic_buf = (np.zeros(N, np.uint8)
+                           if any(d.wants_logic for d in self.dumpers)
+                           else None)
         x = torch.from_numpy(np.ascontiguousarray(iq)).to(self.device)
         noise = self.squelch or self.report_noise or self.auto_level
         # squelch: skip noise-only frames entirely in live mode; frames are
-        # always processed for file replay (ref src/r_flow.c:166-176)
-        must_process = bool(self._current_file)
+        # always processed for file replay, dumpers or the grabber
+        # (ref src/r_flow.c:166-176)
+        must_process = bool(self._current_file or self.dumpers
+                            or self.samp_grab is not None)
         if noise and not must_process:
             noise_only = self._track_noise(self._block_avg_db(x))
             if self.squelch and noise_only:
@@ -243,8 +312,10 @@ class RtlTpu:
                 self._stream_pos += N
                 self._maybe_interval_stats()
                 return 0
-        self._state, avg_db = process_block(self._params, self._state, x,
-                                            n_valid, flush=flush)
+        self._state, avg_db, *am_fm = process_block(
+            self._params, self._state, x, n_valid, flush=flush,
+            streams=streams)
+        am_f, fm_f = am_fm[0] if streams else (None, None)
         if noise and must_process:
             self._track_noise(float(avg_db[0]))
         pkgs, self._state = take_packages(self._state)
@@ -275,6 +346,9 @@ class RtlTpu:
             events += self._handle_package(pkg, N)
         if events:
             self.frames_events += 1
+        for dumper in self.dumpers:
+            dumper.push(iq0, am=am_f, fm=fm_f, logic=self._logic_buf)
+        self._logic_buf = None
         self._stream_pos += N
         self._maybe_interval_stats()
         return events
@@ -334,6 +408,15 @@ class RtlTpu:
         pd.calc_rssi_snr(self.sample_rate, self.center_frequency,
                          sample_size=2, use_mag_est=self.use_mag_est)
         is_fsk = pkg["type"] == PKG_FSK
+        if self._logic_buf is not None:
+            pulse_data_dump_raw(self._logic_buf, self._stream_pos, pd,
+                                0x04 if is_fsk else 0x02)
+        # per-package text dumpers (ref src/r_flow.c:265-276, :308-319)
+        for dumper in self.dumpers:
+            if dumper.format == "ook":
+                dumper.write_pulses(pd)
+            elif dumper.format == "vcd":
+                dumper.write_vcd(pd, is_fsk)
         if self.verbosity >= 3:
             # verbosity-gated pulse-train dump (ref src/r_flow.c:279-281
             # LOG_TRACE package print, src/pulse_data.c:193 text format)
@@ -480,9 +563,8 @@ class RtlTpu:
 
     def _maybe_interval_stats(self):
         """Interval (-M stats:l:s) and on-demand (``stats_now``; live
-        input's SIGUSR2, not ported yet) stats reports, checked once per
-        frame and emitted as events through every sink (ref
-        src/rtl_433.c:1155-1164)."""
+        input's SIGUSR2) stats reports, checked once per frame and emitted
+        as events through every sink (ref src/rtl_433.c:1155-1164)."""
         if not (self.stats_now or (self.report_stats
                                    and self.stats_interval)):
             return
@@ -591,5 +673,189 @@ class RtlTpu:
                 self.registry.maybe_log_bitbuffer(dev, sliced, bool(events))
         return self.events[start:]
 
-    def run_live(self, *args, **kwargs):
-        _not_ported("live input")
+    def run_live(self, device: str = "rtl_tcp:localhost:1234",
+                 max_blocks: Optional[int] = None,
+                 block_samples: int = DEFAULT_BUF_SAMPLES,
+                 run_mode: str = "quit", frequencies=None, hop_times=None,
+                 after_events: Optional[str] = None,
+                 duration: Optional[float] = None,
+                 watchdog_interval: float = 1.5) -> int:
+        """Live receive loop over rtl_tcp with supervision (the
+        analogue of start_sdr + acquire loop + timer_handler,
+        ref src/rtl_433.c:1284, :1352-1425, src/sdr.c:1718).
+
+        - ``run_mode`` (-D): quit | restart | pause | manual — action when
+          the stream stalls (no frame for a watchdog interval past grace).
+        - ``frequencies``/``hop_times`` (-f/-H): hop over the frequency
+          list every hop_times[i] seconds (last entry repeats),
+          SIGUSR1 hops immediately (ref src/rtl_433.c:1165-1177).
+        - ``after_events`` (-E): "quit" or "hop" after a successful event
+          (ref src/rtl_433.c:1136-1143).
+        - ``duration`` (-T): stop after this many seconds.
+
+        Returns the number of events decoded; ``self.exit_code`` is 3
+        after a stall-quit (ref src/rtl_433.c:1412). Blocks are decoded on
+        this thread; the client's producer thread fills its ingest ring
+        (``io/native.py``) and a timer thread runs the watchdog.
+        """
+        from .io.rtltcp import RtlTcpClient
+        spec = device.split(":")
+        if spec[0] != "rtl_tcp":
+            raise ValueError(f"unsupported device: {device}")
+        host = spec[1] if len(spec) > 1 and spec[1] else "localhost"
+        port = int(spec[2]) if len(spec) > 2 else 1234
+        freqs = [int(f) for f in (frequencies or [self.center_frequency])]
+        # instance state so the HTTP hop_interval verb can retime hopping
+        # mid-run (set_hop_interval)
+        self._hop_times = list(hop_times or [600])
+        start = len(self.events)
+        if self.report_time == "off":
+            self.report_time = "iso"
+        self.exit_code = 0
+        self._watchdog = 0
+        self._dev_state = "starting"   # starting|grace|started|stopped
+        self._hop_now = False
+        self._exit_async = False
+        freq_index = 0
+        hop_start = _time.monotonic()
+        t_end = None if duration is None else _time.monotonic() + duration
+
+        self._install_live_signals()
+        self._prepare_live()
+
+        def connect():
+            cli = RtlTcpClient(host, port, block_samples=block_samples)
+            cli.connect()
+            cli.set_sample_rate(self.sample_rate)
+            cli.set_center_freq(freqs[freq_index])
+            if self.gain_db is not None:     # -g (ref src/sdr.c gain set)
+                cli.set_gain(int(round(self.gain_db * 10)))
+            if self.ppm_error:               # -p
+                cli.set_freq_correction(self.ppm_error)
+            self._dev_state = "starting"
+            self._watchdog = 0
+            return cli
+
+        def watchdog_tick():
+            """Stall detection state machine (ref src/rtl_433.c:1366-1421)."""
+            if getattr(self, "_sig_hup", False):
+                self._sig_hup = False
+                for d in self.dumpers:
+                    try:
+                        d.file.flush()
+                    except OSError:
+                        pass
+            if self._watchdog != 0:
+                self._dev_state = "started"
+                self._watchdog = 0
+                return
+            if self._dev_state == "starting":
+                self._dev_state = "grace"
+                return
+            # stalled (grace with no first frame, or started and dried up)
+            print_logf(LOG_WARNING, "Input device",
+                       "stream stalled (%s), %s"
+                       % ("no frames" if self._dev_state == "grace"
+                          else "ran out of frames", run_mode))
+            self._dev_state = "stopped"
+            self.exit_code = 3
+            if run_mode == "quit":
+                self._exit_async = True
+            self._live.stop()
+
+        def on_block(iq):
+            nonlocal freq_index, hop_start
+            self._watchdog += 1
+            before = len(self.events)
+            self.push_block(iq)
+            got = len(self.events) - before
+            if after_events and got > 0:
+                if after_events == "quit":
+                    self._exit_async = True
+                    self._live.stop()
+                else:
+                    self._hop_now = True
+            now = _time.monotonic()
+            if t_end is not None and now >= t_end:
+                self._exit_async = True
+                self._live.stop()
+            hops = self._hop_times
+            hop_index = min(freq_index, len(hops) - 1)
+            if len(freqs) > 1 and now - hop_start >= hops[hop_index]:
+                self._hop_now = True
+            if getattr(self, "_sig_hop", False):
+                self._sig_hop = False
+                self._hop_now = True
+            if self._hop_now and not self._exit_async:
+                self._hop_now = False
+                hop_start = now
+                freq_index = (freq_index + 1) % len(freqs)
+                self.center_frequency = float(freqs[freq_index])
+                self._live.set_center_freq(freqs[freq_index])
+
+        import threading
+        while True:
+            try:
+                self._live = connect()
+            except (OSError, ConnectionError):
+                self.exit_code = 3
+                break
+            stop_timer = threading.Event()
+
+            def timer_loop():
+                while not stop_timer.wait(watchdog_interval):
+                    watchdog_tick()
+
+            timer = threading.Thread(target=timer_loop, daemon=True)
+            timer.start()
+            try:
+                self._live.run(on_block, max_blocks=max_blocks)
+            finally:
+                stop_timer.set()
+                timer.join(timeout=2 * watchdog_interval)
+            if self._exit_async or max_blocks is not None:
+                break
+            if self._dev_state == "stopped" and run_mode == "restart":
+                continue  # reconnect (ref start_sdr restart path)
+            break
+        self._live = None
+        return len(self.events) - start
+
+    def _prepare_live(self):
+        """The block loop's one-time loads, before the stream starts: the
+        engine's state on the device (and so the CUDA context), the path's
+        kernel libraries, the host slicer library and the declarative
+        runner. Loaded at the first block instead, they held it up on the
+        card for nearly as long as the ring's 15 blocks last at 1.024 MS/s
+        (PERF.md §6). Changes no output."""
+        self._ensure_pipeline()
+        preload(self.device)
+        self.registry.preload()
+
+    def _install_live_signals(self):
+        """SIGHUP reopen + SIGUSR1 hop (ref src/rtl_433.c:1036-1070);
+        no-op off the main thread or on platforms without the signals."""
+        import signal
+        import threading
+        if threading.current_thread() is not threading.main_thread():
+            return
+        self._sig_hup = False
+        self._sig_hop = False
+        try:
+            signal.signal(signal.SIGHUP,
+                          lambda *_: setattr(self, "_sig_hup", True))
+            signal.signal(signal.SIGUSR1,
+                          lambda *_: setattr(self, "_sig_hop", True))
+            # on-demand stats: the reference binds BSD SIGINFO (absent on
+            # Linux, ref src/rtl_433.c:1047 "TODO: maybe SIGUSR1");
+            # SIGUSR1 already hops, so SIGUSR2 fills that role here
+            signal.signal(signal.SIGUSR2,
+                          lambda *_: setattr(self, "stats_now",
+                                             self.stats_now + 1))
+        except (ValueError, AttributeError, OSError):
+            pass
+
+    def stop_live(self):
+        self._exit_async = True
+        if getattr(self, "_live", None):
+            self._live.stop()

@@ -1,12 +1,13 @@
-"""rtl_433_tpu_torch command line interface (file replay and -y).
+"""rtl_433_tpu_torch command line interface (file replay, live input, -y).
 
-Mirrors the rtl_433 flags of the replay path (ref src/rtl_433.c:103-167
-usage, :399-1002 parser):
+Mirrors the rtl_433 flags (ref src/rtl_433.c:103-167 usage, :399-1002
+parser):
 
   Input
   -r <file>      replay a sample file (cu8/cs8/cs16/cf32/ook/sigmf; rate/freq
                  parsed from the name, "cu8:250k:path" prefixes override);
                  also positional
+  -d rtl_tcp[:host[:port]]   live IQ from an rtl_tcp server
   -y <code>      decode test data ({n}hex rows or RfRaw strings)
   -n <n>         stop after n samples (metric suffixes ok; live input only)
   -f <freq>      center frequency; repeat for hop list (metric suffixes ok)
@@ -28,26 +29,31 @@ usage, :399-1002 parser):
 
   Output
   -F <fmt>       add an output, repeatable: json | jsons | kv | log | csv
-                 | null, each with an optional ",v=<level>" log level
+                 | null, each with an optional ",v=<level>" log level;
+                 rtltcp[:host[:port]] re-serves the raw IQ stream
   -M <meta>      time[:rel|unix|iso|usec|tz|utc|local] | protocol | level
                  | noise[:secs] | stats[:level[:interval]] | replay[:N]
                  | bits | newmodel | oldmodel
   -C <mode>      unit conversion: native|si|customary
+  -w/-W <file>   write samples to file ('-W' overwrites): cu8, cs8, cs16,
+                 cf32, am.s16, fm.s16, am.f32, fm.f32, U8:LOGIC:<path>,
+                 .ook, .vcd, or a .sr PulseView session
+  -S <mode>      signal grabber: all|unknown|known
   -E <mode>, -T <secs>, -D <mode>  hop/quit after outputs, duration,
-                 watchdog (live input only)
+                 watchdog: quit|restart|pause|manual (live input only)
   -v             increase verbosity (repeatable)
   -V             print this package's name and version
   --device cuda|cpu   where the engine runs (default: cuda; with no GPU
                  the run fails rather than falling back to the CPU)
 
-Not ported yet, refused with exit code 2: live input (-d), the sample
-dumpers (-w/-W), the signal grabber (-S), data tags (-K), the pulse
+Not ported yet, refused with exit code 2: data tags (-K), the pulse
 analyzer (-A) and the network outputs (-F mqtt|mqtts|influx|syslog|
-trigger|http|rtltcp).
+trigger|http).
 
 Exit codes follow the reference: 0 ok, 1 = -y decoded nothing
-(ref src/rtl_433.c:1661), 2 = a usage error or an input file that cannot
-be opened.
+(ref src/rtl_433.c:1661), 2 = a usage error, an input file or an rtl_tcp
+server that cannot be opened, 3 = live input stalled (ref
+src/rtl_433.c:1412).
 """
 
 from __future__ import annotations
@@ -59,11 +65,8 @@ from .output.data_model import event_to_json, event_to_jsons, event_to_kv
 
 
 # the options of later parts of the port, refused by name
-_NOT_PORTED = {"-d": "live input", "-w": "sample dumpers",
-               "-W": "sample dumpers", "-S": "the signal grabber",
-               "-K": "data tags", "-A": "the pulse analyzer"}
-_NOT_PORTED_OUTPUTS = ("mqtt", "mqtts", "influx", "syslog", "trigger", "http",
-                       "rtltcp")
+_NOT_PORTED = {"-K": "data tags", "-A": "the pulse analyzer"}
+_NOT_PORTED_OUTPUTS = ("mqtt", "mqtts", "influx", "syslog", "trigger", "http")
 
 
 def _metric(v: str) -> float:
@@ -94,13 +97,15 @@ def main(argv=None):
     y_opts = {}
     verbosity = 0
 
-    # parsed as the JAX CLI parses them; only live input reads them
+    source = None       # -d
     max_samples = None
     run_mode = "quit"
     hop_times = []
     frequencies = []
     after_events = None
     duration = None
+    dumper_specs = []
+    grab_mode = None
     device = "cuda"     # where the engine runs
 
     # conf files: explicit -c plus default search (ref src/rtl_433.c:466-490)
@@ -135,8 +140,14 @@ def main(argv=None):
             print(f"option {a} ({_NOT_PORTED[a]}) is not ported yet",
                   file=sys.stderr)
             return 2
+        elif a == "-d":
+            source = val()
         elif a == "-n":
             max_samples = int(_metric(val()))
+        elif a in ("-w", "-W"):
+            dumper_specs.append(val())
+        elif a == "-S":
+            grab_mode = val()
         elif a == "-D":
             run_mode = val()
             if run_mode not in ("quit", "restart", "pause", "manual"):
@@ -332,6 +343,23 @@ def main(argv=None):
     if not no_default:
         rx.registry.register_all()
 
+    sr_filename = None
+    for spec in dumper_specs:
+        from .io.grab import Dumper
+        if spec.endswith(".sr"):
+            # PulseView session: register the sigrok channel set
+            # (ref src/r_api.c:1089-1099, 1177-1181)
+            sr_filename = spec
+            for ch in ("U8:LOGIC:logic-1-1", "F32:I:analog-1-4-1",
+                       "F32:Q:analog-1-5-1", "F32:AM:analog-1-6-1",
+                       "F32:FM:analog-1-7-1"):
+                rx.dumpers.append(Dumper(ch, rate))
+        else:
+            rx.dumpers.append(Dumper(spec, rate))
+    if grab_mode is not None and grab_mode != "none":
+        from .io.grab import SampGrab
+        rx.samp_grab = SampGrab(grab_mode or "all")
+
     outputs_explicit = bool(outputs)
     if not outputs:
         # default event output plus a stderr log sink (the reference
@@ -339,6 +367,7 @@ def main(argv=None):
         # ref src/rtl_433.c:1500-1506)
         outputs = ["json", "log"]
 
+    closers = []
     for spec in outputs:
         fmt, _, arg = spec.partition(":")
         # "-F json,v=8:path" attaches a per-sink log_level (lvlarg_param,
@@ -373,6 +402,13 @@ def main(argv=None):
                 determine_csv_fields(rx.registry.active,
                                      verbose_bits=rx.verbose_bits),
                 log_level=log_lvl or 0))
+        elif fmt == "rtltcp":
+            # raw IQ passthrough server (ref src/output_rtltcp.c:519)
+            from .io.rtltcp import RtlTcpServer
+            host, _, port = arg.partition(":")
+            srv = RtlTcpServer(host or "0.0.0.0", int(port or 6778))
+            rx.raw_taps.append(srv.broadcast)
+            closers.append(srv.close)
         elif fmt in _NOT_PORTED_OUTPUTS:
             print(f"-F {fmt} (a network output) is not ported yet",
                   file=sys.stderr)
@@ -404,12 +440,45 @@ def main(argv=None):
             return 2
         n_events += len(evs)
 
+    if source is not None:
+        if not source.startswith("rtl_tcp"):
+            print(f"unsupported device: {source} (rtl_tcp:host:port only)",
+                  file=sys.stderr)
+            return 2
+        max_blocks = None
+        if max_samples is not None:
+            from .api import DEFAULT_BUF_SAMPLES
+            max_blocks = max(1, max_samples // DEFAULT_BUF_SAMPLES)
+        try:
+            rx.run_live(source, max_blocks=max_blocks, run_mode=run_mode,
+                        frequencies=frequencies or None,
+                        hop_times=hop_times or None,
+                        after_events=after_events, duration=duration)
+        except (ConnectionError, OSError) as e:
+            print(f"error: cannot open SDR: {e}", file=sys.stderr)
+            return 2
+        finally:
+            if report_stats:
+                ev = rx.stats_report(report_stats)
+                for sink in rx.sinks:
+                    sink(ev)
+            for close in closers:
+                close()
+        return getattr(rx, "exit_code", 0)
+
     if report_stats:
         # final report through every sink (ref src/rtl_433.c:1926-1928)
         ev = rx.stats_report(report_stats)
         for sink in rx.sinks:
             sink(ev)
 
+    for close in closers:
+        close()
+    for d in rx.dumpers:
+        d.close()
+    if sr_filename:
+        from .io.sigrok import write_sigrok
+        write_sigrok(sr_filename, rate, 3, 4)
     if test_codes and n_events == 0:
         return 1
     return 0

@@ -270,6 +270,13 @@ class Registry:
         from ..pulse import native_slicers
         return native_slicers.available()
 
+    def preload(self) -> None:
+        """Load the fast path's host slicer library and lower the
+        declarative runner's tables ahead of the first package."""
+        if self._use_native():
+            from .declarative import get_runner
+            get_runner()
+
     def _run_host(self, pulses, want_fsk: bool, event_cb):
         p_events = 0
         priority = 0

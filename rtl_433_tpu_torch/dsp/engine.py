@@ -30,6 +30,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import baseband
@@ -145,7 +146,8 @@ def detector_init(params: DetectorParams, channels: int, device="cuda"):
     }
 
 
-def _block_scan(params: DetectorParams, regs, iq, n_valid, gen0, t0=0):
+def _block_scan(params: DetectorParams, regs, iq, n_valid, gen0, t0=0,
+                streams=False):
     """Front end + detector scan over one contiguous region.
 
     ``regs`` has the per-call resets applied. ``t0`` is the block-frame
@@ -155,7 +157,9 @@ def _block_scan(params: DetectorParams, regs, iq, n_valid, gen0, t0=0):
     record keys are made relative to.
 
     Returns ``(regs, log_key, log_p, log_g, eop_log, avg_db)`` with logs in
-    temporal order for this region.
+    temporal order for this region, and with ``streams`` a seventh item:
+    channel 0's filtered am and fm over the region's valid samples, int16
+    ``[2, n]`` on the host (see :func:`process_block`).
     """
     C, N, _ = iq.shape
     if N % params.chunk or N > SEG:
@@ -170,8 +174,24 @@ def _block_scan(params: DetectorParams, regs, iq, n_valid, gen0, t0=0):
         n_valid=local_valid, time_major=True)
     packed, log_key, log_p, log_g, eop_log, _ = detector_scan(
         am, fm, pack_regs(regs), gen0, params=params, n_valid=n_valid, t0=t0)
-    return (unpack_regs(packed, regs), log_key, log_p, log_g, eop_log,
-            avg_db)
+    out = (unpack_regs(packed, regs), log_key, log_p, log_g, eop_log, avg_db)
+    if not streams:
+        return out
+    n = N if local_valid is None else local_valid
+    # one copy to the host; with FM off fm is the int32 estimator, which
+    # wraps to int16 (32768 -> -32768) as the JAX package's dump writes it
+    both = torch.stack([am[:n, 0], fm[:n, 0].to(torch.int16)])
+    return out + (both.cpu().numpy(),)
+
+
+def preload(device) -> None:
+    """Load the libraries of the kernels :func:`_block_scan` launches on
+    ``device`` ahead of the first block (nothing for the CPU, whose
+    tensors take the plain versions)."""
+    if torch.device(device).type == "cuda":
+        from ..ops import _cuda
+        for name in ("frontend", "detector_scan"):
+            _cuda.launcher(name)
 
 
 def _ring_keys(tag, idx, gen0):
@@ -400,8 +420,9 @@ def _drain_block(params: DetectorParams, r, log_key, log_p, log_g, eop_log,
 
 
 def process_block(params: DetectorParams, state, iq, n_valid=None,
-                  flush: bool = False):
-    """Process one IQ block for all channels; returns (state, avg_db).
+                  flush: bool = False, streams: bool = False):
+    """Process one IQ block for all channels; returns (state, avg_db), and
+    with ``streams`` (state, avg_db, am_fm).
 
     iq: uint8 [C, N, 2] (cu8) on the state's device. The pipeline is the
     equivalent of push_sdr_flow (ref src/r_flow.c:104-372): AM estimation
@@ -412,6 +433,12 @@ def process_block(params: DetectorParams, state, iq, n_valid=None,
     sample count -- padded tail samples are no-ops, so any padding value
     works and file tails match the reference exactly. Published packages
     are in state["out_*"]; callers fetch + reset via :func:`take_packages`.
+
+    ``am_fm`` is channel 0's filtered am and fm streams over the valid
+    samples, int16 ``[2, n_valid or N]`` on the host: the front end's own
+    outputs (the kernel's on the card), which the ``-w`` am/fm dumpers
+    write (ref src/r_flow.c:439-455). With FM off its fm row is the raw
+    AM estimator truncated to int16.
     """
     C, N, _ = iq.shape
     if N % params.chunk:
@@ -424,6 +451,7 @@ def process_block(params: DetectorParams, state, iq, n_valid=None,
     # through, flush only on the last segment
     if N > SEG:
         avgs = []
+        parts = []
         off = 0
         while off < N:
             seg_n = min(SEG, N - off)
@@ -431,12 +459,16 @@ def process_block(params: DetectorParams, state, iq, n_valid=None,
             if n_valid is not None:
                 seg_valid = min(max(n_valid - off, 0), seg_n)
             last = off + seg_n >= N
-            state, avg_db = process_block(
+            state, avg_db, *part = process_block(
                 params, state, iq[:, off:off + seg_n].contiguous(), seg_valid,
-                flush=flush and last)
+                flush=flush and last, streams=streams)
             avgs.append(avg_db)
+            parts += part
             off += seg_n
-        return state, torch.stack(avgs).mean(0)
+        avg_db = torch.stack(avgs).mean(0)
+        if streams:
+            return state, avg_db, np.concatenate(parts, 1)
+        return state, avg_db
 
     # per-call resets (ref src/pulse_detect.c:283 and :291)
     regs = dict(state)
@@ -447,8 +479,8 @@ def process_block(params: DetectorParams, state, iq, n_valid=None,
                                              else n_valid)
 
     gen0 = regs["gen"].clone()
-    regs, log_key, log_p, log_g, eop_log, avg_db = _block_scan(
-        params, regs, iq, n_valid, gen0)
+    regs, log_key, log_p, log_g, eop_log, avg_db, *am_fm = _block_scan(
+        params, regs, iq, n_valid, gen0, streams=streams)
 
     if flush:
         regs, frow = _flush(params, regs, N if n_valid is None else n_valid,
@@ -466,7 +498,7 @@ def process_block(params: DetectorParams, state, iq, n_valid=None,
     if has_work:
         regs = _drain_block(params, regs, log_key, log_p, log_g, eop_log,
                             gen0)
-    return regs, avg_db
+    return (regs, avg_db, *am_fm)
 
 
 def take_packages(state):

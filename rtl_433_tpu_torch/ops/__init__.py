@@ -6,5 +6,6 @@ dedup and record gather, csrc/dispatch.cu, are wrapped in
 decoders/device_dispatch.py), ``decode_bank`` (the declarative decode
 bank: ``run`` on NumPy for the host dispatch, ``run_torch`` launching
 csrc/decl_bank.cu), ``mic`` (the batched MIC digests, csrc/mic.cu) and
-``timeshard`` (csrc/timeshard.cu). Host-side: the build of the host slicer
-library (``_native``, csrc/slicers.cpp)."""
+``timeshard`` (csrc/timeshard.cu). Host-side: the build of the host
+libraries (``_native``: the slicer bank, csrc/slicers.cpp, and the ingest
+ring of live input, csrc/ingest.cpp)."""

@@ -3,7 +3,9 @@
 Mirrors pulse_data_t (ref include/pulse_data.h:30-50), the RSSI/SNR
 estimate of a detected package (ref src/r_flow.c:35-64), the OOK text
 format of ``.ook`` files (``dump``/``load_all``, ref
-src/pulse_data.c:123-226) and the RfRaw codec of ``-y`` (ref src/rfraw.c).
+src/pulse_data.c:123-226), the RfRaw codec of ``-y`` (ref src/rfraw.c) and
+the ``-w`` dumps of a package: U8 logic spans and VCD transitions (ref
+src/pulse_data.c:58-122).
 """
 
 from __future__ import annotations
@@ -229,3 +231,69 @@ def rfraw_parse(line: str, sample_rate: int = 250_000):
             pd.pulse.extend(base_p)
             pd.gap.extend(base_g)
     return pd if pd.pulse else None
+
+
+def pulse_data_dump_raw(buf, buf_offset: int, pd: "PulseData",
+                        bits: int) -> None:
+    """Mark pulse/gap spans into a per-block U8 logic buffer
+    (ref src/pulse_data.c:58-67): ``0x01|bits`` over pulses, ``0x01``
+    over gaps, clipped to the buffer bounds. ``bits``: 0x02 OOK, 0x04 FSK.
+    """
+    n = len(buf)
+    pos = int(pd.offset) - int(buf_offset)
+    for p, g in zip(pd.pulse, pd.gap):
+        lo = max(pos, 0)
+        hi = min(pos + int(p), n)
+        if hi > lo:
+            buf[lo:hi] = 0x01 | bits
+        pos += int(p)
+        lo = max(pos, 0)
+        hi = min(pos + int(g), n)
+        if hi > lo:
+            buf[lo:hi] = 0x01
+        pos += int(g)
+
+
+def pulse_data_print_vcd_header(file, sample_rate: int) -> None:
+    """VCD header (ref src/pulse_data.c:77-101). Channel ids: '/' FRAME,
+    ``'`` AM (OOK), ``"`` FM (FSK)."""
+    import time as _t
+    timescale = "1 us" if sample_rate <= 500000 else "100 ns"
+    stamp = _t.strftime("%Y-%m-%d %H:%M:%S", _t.localtime())
+    file.write("$date %s $end\n" % stamp)
+    file.write("$version rtl_433 0.1.0 $end\n")
+    # nice_freq formatting (ref src/r_util.c:290-305)
+    if sample_rate >= 1e9:
+        nice = "%.3fGHz" % (sample_rate / 1e9)
+    elif sample_rate >= 1e6:
+        nice = "%.3fMHz" % (sample_rate / 1e6)
+    elif sample_rate >= 1e3:
+        nice = "%.3fkHz" % (sample_rate / 1e3)
+    else:
+        nice = "%.0f" % sample_rate
+    file.write("$comment Acquisition at %s Hz $end\n" % nice)
+    file.write("$timescale %s $end\n" % timescale)
+    file.write("$scope module rtl_433 $end\n")
+    file.write("$var wire 1 / FRAME $end\n")
+    file.write("$var wire 1 ' AM $end\n")
+    file.write("$var wire 1 \" FM $end\n")
+    file.write("$upscope $end\n")
+    file.write("$enddefinitions $end\n")
+    file.write("#0 0/ 0' 0\"\n")
+
+
+def pulse_data_print_vcd(file, pd: "PulseData", ch_id: str) -> None:
+    """One package as VCD transitions (ref src/pulse_data.c:103-122)."""
+    rate = pd.sample_rate or 250_000
+    scale = (1000000 / rate) if rate <= 500000 else (10000000 / rate)
+    pos = int(pd.offset)
+    for n, (p, g) in enumerate(zip(pd.pulse, pd.gap)):
+        if n == 0:
+            file.write("#%.f 1/ 1%s\n" % (pos * scale, ch_id))
+        else:
+            file.write("#%.f 1%s\n" % (pos * scale, ch_id))
+        pos += int(p)
+        file.write("#%.f 0%s\n" % (pos * scale, ch_id))
+        pos += int(g)
+    if len(pd.pulse):
+        file.write("#%.f 0/\n" % (pos * scale))

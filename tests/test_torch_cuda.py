@@ -1354,3 +1354,56 @@ def test_sigmf_replay_matches_cpu(tmp_path):
     assert got == _replay(["-R", "75", "-r", path, "-F", "json", "-M",
                            "level"])
     assert got[0] == 0 and "LaCrosse" in got[1]
+
+
+def _live_cli(blocks, argv):
+    """cli.main -d against a loopback server of ``blocks``, clock pinned:
+    ((rc, stdout, stderr), the commands the server received)."""
+    from torch_live_cases import LoopbackRtlTcp
+    srv = LoopbackRtlTcp(blocks)
+    srv.start()
+    res = _replay(["-d", srv.device] + argv)
+    srv.join(timeout=60)
+    return res, srv.commands
+
+
+def test_live_decode_matches_cpu():
+    """Live input over rtl_tcp on the card, the default registration: the
+    same output and tuner commands as --device cpu, and every block
+    through the front-end and detector kernels."""
+    _gpu()
+    from rtl_433_tpu_torch.io import load_iq
+    from torch_live_cases import stream_blocks
+    from torch_replay_cases import fixture
+    iq = np.concatenate([load_iq(fixture(n), "cu8")
+                         for n in ("nexus", "lacrosse_tx35")])
+    blocks = stream_blocks(iq)
+    argv = ["-F", "json", "-M", "level"]
+    _cuda.reset_launches()
+    got = _live_cli(blocks, argv)
+    assert _cuda.LAUNCHES["frontend"] == len(blocks)
+    assert _cuda.LAUNCHES["detector_scan"] == len(blocks)
+    assert got == _live_cli(blocks, argv + ["--device", "cpu"])
+    assert got[0][0] == 0 and "Nexus-TH" in got[0][1] \
+        and "LaCrosse" in got[0][1]
+
+
+@pytest.mark.parametrize("name,num", [("nexus", 19), ("lacrosse_tx35", 75)])
+def test_stream_dumps_match_cpu(name, num, tmp_path):
+    """The am.s16/fm.s16 dumps of a capture (FM off for nexus, on for
+    lacrosse_tx35): the card's, from the front-end kernel's outputs, equal
+    the CPU's, from the plain front end."""
+    _gpu()
+    from torch_live_cases import read_dumps
+    from torch_replay_cases import fixture
+    out = {}
+    for device in ("cuda", "cpu"):
+        d = tmp_path / device
+        d.mkdir()
+        res = _replay(["-R", str(num), "-r", fixture(name), "-F", "json",
+                       "-w", str(d / "dump.am.s16"), "-w",
+                       str(d / "dump.fm.s16"), "--device", device])
+        out[device] = res, read_dumps(str(d))
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][0][0] == 0
+    assert len(out["cuda"][1]["dump.am.s16"]) > 0

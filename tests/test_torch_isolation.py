@@ -213,7 +213,7 @@ def _sources():
     # and the helpers the port's GPU runs and process workers import
     helpers = ["chip_smoke.py", "tests/torch_multihost_worker.py",
                "tests/torch_timeshard_cases.py", "tests/torch_decl_cases.py",
-               "tests/torch_replay_cases.py"]
+               "tests/torch_replay_cases.py", "tests/torch_live_cases.py"]
     return sorted(files) + [os.path.join(REPO, h) for h in helpers]
 
 

@@ -11,7 +11,8 @@ compatibility flags, which are parsed and unused here), the default
 outputs (json and log), a missing input file, SigMF and ``.ook`` input.
 The declared differences: ``-V`` and the malformed-gain warning name the
 port, ``--device`` picks where the port's engine runs, and the options of
-later parts of the port exit with code 2 naming what is not ported yet.
+later parts of the port (``-K``, ``-A``, the network outputs) exit with
+code 2 naming what is not ported yet.
 SigMF archives written by either package read back equal in the other
 (the recorder names the writer), and ``.ook`` pulse text from
 ``PulseData.dump`` loads and decodes equally in both.
@@ -237,16 +238,11 @@ def test_version_names_the_port(cwd):
 
 
 @pytest.mark.parametrize("argv,what", [
-    (["-d", "rtl_tcp:localhost:1234"], "live input"),
-    (["-w", "out.cu8"], "sample dumpers"),
-    (["-W", "out.cu8"], "sample dumpers"),
-    (["-S", "all"], "the signal grabber"),
     (["-K", "FILE"], "data tags"),
     (["-A"], "the pulse analyzer"),
 ] + [(["-F", f"{fmt}:localhost"], "a network output")
-     for fmt in ("mqtt", "mqtts", "influx", "syslog", "trigger", "http",
-                 "rtltcp")], ids=lambda v: v[0] if isinstance(v, list)
-    else None)
+     for fmt in ("mqtt", "mqtts", "influx", "syslog", "trigger", "http")],
+    ids=lambda v: v[0] if isinstance(v, list) else None)
 def test_later_options_refused_by_name(argv, what, cwd):
     rc, out, err = run_cli(cli.main, ["-R", "19", "-y", CODE] + argv
                            + ["--device", "cpu"])
@@ -257,8 +253,6 @@ def test_later_options_refused_by_name(argv, what, cwd):
 def test_analyzer_refused_by_the_api():
     with pytest.raises(NotImplementedError, match=r"-A\) is not ported"):
         RtlTpu(analyze=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="live input"):
-        RtlTpu(device="cpu").run_live("rtl_tcp")
 
 
 @pytest.mark.parametrize("datatype", ["cu8", "cs8"])
