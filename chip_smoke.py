@@ -7,6 +7,7 @@ Run from the root of a checkout on a machine with one NVIDIA GPU:
 
 (``python3 chip_smoke.py --mic-only`` runs phases 1 and 4e alone,
 ``--replay-cli-only`` phases 1 and 5d, ``--live-only`` phases 1 and 5e,
+``--outputs-only`` phases 1 and 5f,
 ``--compact-only`` phase 1 and phase 4b's checks and times without the
 profiler or the host split, and ``--timeshard-only`` phase 6c on
 lacrosse_tx35 alone, against the rtl_433_tpu_torch package beside the
@@ -140,6 +141,35 @@ Phases, each printing one JSON line (any failure exits non-zero):
               passthrough client reads too), every -w format with FM off
               (a capture whose envelope reaches 32768) and on, with -S all,
               and a .sr session (its members);
+5f. outputs -- the network outputs, -K and -A on the card, against
+              loopback stubs (tests/torch_output_cases.py: a UDP syslog
+              receiver, an MQTT broker, an Influx HTTP collector, a gpsd
+              line server with one fixed TPV, a WebSocket reader of
+              /ws), the clocks pinned (the API's, the output modules',
+              the Security+ clock): outputs_cli replays nexus,
+              lacrosse_tx35, mixed_250k (default registration) and nexus
+              with -Y deviceslice through -F syslog, mqtt (retained,
+              events/devices/states topics), influx, trigger, http, -K
+              FILE, -K gpsd and -F json, each equal to --device cpu in
+              exit code, stdout, stderr and every byte each stub received
+              (device_info, which names the receiver's device, aside), the
+              device-slicing kernel calls held to plain; analyzer runs -A
+              on a capture of each branch of the modulation guess the
+              fixtures reach (ANALYZER_FIXTURES), stderr equal to --device
+              cpu's; http_retune_live runs the CLI's -d with -F http
+              against 7 blocks of mixed_1024k at 1.024 MS/s (watchdog
+              ticks at 60 s), the server paused after block 3 until a
+              POST /cmd center_frequency 868000000, sent while block 3 is
+              in flight, is answered (the receiver's lock holds it for
+              the block; the next blocks run the minmax FSK tracker):
+              events, WebSocket frames and server commands equal to
+              --device cpu's, no drop, one front-end and one detector
+              launch a block, the round trip, the first block's wall
+              after the retune and a second client's settings reply;
+              live_sinks runs live_250k's stream at 1.024 MS/s through
+              run_live with every network sink and two taggers attached
+              and with -F json alone: the same events, push_block's wall
+              and busy share, no drop;
 6. stream  -- nexus and lacrosse_tx35 concatenated 64 times, lacrosse_tx29
               16 times, decoded end to end: copies x the committed events;
               MS/s and ms/block, then the same decode under torch.profiler
@@ -223,7 +253,8 @@ Phases, each printing one JSON line (any failure exits non-zero):
               C=1 at the SM clock that nvidia-smi read while the same
               launch ran back to back (sm_clock_mhz). The front end and the
               detector are timed at C=1, the shape of file replay, and at
-              C=4096, with their launches on the replay_cli and live phases beside; compaction at the multichannel phase's real state;
+              C=4096, with their launches on the replay_cli, live and outputs
+              phases beside; compaction at the multichannel phase's real state;
               the device-slicing kernels (slice_<family>, content_dup,
               gather_records) with their launches on the device-slicing
               paths (replay_cli's among them) and their times summed over
@@ -3177,6 +3208,377 @@ def live_phase(fx, rate_of):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# the outputs phase: fixture directories whose -A text reaches each branch
+# of the analyzer's modulation guess (and whether its packages are FSK),
+# the blocks of http_retune_live and the block after which its retune is
+# answered
+ANALYZER_FIXTURES = (
+    ("X10_RF", "Pulse Position Modulation with fixed pulse width", False),
+    ("acurite_txr", "Pulse Width Modulation with fixed gap", False),
+    ("efergy_optical", "Pulse Width Modulation with fixed gap", True),
+    ("abmt", "Pulse Width Modulation with multiple packets", False),
+    ("oil_standard", "Pulse Width Modulation with multiple packets", True),
+    ("calibeur_RF104", "Pulse Width Modulation with sync/delimiter", False),
+    ("arexx_ml", "Pulse Width Modulation with sync/delimiter", True),
+    ("ambient_weather", "Manchester coding", False),
+    ("alps_fwb1u545_car_remote", "Manchester coding", True),
+    ("radiohead_ask", "Non Return to Zero coding (Pulse Code)", False),
+    ("current_cost", "Non Return to Zero coding (Pulse Code)", True),
+    ("hcs361_vpwm_1_bsel_0", "No clue...", False))
+RETUNE_BLOCKS = 7
+RETUNE_AFTER = 3
+RETUNE_HZ = 868_000_000
+
+
+def analyzer_branches(err):
+    """{(guess, FSK flex hint)} of the -A text ``err``."""
+    out = set()
+    for blk in err.split("Analyzing pulses...")[1:]:
+        line = blk.split("Guessing modulation: ", 1)[1].split("\n", 1)[0]
+        out.add((line.strip(), "=FSK_" in blk))
+    return out
+
+
+def outputs_phase(fx, rate_of, compare):
+    """The ``outputs`` phase (module docstring). Returns (lines, the front
+    end's and detector's launches on its runs)."""
+    import functools
+    import io
+    import threading
+
+    import torch
+    from rtl_433_tpu_torch import api as tapi
+    from rtl_433_tpu_torch import cli
+    from rtl_433_tpu_torch.api import RtlTpu
+    from rtl_433_tpu_torch.io import load_iq, rtltcp
+    from rtl_433_tpu_torch.ops import _cuda
+    from rtl_433_tpu_torch.output.data_model import event_to_json
+    from rtl_433_tpu_torch.output.http_server import HttpServerSink
+    from rtl_433_tpu_torch.output.network import (DataTagger, InfluxSink,
+                                                  MqttSink, SyslogSink,
+                                                  TriggerSink)
+    from rtl_433_tpu_torch.output.sinks import JsonSink
+    from torch_live_cases import LoopbackRtlTcp, stream_blocks
+    from torch_output_cases import (MQTT_OPTS, Stubs, WsReader, get_json,
+                                    hooked, observed, post_json,
+                                    run_network_cli, wait_for)
+    from torch_replay_cases import fixture, run_cli
+
+    t_phase = time.perf_counter()
+    lines, launches = [], {k: 0 for k in REPLAY_KERNELS}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_outputs_")
+    protocols = {d: nums for d, nums, _c, _w in fx}
+
+    def count_launches():
+        for k in REPLAY_KERNELS:
+            launches[k] += _cuda.LAUNCHES[k]
+
+    try:
+        # ---- outputs_cli: file replay through every network sink
+        secs = {"card": 0.0, "cpu": 0.0}
+        mixed = os.path.join(tmp, "mixed_433.92M_250k.cu8")
+        np.concatenate([load_iq(cu8, "cu8") for _d, _n, cu8, _w in fx
+                        if rate_of(cu8) == 250_000]).tofile(mixed)
+        runs = {"nexus": ["-R", "19", "-r", fixture("nexus")],
+                "lacrosse_tx35": ["-R", "75", "-r",
+                                  fixture("lacrosse_tx35")],
+                "mixed_250k": ["-r", mixed],
+                "nexus_deviceslice": ["-R", "19", "-r", fixture("nexus"),
+                                      "-Y", "deviceslice"]}
+        per_run, calls = {}, []
+        _cuda.reset_launches()
+        for name, argv in runs.items():
+            argv = argv + ["-F", "json"]
+            t = time.perf_counter()
+            if name.endswith("deviceslice"):
+                with ds_recorder(calls):
+                    got = run_network_cli(cli.main, argv,
+                                          os.path.join(tmp, name, "cuda"))
+            else:
+                got = run_network_cli(cli.main, argv,
+                                      os.path.join(tmp, name, "cuda"))
+            torch.cuda.synchronize()
+            secs["card"] += time.perf_counter() - t
+            t = time.perf_counter()
+            want = run_network_cli(cli.main, argv + ["--device", "cpu"],
+                                   os.path.join(tmp, name, "cpu"))
+            secs["cpu"] += time.perf_counter() - t
+            info = (got[1]["http"][0].pop("device_info"),
+                    want[1]["http"][0].pop("device_info"))
+            if info != ({"driver": "cuda", "backend": "torch"},
+                        {"driver": "cpu", "backend": "torch"}):
+                fail(f"outputs_cli {name}: device_info {info}")
+            if got != want:
+                diff = [k for k in got[1] if got[1][k] != want[1][k]]
+                fail(f"outputs_cli {name}: the card's run differs from "
+                     f"--device cpu: rc/stdout/stderr equal "
+                     f"{got[0] == want[0]}, stubs differing {diff}")
+            (rc, out, err), seen = got
+            if rc != 0 or not out:
+                fail(f"outputs_cli {name}: exit code {rc}: {err[-400:]}")
+            n_ev = out.count("\n")
+            per_run[name] = {
+                "events": n_ev, "syslog": len(seen["syslog"]),
+                "mqtt_publishes": len(seen["mqtt"]),
+                "mqtt_bytes": sum(len(b) for b in seen["mqtt_raw"]),
+                "influx_posts": len(seen["influx"]),
+                "trigger": len(seen["trigger"] or ""),
+                "ws_frames": len(seen["http"][0]["ws"])}
+            if not (n_ev == per_run[name]["syslog"] ==
+                    per_run[name]["influx_posts"] ==
+                    per_run[name]["trigger"] ==
+                    per_run[name]["ws_frames"]):
+                fail(f"outputs_cli {name}: events per sink {per_run[name]}")
+        cli_launches = {k: _cuda.LAUNCHES[k] for k in REPLAY_KERNELS}
+        ds_launches = {k: _cuda.LAUNCHES[k] for k in ds_kernel_names()}
+        count_launches()
+        if any(v <= 0 for v in cli_launches.values()) or \
+                not any(ds_launches[k] for k in ds_launches
+                        if k.startswith("slice_")):
+            fail(f"outputs_cli: launches {cli_launches} {ds_launches}")
+        checked = ds_check(calls, compare, "outputs_cli with device slicing")
+        if any(checked.get(k, 0) < ds_launches[k] for k in ds_launches):
+            fail(f"outputs_cli: checked {checked} < launches {ds_launches}")
+        lines.append({"phase": "outputs_cli", "runs": per_run,
+                      "card_s": secs["card"], "cpu_s": secs["cpu"],
+                      "launches": cli_launches,
+                      "device_slice_launches": ds_launches,
+                      "device_slice_checked": checked, "byte_equal": True,
+                      "nvidia_smi": smi_line()})
+
+        # ---- analyzer: -A on a capture of each branch, card against cpu
+        t0 = time.perf_counter()
+        reached = {}
+        _cuda.reset_launches()
+        for name, guess, fsk in ANALYZER_FIXTURES:
+            argv = ["-r", fixture(name), "-A"]
+            for n in protocols[name]:
+                argv = ["-R", str(n)] + argv
+            got = run_cli(cli.main, argv)
+            want = run_cli(cli.main, argv + ["--device", "cpu"])
+            if got != want:
+                fail(f"analyzer {name}: the card's -A text differs from "
+                     f"--device cpu")
+            branches = analyzer_branches(got[2])
+            if got[0] != 0 or (guess, fsk) not in branches:
+                fail(f"analyzer {name}: {guess} (FSK {fsk}) not in "
+                     f"{branches}")
+            reached[name] = sorted(f"{g}{' (FSK)' if f else ''}"
+                                   for g, f in branches)
+        an_launches = {k: _cuda.LAUNCHES[k] for k in REPLAY_KERNELS}
+        count_launches()
+        lines.append({"phase": "analyzer", "fixtures": len(reached),
+                      "branches": sorted({f"{g}{' (FSK)' if f else ''}"
+                                          for _n, g, f in
+                                          ANALYZER_FIXTURES}),
+                      "reached": reached, "launches": an_launches,
+                      "stderr_equal": True,
+                      "seconds": time.perf_counter() - t0})
+
+        # ---- http_retune_live: a POST /cmd center_frequency while a block
+        # is in flight, through the CLI's -F http, the server paused after
+        # block RETUNE_AFTER until the reply
+        blk1024 = [b for b in stream_blocks(np.concatenate(
+            [load_iq(cu8, "cu8") for _d, _n, cu8, _w in fx
+             if rate_of(cu8) == 1_024_000]))]
+        blocks = blk1024[:RETUNE_BLOCKS - 1] + blk1024[-1:]
+
+        def retune_run(device):
+            served = threading.Event()
+            srv = LoopbackRtlTcp(blocks, rate=LIVE_RATE,
+                                 pause=(RETUNE_AFTER, served))
+            srv.start()
+            started = {"n": 0}
+            in_flight = threading.Event()
+            walls, clients, numbers = [], [], {}
+            real_pb, real_push = tapi.process_block, RtlTpu.push_block
+            real_run = rtltcp.RtlTcpClient.run
+
+            def pb(*a, **k):
+                started["n"] += 1
+                if started["n"] == RETUNE_AFTER:
+                    in_flight.set()
+                return real_pb(*a, **k)
+
+            def push(self, *a, **k):
+                t = time.perf_counter()
+                out = real_push(self, *a, **k)
+                walls.append(time.perf_counter() - t)
+                return out
+
+            def run(self, *a, **k):
+                clients.append(self)
+                return real_run(self, *a, **k)
+
+            def retune(servers):
+                in_flight.wait(120)
+                wait_for(lambda: servers, timeout=30)
+                port = servers[0]["port"]
+                t = time.perf_counter()
+                numbers["reply"] = post_json(
+                    port, "/cmd", {"cmd": "center_frequency",
+                                   "val": RETUNE_HZ})
+                numbers["cmd_round_trip_ms"] = \
+                    (time.perf_counter() - t) * 1e3
+                numbers["block_in_flight_at_reply"] = started["n"]
+                served.set()
+
+            def second(servers):
+                in_flight.wait(120)
+                wait_for(lambda: servers, timeout=30)
+                t = time.perf_counter()
+                numbers["settings"] = get_json(servers[0]["port"],
+                                               "/cmd?cmd=settings")
+                numbers["settings_round_trip_ms"] = \
+                    (time.perf_counter() - t) * 1e3
+
+            argv = ["-d", srv.device, "-s", "1024k", "-F", "json", "-M",
+                    "level", "-F", "http:127.0.0.1:0", "--device", device]
+            _cuda.reset_launches()
+            with patched((tapi, "process_block", pb),
+                         (RtlTpu, "push_block", push),
+                         (RtlTpu, "run_live", functools.partialmethod(
+                             real_live, watchdog_interval=60)),
+                         (rtltcp.RtlTcpClient, "run", run)), \
+                    hooked("rtl_433_tpu_torch") as servers:
+                threads = [threading.Thread(target=f, args=(servers,),
+                                            daemon=True)
+                           for f in (retune, second)]
+                for th in threads:
+                    th.start()
+                res = run_cli(cli.main, argv)
+                for th in threads:
+                    th.join(60)
+            srv.join(60)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            numbers.update(
+                blocks=len(walls), dropped=clients[0].blocks_dropped,
+                launches={k: _cuda.LAUNCHES[k] for k in REPLAY_KERNELS},
+                first_block_after_retune_ms=1e3 * walls[RETUNE_AFTER]
+                if len(walls) > RETUNE_AFTER else None,
+                push_ms_median=1e3 * float(np.median(walls)),
+                http=servers[0])
+            return res, srv.commands, numbers
+
+        real_live = RtlTpu.run_live
+        t0 = time.perf_counter()
+        got = retune_run("cuda")
+        want = retune_run("cpu")
+        card = got[2]
+        for what, a, b in (("output", got[0], want[0]),
+                           ("server commands", got[1], want[1]),
+                           ("WebSocket frames", card["http"]["ws"],
+                            want[2]["http"]["ws"])):
+            if a != b:
+                fail(f"http_retune_live: the card's {what} differ from "
+                     f"--device cpu")
+        if got[0][0] != 0 or card["dropped"] or \
+                card["blocks"] != len(blocks) or \
+                (0x01, RETUNE_HZ) not in got[1] or \
+                card["block_in_flight_at_reply"] != RETUNE_AFTER or \
+                any(v != len(blocks) for v in card["launches"].values()):
+            fail(f"http_retune_live: rc {got[0][0]}, {card}, commands "
+                 f"{got[1]}")
+        for k in REPLAY_KERNELS:
+            launches[k] += card["launches"][k]
+        lines.append({
+            "phase": "http_retune_live", "blocks": card["blocks"],
+            "dropped": card["dropped"], "retune_after_block": RETUNE_AFTER,
+            "events": got[0][1].count("\n"),
+            "cmd_reply": card["reply"],
+            "cmd_round_trip_ms": card["cmd_round_trip_ms"],
+            "first_block_after_retune_ms":
+                card["first_block_after_retune_ms"],
+            "push_ms_median": card["push_ms_median"],
+            "settings_reply": card["settings"],
+            "settings_round_trip_ms": card["settings_round_trip_ms"],
+            "cpu_cmd_round_trip_ms": want[2]["cmd_round_trip_ms"],
+            "launches": card["launches"], "commands": got[1],
+            "events_equal_cpu": True,
+            "seconds": time.perf_counter() - t0,
+            "nvidia_smi": smi_line()})
+
+        # ---- live_sinks: live_250k's stream, every network sink attached,
+        # against -F json alone
+        files = [cu8 for _d, _n, cu8, _w in fx if rate_of(cu8) == 250_000]
+        stream = stream_blocks(np.concatenate(
+            [load_iq(f, "cu8") for f in files]))
+        rows = {}
+        strip = ("time", "lat", "lon", "key")
+        evs = {}
+        for name in ("json_only", "all_sinks"):
+            rx = RtlTpu(sample_rate=250_000, device="cuda")
+            buf = io.StringIO()
+            rx.sinks.append(JsonSink(file=buf))
+            stubs = Stubs(tmp)
+            http = []
+            if name == "all_sinks":
+                topics = dict(kv.split("=", 1)
+                              for kv in MQTT_OPTS.split(",")[1:])
+                mqtt = MqttSink("127.0.0.1", stubs.broker.port, retain=True,
+                                **topics)
+                rx.sinks += [SyslogSink("127.0.0.1", stubs.syslog.port),
+                             mqtt, InfluxSink(stubs.influx.url),
+                             TriggerSink(stubs.trigger)]
+                sink = HttpServerSink(rx, "127.0.0.1", 0)
+                rx.sinks.append(sink)
+                reader = WsReader(sink.server.server_address[1])
+                reader.start()
+                rx.taggers += [
+                    DataTagger(f"gpsd:127.0.0.1:{stubs.gpsd.port},lat,lon"),
+                    DataTagger("key=value")]
+                wait_for(lambda: rx.taggers[0].client.msg)
+            try:
+                row = live_run(rx, stream, LIVE_RATE)
+            finally:
+                if name == "all_sinks":
+                    wait_for(lambda: len(reader.frames) >= len(rx.events))
+                    reader.close()
+                    sink.close()
+                    mqtt.close()
+                    for tg in rx.taggers:
+                        tg.close()
+                    http.append({"ws": reader.frames})
+                seen = observed(stubs, http)
+                stubs.close()
+            evs[name] = [{k: v for k, v in json.loads(
+                event_to_json(e)).items() if k not in strip}
+                for e in rx.events]
+            if row["blocks_dropped"] or row["blocks"] != len(stream) or \
+                    any(row["launches"][k] != len(stream)
+                        for k in REPLAY_KERNELS):
+                fail(f"live_sinks {name}: {row}")
+            for k in REPLAY_KERNELS:
+                launches[k] += row["launches"][k]
+            row["events"] = len(rx.events)
+            row["json_lines"] = buf.getvalue().count("\n")
+            if name == "all_sinks":
+                row["per_sink"] = {
+                    "syslog": len(seen["syslog"]),
+                    "mqtt_publishes": len(seen["mqtt"]),
+                    "influx_posts": len(seen["influx"]),
+                    "trigger": len(seen["trigger"] or ""),
+                    "ws_frames": len(seen["http"][0]["ws"])}
+                n = row["events"]
+                if any(v < n for k, v in row["per_sink"].items()
+                       if k != "mqtt_publishes"):
+                    fail(f"live_sinks: events per sink {row['per_sink']} "
+                         f"for {n} events")
+            rows[name] = row
+        if evs["json_only"] != evs["all_sinks"]:
+            fail("live_sinks: the events with every sink attached differ "
+                 "from -F json alone's")
+        for name, row in rows.items():
+            lines.append(dict({"phase": "live_sinks", "run": name,
+                               "fixtures": len(files)}, **row))
+        lines[-1]["nvidia_smi"] = smi_line()
+        lines[-1]["seconds_total"] = time.perf_counter() - t_phase
+        return lines, launches
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "rtl_433_tpu_torch")):
         print("chip_smoke: run me from the root of a checkout (the "
@@ -3288,6 +3690,22 @@ def main():
                       types.SimpleNamespace(monotonic=lambda: 0.0))):
             for line in live_phase(fx, rate_of)[0]:
                 emit(line)
+        return 0
+    if "--outputs-only" in sys.argv[1:]:
+        # phase 5f alone, for a first check of the outputs on the card
+        from rtl_433_tpu_torch.decoders import garage
+        _cuda.build()
+        _native.build()
+        _native.build(_native.INGEST_SOURCE)
+        get_runner()
+        fx = [(d, nums, cu8, None) for d, nums, cu8 in fixture_cases()]
+        with patched((garage, "time",
+                      types.SimpleNamespace(monotonic=lambda: 0.0))):
+            lines, launches = outputs_phase(fx, rate_of, compare)
+        for line in lines:
+            emit(line)
+        emit({"kernel_launches_outputs": launches,
+              "max_abs_err": errs})
         return 0
     if "--compact-only" in sys.argv[1:]:
         # the compaction wrapper and kernel alone at phase 4b's states,
@@ -3725,6 +4143,14 @@ def main():
     for line in live_lines:
         emit(line)
 
+    # ---- 5f. outputs: the network sinks, -K and -A through the CLI, the
+    # HTTP server's retune of a live run, the sinks' cost on a live stream
+    with patched((garage, "time",
+                  types.SimpleNamespace(monotonic=lambda: 0.0))):
+        out_lines, launches_outputs = outputs_phase(fx, rate_of, compare)
+    for line in out_lines:
+        emit(line)
+
     # ---- 6. stream: fixtures concatenated, decoded untraced and traced
     from torch.profiler import ProfilerActivity, profile
     from rtl_433_tpu_torch.decoders import garage
@@ -4020,6 +4446,7 @@ def main():
             "launches_timeshard": ts_launches[k],
             "launches_replay_cli": launches_cli[k],
             "launches_live": launches_live[k],
+            "launches_outputs": launches_outputs[k],
             "shape": [1, N_BLOCK]})
     m = kinds["compact"]
     rows.append({
@@ -4149,6 +4576,7 @@ def main():
     emit({"kernel_launches": launches,
           "kernel_launches_replay_cli": launches_cli,
           "kernel_launches_live": launches_live,
+          "kernel_launches_outputs": launches_outputs,
           "kernel_launches_multichannel": mc_launches,
           "kernel_launches_device_slice": ds_paths,
           "kernel_launches_timeshard": ts_launches,

@@ -3,7 +3,8 @@
 The Python equivalent of r_api.c / r_flow.c: owns the detector params and
 state, the protocol registry and the output sinks; drives IQ blocks through
 the engine on ``device`` and routes published packages through slicers +
-decoders to events (ref src/r_flow.c:104-372, src/r_api.c:632-839).
+decoders, and the pulse analyzer (``-A``), to events, tagged by the data
+taggers (``-K``) (ref src/r_flow.c:104-372, src/r_api.c:632-839).
 
 It carries file replay (``-r``: cu8/cs8/cs16/cf32 samples, SigMF archives,
 ``.ook`` pulse text, ``-M replay`` pacing), live input over rtl_tcp
@@ -17,17 +18,21 @@ reports and autolevel, from channel 0's block level), the ``-M stats``
 reports (interval and on-demand, ``_maybe_interval_stats``), the ``-M
 time`` formats, and the log fan-out through the sinks
 (``redirect_logging``) with the decoder and pulse debug dumps of ``-v``.
-The pulse analyzer (``-A``) and data tags (``-K``) are not ported yet; the
-analyzer raises when asked for.
 
 The block loop, and so every CUDA call, runs on the caller's thread; live
-input's producer thread and watchdog timer touch no tensor.
+input's producer thread and watchdog timer touch no tensor. A retune from
+another thread (the HTTP server's control verbs, through ``retuning``)
+waits on ``lock``, which ``push_block`` holds for the whole block: it
+applies from the next block, and no block runs under two sets of
+parameters.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
+import threading
 import time as _time
 from typing import List, Optional
 
@@ -44,15 +49,12 @@ from .output.data_model import Event, convert_units
 from .output.logger import (LOG_ERROR, LOG_NOTICE, LOG_TRACE, LOG_WARNING,
                             print_logf)
 from .pulse import slicers as _slicers
+from .pulse.analyzer import analyze_pulses
 from .pulse.data import (PulseData, pulse_data_dump_raw, rfraw_check,
                          rfraw_parse)
 
 DEFAULT_BUF_SAMPLES = 131072   # 256 KiB cu8 (ref include/sdr.h:17)
 FSK_PULSE_DETECTOR_LIMIT = 800_000_000  # ref include/rtl_433.h:18
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet")
 
 
 class RtlTpu:
@@ -85,9 +87,16 @@ class RtlTpu:
                  ppm_error: int = 0,
                  verbose_bits: bool = False,
                  device="cuda"):
-        if analyze:
-            _not_ported("the pulse analyzer (-A)")
         self.device = resolve_device(device)
+        # held by push_block for a whole block and by every setter that
+        # writes receiver state (retuning); re-entrant, since a setter may
+        # run inside a block on the consumer's thread
+        self.lock = threading.RLock()
+        # retunes waiting for the lock; a block waits for them before it
+        # starts, so that the lock's unfairness cannot let the consumer
+        # run a second block ahead of a retune made during the first
+        self._turn = threading.Condition()
+        self._retunes = 0
         self.fm_filter = float(fm_filter)   # -Y filter= (us/Hz/ratio)
         self.gain_db = gain_db              # -g, applied to rtl_tcp tuner
         self.ppm_error = int(ppm_error)     # -p, applied to rtl_tcp tuner
@@ -96,6 +105,7 @@ class RtlTpu:
         # steps one level up (ref src/r_api.c:127, src/rtl_433.c:509)
         self.log_verbosity = 4 + int(verbosity)
         self.verbose_bits = bool(verbose_bits)   # -M bits
+        self.analyze = analyze                   # -A
         self.sample_rate = int(sample_rate)
         self.center_frequency = float(center_frequency)
         self.fsk_mode = fsk_mode
@@ -130,6 +140,7 @@ class RtlTpu:
         self.raw_taps = []      # raw CU8 block callbacks (-F rtltcp,
                                 # ref include/raw_output.h)
         self.samp_grab = None   # io.grab.SampGrab (-S)
+        self.taggers = []       # output.network.DataTagger list (-K)
         self._logic_buf = None  # the -w U8:LOGIC buffer of the block
         self._current_file = None
         self._state = None
@@ -163,45 +174,71 @@ class RtlTpu:
     def set_frequency(self, hz: float):
         """Retune: pipeline params AND the live radio, when one is
         connected (ref set_center_freq, src/r_api.c:82-89)."""
-        if float(hz) != self.center_frequency:
-            self.center_frequency = float(hz)
-            self._invalidate()
-        live = getattr(self, "_live", None)
-        if live is not None:
-            live.set_center_freq(int(self.center_frequency))
+        with self.retuning():
+            if float(hz) != self.center_frequency:
+                self.center_frequency = float(hz)
+                self._invalidate()
+            self._tune("set_center_freq", int(self.center_frequency))
 
     def set_sample_rate(self, rate: int):
         """(ref set_sample_rate, src/r_api.c:91-99)"""
-        if int(rate) != self.sample_rate:
-            self.sample_rate = int(rate)
-            self._invalidate()
-        live = getattr(self, "_live", None)
-        if live is not None:
-            live.set_sample_rate(self.sample_rate)
+        with self.retuning():
+            if int(rate) != self.sample_rate:
+                self.sample_rate = int(rate)
+                self._invalidate()
+            self._tune("set_sample_rate", self.sample_rate)
 
     def set_gain(self, db):
         """Tuner gain in dB; None/"auto"/"" = tuner AGC. Reaches the live
         rtl_tcp tuner immediately (ref set_gain_str, src/r_api.c:101-115)."""
-        self.gain_db = None if db in (None, "", "auto") else float(db)
-        live = getattr(self, "_live", None)
-        if live is not None:
+        with self.retuning():
+            self.gain_db = None if db in (None, "", "auto") else float(db)
             if self.gain_db is None:
-                live.set_gain_mode(0)
+                self._tune("set_gain_mode", 0)
             else:
-                live.set_gain(int(round(self.gain_db * 10)))
+                self._tune("set_gain", int(round(self.gain_db * 10)))
 
     def set_ppm_error(self, ppm):
         """Tuner frequency correction (-p), applied live (ref -p handling
         + sdr_set_freq_correction, src/sdr.c:1224)."""
-        self.ppm_error = int(ppm)
-        live = getattr(self, "_live", None)
-        if live is not None:
-            live.set_freq_correction(self.ppm_error)
+        with self.retuning():
+            self.ppm_error = int(ppm)
+            self._tune("set_freq_correction", self.ppm_error)
 
     def set_hop_interval(self, seconds):
         """Replace the hop cadence used by the live loop (-H equivalent,
         ref src/http_server.c hop_interval verb)."""
-        self._hop_times = [max(1, int(seconds))]
+        with self.retuning():
+            self._hop_times = [max(1, int(seconds))]
+
+    @contextlib.contextmanager
+    def retuning(self):
+        """Hold ``lock`` to write receiver state: a retune waits for the
+        block in flight, and the next block waits for it, so it applies
+        from that block on."""
+        with self._turn:
+            self._retunes += 1
+        try:
+            with self.lock:
+                yield
+        finally:
+            with self._turn:
+                self._retunes -= 1
+                self._turn.notify_all()
+
+    def _tune(self, command: str, *args):
+        """Send a retune to the connected rtl_tcp server, if any. A stream
+        that is ending takes none and raises nothing: its client is
+        stopped before its socket closes, and the receiver keeps the value
+        for the next connection."""
+        live = getattr(self, "_live", None)
+        if live is None:
+            return
+        try:
+            getattr(live, command)(*args)
+        except OSError:
+            if not live._stop.is_set():
+                raise
 
     def _invalidate(self):
         self._state = None
@@ -272,7 +309,14 @@ class RtlTpu:
     # -- block flow -------------------------------------------------------------
 
     def push_block(self, iq: np.ndarray, flush: bool = False):
-        """Feed CU8 [N, 2] (single channel) or [C, N, 2] samples."""
+        """Feed CU8 [N, 2] (single channel) or [C, N, 2] samples. Holds
+        ``lock`` for the whole block, after any retune already waiting."""
+        with self._turn:
+            self._turn.wait_for(lambda: not self._retunes)
+        with self.lock:
+            return self._push_block(iq, flush)
+
+    def _push_block(self, iq: np.ndarray, flush: bool):
         self._ensure_pipeline()
         if iq.ndim == 2:
             iq = iq[None]
@@ -300,10 +344,10 @@ class RtlTpu:
         x = torch.from_numpy(np.ascontiguousarray(iq)).to(self.device)
         noise = self.squelch or self.report_noise or self.auto_level
         # squelch: skip noise-only frames entirely in live mode; frames are
-        # always processed for file replay, dumpers or the grabber
-        # (ref src/r_flow.c:166-176)
+        # always processed for file replay, dumpers, the grabber or the
+        # analyzer (ref src/r_flow.c:166-176)
         must_process = bool(self._current_file or self.dumpers
-                            or self.samp_grab is not None)
+                            or self.samp_grab is not None or self.analyze)
         if noise and not must_process:
             noise_only = self._track_noise(self._block_avg_db(x))
             if self.squelch and noise_only:
@@ -432,13 +476,21 @@ class RtlTpu:
                                i, pd.pulse[i], pd.gap[i])
         cb = functools.partial(self._event_cb, pd=pd, is_fsk=is_fsk)
         if is_fsk:
-            return self.registry.run_fsk_demods(pd, cb)
-        return self.registry.run_ook_demods(pd, cb)
+            n = self.registry.run_fsk_demods(pd, cb)
+        else:
+            n = self.registry.run_ook_demods(pd, cb)
+        if self.analyze:
+            # after the decoders, as in the JAX package: the analyzer
+            # writes the last gap of this package's own PulseData
+            analyze_pulses(pd, pkg["type"])
+        return n
 
     def _event_cb(self, dev, ev: Event, pd=None, is_fsk=False):
         """data_acquired_handler equivalent (ref src/r_api.c:632-839)."""
         if self.convert != "native":
             ev = convert_units(ev, self.convert)
+        for tagger in self.taggers:
+            ev = tagger(ev)
         if self.report_protocol and dev.num:
             ev.prepend(("protocol", dev.num, "Protocol"))
         if self.report_meta:

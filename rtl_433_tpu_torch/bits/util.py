@@ -3,8 +3,8 @@
 Behavioral parity with rtl_433's bit utilities (see reference
 ``src/bit_util.c``: crc4/7/8/8le/16/16lsb at :240-351, lfsr digests at
 :353-457, whitening at :463-505, parity/xor/add at :542-583, UART extract at
-:74-180). Host-side implementations in plain Python/numpy; the batched
-on-device variants used by a decoder bank are not ported yet.
+:74-180). Host-side implementations in plain Python/numpy; the batched digests of
+the MIC kernel are ops/mic.py.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""rtl_433_tpu_torch command line interface (file replay, live input, -y).
+"""rtl_433_tpu_torch command line interface (file replay, live input, -y,
+the network outputs and the HTTP control server).
 
 Mirrors the rtl_433 flags (ref src/rtl_433.c:103-167 usage, :399-1002
 parser):
@@ -25,16 +26,24 @@ parser):
                  deviceslice slices each drain's pulse trains in batched
                  kernels on the --device before decoding
   -g <dB>, -p <ppm>  tuner gain and frequency correction (live input only)
+  -A             pulse analyzer hints for detected packages (on stderr)
   -a             (deprecated in the reference; accepted, no-op)
 
   Output
   -F <fmt>       add an output, repeatable: json | jsons | kv | log | csv
                  | null, each with an optional ",v=<level>" log level;
+                 mqtt[s]:host[:port][,user=,pass=,retain=,qos=,base=,
+                     events=,devices=,states=,availability=,tls_ca_cert=,
+                     tls_cert=,tls_key=,tls_insecure]
+                 influx[:url,token=...] | syslog:host[:port]
+                 trigger:<file> | http[:host[:port]] (events, /cmd and
+                 /jsonrpc control verbs, /ws, /metrics);
                  rtltcp[:host[:port]] re-serves the raw IQ stream
   -M <meta>      time[:rel|unix|iso|usec|tz|utc|local] | protocol | level
                  | noise[:secs] | stats[:level[:interval]] | replay[:N]
                  | bits | newmodel | oldmodel
   -C <mode>      unit conversion: native|si|customary
+  -K <tag>       data tag: FILE|PATH|<str>|gpsd[:...]|tcp:host:port
   -w/-W <file>   write samples to file ('-W' overwrites): cu8, cs8, cs16,
                  cf32, am.s16, fm.s16, am.f32, fm.f32, U8:LOGIC:<path>,
                  .ook, .vcd, or a .sr PulseView session
@@ -45,10 +54,6 @@ parser):
   -V             print this package's name and version
   --device cuda|cpu   where the engine runs (default: cuda; with no GPU
                  the run fails rather than falling back to the CPU)
-
-Not ported yet, refused with exit code 2: data tags (-K), the pulse
-analyzer (-A) and the network outputs (-F mqtt|mqtts|influx|syslog|
-trigger|http).
 
 Exit codes follow the reference: 0 ok, 1 = -y decoded nothing
 (ref src/rtl_433.c:1661), 2 = a usage error, an input file or an rtl_tcp
@@ -62,11 +67,6 @@ import sys
 
 from .api import RtlTpu
 from .output.data_model import event_to_json, event_to_jsons, event_to_kv
-
-
-# the options of later parts of the port, refused by name
-_NOT_PORTED = {"-K": "data tags", "-A": "the pulse analyzer"}
-_NOT_PORTED_OUTPUTS = ("mqtt", "mqtts", "influx", "syslog", "trigger", "http")
 
 
 def _metric(v: str) -> float:
@@ -96,6 +96,7 @@ def main(argv=None):
     meta_opts = {}
     y_opts = {}
     verbosity = 0
+    analyze = False
 
     source = None       # -d
     max_samples = None
@@ -106,6 +107,7 @@ def main(argv=None):
     duration = None
     dumper_specs = []
     grab_mode = None
+    tag_specs = []
     device = "cuda"     # where the engine runs
 
     # conf files: explicit -c plus default search (ref src/rtl_433.c:466-490)
@@ -136,11 +138,7 @@ def main(argv=None):
                 sys.exit(2)
             return argv[i]
 
-        if a in _NOT_PORTED:
-            print(f"option {a} ({_NOT_PORTED[a]}) is not ported yet",
-                  file=sys.stderr)
-            return 2
-        elif a == "-d":
+        if a == "-d":
             source = val()
         elif a == "-n":
             max_samples = int(_metric(val()))
@@ -148,6 +146,8 @@ def main(argv=None):
             dumper_specs.append(val())
         elif a == "-S":
             grab_mode = val()
+        elif a == "-K":
+            tag_specs.append(val())
         elif a == "-D":
             run_mode = val()
             if run_mode not in ("quit", "restart", "pause", "manual"):
@@ -230,6 +230,8 @@ def main(argv=None):
             # repeated -M for the same key accumulates, like the reference
             # applying each invocation in turn (ref src/rtl_433.c:714-800)
             meta_opts.setdefault(m.split(":")[0], []).extend(m.split(":")[1:])
+        elif a == "-A":
+            analyze = True
         elif a == "--device":
             device = val()
         elif a.startswith("--device="):
@@ -305,6 +307,7 @@ def main(argv=None):
 
     rx = RtlTpu(sample_rate=rate, center_frequency=freq, fsk_mode=fsk_mode,
                 use_mag_est=use_mag_est, convert=convert,
+                analyze=analyze,
                 report_meta="level" in meta,
                 report_protocol="protocol" in meta,
                 report_time=report_time,
@@ -359,6 +362,10 @@ def main(argv=None):
     if grab_mode is not None and grab_mode != "none":
         from .io.grab import SampGrab
         rx.samp_grab = SampGrab(grab_mode or "all")
+    for spec in tag_specs:
+        from .output.network import DataTagger
+        rx.taggers.append(DataTagger(
+            spec, current_file_fn=lambda: rx._current_file))
 
     outputs_explicit = bool(outputs)
     if not outputs:
@@ -367,7 +374,8 @@ def main(argv=None):
         # ref src/rtl_433.c:1500-1506)
         outputs = ["json", "log"]
 
-    closers = []
+    # the -K tag clients' threads stop with the outputs
+    closers = [t.close for t in rx.taggers]
     for spec in outputs:
         fmt, _, arg = spec.partition(":")
         # "-F json,v=8:path" attaches a per-sink log_level (lvlarg_param,
@@ -402,6 +410,58 @@ def main(argv=None):
                 determine_csv_fields(rx.registry.active,
                                      verbose_bits=rx.verbose_bits),
                 log_level=log_lvl or 0))
+        elif fmt == "syslog":
+            from .output.network import SyslogSink
+            host, _, port = arg.partition(":")
+            rx.sinks.append(SyslogSink(host or "localhost",
+                                       int(port or 514),
+                                       log_level=4 if log_lvl is None
+                                       else log_lvl))
+        elif fmt == "trigger":
+            from .output.network import TriggerSink
+            rx.sinks.append(TriggerSink(arg or "/dev/stdout"))
+        elif fmt in ("mqtt", "mqtts"):
+            # -F mqtt[s]:host[:port][,opt=val,...] (ref src/output_mqtt.c
+            # help at src/rtl_433.c:264-280; mqtts/tls opts :160-161)
+            from .output.network import MqttSink
+            head, _, opts_str = arg.partition(",")
+            host, _, port = head.partition(":")
+            kw = {"tls": fmt == "mqtts"}
+            for opt in opts_str.split(","):
+                if not opt:
+                    continue
+                k, _, v = opt.partition("=")
+                if k in ("user", "u"):
+                    kw["user"] = v
+                elif k in ("pass", "p"):
+                    kw["password"] = v
+                elif k == "retain":
+                    kw["retain"] = v != "0"
+                elif k == "qos":
+                    kw["qos"] = int(v or 0)
+                elif k in ("events", "devices", "states", "availability",
+                           "base"):
+                    kw[k] = v
+                elif k == "tls":
+                    kw["tls"] = True
+                elif k in ("tls_ca_cert", "tls_cert", "tls_key"):
+                    kw[k] = v
+                elif k == "tls_insecure":
+                    kw["tls_insecure"] = True
+            sink = MqttSink(host or "localhost",
+                            int(port or (8883 if kw["tls"] else 1883)), **kw)
+            rx.sinks.append(sink)
+            closers.append(sink.close)
+        elif fmt == "influx":
+            from .output.network import InfluxSink
+            rx.sinks.append(InfluxSink(arg) if arg else InfluxSink())
+        elif fmt == "http":
+            # events and the control verbs (output/http_server.py)
+            from .output.http_server import HttpServerSink
+            host, _, port = arg.partition(":")
+            sink = HttpServerSink(rx, host or "0.0.0.0", int(port or 8433))
+            rx.sinks.append(sink)
+            closers.append(sink.close)
         elif fmt == "rtltcp":
             # raw IQ passthrough server (ref src/output_rtltcp.c:519)
             from .io.rtltcp import RtlTcpServer
@@ -409,10 +469,6 @@ def main(argv=None):
             srv = RtlTcpServer(host or "0.0.0.0", int(port or 6778))
             rx.raw_taps.append(srv.broadcast)
             closers.append(srv.close)
-        elif fmt in _NOT_PORTED_OUTPUTS:
-            print(f"-F {fmt} (a network output) is not ported yet",
-                  file=sys.stderr)
-            return 2
         elif fmt == "null":
             pass
         else:

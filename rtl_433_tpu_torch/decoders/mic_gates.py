@@ -10,8 +10,7 @@ check is ``(algo, nbytes, p1, p2, xor_out, mask, cmp, cmp_const)`` where
 ``(row[cmp]<<8)|row[cmp+1]``) and ``cmp == -1`` against ``cmp_const``.
 
 The digests are the scalar bits/util ones, run per candidate row on the
-host (the batched digest kernels of the SURVEY §2 row 11 are not ported
-yet).  The fast dispatch
+host (the batched digest kernels are ops/mic.py).  The fast dispatch
 (decoders/base.py) skips the Python decode call for (package, decoder)
 pairs whose gate fails and accounts them as ``mic`` failures — event
 output is exactly unchanged (the decoder could only have failed), only

@@ -2,12 +2,16 @@
 
 Bit-exact re-implementations (vectorized over ``[..., N]`` sample tensors)
 of the reference per-sample loops (ref src/baseband.c): envelope via
-``(127-i)^2`` squares (:36), the 122/128-51/128 magnitude estimator (:65),
-the Q0.15 order-1 Butterworth low-pass (:145), and the FM phase-difference
-discriminator with ``atan2_int16`` (:181-272).
+``(127-i)^2`` squares (:36), the 122/128-51/128 magnitude estimators (:65,
+:96), true magnitudes (:82, :113), the Q0.15 order-1 Butterworth low-pass
+(:145), and the FM phase-difference discriminator with ``atan2_int16``
+(:181-272) and, for cs16 samples, ``atan2_int32`` (:281-359).
 
 All integer ops use C semantics: int32 arithmetic, truncating division,
-arithmetic right shifts, int16 store-truncation. The block sum behind the
+arithmetic right shifts, int16 store-truncation. The cs16 functions work
+in int64, as their reference does (products of two int16 samples summed,
+times the Q0.30 pi/4), and store int32. No path calls them: cs16 and cf32
+input is converted to cu8 when it loads. The block sum behind the
 mean level is a C ``uint32`` and wraps: a cu8 envelope reaches 32768, and
 32768 * 131072 samples is exactly 2^32.
 """
@@ -39,6 +43,9 @@ AM_LP_B = _fix(0.07296) >> 1
 
 _I_PI_4 = 32767 // 4        # 8191
 _I_3_PI_4 = 3 * 32767 // 4  # 24575
+# the Q0.30 variant's (ref src/baseband.c:281-300)
+_I32_PI_4 = 2147483647 // 4        # 536870911
+_I32_3_PI_4 = 3 * 2147483647 // 4  # 1610612735
 
 
 # ---------------------------------------------------------------------------
@@ -106,6 +113,34 @@ def magnitude_est_cu8(iq):
     return mag, block_avg_db(mag.sum(-1), mag.shape[-1], True)
 
 
+def magnitude_true_cu8(iq):
+    """y = sqrt(I^2+Q^2)*128 truncated to uint16. Ref src/baseband.c:82-93."""
+    x = iq[..., 0].to(torch.int32) - 128
+    y = iq[..., 1].to(torch.int32) - 128
+    mag = (torch.sqrt((x * x + y * y).to(torch.float32)) * 128.0) \
+        .to(torch.int32) & 0xFFFF
+    return mag, block_avg_db(mag.sum(-1), mag.shape[-1], True)
+
+
+# cs16 input: interleaved IQ as int16 [..., N, 2]
+
+def magnitude_est_cs16(iq):
+    """(122*max+51*min)>>8 of |I|,|Q| int16. Ref src/baseband.c:96-110."""
+    x = iq[..., 0].to(torch.int32).abs()
+    y = iq[..., 1].to(torch.int32).abs()
+    mag = (122 * torch.maximum(x, y) + 51 * torch.minimum(x, y)) >> 8
+    return mag, block_avg_db(mag.sum(-1), mag.shape[-1], True)
+
+
+def magnitude_true_cs16(iq):
+    """sqrt(I^2+Q^2)>>1, the sum of squares in int64 (it reaches 2^31).
+    Ref src/baseband.c:113-124."""
+    x = iq[..., 0].to(torch.int64)
+    y = iq[..., 1].to(torch.int64)
+    mag = torch.sqrt((x * x + y * y).to(torch.float32)).to(torch.int32) >> 1
+    return mag, block_avg_db(mag.sum(-1), mag.shape[-1], True)
+
+
 # ---------------------------------------------------------------------------
 # integer atan2
 
@@ -134,6 +169,33 @@ def atan2_int16(y, x):
     angle = torch.where(y < 0, -angle, angle)
     angle = torch.where((x == 0) & (y == 0), torch.zeros_like(angle), angle)
     return angle.to(torch.int16)
+
+
+def _wrap32(v):
+    """An int64 tensor stored to int32, as C's conversion wraps it."""
+    return (((v + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+
+def atan2_int32(y, x):
+    """Q0.30 variant used by the CS16 path, in int64 (pi/4 times a
+    difference of two sums of int16 products needs 62 bits).
+    Ref src/baseband.c:281-300."""
+    y = torch.as_tensor(y).to(torch.int64)
+    x = torch.as_tensor(x).to(torch.int64)
+    abs_y = y.abs()
+    one = torch.ones_like(x)
+
+    denom_i = abs_y + x
+    denom_i = torch.where(denom_i == 0, one, denom_i)
+    angle_i = _I32_PI_4 - _cdiv(_I32_PI_4 * (x - abs_y), denom_i)
+
+    denom_ii = abs_y - x
+    denom_ii = torch.where(denom_ii == 0, one, denom_ii)
+    angle_ii = _I32_3_PI_4 - _cdiv(_I32_PI_4 * (x + abs_y), denom_ii)
+
+    angle = torch.where(x >= 0, angle_i, angle_ii)
+    angle = torch.where(y < 0, -angle, angle)
+    return _wrap32(angle)
 
 
 # ---------------------------------------------------------------------------
@@ -178,6 +240,36 @@ def fm_discriminate_cu8(iq, prev_r, prev_i):
     pi = xi * x1r - xr * x1i
     phi = atan2_int16(pi, pr)
     return phi, xr[..., -1], xi[..., -1]
+
+
+def fm_discriminate_cs16(iq, prev_r, prev_i):
+    """CS16 variant with atan2_int32, output >>16 later. Ref
+    src/baseband.c:335-359. Returns (phi int32 [..., N], last_r, last_i)."""
+    xr = iq[..., 0].to(torch.int64)
+    xi = iq[..., 1].to(torch.int64)
+    prev_r = torch.as_tensor(prev_r, device=xr.device).to(torch.int64)
+    prev_i = torch.as_tensor(prev_i, device=xr.device).to(torch.int64)
+    x1r = torch.cat([prev_r[..., None], xr[..., :-1]], dim=-1)
+    x1i = torch.cat([prev_i[..., None], xi[..., :-1]], dim=-1)
+    pr = xr * x1r + xi * x1i
+    pi = xi * x1r - xr * x1i
+    phi = atan2_int32(pi, pr)
+    return phi, xr[..., -1].to(torch.int32), xi[..., -1].to(torch.int32)
+
+
+def fm_coeffs32(samp_rate: int, low_pass: float, fsk_minmax: bool):
+    """Q0.30 coefficients for the CS16 path. Ref src/baseband.c:310-324."""
+    if low_pass == 0.0:
+        low_pass = 0.2 if fsk_minmax else 0.1
+    if low_pass > 1e4:
+        low_pass = low_pass / samp_rate
+    elif low_pass >= 1.0:
+        low_pass = 1e6 / low_pass / samp_rate
+    ita = 1.0 / math.tan(math.pi / 2 * low_pass)
+    gain = 1.0 / (1.0 + ita)
+    alp1 = int((ita - 1.0) * gain * (1 << 30))
+    blp = int(gain * (1 << 30))
+    return alp1, blp
 
 
 # ---------------------------------------------------------------------------

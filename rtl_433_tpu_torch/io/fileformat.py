@@ -4,8 +4,9 @@ Mirrors the reference filename conventions (ref src/fileformat.c,
 help text src/rtl_433.c:343-363): sample rate and center frequency are
 parsed from any path segment ("433.92M", "250k", "1024k", "sps"/"Hz"
 suffixes); content type from tokens (cu8 cs8 cs16 cf32 am.s16 fm.s16 ook);
-a "fmt:rate:path" prefix overrides. CU8, CS8, CS16 and CF32 load; the
-other sample formats are recognised by name and not ported yet.
+a "fmt:rate:path" prefix overrides. CU8, CS8, CS16 and CF32 load as
+samples; the other names are recognised and raise as unsupported sample
+formats (``.ook`` and SigMF input have readers of their own).
 """
 
 from __future__ import annotations
@@ -128,8 +129,6 @@ def load_iq_bytes(raw, fmt: str) -> np.ndarray:
         s16 = np.clip((np.frombuffer(raw, np.float32) * 32767.0)
                       .astype(np.int64), -32767, 32767)
         arr = _cs16_to_cu8(s16)
-    elif fmt in KNOWN_FORMATS:
-        raise ValueError(f"sample format {fmt} is not ported yet")
     else:
         raise ValueError(f"unsupported sample format: {fmt}")
     return arr[: len(arr) // 2 * 2].reshape(-1, 2)

@@ -1,9 +1,9 @@
 """Signal grabber (-S) and output dumpers (-w).
 
 - SampGrab keeps a ring of the recent IQ blocks (ref src/samp_grab.c
-  samp_grab_push). Nothing saves it yet: the reference's retro-save of
-  ``g###_<freq>M_<rate>k.cu8`` captures is not ported, so ``-S`` writes no
-  file, as in the JAX package.
+  samp_grab_push). Nothing saves it: the reference's retro-save of
+  ``g###_<freq>M_<rate>k.cu8`` captures has no caller here, as in the
+  JAX package, so ``-S`` writes no file.
 - Dumper streams converted sample data to a file while decoding
   (ref src/r_flow.c:386-489 dumper conversions).
 """

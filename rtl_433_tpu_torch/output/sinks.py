@@ -1,4 +1,5 @@
-"""Output sinks: console/file JSON, KV, CSV, log.
+"""Output sinks: console/file JSON, KV, CSV, log (network sinks in
+output/network.py).
 
 Mirrors the reference sink behaviors (ref src/output_file.c: JSON :157,
 KV :457, CSV :707 with field negotiation via determine_csv_fields,
@@ -7,8 +8,8 @@ src/r_api.c:414-436; src/output_log.c for -F log).
 Every sink carries a ``log_level``: the log fan-out
 (api.RtlTpu.redirect_logging) delivers log events only to sinks whose
 log_level admits them (ref include/data.h:191). Defaults match the
-reference: json/csv 0 (opt in with ``-F json,v=8``), kv/log LOG_TRACE.
-The network sinks are not ported yet.
+reference: json/csv 0 (opt in with ``-F json,v=8``), kv/log LOG_TRACE,
+syslog LOG_WARNING (ref src/r_api.c:981-1040 add_*_output).
 """
 
 from __future__ import annotations

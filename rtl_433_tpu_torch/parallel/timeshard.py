@@ -48,8 +48,8 @@ verdict (the gather waits on the card for the chain, and writes nothing
 where it failed). The front end never reads ``low_est``, so it runs
 once per (segment, channel) and the three candidates' detector lanes read
 the same am/fm columns. A mesh is ``Mesh([device] * D, ("sp",))``: D
-entries of ONE device. A mesh over several distinct devices is not ported
-(ROADMAP item 13) and raises.
+entries of ONE device. A mesh over several distinct devices raises
+NotImplementedError (ROADMAP item 13).
 """
 
 from __future__ import annotations

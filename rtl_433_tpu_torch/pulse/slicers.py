@@ -9,8 +9,8 @@ Each slicer yields one BitBuffer per message (each `account_event` call in
 the reference); the caller runs the decoder on each. Timings convert from
 us with C float32 arithmetic to match integer truncation behavior.
 
-These are event-rate functions (<=1200 pulses each); the vectorized
-on-device variants (device slicing) are not ported yet.
+These are event-rate functions (<=1200 pulses each); device slicing
+runs the batched kernels of ops/slice.py instead.
 """
 
 from __future__ import annotations

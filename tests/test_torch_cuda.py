@@ -1407,3 +1407,108 @@ def test_stream_dumps_match_cpu(name, num, tmp_path):
     assert out["cuda"] == out["cpu"]
     assert out["cuda"][0][0] == 0
     assert len(out["cuda"][1]["dump.am.s16"]) > 0
+
+
+@pytest.mark.parametrize("name,num", [("nexus", 19), ("lacrosse_tx35", 75)])
+def test_network_outputs_match_cpu(name, num, tmp_path):
+    """Every network output but mqtts (-F syslog, mqtt, influx, trigger,
+    http) and -K FILE and -K gpsd against loopback stubs: the card's run
+    gives --device cpu's bytes at every stub and on stdout and stderr,
+    and every block goes through the front-end and detector kernels."""
+    _gpu()
+    from rtl_433_tpu_torch import cli
+    from torch_output_cases import run_network_cli
+    from torch_replay_cases import fixture
+    argv = ["-R", str(num), "-r", fixture(name), "-F", "json"]
+    _cuda.reset_launches()
+    got = run_network_cli(cli.main, argv, str(tmp_path / "cuda"))
+    assert _cuda.LAUNCHES["frontend"] > 0
+    assert _cuda.LAUNCHES["detector_scan"] == _cuda.LAUNCHES["frontend"]
+    want = run_network_cli(cli.main, argv + ["--device", "cpu"],
+                           str(tmp_path / "cpu"))
+    # device_info names where each run's receiver is
+    assert got[1]["http"][0].pop("device_info")["driver"] == "cuda"
+    assert want[1]["http"][0].pop("device_info")["driver"] == "cpu"
+    assert got == want
+    (rc, out, _), seen = got
+    assert rc == 0 and out and seen["syslog"] and seen["mqtt"]
+    assert seen["influx"] and seen["trigger"] and seen["http"][0]["ws"]
+
+
+@pytest.mark.parametrize("name,num", [("nexus", 19), ("lacrosse_tx35", 75),
+                                      ("lacrosse_tx141x", 73)])
+def test_analyzer_matches_cpu(name, num):
+    """-A on the card: the analyzer's text on stderr equals --device
+    cpu's."""
+    _gpu()
+    from torch_replay_cases import fixture
+    argv = ["-R", str(num), "-r", fixture(name), "-A"]
+    got = _replay(argv)
+    assert got == _replay(argv + ["--device", "cpu"])
+    assert got[0] == 0 and "Guessing modulation: " in got[2]
+
+
+def test_locked_retune_against_a_running_run_live():
+    """A thread retunes (frequency, rate, gain, ppm, hop interval, the
+    protocol verb) in a loop while run_live decodes on the card: nothing
+    raises, and every block ran under one set of parameters, the ones its
+    detector params were built for."""
+    dev = _gpu()
+    import threading
+    import time
+
+    from rtl_433_tpu_torch import api as tapi
+    from rtl_433_tpu_torch.output.http_server import HttpServerSink
+    from torch_live_cases import BLOCK, LoopbackRtlTcp
+    rx = tapi.RtlTpu(register_all=False, device=dev)
+    rx.registry.register(19)
+    rx.registry.register(75)
+    snap = lambda: (rx.sample_rate, rx.center_frequency, rx.fsk_minmax,
+                    rx.gain_db, rx.ppm_error,
+                    tuple(d.num for d in rx.registry.active))
+    blocks = []
+    real = rx._push_block
+
+    def inner(iq, flush):
+        start = snap()
+        out = real(iq, flush)
+        blocks.append((start, snap(), rx._params))
+        return out
+
+    rx._push_block = inner
+    verbs = HttpServerSink.__new__(HttpServerSink)
+    verbs.receiver = rx
+    stop, errors = threading.Event(), []
+
+    def retuner():
+        i = 0
+        try:
+            while not stop.is_set():
+                i += 1
+                rx.set_frequency((433_920_000, 868_300_000)[i % 2])
+                rx.set_sample_rate((250_000, 1_024_000)[(i // 2) % 2])
+                rx.set_gain((None, 20.0)[i % 2])
+                rx.set_ppm_error(i % 5)
+                rx.set_hop_interval(1 + i % 3)
+                verbs.handle_cmd("protocol", -75 if i % 2 else 75)
+                time.sleep(0.001)
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    rng = np.random.default_rng(9)
+    srv = LoopbackRtlTcp([rng.integers(118, 138, (BLOCK, 2), np.uint8)
+                          for _ in range(12)])
+    srv.start()
+    t = threading.Thread(target=retuner, daemon=True)
+    t.start()
+    try:
+        rx.run_live(srv.device, block_samples=BLOCK, watchdog_interval=60)
+    finally:
+        stop.set()
+        t.join(30)
+        srv.join(30)
+    torch.cuda.synchronize()
+    assert not errors and rx.exit_code == 0 and len(blocks) == 12
+    for start, end, params in blocks:
+        assert start == end
+        assert (params.sample_rate, params.fsk_minmax) == start[0:3:2]

@@ -61,12 +61,28 @@ def test_load_iq_bytes_matches_jax(fmt, n):
 
 
 def test_unported_formats_raise(tmp_path):
-    p = tmp_path / "x.am.s16"
-    p.write_bytes(b"\0" * 8)
-    with pytest.raises(ValueError, match="not ported"):
-        load_iq(str(p), "am.s16")
-    with pytest.raises(ValueError, match="unsupported"):
-        load_iq_bytes(b"\0" * 8, "wav")
+    """Every name the loaders recognise but cannot load as samples (and
+    one they do not know) raises the JAX package's ValueError, word for
+    word, from both packages."""
+    from rtl_433_tpu_torch.io.fileformat import KNOWN_FORMATS
+    names = [f for f in KNOWN_FORMATS
+             if f not in ("cu8", "cs8", "cs16", "cf32")] + ["wav"]
+    assert names[:-1] == ["am.s16", "am.f32", "fm.s16", "fm.f32", "ook",
+                          "vcd", "sigmf"]
+    for fmt in names:
+        p = tmp_path / f"x.{fmt}"
+        p.write_bytes(b"\0" * 8)
+        said = {}
+        for name, load, load_bytes in (
+                ("port", load_iq, load_iq_bytes),
+                ("jax", jax_load_iq, jax_load_iq_bytes)):
+            for what, call in (("file", lambda: load(str(p), fmt)),
+                               ("bytes", lambda: load_bytes(b"\0" * 8,
+                                                            fmt))):
+                with pytest.raises(ValueError) as e:
+                    call()
+                said[name, what] = str(e.value)
+        assert set(said.values()) == {f"unsupported sample format: {fmt}"}
 
 
 def _as(fmt, u8):

@@ -4,7 +4,9 @@ A subprocess with ``jax`` and ``rtl_433_tpu`` made unimportable imports
 every port module (``parallel/`` and ``decoders/pool.py`` among them) and
 decodes a fixture on the CPU, through the API, the CLI (also as SigMF
 through a conf file's flex decoder: ``io/sigmf.py``, ``confparse.py``,
-``decoders/flex.py``), and a
+``decoders/flex.py``; and with ``-A``, ``-K FILE`` and ``-F syslog``:
+``pulse/analyzer.py``, ``output/network.py``), the HTTP server's control
+verbs (``output/http_server.py``), and a
 ``ShardedEngine`` on a 2-device CPU mesh whose events come from forked
 ``DecodePool`` workers, and a ``TimeShardEngine`` on a 4-segment CPU mesh.
 Another runs a copy of the port alone in a directory, with
@@ -90,6 +92,26 @@ with contextlib.redirect_stdout(buf):
                         "cpu"])
 flex_cli = [json.loads(l) for l in buf.getvalue().splitlines() if l]
 shutil.rmtree(tmpd)
+# the analyzer, a data tag and a network output (pulse/analyzer.py,
+# output/network.py), and the HTTP server's verbs (output/http_server.py)
+import socket
+udp = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+udp.bind(("127.0.0.1", 0))
+udp.settimeout(10)
+buf, err = io.StringIO(), io.StringIO()
+with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+    rc_net = cli.main(["-R", "19", "-r", NEXUS, "-F", "json", "-A", "-K",
+                       "FILE", "-F", "syslog:127.0.0.1:%d"
+                       % udp.getsockname()[1], "--device", "cpu"])
+net_cli = [json.loads(l) for l in buf.getvalue().splitlines() if l]
+syslog = udp.recv(4096).decode()
+analyzer = err.getvalue()
+from rtl_433_tpu_torch.output.http_server import HttpServerSink
+srv = HttpServerSink(RtlTpu(register_all=False, device="cpu"),
+                     "127.0.0.1", 0)
+verbs = [srv.handle_cmd("device_info", None),
+         srv.handle_cmd("center_frequency", 868300000)]
+srv.close()
 n = one.shape[0] + (-one.shape[0]) % 128
 blk = np.full((2, n, 2), 128, np.uint8)
 blk[0, :one.shape[0]] = one
@@ -118,6 +140,8 @@ bad = sorted(k for k in sys.modules
              or k == "rtl_433_tpu" or k.startswith("rtl_433_tpu."))
 print(json.dumps({"api": api, "cli": cli_events, "rc": rc,
                   "flex_cli": flex_cli, "rc_flex": rc_flex,
+                  "net_cli": net_cli, "rc_net": rc_net, "syslog": syslog,
+                  "analyzer": analyzer, "verbs": verbs,
                   "sharded": sharded, "sliced": sliced,
                   "timeshard": timeshard,
                   "loaded": [k for k in bad if sys.modules[k] is not None]}))
@@ -202,6 +226,17 @@ def test_port_runs_with_jax_and_reference_blocked():
     assert res["rc_flex"] == 0
     assert [(e["model"], e["rows"][0]["id"]) for e in res["flex_cli"]] == \
         [("nexus", want[0]["id"])]
+    # -K FILE, -A and -F syslog
+    assert res["rc_net"] == 0
+    assert [e.pop("file") for e in res["net_cli"]] == \
+        [os.path.basename(NEXUS)] * len(want)
+    assert [dict(e, time=None) for e in res["net_cli"]] == \
+        [dict(e, time=None) for e in res["cli"]]
+    assert '"model":"Nexus-TH"' in res["syslog"]
+    assert "Guessing modulation: Pulse Position Modulation" in \
+        res["analyzer"]
+    assert res["verbs"] == [{"driver": "cpu", "backend": "torch"},
+                            {"center_frequency": 868300000.0}]
     assert res["sharded"] == [[0, e] for e in want]
     assert res["timeshard"] == want
 
@@ -213,7 +248,8 @@ def _sources():
     # and the helpers the port's GPU runs and process workers import
     helpers = ["chip_smoke.py", "tests/torch_multihost_worker.py",
                "tests/torch_timeshard_cases.py", "tests/torch_decl_cases.py",
-               "tests/torch_replay_cases.py", "tests/torch_live_cases.py"]
+               "tests/torch_replay_cases.py", "tests/torch_live_cases.py",
+               "tests/torch_output_cases.py"]
     return sorted(files) + [os.path.join(REPO, h) for h in helpers]
 
 

@@ -12,11 +12,13 @@ sequence, hopping (``-f``/``-H``, ``-E hop``, ``-E quit``, ``-T``),
 SIGUSR1/SIGUSR2/SIGHUP, and the CLI's ``-d`` with ``-F rtltcp``.
 """
 
+import functools
 import json
 import os
 import signal
 import socket
 import sys
+import threading
 import time
 
 import numpy as np
@@ -412,10 +414,18 @@ def test_signals_match_jax(monkeypatch):
 
 @pytest.mark.parametrize("extra", [[], ["-n", "131072", "-M", "stats:1"]],
                          ids=["json_rtltcp", "n_and_stats"])
-def test_cli_live_matches_jax(extra):
+def test_cli_live_matches_jax(extra, monkeypatch):
     """cli.main -d with -F rtltcp: the same exit code, stdout and stderr
     as the JAX CLI, and the same bytes at a passthrough client (the header,
     then every block decoded)."""
+    # the CLI's watchdog ticks every 1.5 s in real time: a first block
+    # slower than two ticks on a loaded core read as a stall (exit code 3)
+    # in one package alone. No tick falls in these runs, as in the
+    # file's other cases (watchdog_interval=60)
+    for pkg in PKGS:
+        cls = API[pkg].RtlTpu
+        monkeypatch.setattr(cls, "run_live", functools.partialmethod(
+            cls.run_live, watchdog_interval=60))
     blocks = [_nexus(), QUIET] if extra else [_nexus()]
     out = {}
     for pkg, main in (("jax", jcli.main), ("port", tcli.main)):
@@ -437,3 +447,65 @@ def test_cli_live_matches_jax(extra):
     (rc, stdout, _), _, data = out["port"]
     assert rc == 0 and '"Nexus-TH"' in stdout
     assert data == HEADER + blocks[0].tobytes()
+
+
+def test_http_retune_between_blocks_matches_jax(monkeypatch):
+    """A POST /cmd center_frequency within the band, answered between two
+    gated blocks: the server holds the second block until the reply, so
+    the retune falls after the first block in both packages (the port's
+    waits on the receiver's lock, JAX's on nothing). The same events,
+    their frequency meta from the new tuning, the same commands at the
+    server and the same replies."""
+    from rtl_433_tpu.output import http_server as jhttp
+    from rtl_433_tpu_torch.output import http_server as thttp
+    from torch_output_cases import get_json, post_json
+
+    http = {"jax": jhttp, "port": thttp}
+    res = {}
+    for pkg in PKGS:
+        monkeypatch.setattr(API[pkg], "_time", PinnedClock())
+        rx = _receiver(pkg, report_meta=True)
+        sink = http[pkg].HttpServerSink(rx, "127.0.0.1", 0)
+        rx.sinks.append(sink)
+        port = sink.server.server_address[1]
+        first_done, retuned = threading.Event(), threading.Event()
+        real = rx.push_block
+
+        def push(iq, *a, _real=real, _done=first_done, **k):
+            out = _real(iq, *a, **k)
+            _done.set()
+            return out
+
+        rx.push_block = push
+        replies = []
+
+        def retune(_port=port, _done=first_done, _ok=retuned):
+            _done.wait(60)
+            replies.append(post_json(_port, "/cmd", {
+                "cmd": "center_frequency", "val": 434_050_000}))
+            replies.append(get_json(_port, "/cmd?cmd=settings"))
+            _ok.set()
+
+        t = threading.Thread(target=retune, daemon=True)
+        t.start()
+        srv = LoopbackRtlTcp([_nexus(), _nexus(seed=2)],
+                             pause=(1, retuned))
+        srv.start()
+        try:
+            rx.run_live(srv.device, block_samples=BLOCK,
+                        watchdog_interval=60)
+        finally:
+            sink.close()
+        t.join(30)
+        srv.join(30)
+        res[pkg] = ([TO_JSON[pkg](e) for e in rx.events], srv.commands,
+                    replies, rx.exit_code)
+    assert res["port"] == res["jax"]
+    events, commands, replies, rc = res["port"]
+    assert rc == 0 and len(events) == 2
+    freqs = [json.loads(e)["freq"] for e in events]
+    assert freqs[1] - freqs[0] == pytest.approx(0.13)
+    assert commands == [(0x02, 250000), (0x01, 433920000),
+                        (0x01, 434050000)]
+    assert replies[0] == {"center_frequency": 434050000.0}
+    assert replies[1]["frequency"] == 434050000.0

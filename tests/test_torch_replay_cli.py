@@ -9,10 +9,13 @@ the replay options of both CLIs (``-F json|jsons|kv|log|csv|null`` with
 ``-f``/``-s``, ``-X``, ``-c`` and the default conf, the live-input and
 compatibility flags, which are parsed and unused here), the default
 outputs (json and log), a missing input file, SigMF and ``.ook`` input.
+So do ``-K FILE``, ``-K gpsd``, ``-A`` and each network output (``-F
+syslog|trigger|mqtt|mqtts|influx|http``) against loopback stubs
+(tests/torch_output_cases.py), with the output modules' clocks pinned:
+the same bytes at each stub.
 The declared differences: ``-V`` and the malformed-gain warning name the
-port, ``--device`` picks where the port's engine runs, and the options of
-later parts of the port (``-K``, ``-A``, the network outputs) exit with
-code 2 naming what is not ported yet.
+port, ``--device`` picks where the port's engine runs, and the HTTP
+server's ``device_info`` names the port's backend.
 SigMF archives written by either package read back equal in the other
 (the recorder names the writer), and ``.ook`` pulse text from
 ``PulseData.dump`` loads and decodes equally in both.
@@ -40,6 +43,7 @@ from rtl_433_tpu_torch.output.data_model import event_to_json
 from rtl_433_tpu_torch.pulse.data import PulseData
 from test_decoder_oracle import VECTORS
 from torch_fixture_cases import expected, normalize
+from torch_output_cases import make_cert, run_network_cli, tls_server_ctx
 from torch_replay_cases import CONF, fixture, run_cli
 
 SEED = 20261018
@@ -237,22 +241,74 @@ def test_version_names_the_port(cwd):
     assert jax == (0, f"rtl_433_tpu version {jv}\n", "")
 
 
-@pytest.mark.parametrize("argv,what", [
-    (["-K", "FILE"], "data tags"),
-    (["-A"], "the pulse analyzer"),
-] + [(["-F", f"{fmt}:localhost"], "a network output")
-     for fmt in ("mqtt", "mqtts", "influx", "syslog", "trigger", "http")],
-    ids=lambda v: v[0] if isinstance(v, list) else None)
-def test_later_options_refused_by_name(argv, what, cwd):
-    rc, out, err = run_cli(cli.main, ["-R", "19", "-y", CODE] + argv
-                           + ["--device", "cpu"])
-    assert rc == 2 and not out
-    assert what in err and "not ported yet" in err
+# -K tags and network outputs (tests/torch_output_cases.py network_argv),
+# each alone beside -F json on the nexus capture
+NETWORK_RUNS = {
+    "K_FILE": dict(outputs=(), tags=("FILE",)),
+    "K_gpsd": dict(outputs=(), tags=("gpsd",)),
+    "syslog": dict(outputs=("syslog",), tags=()),
+    "trigger": dict(outputs=("trigger",), tags=()),
+    "mqtt": dict(outputs=("mqtt",), tags=()),
+    "mqtts": dict(outputs=("mqtts",), tags=()),
+    "influx": dict(outputs=("influx",), tags=()),
+    "http": dict(outputs=("http",), tags=()),
+}
 
 
-def test_analyzer_refused_by_the_api():
-    with pytest.raises(NotImplementedError, match=r"-A\) is not ported"):
-        RtlTpu(analyze=True, device="cpu")
+@pytest.mark.parametrize("name", list(NETWORK_RUNS))
+def test_network_outputs_match_jax(name, cwd, tmp_path):
+    """The same exit code, stdout and stderr, and the same bytes at every
+    stub: syslog datagrams, the broker's connection (TLS for mqtts), the
+    Influx posts, the trigger file, the gpsd WATCH, and the WebSocket
+    frames and settings reply of the HTTP server."""
+    net = dict(NETWORK_RUNS[name])
+    if name == "mqtts":
+        cert, key = make_cert(str(tmp_path))
+        net.update(tls_ctx=tls_server_ctx(cert, key),
+                   mqtt_extra=f",tls_ca_cert={cert}")
+    argv = ["-R", "19", "-r", NEXUS, "-F", "json"]
+    port = run_network_cli(cli.main, argv + ["--device", "cpu"],
+                           str(tmp_path / "port"), **net)
+    jax = run_network_cli(jax_cli.main, argv, str(tmp_path / "jax"), **net)
+    if name == "http":
+        # declared: device_info names each package's backend
+        assert jax[1]["http"][0].pop("device_info") == {"driver": "tpu",
+                                                       "backend": "jax"}
+        assert port[1]["http"][0].pop("device_info") == {"driver": "cpu",
+                                                        "backend": "torch"}
+    assert port == jax
+    (rc, out, err), seen = port
+    assert rc == 0 and '"Nexus-TH"' in out
+    ev = json.loads(out.splitlines()[0])
+    if name == "K_FILE":
+        assert ev["file"] == os.path.basename(NEXUS)
+    if name == "K_gpsd":
+        assert (ev["lat"], ev["lon"]) == (12.34, 56.78)
+        assert seen["gpsd"] == [b'?WATCH={"enable":true,"json":true}\n']
+    if name == "syslog":
+        assert len(seen["syslog"]) == 1 and b"Nexus-TH" in seen["syslog"][0]
+    if name == "trigger":
+        assert seen["trigger"] == "1"
+    if name.startswith("mqtt"):
+        topics = [t for t, _ in seen["mqtt"]]
+        assert topics[1] == "rtl_433/test/events/Nexus-TH"
+        assert "rtl_433/test/devices/Nexus-TH/156/temperature_C" in topics
+        assert seen["mqtt_raw"][0].endswith(b"\xe0\x00")
+    if name == "influx":
+        assert seen["influx"][0][2].startswith("Nexus-TH,id=156,channel=1 ")
+    if name == "http":
+        assert [json.loads(f)["id"] for f in seen["http"][0]["ws"]] == [156]
+        assert seen["http"][0]["settings"]["sample_rate"] == 250_000
+
+
+def test_analyzer_matches_jax(cwd):
+    """-A on the lacrosse_tx141x capture: the analyzer's text on stderr,
+    byte for byte (its packages read as Manchester coding)."""
+    port, jax = _both(["-R", "73", "-r", TX141, "-A"])
+    assert port == jax
+    rc, out, err = port
+    assert rc == 0 and '"LaCrosse-TX141' in out
+    assert "Guessing modulation: Manchester coding" in err
 
 
 @pytest.mark.parametrize("datatype", ["cu8", "cs8"])

@@ -4,7 +4,8 @@ port's CPU tests and chip_smoke.py's ``live`` phase.
 ``LoopbackRtlTcp`` serves the rtl_tcp header, records the 5-byte commands
 it receives and streams given CU8 blocks, as fast as loopback carries them
 or paced to a wall-clock schedule at ``rate`` samples a second, after an
-optional gate opens; then it closes its side. ``Passthrough`` reads every
+optional gate opens, with an optional pause between two blocks; then it
+closes its side. ``Passthrough`` reads every
 byte an ``-F rtltcp`` server sends. ``stream_blocks`` cuts samples into
 whole blocks, padded with 128s, plus one quiet block that closes any
 package still open (live input never flushes). ``dump_argv`` asks the CLI
@@ -92,13 +93,16 @@ class LoopbackRtlTcp(threading.Thread):
     ``rate``: samples a second, each block sent at its slot of a
     wall-clock schedule (None: as fast as the socket takes them).
     ``gate``: a ``threading.Event`` the server waits on before the first
-    block. ``hold``: a stall: after the blocks of its ``k``-th client
+    block. ``pause``: ``(k, event)``: after its ``k``-th block the server
+    waits on ``event`` before the next (the pacing schedule restarts
+    there). ``hold``: a stall: after the blocks of its ``k``-th client
     (from 1) the server keeps the connection open and silent until
     ``hold(k)`` is true, then closes it. ``accepts``: clients served one
     after another, each sent the blocks; the listening socket closes once
     the last is accepted, so a further connect is refused."""
 
-    def __init__(self, blocks, rate=None, gate=None, hold=None, accepts=1):
+    def __init__(self, blocks, rate=None, gate=None, hold=None, accepts=1,
+                 pause=None):
         super().__init__(daemon=True)
         self.sock = socket.socket()
         self.sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -110,6 +114,7 @@ class LoopbackRtlTcp(threading.Thread):
         self.rate = rate
         self.gate = gate
         self.hold = hold
+        self.pause = pause
         self.accepts = accepts
         self.commands = []
         self.n_connects = 0
@@ -140,7 +145,10 @@ class LoopbackRtlTcp(threading.Thread):
         if self.gate is not None:
             self.gate.wait(60)
         t_next = time.monotonic()
-        for raw in self.blocks:
+        for i, raw in enumerate(self.blocks):
+            if self.pause is not None and i == self.pause[0]:
+                self.pause[1].wait(60)
+                t_next = time.monotonic()
             if self.rate:
                 delay = t_next - time.monotonic()
                 if delay > 0:
