@@ -238,7 +238,18 @@ Phases, each printing one JSON line (any failure exits non-zero):
               per-lane-origin front-end and
               detector call and every chain and gather call of one more
               lacrosse_tx35 decode held to its plain version (a gather
-              behind a failed chain: no output written);
+              behind a failed chain: no output written); each stream
+              again at D=8 on two groups of the one card
+              (Mesh([cuda:0] * 4 + [cuda] * 4), each group its own
+              launches): events, fallbacks and verified blocks equal to
+              the one-group run and the sequential engine, the launches
+              per kernel and per block, every kernel call of one more
+              grouped lacrosse_tx35 decode held to its plain version; on
+              a host with two or more GPUs also one segment per GPU and
+              ShardedEngine(make_mesh()) over all of them, held the same
+              way (a timeshard_devices line says whether they ran); then
+              a launch_device line: the host cost of entering a launch's
+              device where it is current, in microseconds per launch;
 6d. multihost -- two processes on the one card (gloo on loopback), each
               with 2048 channels of the rotation blocks through
               MultiHostEngine: per block, their events in process order
@@ -246,7 +257,10 @@ Phases, each printing one JSON line (any failure exits non-zero):
               their all-reduced noise floor its noise floor within 1e-4
               dB; each process's wall ms per block, cold and cached, and
               the all-reduce's ms; every compaction call of one more
-              rotation held to the plain version in each process;
+              rotation held to the plain version in each process; then one
+              process alone over process 0's rows (its events equal
+              process 0's) and the ratio of the per-process rates, which
+              measures the two processes' contention for the one card;
 7. kernels -- one line per kernel with its launches on the main path, its
               largest error against the plain version over every check
               above, its times and bound, and its cycles per sample at
@@ -364,6 +378,8 @@ TS_SEGMENTS = (8, 32)
 TS_KERNELS = ("frontend", "detector_scan", "timeshard_chain",
               "timeshard_gather")
 TS_CHECKED = "lacrosse_tx35"
+# the launches-by-D key of the D=8 runs on two groups of the one card
+TWO_GROUPS = "8, two groups"
 # blocks of each stream decoded under torch.profiler, per engine
 TS_TRACED = 8
 CHAIN_OUTS = ("sel", "delta", "out", "by_key", "bad")
@@ -2097,10 +2113,11 @@ def timeshard_streams(fx, rate_of):
     return out
 
 
-def ts_recorder(calls):
-    """Record every per-lane-origin front-end and detector call and every
-    chain and gather call while the block runs (wrappers swapped in their
-    modules, restored on exit)."""
+def ts_recorder(calls, lanes_only=True):
+    """Record every per-lane-origin front-end and detector call (with
+    ``lanes_only`` False every one) and every chain and gather call while
+    the block runs (wrappers swapped in their modules, restored on
+    exit)."""
     from rtl_433_tpu_torch.ops import detector as det
     from rtl_433_tpu_torch.ops import frontend as fe
     from rtl_433_tpu_torch.ops import timeshard as ots
@@ -2108,15 +2125,17 @@ def ts_recorder(calls):
     def wrap(kind, fn, lanes_only):
         def run(*args, **kw):
             if not lanes_only or kw.get("lane_t0") is not None:
+                # a gather's launch form (pdl) is the caller's, not an input
                 calls.append((kind, [a.clone() for a in args],
                               {k: v.clone() if hasattr(v, "clone") else v
-                               for k, v in kw.items()}))
+                               for k, v in kw.items() if k != "pdl"}))
             return fn(*args, **kw)
         return run
     return patched(
-        (fe, "frontend_cuda", wrap("frontend", fe.frontend_cuda, True)),
+        (fe, "frontend_cuda", wrap("frontend", fe.frontend_cuda,
+                                   lanes_only)),
         (det, "detector_scan_cuda",
-         wrap("detector_scan", det.detector_scan_cuda, True)),
+         wrap("detector_scan", det.detector_scan_cuda, lanes_only)),
         (ots, "timeshard_chain_cuda",
          wrap("timeshard_chain", ots.timeshard_chain_cuda, False)),
         (ots, "timeshard_gather_cuda",
@@ -2436,8 +2455,11 @@ def timeshard_phase(dev, compare, fx, rate_of, only=None):
     both, and under torch.profiler the device ms per block of both by
     kernel. Every per-lane-origin front-end and detector call and every
     chain and gather call of TS_CHECKED's decode is held to its plain
-    version. Returns (the phase lines, the launches of the time-sharded
-    decodes, the chain's and gather's numbers)."""
+    version. Each stream runs again at D=8 on two groups of the one card,
+    and where there are two or more GPUs with one segment per GPU and
+    through ShardedEngine(make_mesh()) (``grouped``, ``sharded_all``).
+    Returns (the phase lines, the launches of the time-sharded decodes,
+    the chain's and gather's numbers)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from rtl_433_tpu_torch.decoders import Registry
@@ -2500,10 +2522,100 @@ def timeshard_phase(dev, compare, fx, rate_of, only=None):
             "gather_launches": launched["timeshard_gather"],
             "gather_copied": launched["timeshard_gather_copied"]}
 
+    def grouped(name, params, nums, blocks, want, devices, ref, launches):
+        """TimeShardEngine on Mesh(``devices``): the sequential engine's
+        events, and the fallbacks and verified blocks ``ref`` of the
+        one-group run at the same D; wall ms per block, launches per
+        kernel and per block (each group launches its own front end and
+        detector: a group with segment 0 alone one each a block, any
+        other two, and the sequential replay one each for a block that
+        fell back; one gather per group a block); for TS_CHECKED every
+        kernel call of one more decode held to its plain version."""
+        from rtl_433_tpu_torch.parallel.timeshard import _segment_groups
+        D = len(devices)
+        mesh = Mesh(devices, ("sp",), (D,))
+        mk = lambda: TimeShardEngine(params, 1, mesh, registry=registry(nums))
+        _cuda.reset_launches()
+        eng = mk()
+        got, s = drive(eng, blocks)
+        nb = len(blocks)
+        got_launches = {k: _cuda.LAUNCHES[k] for k in TS_KERNELS}
+        copied = _cuda.LAUNCHES["timeshard_gather_copied"]
+        for k in TS_KERNELS:
+            launches[k] += got_launches[k]
+        if got != want:
+            fail(f"timeshard {name} on {len(set(devices))} groups: "
+                 f"{len(got)} events, the sequential engine {len(want)}")
+        if (eng.fallbacks, eng.verified) != ref:
+            fail(f"timeshard {name} on {len(set(devices))} groups: "
+                 f"{eng.fallbacks} fallbacks, {eng.verified} verified; "
+                 f"one group {ref}")
+        groups = _segment_groups(mesh, "sp")
+        per_block = sum(1 + bool(g.halo_ids) for g in groups)
+        want_launches = {
+            "frontend": per_block * nb + eng.fallbacks,
+            "detector_scan": per_block * nb + eng.fallbacks,
+            "timeshard_chain": nb, "timeshard_gather": len(groups) * nb}
+        if got_launches != want_launches \
+                or copied != len(groups) * eng.verified:
+            fail(f"timeshard {name} on {len(groups)} groups: launches "
+                 f"{got_launches}, {copied} copied; want {want_launches}")
+        out = {"mesh": [str(d) for d in devices], "groups": len(groups),
+               "events": len(got), "events_equal": True,
+               "fallbacks": eng.fallbacks, "verified": eng.verified,
+               "equal_to_one_group": True,
+               "wall_ms_per_block": s / nb * 1e3,
+               "launches": got_launches, "launches_gather_copied": copied,
+               "launches_per_block": {k: v / nb
+                                      for k, v in got_launches.items()}}
+        if name == TS_CHECKED:
+            rec = []
+            with ts_recorder(rec):
+                if drive(mk(), blocks)[0] != want:
+                    fail(f"timeshard {name} on {len(groups)} groups: the "
+                         f"recorded decode differs")
+            t = time.perf_counter()
+            out["checked"] = ts_check(rec, compare,
+                                      f"timeshard {name}, {len(groups)} "
+                                      f"groups")
+            out["check_seconds"] = time.perf_counter() - t
+        return out
+
+    def sharded_all(name, params, nums, blocks, want):
+        """ShardedEngine(make_mesh()) over every GPU, one channel each, all
+        of them the stream: each channel's events are the sequential
+        engine's; for TS_CHECKED every front-end and detector call of one
+        more decode (one shard per GPU) equals its plain version."""
+        from rtl_433_tpu_torch.parallel import make_mesh
+        mesh = make_mesh()
+        C = mesh.size
+        wide = [(np.repeat(b, C, 0), nv, f) for b, nv, f in blocks]
+        mk = lambda: ShardedEngine(params, C, mesh, registry=registry(nums))
+        got, s = drive(mk(), wide)
+        per = sorted((c, e) for c in range(C) for _, e in want)
+        if sorted(got) != per:
+            fail(f"sharded {name} over {C} GPUs: {len(got)} events, "
+                 f"{len(per)} wanted")
+        out = {"devices": C, "events": len(got), "events_equal": True,
+               "wall_ms_per_block": s / len(blocks) * 1e3}
+        if name == TS_CHECKED:
+            rec = []
+            with ts_recorder(rec, lanes_only=False):
+                if sorted(drive(mk(), wide)[0]) != per:
+                    fail(f"sharded {name}: the recorded decode differs")
+            devs = sorted({str(a[0].device) for _, a, _ in rec})
+            if len(devs) != C:
+                fail(f"sharded {name}: kernels launched on {devs}")
+            out["launch_devices"] = devs
+            out["checked"] = ts_check(rec, compare,
+                                      f"sharded {name} over {C} GPUs")
+        return out
+
     rows = []
     launches = {k: 0 for k in TS_KERNELS}
-    chain_by_D = {D: 0 for D in TS_SEGMENTS}
-    gather_by_D = {D: {"launches": 0, "copied": 0} for D in TS_SEGMENTS}
+    chain_by_D = {D: 0 for D in (*TS_SEGMENTS, TWO_GROUPS)}
+    gather_by_D = {D: {"launches": 0, "copied": 0}
+                   for D in (*TS_SEGMENTS, TWO_GROUPS)}
     picks = {}
     for name, nums, samples, rate in timeshard_streams(fx, rate_of):
         if only is not None and name not in only:
@@ -2595,7 +2707,41 @@ def timeshard_phase(dev, compare, fx, rate_of, only=None):
                 picks[D] = ts_picks(rec)
                 del rec
             row["segments"][str(D)] = seg
+        # D=8 again on two groups of the one card, each its own launches
+        ref = row["segments"]["8"]
+        two = grouped(
+            name, params, nums, blocks, want,
+            [torch.device("cuda", 0)] * 4 + [torch.device("cuda")] * 4,
+            (ref["fallbacks"], ref["verified"]), launches)
+        row["groups"] = {"two_groups_one_card": two}
+        chain_by_D[TWO_GROUPS] += two["launches"]["timeshard_chain"]
+        gather_by_D[TWO_GROUPS]["launches"] += two["launches"][
+            "timeshard_gather"]
+        gather_by_D[TWO_GROUPS]["copied"] += two["launches_gather_copied"]
+        n_dev = torch.cuda.device_count()
+        if n_dev >= 2:
+            # one segment per GPU (the largest power of two of them that
+            # divides the block), and the channels over every GPU
+            Dn = 1 << (min(n_dev, 32).bit_length() - 1)
+            one = TimeShardEngine(params, 1, Mesh([dev] * Dn, ("sp",),
+                                                  (Dn,)),
+                                  registry=registry(nums))
+            if drive(one, blocks)[0] != want:
+                fail(f"timeshard {name} D={Dn}: events differ")
+            row["groups"]["distinct_gpus"] = grouped(
+                name, params, nums, blocks, want,
+                [torch.device("cuda", i) for i in range(Dn)],
+                (one.fallbacks, one.verified), launches)
+            row["groups"]["sharded_all_gpus"] = sharded_all(
+                name, params, nums, blocks, want)
         rows.append(row)
+    rows.append({"phase": "timeshard_devices",
+                 "device_count": torch.cuda.device_count(),
+                 "distinct_gpu_runs": (
+                     "ran: TimeShardEngine with one segment per GPU and "
+                     "ShardedEngine(make_mesh()) beside each stream's "
+                     "two-group run" if torch.cuda.device_count() >= 2
+                     else "not run: one GPU (the two-group runs share it)")})
     for k in TS_KERNELS:
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the timeshard phase")
@@ -2607,10 +2753,44 @@ def timeshard_phase(dev, compare, fx, rate_of, only=None):
     return rows, launches, numbers
 
 
-def _mh_worker(rank, files, port, out, device):
-    """One process of the multihost phase: MultiHostEngine on ``device``
-    over its rows of the rotation blocks (``files``), once compared and
-    once timed; writes its events, noise floors and times to ``out``."""
+def launch_device_cost(dev, reps=200_000):
+    """Host microseconds of ``_cuda.launch_device`` per launch where the
+    tensor's device is current, entered and left as a wrapper does; net
+    of the same loop around an empty context."""
+    import torch
+    from rtl_433_tpu_torch.ops import _cuda
+    null = contextlib.nullcontext()
+    t0 = torch.zeros(4, device=dev)
+
+    def per(fn):
+        fn()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t) / reps * 1e6
+
+    def entered():
+        with _cuda.launch_device(t0):
+            pass
+
+    def empty():
+        with null:
+            pass
+    # in turns, twice each: the host's speed drifts
+    raw = [per(entered), per(empty), per(entered), per(empty)]
+    return {"phase": "launch_device", "device_count":
+            torch.cuda.device_count(), "current_device":
+            torch.cuda.current_device(),
+            "us_per_launch": min(raw[0], raw[2]) - min(raw[1], raw[3]),
+            "us_with_loop": min(raw[0], raw[2]),
+            "us_empty_loop": min(raw[1], raw[3])}
+
+
+def _mh_worker(rank, files, port, out, device, nproc=MH_PROCS):
+    """One process of the multihost phase (of ``nproc``): MultiHostEngine
+    on ``device`` over its rows of the rotation blocks (``files``), once
+    compared and once timed; writes its events, noise floors and times to
+    ``out``."""
     sys.path[:0] = [HERE, os.path.join(HERE, "tests")]
     import torch
     import torch.distributed as dist
@@ -2620,7 +2800,7 @@ def _mh_worker(rank, files, port, out, device):
     from rtl_433_tpu_torch.output.data_model import event_to_json
     from rtl_433_tpu_torch.parallel import multihost
     garage.time = types.SimpleNamespace(monotonic=lambda: 0.0)
-    multihost.initialize(f"127.0.0.1:{port}", MH_PROCS, rank)
+    multihost.initialize(f"127.0.0.1:{port}", nproc, rank)
     try:
         dev = torch.device(device)
         sync = torch.cuda.synchronize if dev.type == "cuda" else (
@@ -2699,23 +2879,19 @@ def _mh_worker(rank, files, port, out, device):
         dist.destroy_process_group()
 
 
-def multihost_phase(dev, mh_dir, warm_blocks):
-    """Phase 6d: MH_PROCS processes on cuda:0 (gloo on loopback), each
-    with its rows of the multichannel phase's rotation blocks through
-    MultiHostEngine. Per block, their events in process order must equal
-    the multichannel warm-up's one-process events, and every process's
-    all-reduced noise floor the one-process floor within 1e-4 dB."""
+def _mh_run(dev, mh_dir, rot, nproc):
+    """``nproc`` spawned processes of _mh_worker on ``dev``, process p over
+    the rows ``r*_p{p}.npy``; their outputs and the wall seconds."""
     import multiprocessing
     import socket
-    rot = len(warm_blocks)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     ctx = multiprocessing.get_context("spawn")
-    outs = [os.path.join(mh_dir, f"w{p}.json") for p in range(MH_PROCS)]
+    outs = [os.path.join(mh_dir, f"w{nproc}_{p}.json") for p in range(nproc)]
     procs = [ctx.Process(target=_mh_worker, args=(
         p, [os.path.join(mh_dir, f"r{r}_p{p}.npy") for r in range(rot)],
-        port, outs[p], str(dev))) for p in range(MH_PROCS)]
+        port, outs[p], str(dev), nproc)) for p in range(nproc)]
     t = time.perf_counter()
     for p in procs:
         p.start()
@@ -2730,8 +2906,23 @@ def multihost_phase(dev, mh_dir, warm_blocks):
     wall = time.perf_counter() - t
     for i, p in enumerate(procs):
         if p.exitcode != 0:
-            fail(f"multihost: process {i} exited with {p.exitcode}")
-    res = [json.load(open(o)) for o in outs]
+            fail(f"multihost: process {i} of {nproc} exited with "
+                 f"{p.exitcode}")
+    return [json.load(open(o)) for o in outs], wall
+
+
+def multihost_phase(dev, mh_dir, warm_blocks):
+    """Phase 6d: MH_PROCS processes on cuda:0 (gloo on loopback), each
+    with its rows of the multichannel phase's rotation blocks through
+    MultiHostEngine. Per block, their events in process order must equal
+    the multichannel warm-up's one-process events, and every process's
+    all-reduced noise floor the one-process floor within 1e-4 dB. Then one
+    process alone over process 0's rows (the weak-scaling twin of the JAX
+    package's test_weak_scaling_efficiency): its events must equal process
+    0's, and the ratio of the per-process rates (cached rotation, the
+    slower process) is printed."""
+    rot = len(warm_blocks)
+    res, wall = _mh_run(dev, mh_dir, rot, MH_PROCS)
     worst = 0.0
     for r, (want, noise) in enumerate(warm_blocks):
         got = [tuple(e) for w in res for e in w["per_block"][r][0]]
@@ -2751,6 +2942,22 @@ def multihost_phase(dev, mh_dir, warm_blocks):
             fail(f"multihost: process {w['rank']} launched "
                  f"{w['launches']}")
     reduce_ms = [x for w in res for x in w["all_reduce_ms"]]
+    alone, alone_wall = _mh_run(dev, mh_dir, rot, 1)
+    alone = alone[0]
+    if [b[0] for b in alone["per_block"]] != \
+            [b[0] for b in res[0]["per_block"]]:
+        fail("multihost: one process over process 0's rows decoded other "
+             "events than process 0")
+    if dev.type == "cuda" and not (alone["compact_calls_checked"]
+                                   and alone["compact_bit_exact"]):
+        fail("multihost: the one-process run's compaction differs from "
+             "the plain version, or none was checked")
+    # samples per second of one process's channels, over the cached
+    # rotation (the timed pass): the slower of the two processes
+    rate = lambda w: (w["channels"] * N_BLOCK
+                      / (w["cached_wall_ms_per_block"] * 1e-3))
+    rate_1 = rate(alone)
+    rate_2 = min(rate(w) for w in res)
     return {"phase": "multihost", "processes": MH_PROCS,
             "channels_per_process": res[0]["channels"],
             "blocks": rot, "events": sum(len(w) for w, _ in warm_blocks),
@@ -2766,7 +2973,20 @@ def multihost_phase(dev, mh_dir, warm_blocks):
             "compact_calls_checked": {w["rank"]: w["compact_calls_checked"]
                                       for w in res},
             "n_pkg_dropped": sum(w["n_pkg_dropped"] for w in res),
-            "processes_wall_s": wall}
+            "processes_wall_s": wall,
+            "one_process": {
+                "channels": alone["channels"],
+                "wall_ms_per_block": alone["wall_ms_per_block"],
+                "cached_wall_ms_per_block":
+                    alone["cached_wall_ms_per_block"],
+                "events_equal_to_process_0": True,
+                "launches": alone["launches"], "processes_wall_s":
+                    alone_wall},
+            "samples_per_s_per_process": {"one": rate_1, "two": rate_2},
+            "per_process_rate_ratio": rate_2 / rate_1,
+            "ratio_note": "both processes share one card, so the ratio "
+                          "measures their contention for it and for the "
+                          "host, not the collectives' cost across cards"}
 
 
 # the kernels of the replay_cli phase: the front end and detector of every
@@ -3668,6 +3888,7 @@ def main():
             garage.time = real_time
         for r in rows:
             emit(r)
+        emit(launch_device_cost(dev))
         emit({"phase": "timeshard_only", "launches": launches,
               "numbers": numbers, "nvidia_smi": smi_line()})
         return 0
@@ -4383,10 +4604,7 @@ def main():
 
     # ---- 6b. multichannel: bench.py's workload through ShardedEngine
     from rtl_433_tpu_torch.parallel import make_mesh
-    mesh = make_mesh()
-    if mesh.size != 1:
-        fail(f"the multichannel phase wants one card, the mesh has "
-             f"{mesh.size}")
+    mesh = make_mesh(1)
     mh_dir = tempfile.mkdtemp(prefix="chip_smoke_mh_")
     try:
         ds_gathers["dense_4096"] = []
@@ -4410,6 +4628,7 @@ def main():
             garage.time = real_time
         for r in ts_rows:
             emit(r)
+        emit(launch_device_cost(dev))
 
         # ---- 6d. multihost: MH_PROCS processes over the multichannel
         # phase's blocks

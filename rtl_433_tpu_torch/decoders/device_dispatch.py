@@ -154,10 +154,11 @@ def _content_dup(out):
     dup = torch.empty((B, J, E), dtype=torch.int32, device=nb.device)
     if dup.numel():
         fn = _cuda.launcher("content_dup")
-        _cuda.LAUNCHES["content_dup"] += 1
-        err = fn(nb.data_ptr(), nr.data_ptr(), bpr.data_ptr(),
-                 sy.data_ptr(), B * J, E, R, W, dup.data_ptr(),
-                 _cuda.stream_of(nb))
+        with _cuda.launch_device(nb):
+            _cuda.LAUNCHES["content_dup"] += 1
+            err = fn(nb.data_ptr(), nr.data_ptr(), bpr.data_ptr(),
+                     sy.data_ptr(), B * J, E, R, W, dup.data_ptr(),
+                     _cuda.stream_of(nb))
         _cuda.check(err, "content_dup")
     return dup
 
@@ -252,9 +253,10 @@ def _gather_many(groups):
     meta, out, P, parts, keep = _gather_plan(groups)
     if P:
         fn = _cuda.launcher("gather_records")
-        _cuda.LAUNCHES["gather_records"] += 1
-        err = fn(meta.data_ptr(), len(groups), P, out.data_ptr(),
-                 _cuda.stream_of(out))
+        with _cuda.launch_device(out):
+            _cuda.LAUNCHES["gather_records"] += 1
+            err = fn(meta.data_ptr(), len(groups), P, out.data_ptr(),
+                     _cuda.stream_of(out))
         _cuda.check(err, "gather_records")
     host = out.cpu().numpy()
     del keep

@@ -15,12 +15,17 @@ share one launcher (``csrc/slice.cu``) and count one name each
 declarative decode bank (``decl_bank``); the twelve MIC digests share one
 launcher (``csrc/mic.cu``) and count one name each (``mic_<digest>``).
 
-:func:`check_lane_t0` and :func:`origin_groups` serve the wrappers whose
-kernels take a per-lane region origin (the front end and the detector).
+:func:`launch_device` makes the device of a launch's tensors current
+around every launch: a C launcher runs on the CUDA runtime's current
+device, which need not be the tensors' where a process drives several
+GPUs. :func:`check_lane_t0` and :func:`origin_groups` serve the wrappers
+whose kernels take a per-lane region origin (the front end and the
+detector).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -201,6 +206,33 @@ def resolve_device(device):
         raise RuntimeError("device 'cuda' requested but no CUDA GPU is "
                            "available (pass device='cpu' to run on the CPU)")
     return dev
+
+
+# what launch_device returns where the tensors' device is current already
+_CURRENT = contextlib.nullcontext()
+# the current CUDA device's index (bound at first use: a CPU build of torch
+# has no such function)
+_current_device = None
+
+
+def launch_device(t):
+    """The context of a launch on ``t``'s CUDA device: that device made
+    current (the launcher runs on the runtime's current device, and
+    :func:`stream_of` gives it that device's stream); where it is current
+    already, it switches nothing. Each wrapper has checked that its other
+    inputs lie on ``t``'s device (it makes its outputs there). Raises
+    ``ValueError`` for a CPU tensor: a launch never copies."""
+    global _current_device
+    dev = t.get_device()
+    if dev < 0:
+        raise ValueError("a kernel launch takes CUDA tensors, got CPU ones")
+    if _current_device is None:
+        import torch
+        _current_device = torch._C._cuda_getDevice
+    if _current_device() == dev:
+        return _CURRENT
+    import torch
+    return torch.cuda.device(dev)
 
 
 def stream_of(t) -> int:

@@ -121,10 +121,12 @@ def _run(out_n, out_p, out_g, out_meta, cap, buf):
     C, S, P = out_p.shape
     F = out_meta.shape[2]
     fn = _cuda.launcher("compact")
-    _cuda.LAUNCHES["compact"] += 1
-    _cuda.check(fn(out_n.data_ptr(), out_p.data_ptr(), out_g.data_ptr(),
-                   out_meta.data_ptr(), C, S, P, F, cap, _width(P, F),
-                   buf.data_ptr(), _cuda.stream_of(buf)), "compact")
+    with _cuda.launch_device(out_p):
+        _cuda.LAUNCHES["compact"] += 1
+        err = fn(out_n.data_ptr(), out_p.data_ptr(), out_g.data_ptr(),
+                 out_meta.data_ptr(), C, S, P, F, cap, _width(P, F),
+                 buf.data_ptr(), _cuda.stream_of(buf))
+    _cuda.check(err, "compact")
 
 
 def compact_packages_cuda(out_n, out_p, out_g, out_meta, cap: int):

@@ -921,14 +921,15 @@ def run_torch(bank: CompiledBank, bits, n_bits, sid, n_store=None):
     if B:
         spec = tabs["spec"]
         fn = _cuda.launcher("decl_bank")
-        _cuda.LAUNCHES["decl_bank"] += 1
-        err = fn(bits.data_ptr(), n_bits.data_ptr(), ns.data_ptr(),
-                 sid.data_ptr(), B, IN, spec.data_ptr(), spec.shape[1],
-                 bank.n_specs, tabs["entries"].data_ptr(),
-                 tabs["chunk_dir"].data_ptr(),
-                 tabs["chunk_start"].data_ptr(), FB, C, R,
-                 (bank.pat_len + 31) // 32, code.data_ptr(),
-                 raws.data_ptr(), _cuda.stream_of(bits))
+        with _cuda.launch_device(bits):
+            _cuda.LAUNCHES["decl_bank"] += 1
+            err = fn(bits.data_ptr(), n_bits.data_ptr(), ns.data_ptr(),
+                     sid.data_ptr(), B, IN, spec.data_ptr(), spec.shape[1],
+                     bank.n_specs, tabs["entries"].data_ptr(),
+                     tabs["chunk_dir"].data_ptr(),
+                     tabs["chunk_start"].data_ptr(), FB, C, R,
+                     (bank.pat_len + 31) // 32, code.data_ptr(),
+                     raws.data_ptr(), _cuda.stream_of(bits))
         _cuda.check(err, "decl_bank")
     return code, raws
 

@@ -530,14 +530,16 @@ def detector_scan_cuda(am, fm, regs, gen0, *, params, n_valid=None, t0=0,
     quiet = torch.zeros((C,), dtype=torch.int32, device=dev)
     if C and G:
         fn = _cuda.launcher("detector_scan")
-        _cuda.LAUNCHES["detector_scan"] += 1
-        err = fn(am.data_ptr(), fm.data_ptr(), int(fm.dtype == torch.int32),
-                 N, C, regs.data_ptr(), gen0.data_ptr(), log_key.data_ptr(),
-                 log_p.data_ptr(), log_g.data_ptr(), eop_log.data_ptr(),
-                 quiet.data_ptr(), a["n_valid"], a["t0"],
-                 None if t0v is None else t0v.data_ptr(), a["chunk"], R, E,
-                 a["spm"], a["fixed"], a["ratio"], a["maxp"], int(a["minmax"]),
-                 _cuda.stream_of(am))
+        with _cuda.launch_device(am):
+            _cuda.LAUNCHES["detector_scan"] += 1
+            err = fn(am.data_ptr(), fm.data_ptr(),
+                     int(fm.dtype == torch.int32), N, C, regs.data_ptr(),
+                     gen0.data_ptr(), log_key.data_ptr(), log_p.data_ptr(),
+                     log_g.data_ptr(), eop_log.data_ptr(), quiet.data_ptr(),
+                     a["n_valid"], a["t0"],
+                     None if t0v is None else t0v.data_ptr(), a["chunk"], R,
+                     E, a["spm"], a["fixed"], a["ratio"], a["maxp"],
+                     int(a["minmax"]), _cuda.stream_of(am))
         _cuda.check(err, "detector_scan")
     return regs, log_key, log_p, log_g, eop_log, quiet
 

@@ -128,13 +128,14 @@ def frontend_cuda(iq, st, *, use_mag_est, enable_fm, alp1, blp, n_valid,
     env_sum = torch.empty((C,), dtype=torch.int32, device=iq.device)
     if C and N:
         fn = _cuda.launcher("frontend")
-        _cuda.LAUNCHES["frontend"] += 1
-        err = fn(iq.data_ptr(), C, N, int(n_valid),
-                 None if t0v is None else t0v.data_ptr(),
-                 int(bool(use_mag_est)),
-                 int(bool(enable_fm)), baseband.AM_LP_A1, baseband.AM_LP_B,
-                 int(alp1), int(blp), st.data_ptr(), am.data_ptr(),
-                 fm.data_ptr(), env_sum.data_ptr(), _cuda.stream_of(iq))
+        with _cuda.launch_device(iq):
+            _cuda.LAUNCHES["frontend"] += 1
+            err = fn(iq.data_ptr(), C, N, int(n_valid),
+                     None if t0v is None else t0v.data_ptr(),
+                     int(bool(use_mag_est)), int(bool(enable_fm)),
+                     baseband.AM_LP_A1, baseband.AM_LP_B, int(alp1),
+                     int(blp), st.data_ptr(), am.data_ptr(), fm.data_ptr(),
+                     env_sum.data_ptr(), _cuda.stream_of(iq))
         _cuda.check(err, "frontend")
     else:
         env_sum.zero_()

@@ -303,14 +303,18 @@ def _launch(name: str, msg, nbytes: int, init: int = 0, mask: int = 0,
     a CUDA ``msg`` (``table``: the digest's table on its device); int32
     ``[...]``."""
     m = msg.contiguous()
+    if table is not None and table.device != m.device:
+        raise ValueError(f"mic_{name}: the table must lie on the message's "
+                         f"device, got {table.device} and {m.device}")
     out = torch.empty(m.shape[:-1], dtype=torch.int32, device=m.device)
     if out.numel():
         fn = _cuda.launcher("mic")
-        _cuda.LAUNCHES[f"mic_{name}"] += 1
-        err = fn(ALGO_ID[name], int(m.dtype == torch.int32), m.data_ptr(),
-                 out.numel(), m.shape[-1], nbytes, init, mask,
-                 None if table is None else table.data_ptr(), MIC_CHUNK,
-                 out.data_ptr(), _cuda.stream_of(m))
+        with _cuda.launch_device(m):
+            _cuda.LAUNCHES[f"mic_{name}"] += 1
+            err = fn(ALGO_ID[name], int(m.dtype == torch.int32),
+                     m.data_ptr(), out.numel(), m.shape[-1], nbytes, init,
+                     mask, None if table is None else table.data_ptr(),
+                     MIC_CHUNK, out.data_ptr(), _cuda.stream_of(m))
         _cuda.check(err, f"mic_{name}")
     return out
 

@@ -1263,13 +1263,14 @@ def slice_cuda(fam: str, pulse, gap, n_pulses, bounds,
            "ovf": e(B, S, dt=torch.uint8)}
     if B and S:
         fn = _cuda.launcher("slice")
-        _cuda.LAUNCHES["slice_" + fam] += 1
-        err = fn(FAMILIES[fam][0], pulse.data_ptr(), gap.data_ptr(),
-                 n_pulses.data_ptr(), B, N, tab.data_ptr(), S, E, R, BY,
-                 lanes, group, sb, smem, out["bytes"].data_ptr(),
-                 out["bits_per_row"].data_ptr(), out["syncs"].data_ptr(),
-                 out["num_rows"].data_ptr(), out["n_events"].data_ptr(),
-                 out["ovf"].data_ptr(), _cuda.stream_of(pulse))
+        with _cuda.launch_device(pulse):
+            _cuda.LAUNCHES["slice_" + fam] += 1
+            err = fn(FAMILIES[fam][0], pulse.data_ptr(), gap.data_ptr(),
+                     n_pulses.data_ptr(), B, N, tab.data_ptr(), S, E, R, BY,
+                     lanes, group, sb, smem, out["bytes"].data_ptr(),
+                     out["bits_per_row"].data_ptr(), out["syncs"].data_ptr(),
+                     out["num_rows"].data_ptr(), out["n_events"].data_ptr(),
+                     out["ovf"].data_ptr(), _cuda.stream_of(pulse))
         _cuda.check(err, "slice_" + fam)
     out["ovf"] = out["ovf"].view(torch.bool)
     return out

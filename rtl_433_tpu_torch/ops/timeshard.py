@@ -15,10 +15,10 @@ detector launch. Then:
 - the gather (:func:`timeshard_gather_plain`, :func:`timeshard_gather_cuda`)
   gathers each segment's selected candidate's record logs into the
   block's logs and re-bases their generations (:245-265);
-- :func:`timeshard_chain_gather` is the step's pair: on the card both
-  launches go before the host's one read of the chain's verdict, the
-  gather waiting on the card for the chain and writing nothing behind a
-  failed one.
+- :func:`timeshard_chain_gather` is the step's pair: on the card the
+  chain and every group's gather go before the host's one read of the
+  chain's verdict, each gather waiting on the card for the chain and
+  writing nothing behind a failed one.
 
 Lane layout: ``start`` ``[NROW, D*C]`` holds segment ``d``'s start
 registers for channel ``c`` at lane ``d*C + c``; ``fin`` ``[NROW, 3*D*C]``
@@ -208,13 +208,14 @@ def timeshard_chain_cuda(start, fin, rowinfo, *, D, ratio):
     flags = (torch.zeros if blocks > 1 else torch.empty)(
         D, dtype=torch.int32, device=dev)
     fn = _cuda.launcher("timeshard_chain")
-    _cuda.LAUNCHES["timeshard_chain"] += 1
-    err = fn(start.data_ptr(), fin.data_ptr(), rowinfo.data_ptr(), nrow, D,
-             C, G, smem, int(ratio), _ROWS["low_est"], _ROWS["high_est"],
-             _ROWS["ook_state"], _ROWS["min_high"], _ROWS["gen"],
-             sel.data_ptr(), delta.data_ptr(), out.data_ptr(),
-             flags.data_ptr(), flags[D - 1:].data_ptr(),
-             _cuda.stream_of(start))
+    with _cuda.launch_device(start):
+        _cuda.LAUNCHES["timeshard_chain"] += 1
+        err = fn(start.data_ptr(), fin.data_ptr(), rowinfo.data_ptr(), nrow,
+                 D, C, G, smem, int(ratio), _ROWS["low_est"],
+                 _ROWS["high_est"], _ROWS["ook_state"], _ROWS["min_high"],
+                 _ROWS["gen"], sel.data_ptr(), delta.data_ptr(),
+                 out.data_ptr(), flags.data_ptr(), flags[D - 1:].data_ptr(),
+                 _cuda.stream_of(start))
     _cuda.check(err, "timeshard_chain")
     return sel, delta, out, flags[:D - 1], flags[D - 1:]
 
@@ -314,43 +315,62 @@ def timeshard_gather_cuda(key3, p3, g3, eop3, sel, delta, *, R,
                          "int32 tensors of the outputs' shapes on the "
                          "input's device")
     fn = _cuda.launcher("timeshard_gather")
-    _cuda.LAUNCHES["timeshard_gather"] += 1
-    err = fn(key3.data_ptr(), p3.data_ptr(), g3.data_ptr(), eop3.data_ptr(),
-             sel.data_ptr(), delta.data_ptr(),
-             None if skip_if_bad is None else skip_if_bad.data_ptr(),
-             int(skip_if_bad is not None), int(pdl), D, C, R, G, GE,
-             *(t.data_ptr() for t in out), _cuda.stream_of(key3))
+    with _cuda.launch_device(key3):
+        _cuda.LAUNCHES["timeshard_gather"] += 1
+        err = fn(key3.data_ptr(), p3.data_ptr(), g3.data_ptr(),
+                 eop3.data_ptr(), sel.data_ptr(), delta.data_ptr(),
+                 None if skip_if_bad is None else skip_if_bad.data_ptr(),
+                 int(skip_if_bad is not None), int(pdl), D, C, R, G, GE,
+                 *(t.data_ptr() for t in out), _cuda.stream_of(key3))
     _cuda.check(err, "timeshard_gather")
     return out
 
 
-def timeshard_chain_gather(start, fin, rowinfo, key3, p3, g3, eop3, *, D,
-                           ratio, R, debug=False):
-    """The verified step's chain, then its gather, and the one read of the
+def timeshard_chain_gather(start, fin, rowinfo, groups, *, D, ratio, R,
+                           debug=False):
+    """The verified step's chain on ``start``'s device, then a gather for
+    each group of segments on the group's device, and the one read of the
     chain's verdict.
 
+    ``groups``: per group ``(device, rows, logs)``: ``rows(x)`` gives the
+    rows of the group's segments of a ``[D, C]`` tensor of the chain's
+    (``sel``, ``delta``), and ``logs`` (key3, p3, g3, eop3) are its
+    candidate logs on ``device``, in the lane layout of its own segments.
     Returns ``(chain, ok, logs)``: ``chain`` is :func:`timeshard_chain`'s
-    ``(sel, delta, out, by_key, bad)``, ``ok`` whether every link
-    verified, ``logs`` the gather's four tensors, or None
-    where the block failed and ``debug`` is off. On the card the gather is
-    launched right behind the chain, before the host reads ``bad``, and
-    writes nothing where the chain failed (under ``debug`` it gathers
-    whatever the chain selected, as JAX does); so there is no host round
-    trip between the two launches, and a failed block costs one gather
-    launch that returns early. On the CPU the plain gather runs after the
-    read, only where the block verified or under ``debug``.
+    ``(sel, delta, out, by_key, bad)``, ``ok`` whether every link verified,
+    ``logs`` each group's four gathered tensors, or None where the block
+    failed and ``debug`` is off. On the card every gather is launched
+    before the host reads ``bad`` (``sel``, ``delta`` and ``bad`` reach
+    another device by copies that its stream orders; a gather behind such
+    a copy is a plain launch, one on the chain's device a PDL launch right
+    behind it) and writes nothing where the chain failed (under ``debug``
+    it gathers whatever the chain selected, as JAX does); so there is no
+    host round trip between the launches, and a failed block costs a
+    gather launch a group that returns early. On the CPU the plain
+    gathers run after the read, only where the block verified or under
+    ``debug``.
     """
     chain = timeshard_chain(start, fin, rowinfo, D=D, ratio=ratio)
     sel, delta, bad = chain[0], chain[1], chain[4]
+
+    def picked(dev, rows):
+        return rows(sel).to(dev), rows(delta).to(dev)
+
     logs = None
     if start.is_cuda:
-        logs = timeshard_gather_cuda(key3, p3, g3, eop3, sel, delta, R=R,
-                                     skip_if_bad=None if debug else bad)
+        logs = []
+        for dev, rows, c in groups:
+            b = bad.to(dev)
+            logs.append(timeshard_gather_cuda(
+                *c, *picked(dev, rows), R=R,
+                skip_if_bad=None if debug else b, pdl=b is bad))
     ok = not bad.item()
     if not (ok or debug):
         return chain, ok, None
     if logs is None:
-        logs = timeshard_gather_plain(key3, p3, g3, eop3, sel, delta, R=R)
+        logs = [timeshard_gather_plain(*c, *picked(dev, rows), R=R)
+                for dev, rows, c in groups]
     else:
-        _cuda.LAUNCHES["timeshard_gather_copied"] += 1
+        _cuda.LAUNCHES["timeshard_gather_copied"] += len(logs)
     return chain, ok, logs
+

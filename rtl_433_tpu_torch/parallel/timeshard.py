@@ -39,17 +39,26 @@ JAX package's engine step:
 The drain then runs once on the gathered logs -- identical inputs to the
 sequential drain, identical outputs.
 
-On one card the segments are not devices: the D halos, and the 3 x D
-candidate segments, are lanes of one front-end and one detector launch
-with a per-lane origin (``ops/frontend.py``, ``ops/detector.py``); the
-verification chain and the candidate gather are ``csrc/timeshard.cu``
-(``ops/timeshard.py``), both launched before the host reads the chain's
-verdict (the gather waits on the card for the chain, and writes nothing
-where it failed). The front end never reads ``low_est``, so it runs
+Segment ``d`` runs on ``mesh.devices[d]``. Entries that compare equal
+make one *group*, which runs its segments as lanes: its halos, and its
+3 x D_k candidate segments, are lanes of one front-end and one detector
+launch each with a per-lane origin (``ops/frontend.py``,
+``ops/detector.py``). The front end never reads ``low_est``, so it runs
 once per (segment, channel) and the three candidates' detector lanes read
-the same am/fm columns. A mesh is ``Mesh([device] * D, ("sp",))``: D
-entries of ONE device. A mesh over several distinct devices raises
-NotImplementedError (ROADMAP item 13).
+the same am/fm columns. A halo is the tail of the segment before, which
+is in the block already, so no device sends another a halo: each group
+takes its segments and halos from the block. The chain runs on
+``mesh.devices[0]``, where the state lives: the groups' boundary
+registers come to it (JAX's ``all_gather``), the verification chain and
+the candidate gather are ``csrc/timeshard.cu`` (``ops/timeshard.py``),
+and each group gathers its own segments' selected logs, of which only
+those travel to ``devices[0]``. On the card every gather is queued
+before the host reads the chain's verdict (cross-device copies are
+ordered by stream; a gather waits on the card for the chain, and writes
+nothing where it failed). ``Mesh([device] * D, ("sp",), (D,))`` is one
+group: D halos in one launch, 3D candidate lanes in the next.
+``torch.device("cuda")`` and ``torch.device("cuda", 0)`` are two entries
+of one card, and so two groups, each with its own launches.
 """
 
 from __future__ import annotations
@@ -64,7 +73,8 @@ from ..dsp.engine import (SEG, DetectorParams, _drain_block, _flush,
 from ..ops.detector import (KEY_INVALID, M_TYPE, NREG, PKG_NONE, REG_KEYS,
                             ST_IDLE, detector_scan, pack_regs, unpack_regs)
 from ..ops.frontend import STATE_KEYS, frontend
-from ..ops.timeshard import timeshard_chain_gather, verify_layout
+from ..ops import timeshard as ots
+from ..ops.timeshard import verify_layout
 from .sharding import Mesh, ShardedEngine
 
 # State keys that are legitimately different between a speculative run and
@@ -106,17 +116,73 @@ def _verify_keys(params: DetectorParams):
             tuple(sorted(keys & set(_VERIFY_OPEN))))
 
 
-def _segment_device(mesh: Mesh, axis: str):
-    """The one device whose D entries make the ``axis`` of ``mesh``."""
+class _Group:
+    """The segments of one device of the mesh: ``ids`` in order, their
+    index on ``devices[0]`` (None where they are one run, taken as a
+    view), their halos' predecessors, and the lane-origin base on the
+    group's device."""
+
+    def __init__(self, device, ids, dev0):
+        self.device = device
+        self.ids = ids
+        self.halo_ids = [d for d in ids if d > 0]
+        i32 = torch.int32
+        self.seg_base = torch.tensor(ids, dtype=i32, device=device)
+        self.halo_base = torch.tensor(self.halo_ids, dtype=i32,
+                                      device=device)
+        self.offs = torch.tensor([-1, 0, 1], dtype=i32, device=device)
+        self._idx = {}
+        for name, rows in (("seg", ids),
+                           ("pred", [d - 1 for d in self.halo_ids])):
+            run = rows == list(range(rows[0], rows[0] + len(rows))) \
+                if rows else True
+            self._idx[name] = (rows[0] if rows else 0, len(rows),
+                               None if run else torch.tensor(rows,
+                                                             device=dev0))
+
+    def take(self, x, dim, name="seg"):
+        """Entries of ``x`` along ``dim`` for this group's segments
+        (``"pred"``: their halos' predecessors)."""
+        first, n, idx = self._idx[name]
+        return x.narrow(dim, first, n) if idx is None \
+            else x.index_select(dim, idx)
+
+    def rows(self, x):
+        """The rows of this group's segments of ``x`` [D, ...]."""
+        return self.take(x, 0)
+
+
+def _segment_groups(mesh: Mesh, axis: str):
+    """The groups of the ``axis`` of ``mesh``, one per distinct entry in
+    the order of first appearance. Entries are compared as the mesh holds
+    them, never by a tensor's device. Raises where they are not all of
+    one device type: the step runs every group's kernels, or every
+    group's plain versions."""
     if axis not in mesh.axis_names:
         raise ValueError(f"mesh has no axis {axis!r}: {mesh.axis_names}")
-    devs = set(mesh.devices)
-    if len(devs) != 1:
-        raise NotImplementedError(
-            "time sharding over several distinct devices is not ported "
-            "(ROADMAP item 13): give a mesh of D entries of one device, e.g. "
-            "Mesh([torch.device('cuda')] * D, ('sp',), (D,))")
-    return mesh.devices[0]
+    D = int(mesh.shape[mesh.axis_names.index(axis)])
+    if len(mesh.devices) != D:
+        raise ValueError(f"a time-shard mesh holds one entry per segment: "
+                         f"{len(mesh.devices)} entries, {D} segments")
+    types = {torch.device(dev).type for dev in mesh.devices}
+    if len(types) > 1:
+        raise ValueError(f"a time-shard mesh holds devices of one type, "
+                         f"got {sorted(types)}")
+    ids = {}
+    for d, dev in enumerate(mesh.devices):
+        ids.setdefault(dev, []).append(d)
+    return [_Group(dev, v, mesh.devices[0]) for dev, v in ids.items()]
+
+
+def _merge(parts, dim, inv, device):
+    """Per-group tensors whose axis ``dim`` runs over the group's segments,
+    brought to ``device`` and put in segment order (``inv``: the position
+    of each segment in the groups' concatenation, None where that is the
+    order already; one group's tensor is taken as it is)."""
+    if len(parts) == 1 and inv is None:
+        return parts[0].to(device)
+    x = torch.cat([p.to(device) for p in parts], dim)
+    return x if inv is None else x.index_select(dim, inv)
 
 
 def _frontend_lanes(params, regs, iq, n_valid, lane_t0):
@@ -159,19 +225,21 @@ def timeshard_process_block(params: DetectorParams, mesh: Mesh,
     """Build the time-sharded engine step.
 
     Returns ``fn(state, iq[, n_valid]) -> (state, avg_db, ok)``. ``iq`` is
-    the full block [C, N, 2] on the mesh's device; ``state`` is not
-    modified. ``ok`` (a bool) True means the speculation verified and the
-    result is bit-identical to :func:`~..dsp.engine.process_block`; False
-    means the caller MUST discard the returned state and re-run the block
+    the full block [C, N, 2] on ``mesh.devices[0]``, where ``state`` lives
+    and the returned state is made; ``state`` is not modified. ``ok`` (a
+    bool) True means the speculation verified and the result is
+    bit-identical to :func:`~..dsp.engine.process_block`; False means the
+    caller MUST discard the returned state and re-run the block
     sequentially (see :class:`TimeShardEngine`): without ``debug`` the step
-    then stops after the chain (and, on the card, the gather launched
-    behind it, which writes nothing) and returns the incoming ``state``,
+    then stops after the chain (and, on the card, the gathers launched
+    behind it, which write nothing) and returns the incoming ``state``,
     with ``debug`` it runs to the end as JAX does. With ``debug`` a fourth
     value is the per-link, per-key failure flags, bool ``[D-1, K]`` in the
     order of :func:`~..ops.timeshard.verify_layout`.
     """
-    device = _segment_device(mesh, axis)
-    D = int(mesh.shape[mesh.axis_names.index(axis)])
+    groups = _segment_groups(mesh, axis)
+    device = mesh.devices[0]
+    D = len(mesh.devices)
     Ts = params.chunk
     if halo_chunks < 1:
         raise ValueError("halo must cover at least one chunk")
@@ -185,10 +253,56 @@ def timeshard_process_block(params: DetectorParams, mesh: Mesh,
     K = len(names)
     R = params.ring
     i32 = torch.int32
-    offs = torch.tensor([-1, 0, 1], dtype=i32, device=device)
     ratio = params.ook_high_low_ratio
     low, high, ook, mh = (REG_KEYS.index(k) for k in (
         "low_est", "high_est", "ook_state", "min_high"))
+    # each segment's place in the groups' concatenation
+    order = [d for g in groups for d in g.ids]
+    inv = None if order == list(range(D)) else torch.tensor(
+        [order.index(d) for d in range(D)], device=device)
+
+    def run_group(g, segs, seed, gen0, nv, S):
+        """One group's halos, then its segments from three low_est
+        candidates each: (start [NROW, D_k*C], fin [NROW, 3*D_k*C], the
+        segments' levels [D_k*C], the candidates' logs)."""
+        C = segs.shape[0]
+        Dk, dev = len(g.ids), g.device
+        seed, gen0 = seed.to(dev), gen0.to(dev)
+        # segment d starts from its halo-end registers (segment 0: the seed)
+        start = seed.repeat(1, Dk)                            # [NROW, Dk*C]
+        if g.halo_ids:
+            Hk = len(g.halo_ids)
+            halo_t0 = (g.halo_base * S - H).repeat_interleave(C)
+            halo = g.take(segs, 1, "pred")[:, :, S - H:].transpose(
+                0, 1).reshape(Hk * C, H, 2).to(dev).contiguous()
+            hseed = seed.repeat(1, Hk)
+            fe_rows, am, fm, _ = _frontend_lanes(params, hseed, halo, nv,
+                                                 halo_t0)
+            det = detector_scan(am, fm, hseed[:NREG].contiguous(),
+                                gen0.repeat(Hk), params=params,
+                                n_valid=nv, lane_t0=halo_t0)
+            fe_rows = _region_fm_carry(fe_rows, halo, nv, halo_t0,
+                                       params.enable_fm)
+            start[:, (Dk - Hk) * C:] = torch.cat([det[0], fe_rows])
+
+        # the segments, each from its start and three low_est candidates
+        seg_t0 = (g.seg_base * S).repeat_interleave(C)
+        seg_iq = g.take(segs, 1).transpose(0, 1).reshape(
+            Dk * C, S, 2).to(dev).contiguous()
+        fe_rows, am, fm, avg = _frontend_lanes(params, start, seg_iq, nv,
+                                               seg_t0)
+        fe_rows = _region_fm_carry(fe_rows, seg_iq, nv, seg_t0,
+                                   params.enable_fm)
+        cand = start[:NREG].repeat(1, 3)                      # [NREG, 3DkC]
+        cand[low] += g.offs.repeat_interleave(Dk * C)
+        cand[high] = torch.where(
+            cand[ook] == ST_IDLE,
+            torch.maximum(ratio * cand[low], cand[mh]), cand[high])
+        regs3, key3, p3, g3, eop3, _ = detector_scan(
+            am.repeat(1, 3), fm.repeat(1, 3), cand, gen0.repeat(3 * Dk),
+            params=params, n_valid=nv, lane_t0=seg_t0.repeat(3))
+        fin = torch.cat([regs3, fe_rows.repeat(1, 3)])
+        return start, fin, avg, (key3, p3, g3, eop3)
 
     def fn(state, iq, n_valid=None):
         C, N, _ = iq.shape
@@ -214,50 +328,33 @@ def timeshard_process_block(params: DetectorParams, mesh: Mesh,
         seed = torch.cat([pack_regs(regs),
                           torch.stack([regs[k].to(i32) for k in STATE_KEYS])])
         segs = iq.reshape(C, D, S, 2)
+        runs = [run_group(g, segs, seed, gen0, nv, S) for g in groups]
 
-        def origins(offset):
-            """Block-frame origin of every segment lane (d*C + c)."""
-            return (torch.arange(D, dtype=i32, device=device) * S + offset
-                    ).repeat_interleave(C)
-
-        # segment d starts from its halo-end registers (segment 0: the seed)
-        start = seed.repeat(1, D)                             # [NROW, D*C]
-        if D > 1:
-            halo_t0 = origins(-H)[C:]
-            halo = segs[:, :D - 1, S - H:].transpose(0, 1).reshape(
-                (D - 1) * C, H, 2).contiguous()
-            hseed = seed.repeat(1, D - 1)
-            fe_rows, am, fm, _ = _frontend_lanes(params, hseed, halo, nv,
-                                                 halo_t0)
-            det = detector_scan(am, fm, hseed[:NREG].contiguous(),
-                                gen0.repeat(D - 1), params=params,
-                                n_valid=nv, lane_t0=halo_t0)
-            fe_rows = _region_fm_carry(fe_rows, halo, nv, halo_t0,
-                                       params.enable_fm)
-            start[:, C:] = torch.cat([det[0], fe_rows])
-
-        # the segments, each from its start and three low_est candidates
-        seg_t0 = origins(0)
-        seg_iq = segs.transpose(0, 1).reshape(D * C, S, 2).contiguous()
-        fe_rows, am, fm, avg = _frontend_lanes(params, start, seg_iq, nv,
-                                               seg_t0)
-        fe_rows = _region_fm_carry(fe_rows, seg_iq, nv, seg_t0,
-                                   params.enable_fm)
-        cand = start[:NREG].repeat(1, 3)                      # [NREG, 3DC]
-        cand[low] += offs.repeat_interleave(D * C)
-        cand[high] = torch.where(
-            cand[ook] == ST_IDLE,
-            torch.maximum(ratio * cand[low], cand[mh]), cand[high])
-        regs3, key3, p3, g3, eop3, _ = detector_scan(
-            am.repeat(1, 3), fm.repeat(1, 3), cand, gen0.repeat(3 * D),
-            params=params, n_valid=nv, lane_t0=seg_t0.repeat(3))
-        fin = torch.cat([regs3, fe_rows.repeat(1, 3)])
-
+        # the groups' boundary registers to devices[0] in the chain's lane
+        # layout (JAX's all_gather); one group's are already there
+        nrow = seed.shape[0]
+        start = _merge([r[0].view(nrow, -1, C) for r in runs], 1, inv,
+                       device).view(nrow, D * C)
+        fin = _merge([r[1].view(nrow, 3, -1, C) for r in runs], 2, inv,
+                     device).view(nrow, 3 * D * C)
+        avg = _merge([r[2].view(-1, C) for r in runs], 0, inv, device)
         # verification chain, candidate select, generation rebase: on the
-        # card both launches are queued before the one read of the verdict
-        (_, _, out, by_key, _), ok, logs = timeshard_chain_gather(
-            start, fin, rowinfo, key3, p3, g3, eop3, D=D, ratio=ratio, R=R,
-            debug=debug)
+        # card every launch is queued before the one read of the verdict
+        (_, _, out, by_key, _), ok, logs = ots.timeshard_chain_gather(
+            start, fin, rowinfo,
+            [(g.device, g.rows, r[3]) for g, r in zip(groups, runs)], D=D,
+            ratio=ratio, R=R, debug=debug)
+        if logs is not None:
+            # the selected logs to devices[0], segment d at d*G..
+            d0 = len(groups[0].ids)
+            G, (_, GE, F) = logs[0][0].shape[1] // d0, logs[0][3].shape
+            GE //= d0
+            planes = [_merge([lg[i].view(C * R, -1, G) for lg in logs], 1,
+                             inv, device).view(C * R, D * G)
+                      for i in range(3)]
+            logs = (*planes, _merge([lg[3].view(C, -1, GE, F)
+                                     for lg in logs], 1, inv,
+                                    device).view(C, D * GE, F))
         # the level is the mean of the segments' levels (JAX's pmean)
         avg_db = avg.view(D, C).mean(0)
         if logs is None:
@@ -325,17 +422,20 @@ class TimeShardEngine(ShardedEngine):
             devs = [torch.device("cuda", i)
                     for i in range(torch.cuda.device_count())]
             mesh = Mesh(devs, (axis,), (len(devs),))
-        # the state, harvest and decode of a one-device ShardedEngine
+        step = timeshard_process_block(
+            params, mesh, axis=axis, halo_chunks=halo_chunks, flush=False)
+        flush_step = timeshard_process_block(
+            params, mesh, axis=axis, halo_chunks=halo_chunks, flush=True)
+        # the state, harvest and decode of a ShardedEngine on the
+        # mesh's first device, where the chain runs
         super().__init__(params, channels,
-                         Mesh([_segment_device(mesh, axis)], ("ch",), (1,)),
+                         Mesh([mesh.devices[0]], ("ch",), (1,)),
                          registry=registry, center_frequency=center_frequency,
                          pkg_cap_total=pkg_cap_total)
         self.mesh = mesh
         self.axis = axis
-        self._step = timeshard_process_block(
-            params, mesh, axis=axis, halo_chunks=halo_chunks, flush=False)
-        self._flush_step = timeshard_process_block(
-            params, mesh, axis=axis, halo_chunks=halo_chunks, flush=True)
+        self._step = step
+        self._flush_step = flush_step
         self.fallbacks = 0
         self.verified = 0
 

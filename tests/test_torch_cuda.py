@@ -980,7 +980,8 @@ def test_timeshard_chain_gather_counts(debug):
     for n, (seed, D) in enumerate(((5, 8), (6, 1)), 1):
         chain, logs = _pair_case(seed, D, 2, dev)
         (sel, delta, *_), ok, got = ots.timeshard_chain_gather(
-            *chain, *logs, D=D, ratio=ratio, R=8, debug=debug)
+            *chain, [(dev, lambda x: x, logs)], D=D, ratio=ratio, R=8,
+            debug=debug)
         assert ok == (D == 1)
         assert _cuda.LAUNCHES["timeshard_chain"] == n
         assert _cuda.LAUNCHES["timeshard_gather"] == n
@@ -989,7 +990,7 @@ def test_timeshard_chain_gather_counts(debug):
         else:
             want = ots.timeshard_gather_plain(*(a.cpu() for a in logs),
                                               sel.cpu(), delta.cpu(), R=8)
-            for g, w in zip(got, want):
+            for g, w in zip(got[0], want):
                 assert torch.equal(g.cpu(), w)
     assert _cuda.LAUNCHES["timeshard_gather_copied"] == (2 if debug else 1)
     _cuda.reset_launches()
@@ -1003,10 +1004,41 @@ def test_timeshard_engine_on_the_card_matches_sequential(D, cut):
     halo, the last partial, that fall back): the sequential engine's
     packages, the same fallbacks and final state as the same engine on the
     CPU, and every kernel of the path launched."""
+    _timeshard_engine_case(D, cut, lambda d: [torch.device(d)] * D)
+
+
+# "one card": two groups of one card, [cuda:0] * 4 + [cuda] * 4 (and the
+# CPU's two spellings for the CPU engine); "distinct": one segment on each
+# of two GPUs, or of 4 or 8 where there are as many (skips with one)
+@pytest.mark.parametrize("split,cut", [("one card", 0), ("one card", 40000),
+                                       ("distinct", 0)])
+def test_grouped_timeshard_engine_on_the_card_matches_sequential(split, cut):
+    """The same stream through TimeShardEngine on a mesh of several
+    groups: the sequential engine's packages, the CPU engine's fallbacks
+    and final state."""
+    _gpu()
+    n = min(torch.cuda.device_count(), 8)
+    if split == "distinct":
+        if n < 2:
+            pytest.skip("needs two GPUs: one segment per card")
+        D = 1 << (n.bit_length() - 1)
+        devices = lambda d: [torch.device(d, i) for i in range(D)] \
+            if d == "cuda" else [torch.device(d), torch.device(d, 0)] * (
+                D // 2)
+    else:
+        D = 8
+        devices = lambda d: [torch.device(d, 0)] * 4 + [torch.device(d)] * 4
+    _timeshard_engine_case(D, cut, devices)
+
+
+def _timeshard_engine_case(D, cut, devices):
+    """The three-block stream through the sequential engine, and through
+    TimeShardEngine on the meshes ``devices("cuda")`` and
+    ``devices("cpu")`` (D entries each): equal packages, fallbacks and
+    final state, and every kernel of the path launched."""
     import synth
     from rtl_433_tpu_torch.parallel.sharding import Mesh, ShardedEngine
     from rtl_433_tpu_torch.parallel.timeshard import TimeShardEngine
-    dev = _gpu()
     train = []
     for rep in range(6):
         train += synth.ppm_pulses("10110010", pulse_us=500, gap_zero_us=1000,
@@ -1024,12 +1056,13 @@ def test_timeshard_engine_on_the_card_matches_sequential(D, cut):
               (np.pad(iq[None, N:], ((0, 0), (0, cut), (0, 0)),
                       constant_values=128), N - cut, True)]
     p = DetectorParams()
-    mesh = lambda d: Mesh([torch.device(d)] * D, ("sp",), (D,))
+    dev = _gpu()
+    mesh = lambda d: Mesh(devices(d), ("sp",), (D,))
     runs = {}
     _cuda.reset_launches()
     for name, eng in (
             ("seq", ShardedEngine(p, 1, Mesh([dev], ("ch",), (1,)))),
-            ("gpu", TimeShardEngine(p, mesh=mesh(dev))),
+            ("gpu", TimeShardEngine(p, mesh=mesh("cuda"))),
             ("cpu", TimeShardEngine(p, mesh=mesh("cpu")))):
         pkgs = []
         for blk, nv, flush in blocks:
@@ -1512,3 +1545,128 @@ def test_locked_retune_against_a_running_run_live():
     for start, end, params in blocks:
         assert start == end
         assert (params.sample_rate, params.fsk_minmax) == start[0:3:2]
+
+
+# ---- the launch device: every wrapper launches under its tensors' device
+
+def _launch_call(name, dev):
+    """One small call of the wrapper that launches kernel ``name``, with
+    every tensor on ``dev``."""
+    from rtl_433_tpu_torch.decoders import device_dispatch as ddp
+    from rtl_433_tpu_torch.decoders.declarative import get_runner
+    from rtl_433_tpu_torch.ops import decode_bank as dbk
+    from rtl_433_tpu_torch.ops import mic
+    from rtl_433_tpu_torch.ops import slice as sl
+    from rtl_433_tpu_torch.ops import timeshard as ots
+    from torch_decl_cases import fuzz_batch
+    from torch_slice_cases import BANK_CAPS
+    rng = np.random.default_rng(11)
+    p = DetectorParams()
+    if name in ("frontend", "detector_scan"):
+        lanes, t0, st = _segment_lanes(dev, 2, 3, 4096, 11)
+        alp1, blp = fe._coeffs(250_000, True, 0.0, False)
+        kw = dict(use_mag_est=False, enable_fm=True, alp1=alp1, blp=blp,
+                  n_valid=2 * 4096)
+        if name == "frontend":
+            return lambda: fe.frontend_cuda(lanes, st, lane_t0=t0, **kw)
+        am, fm = fe.frontend_plain(lanes.cpu(), st.cpu(), lane_t0=t0.cpu(),
+                                   **kw)[:2]
+        regs = det.pack_regs(detector_init(p, 6, dev))
+        gen0 = torch.zeros(6, dtype=torch.int32, device=dev)
+        return lambda: det.detector_scan_cuda(
+            am.to(dev), fm.to(dev), regs, gen0, params=p, n_valid=2 * 4096,
+            lane_t0=t0)
+    if name == "compact":
+        ins = [torch.from_numpy(a).to(dev)
+               for a in _compact_ins(rng, 5, 8, 13, 8)]
+        return lambda: cmp.compact_packages_cuda(*ins, 7)
+    if name == "slice_pwm":
+        args, bounds = _slice_inputs("pwm", 5, 8, dev)
+        return lambda: sl.slice_cuda("pwm", *args, bounds, BANK_CAPS["pwm"])
+    if name == "content_dup":
+        planes = _dup_planes(1, dev)
+        return lambda: ddp._content_dup(planes)
+    if name == "gather_records":
+        planes = _dup_planes(3, dev)
+        idx = [rng.integers(0, n, 9).astype(np.int32)
+               for n in planes["bytes"].shape[:3]]
+        return lambda: ddp._gather_records(planes["bytes"], planes["syncs"],
+                                           *idx)
+    if name in ("timeshard_chain", "timeshard_gather"):
+        chain, logs = _pair_case(1, 8, 2, dev)
+        ratio = p.ook_high_low_ratio
+        if name == "timeshard_chain":
+            return lambda: ots.timeshard_chain_cuda(*chain, D=8, ratio=ratio)
+        sel, delta = (torch.from_numpy(rng.integers(0, 3, (8, 2)).astype(
+            np.int32)).to(dev) for _ in range(2))
+        return lambda: ots.timeshard_gather_cuda(*logs, sel, delta, R=8)
+    if name == "decl_bank":
+        bits, n, sid, ns = (torch.from_numpy(a).to(dev)
+                            for a in fuzz_batch(3, 16))
+        return lambda: dbk.run_torch(get_runner().bank, bits, n, sid, ns)
+    assert name == "mic_crc16"
+    msgs = torch.from_numpy(rng.integers(0, 256, (64, 9),
+                                         dtype=np.uint8)).to(dev)
+    return lambda: mic.crc16(msgs, 9, 0x1021, 0)
+
+
+LAUNCH_WRAPPERS = ("frontend", "detector_scan", "compact", "slice_pwm",
+                   "content_dup", "gather_records", "timeshard_chain",
+                   "timeshard_gather", "decl_bank", "mic_crc16")
+
+
+@pytest.mark.parametrize("name", LAUNCH_WRAPPERS)
+def test_every_wrapper_launches_on_its_tensors_device(name, monkeypatch):
+    """Each launch enters the device of its tensors through
+    ``_cuda.launch_device`` once: on the host's last GPU, which is not the
+    current device where there are two or more, the device current during
+    the launch is that GPU, and the one current before is current again
+    after it."""
+    import contextlib
+    _gpu()
+    dev = torch.device("cuda", torch.cuda.device_count() - 1)
+    call = _launch_call(name, dev)
+    real = _cuda.launch_device
+    entered = []
+
+    @contextlib.contextmanager
+    def spy(t):
+        with real(t):
+            entered.append((t.device, torch.cuda.current_device()))
+            yield
+    monkeypatch.setattr(_cuda, "launch_device", spy)
+    current = torch.cuda.current_device()
+    before = _cuda.LAUNCHES[name]
+    call()
+    torch.cuda.synchronize(dev)
+    assert _cuda.LAUNCHES[name] == before + 1
+    assert entered == [(dev, dev.index)]
+    assert torch.cuda.current_device() == current
+
+
+def test_a_launch_across_devices_raises():
+    """A launch whose tensors lie on two devices raises ValueError, copies
+    nothing and counts no launch: on two GPUs where the host has them,
+    else on a CUDA and a CPU tensor; a launch on the current device
+    switches nothing."""
+    from rtl_433_tpu_torch.ops import mic, timeshard
+    dev = _gpu()
+    other = torch.device("cuda", 1) if torch.cuda.device_count() > 1 \
+        else torch.device("cpu")
+    a = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _cuda.launch_device(a.cpu())
+    msgs = torch.zeros((8, 4), dtype=torch.uint8, device=dev)
+    table = mic._device_table("crc8", 0, 0x31, 0, dev).to(other)
+    before = _cuda.LAUNCHES["mic_crc8"]
+    with pytest.raises(ValueError, match="device"):
+        mic._launch("crc8", msgs, 4, table=table)
+    assert _cuda.LAUNCHES["mic_crc8"] == before
+    start = torch.zeros((4, 2), dtype=torch.int32, device=dev)
+    fin = torch.zeros((4, 6), dtype=torch.int32, device=other)
+    before = _cuda.LAUNCHES["timeshard_chain"]
+    with pytest.raises(ValueError, match="device"):
+        timeshard.timeshard_chain_cuda(start, fin, a, D=2, ratio=8)
+    assert _cuda.LAUNCHES["timeshard_chain"] == before
+    with torch.cuda.device(a.device):
+        assert _cuda.launch_device(a) is _cuda._CURRENT

@@ -554,14 +554,16 @@ def test_chain_gather_pair_on_the_cpu(seed, D, debug, monkeypatch):
     args = (torch.from_numpy(start), torch.from_numpy(fin), rowinfo)
     calls = _counting_plain_gather(monkeypatch)
     chain, ok, logs = ots.timeshard_chain_gather(
-        *args, key3, p3, g3, eop3, D=D, ratio=ratio, R=R, debug=debug)
+        *args, [(args[0].device, lambda x: x, (key3, p3, g3, eop3))], D=D,
+        ratio=ratio, R=R, debug=debug)
     want = ots.timeshard_chain_plain(*args, D=D, ratio=ratio)
     for g, w in zip(chain, want):
         assert torch.equal(g, w)
     assert ok == (D == 1) == (int(want[4][0]) == 0)
     if ok or debug:
         assert len(calls) == 1
-        for g, w in zip(logs, ots.timeshard_gather_plain(
+        assert len(logs) == 1
+        for g, w in zip(logs[0], ots.timeshard_gather_plain(
                 key3, p3, g3, eop3, want[0], want[1], R=R)):
             assert torch.equal(g, w)
     else:
@@ -666,14 +668,6 @@ def test_unmasked_step_is_the_full_block_step():
     assert torch.equal(got[1], want[1])
     for k in want[0]:
         assert torch.equal(got[0][k], want[0][k]), k
-
-
-def test_distinct_devices_are_refused():
-    mesh = Mesh([CPU, torch.device("meta")], ("sp",), (2,))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pts.timeshard_process_block(te.DetectorParams(), mesh)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        pts.TimeShardEngine(te.DetectorParams(), mesh=mesh)
 
 
 def test_no_gpu_no_default_mesh():
